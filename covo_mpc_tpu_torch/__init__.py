@@ -1,0 +1,23 @@
+"""covo_mpc_tpu_torch: the CoVO-MPC system in PyTorch, with hand-written
+CUDA kernels for an NVIDIA H100 (Hopper, sm_90a).
+
+A port of :mod:`covo_mpc_tpu` (the JAX package, which stays the reference)
+that mirrors its layout and public names:
+
+  models/   structs, rotation math, bodyrate dynamics, rewards, the zigzag
+            trajectory, the Quad3D environment
+  ops/      the plain rollout, the CUDA kernel wrappers (rollout_cuda,
+            hessian_cuda, built by ops/kernels), the Hessian (Gauss–Newton
+            and exact adjoint), the Sigma-designers, sampling and reductions
+  solvers/  CoVO online and the factory
+  runtime/  the episode runner and the evaluation protocol
+  csrc/     the CUDA C++ kernels (compiled by nvcc at first use)
+
+Importing the package imports torch and never jax, and builds no kernel.
+"""
+
+from covo_mpc_tpu_torch import models, ops, runtime, solvers
+
+__version__ = "0.1.0"
+
+__all__ = ["models", "ops", "runtime", "solvers"]

@@ -1,0 +1,183 @@
+// Joint sample + rollout: CoVO's fused MVN draw and N x H rollout.
+//
+// Replaces covo_mpc_tpu/ops/rollout_pallas.py::make_pallas_rollout_joint_sampling
+// (_rollout_kernel with sample="prng_joint", disturbance mode "shared").
+// Per sample n: z ~ N(0, I_D) (or z[:, n] when a z pointer is given, the
+// "input_z" mode of the Pallas kernel), a = clip(mean + F z, +-1) with F the
+// Sigma-designer's full (D, D) factor, then H steps of pre-step penyaw
+// reward, termination freeze (|pos| > 3 or time up; rollover optional),
+// bodyrate step and discounted cost. Outputs costs (N,) and the clipped
+// actions (D, N), sample-last.
+//
+// What bounds it on an H100: the correlate is D^2 fp32 FMAs per sample
+// (134 MFMA at N=8192, D=128, ~4 us at the 67 TFLOP/s fp32 peak) and the
+// action write is 4 MB (~1.3 us at 3.35 TB/s); the rollout is ~5k flops per
+// sample. At this size the kernel is latency-bound, not throughput-bound:
+// F (64 KB) and the block's z (64 KB at 128 threads) sit in 128 KB of
+// dynamic shared memory, so one block of 4 warps runs per SM, and N=8192
+// fills only 64 blocks of the 132 SMs. A later PR should split a sample's
+// correlate over a warp or run it on tensor cores (wgmma) to fill the card.
+//
+// What the design does about it: one thread per sample, so results do not
+// depend on the block size. z is staged d-major in shared memory (thread-
+// minor: conflict-free), F rows are read as shared-memory broadcasts, and
+// the four rows of step h are accumulated together in one pass over d, so
+// each z load feeds four FMA chains. Each row sums over d in order 0..D-1
+// for every sample. The actions of step h are formed right before the step
+// and written once (coalesced across the warp); they are never read back.
+// The draw is a hand-written Philox4x32-10 keyed by the 64-bit seed, with
+// counter (j, n): one call gives 4 uniforms -> 2 Box-Muller pairs -> z rows
+// 4j..4j+3 of sample n.
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "quad_core.cuh"
+
+namespace {
+
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0,
+                                               uint32_t k1) {
+  constexpr uint32_t kM0 = 0xD2511F53u, kM1 = 0xCD9E8D57u;
+  constexpr uint32_t kW0 = 0x9E3779B9u, kW1 = 0xBB67AE85u;
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r > 0) {
+      k0 += kW0;
+      k1 += kW1;
+    }
+    const uint32_t hi0 = __umulhi(kM0, c.x), lo0 = kM0 * c.x;
+    const uint32_t hi1 = __umulhi(kM1, c.z), lo1 = kM1 * c.z;
+    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
+  }
+  return c;
+}
+
+// Box-Muller on two 32-bit words: u1 in (0, 1] keeps the log finite.
+__device__ __forceinline__ float2 box_muller(uint32_t a, uint32_t b) {
+  constexpr float kInv24 = 1.0f / 16777216.0f;
+  const float u1 = (static_cast<float>(a >> 8) + 1.0f) * kInv24;
+  const float u2 = static_cast<float>(b >> 8) * kInv24;
+  const float r = sqrtf(-2.0f * logf(u1));
+  float s, c;
+  sincosf(6.283185307179586f * u2, &s, &c);
+  return make_float2(r * c, r * s);
+}
+
+__global__ void joint_sample_rollout_kernel(
+    const float* __restrict__ x0, const float* __restrict__ scal,
+    const int* __restrict__ ints, const float* __restrict__ ptar,
+    const float* __restrict__ vtar, const float* __restrict__ mean,
+    const float* __restrict__ factor, const float* __restrict__ z,
+    uint64_t seed, float* __restrict__ costs, float* __restrict__ actions,
+    int N, int H, int check_rollover) {
+  extern __shared__ float smem[];
+  const int D = 4 * H;
+  const int B = blockDim.x;
+  const int tid = threadIdx.x;
+  const int n = blockIdx.x * B + tid;
+  float* F_s = smem;           // (D, D) row-major
+  float* z_s = smem + D * D;   // z_s[d * B + tid]
+
+  for (int i = tid; i < D * D; i += B) F_s[i] = factor[i];
+  if (n < N) {
+    if (z != nullptr) {
+      for (int d = 0; d < D; ++d) z_s[d * B + tid] = z[(size_t)d * N + n];
+    } else {
+      const uint32_t k0 = static_cast<uint32_t>(seed);
+      const uint32_t k1 = static_cast<uint32_t>(seed >> 32);
+      for (int j = 0; j < D / 4; ++j) {
+        const uint4 r = philox4x32_10(
+            make_uint4(static_cast<uint32_t>(j), static_cast<uint32_t>(n), 0u,
+                       0u),
+            k0, k1);
+        const float2 p = box_muller(r.x, r.y);
+        const float2 q = box_muller(r.z, r.w);
+        z_s[(4 * j + 0) * B + tid] = p.x;
+        z_s[(4 * j + 1) * B + tid] = p.y;
+        z_s[(4 * j + 2) * B + tid] = q.x;
+        z_s[(4 * j + 3) * B + tid] = q.y;
+      }
+    }
+  }
+  __syncthreads();
+  if (n >= N) return;
+
+  quad::State s = quad::load_state(x0);
+  // "shared" disturbance: x0's own f at step 0, the one shared draw after
+  const float f0x = x0[13], f0y = x0[14], f0z = x0[15];
+  const float drx = scal[quad::kDraw0], dry = scal[quad::kDraw1],
+              drz = scal[quad::kDraw2];
+  const float discount = scal[quad::kDiscount];
+  const int t0 = ints[quad::kT0];
+  const int max_steps = ints[quad::kMaxSteps];
+
+  float cost = 0.0f, r_prev = 0.0f, disc = 1.0f;
+  bool d_prev = false;
+  for (int h = 0; h < H; ++h) {
+    // reward on the PRE-step state, frozen once the sample terminated
+    float r = quad::penyaw_reward(s, ptar[3 * h], ptar[3 * h + 1],
+                                  ptar[3 * h + 2], vtar[3 * h],
+                                  vtar[3 * h + 1], vtar[3 * h + 2]);
+    r = d_prev ? r_prev : r;
+    r_prev = r;
+    cost = cost - disc * r;
+    disc = disc * discount;
+
+    bool d_now = fabsf(s.px) > 3.0f || fabsf(s.py) > 3.0f || fabsf(s.pz) > 3.0f;
+    if (check_rollover) {
+      d_now = d_now || s.qw < 0.70710678f || fabsf(s.wx) > 100.0f ||
+              fabsf(s.wy) > 100.0f || fabsf(s.wz) > 100.0f;
+    }
+    d_prev = d_prev || d_now || (t0 + h) >= max_steps;
+
+    // a_h = clip(mean_h + F[4h:4h+4] z): four rows, one pass over d
+    const float* F0 = F_s + (4 * h) * D;
+    float acc0 = 0.0f, acc1 = 0.0f, acc2 = 0.0f, acc3 = 0.0f;
+    for (int d = 0; d < D; ++d) {
+      const float zd = z_s[d * B + tid];
+      acc0 = fmaf(F0[d], zd, acc0);
+      acc1 = fmaf(F0[D + d], zd, acc1);
+      acc2 = fmaf(F0[2 * D + d], zd, acc2);
+      acc3 = fmaf(F0[3 * D + d], zd, acc3);
+    }
+    float a[4] = {quad::clip1(mean[4 * h] + acc0),
+                  quad::clip1(mean[4 * h + 1] + acc1),
+                  quad::clip1(mean[4 * h + 2] + acc2),
+                  quad::clip1(mean[4 * h + 3] + acc3)};
+    for (int k = 0; k < 4; ++k) actions[(size_t)(4 * h + k) * N + n] = a[k];
+
+    if (h == 0) {
+      quad::dyn_step(s, a, f0x, f0y, f0z, scal);
+    } else {
+      quad::dyn_step(s, a, drx, dry, drz, scal);
+    }
+  }
+  costs[n] = cost;
+}
+
+}  // namespace
+
+// Launch on `stream`; returns cudaGetLastError(). z may be null (draw
+// in-kernel from `seed`).
+extern "C" int joint_sample_rollout(
+    const float* x0, const float* scal, const int* ints, const float* ptar,
+    const float* vtar, const float* mean, const float* factor, const float* z,
+    uint64_t seed, float* costs, float* actions, int N, int H,
+    int check_rollover, int block, cudaStream_t stream) {
+  if (N <= 0 || H <= 0 || block <= 0 || block > 1024) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int D = 4 * H;
+  const size_t smem = sizeof(float) * (static_cast<size_t>(D) * D +
+                                       static_cast<size_t>(D) * block);
+  cudaError_t err = cudaFuncSetAttribute(
+      joint_sample_rollout_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid = (N + block - 1) / block;
+  joint_sample_rollout_kernel<<<grid, block, smem, stream>>>(
+      x0, scal, ints, ptar, vtar, mean, factor, z, seed, costs, actions, N, H,
+      check_rollover);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,122 @@
+// Component-form quadrotor physics and rewards, shared by the CUDA kernels.
+//
+// Counterpart of covo_mpc_tpu/models/scalar_core.py (bodyrate_step,
+// penyaw_reward) and of the action -> (thrust, omega_tar)
+// map of covo_mpc_tpu/ops/rollout_pallas.py::_dyn_step. The array-form twins
+// in covo_mpc_tpu_torch/models/{dynamics,rewards}.py are the plain versions
+// these are checked against. Reference semantics: quadjax
+// dynamics/free.py:75-112 (ODE) and dynamics/utils.py:267-313 (rewards).
+//
+// Unlike the Pallas kernels, which carried a polynomial atan2 because Mosaic
+// has no atan2 lowering, the yaw here uses atan2f.
+#pragma once
+
+#include <cstdint>
+
+namespace quad {
+
+// indices of the scalar pack (ops/rollout_cuda.py::_pack_kernel_inputs)
+enum Scal {
+  kM = 0, kG, kDt, kAlpha, kAScale, kMaxThrust, kMo0, kMo1, kMo2, kDiscount,
+  kDScale, kDp0, kDp1, kDp2, kDraw0, kDraw1, kDraw2, kNScal
+};
+// indices of the int pack: [t0, max_steps, disturb_period]
+enum Ints { kT0 = 0, kMaxSteps, kPeriod, kNInt };
+
+// the 13-component dynamic core state (pos, quat (x, y, z, w), vel, omega)
+struct State {
+  float px, py, pz, qx, qy, qz, qw, vx, vy, vz, wx, wy, wz;
+};
+
+__device__ __forceinline__ State load_state(const float* x) {
+  return State{x[0], x[1], x[2], x[3], x[4], x[5], x[6],
+               x[7], x[8], x[9], x[10], x[11], x[12]};
+}
+
+__device__ __forceinline__ void quat_normalize(float& qx, float& qy,
+                                               float& qz, float& qw) {
+  const float n = sqrtf(qx * qx + qy * qy + qz * qz + qw * qw);
+  qx = qx / n; qy = qy / n; qz = qz / n; qw = qw / n;
+}
+
+// One Euler step of the first-order bodyrate ODE. thrust and omega_tar are
+// physical controls with action_scale applied. Position integrates the
+// PRE-update velocity.
+__device__ __forceinline__ void bodyrate_step(
+    State& s, float thrust, float wtx, float wty, float wtz,
+    float fdx, float fdy, float fdz, float m, float g, float dt, float alpha) {
+  float qx = s.qx, qy = s.qy, qz = s.qz, qw = s.qw;
+  quat_normalize(qx, qy, qz, qw);
+  // body z-axis in world frame (third column of R(q))
+  const float bzx = 2.0f * (qx * qz + qw * qy);
+  const float bzy = 2.0f * (qy * qz - qw * qx);
+  const float bzz = qw * qw - qx * qx - qy * qy + qz * qz;
+
+  s.px = s.px + s.vx * dt;
+  s.py = s.py + s.vy * dt;
+  s.pz = s.pz + s.vz * dt;
+  s.vx = s.vx + (bzx * thrust + fdx) / m * dt;
+  s.vy = s.vy + (bzy * thrust + fdy) / m * dt;
+  s.vz = s.vz + (-g + (bzz * thrust + fdz) / m) * dt;
+
+  const float wx = s.wx, wy = s.wy, wz = s.wz;
+  const float qdx = 0.5f * (qw * wx + (qy * wz - qz * wy));
+  const float qdy = 0.5f * (qw * wy + (qz * wx - qx * wz));
+  const float qdz = 0.5f * (qw * wz + (qx * wy - qy * wx));
+  const float qdw = 0.5f * (-(qx * wx + qy * wy + qz * wz));
+  qx = qx + dt * qdx;
+  qy = qy + dt * qdy;
+  qz = qz + dt * qdz;
+  qw = qw + dt * qdw;
+  quat_normalize(qx, qy, qz, qw);
+  s.qx = qx; s.qy = qy; s.qz = qz; s.qw = qw;
+
+  s.wx = alpha * wx + (1.0f - alpha) * wtx;
+  s.wy = alpha * wy + (1.0f - alpha) * wty;
+  s.wz = alpha * wz + (1.0f - alpha) * wtz;
+}
+
+__device__ __forceinline__ float clip1(float a) {
+  return fminf(fmaxf(a, -1.0f), 1.0f);
+}
+
+// Normalized action in [-1, 1]^4 (clipped here, as step_env does) ->
+// thrust and omega_tar, then one bodyrate step. scal is the scalar pack.
+__device__ __forceinline__ void dyn_step(State& s, const float a[4],
+                                         float fdx, float fdy, float fdz,
+                                         const float* scal) {
+  const float ascale = scal[kAScale];
+  const float thrust = (clip1(a[0]) + 1.0f) * 0.5f * scal[kMaxThrust] * ascale;
+  const float wtx = clip1(a[1]) * scal[kMo0] * ascale;
+  const float wty = clip1(a[2]) * scal[kMo1] * ascale;
+  const float wtz = clip1(a[3]) * scal[kMo2] * ascale;
+  bodyrate_step(s, thrust, wtx, wty, wtz, fdx, fdy, fdz, scal[kM], scal[kG],
+                scal[kDt], scal[kAlpha]);
+}
+
+__device__ __forceinline__ float clip01(float v) {
+  return fminf(fmaxf(v, 0.0f), 1.0f);
+}
+
+// Multi-scale log barrier on the position error.
+__device__ __forceinline__ float log_pos_penalty(float e) {
+  const float l = logf(e + 1.0f);
+  return e * 0.4f + clip01(l * 4.0f) * 0.4f + clip01(l * 8.0f) * 0.2f +
+         clip01(l * 16.0f) * 0.1f + clip01(l * 32.0f) * 0.1f;
+}
+
+// The MPPI / CoVO cost model:
+// 1.3 - 0.05 |v_err| - log_pos(|p_err|) - 0.2 |yaw|.
+__device__ __forceinline__ float penyaw_reward(const State& s, float ptx,
+                                               float pty, float ptz, float vtx,
+                                               float vty, float vtz) {
+  const float ex = ptx - s.px, ey = pty - s.py, ez = ptz - s.pz;
+  const float evx = vtx - s.vx, evy = vty - s.vy, evz = vtz - s.vz;
+  const float err_pos = sqrtf(ex * ex + ey * ey + ez * ez);
+  const float err_vel = sqrtf(evx * evx + evy * evy + evz * evz);
+  const float yaw = atan2f(2.0f * (s.qw * s.qz + s.qx * s.qy),
+                           1.0f - 2.0f * (s.qy * s.qy + s.qz * s.qz));
+  return 1.3f - 0.05f * err_vel - log_pos_penalty(err_pos) - fabsf(yaw) * 0.2f;
+}
+
+}  // namespace quad

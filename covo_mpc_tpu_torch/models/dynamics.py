@@ -1,0 +1,95 @@
+"""First-order bodyrate quadrotor dynamics, batch-first, on packed states.
+
+Counterpart of :mod:`covo_mpc_tpu.models.dynamics` (same ODE, same
+action map). The CUDA kernels run the component-form twin in
+``csrc/quad_core.cuh``; this array form is what the plain rollout
+integrates and what the Hessian differentiates.
+
+Disturbances: "gaussian" and "none" are ported. A disturbance function
+here takes its random draw as an argument (``draw``, standard normals of
+shape (3,)) instead of a key, so callers and tests choose where the draw
+comes from.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from covo_mpc_tpu_torch.models import rotation
+from covo_mpc_tpu_torch.models.structs import FDIST, OMEGA, POS, QUAT, VEL, EnvParams3D
+
+
+def control_to_thrust_omega(action: torch.Tensor, params: EnvParams3D):
+    """Map a normalized action in [-1, 1]^4 to ([thrust, omega_tar], torque)."""
+    action = torch.clamp(action, -1.0, 1.0)
+    thrust = (action[..., 0:1] + 1.0) / 2.0 * params.max_thrust
+    torque = action[..., 1:4] * params.max_torque
+    omega_tar = torque / params.max_torque * params.max_omega
+    return torch.cat([thrust, omega_tar], dim=-1), torque
+
+
+def bodyrate_step(x: torch.Tensor, u: torch.Tensor, params: EnvParams3D, dt):
+    """One Euler step of the packed-state dynamics ``(..., 16)``; ``u`` is
+    the physical control [thrust, omega_tar], scaled by ``action_scale``
+    here. Returns the packed next state with a normalized quaternion and
+    the disturbance carried unchanged."""
+    u = u * params.action_scale
+    thrust = u[..., 0]
+    omega_tar = u[..., 1:4]
+
+    r = x[..., POS]
+    q = rotation.quat_normalize(x[..., QUAT])
+    v = x[..., VEL]
+    omega = x[..., OMEGA]
+    f_disturb = x[..., FDIST]
+
+    thrust_world = rotation.body_z_world(q) * thrust[..., None]
+    acc = (thrust_world + f_disturb) / params.m
+    # gravity on z only: x/y keep acc exactly, as 0 + acc does
+    v_dot = torch.cat([acc[..., :2], acc[..., 2:] - params.g], dim=-1)
+
+    omega_quat = torch.cat([omega, torch.zeros_like(omega[..., :1])], dim=-1)
+    q_dot = 0.5 * rotation.quat_mul(q, omega_quat)
+
+    r_new = r + v * dt
+    q_new = rotation.quat_normalize(q + q_dot * dt)
+    v_new = v + v_dot * dt
+    omega_new = (params.alpha_bodyrate * omega
+                 + (1.0 - params.alpha_bodyrate) * omega_tar)
+    return torch.cat([r_new, q_new, v_new, omega_new, f_disturb], dim=-1)
+
+
+def core_step(s: torch.Tensor, a: torch.Tensor, fdist: torch.Tensor,
+              params: EnvParams3D, dt) -> torch.Tensor:
+    """One bodyrate step on the 13-dim core state (pos, quat, vel, omega)
+    under the normalized action ``a`` (clipped, as step_env does) and the
+    force ``fdist``: the step the Hessian differentiates and the plain
+    primal rollout integrates (JAX: ops/hessian._step13)."""
+    u, _ = control_to_thrust_omega(torch.clamp(a, -1.0, 1.0), params)
+    return bodyrate_step(torch.cat([s, fdist], dim=-1), u, params, dt)[..., :13]
+
+
+def gaussian_disturb(params: EnvParams3D, draw: torch.Tensor) -> torch.Tensor:
+    """i.i.d. Gaussian force noise: ``dyn_noise_scale * draw`` (the scale is
+    zeroed in deterministic rollouts)."""
+    return params.dyn_noise_scale * draw
+
+
+def none_disturb(params: EnvParams3D, draw: torch.Tensor) -> torch.Tensor:
+    return torch.zeros_like(draw)
+
+
+DISTURB_FNS = {"gaussian": gaussian_disturb, "none": none_disturb}
+# ported later (ROADMAP queue 1, item 12)
+_QUEUED = ("periodic", "sin", "drag", "mixed")
+
+
+def get_disturb_fn(disturb_type: str):
+    """Disturbance name -> ``fn(params, draw) -> (3,)``."""
+    if disturb_type in _QUEUED:
+        raise NotImplementedError(
+            f"disturb_type {disturb_type!r} is not ported yet"
+        )
+    if disturb_type not in DISTURB_FNS:
+        raise NotImplementedError(f"unknown disturb_type {disturb_type!r}")
+    return DISTURB_FNS[disturb_type]

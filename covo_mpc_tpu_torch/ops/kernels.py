@@ -1,0 +1,137 @@
+"""Build, load and launch the hand-written CUDA kernels in ``csrc/``.
+
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one
+shared library with a plain C interface, under ``build/kernels/`` beside
+the package, named by a hash of the sources (a rebuilt source gets a new
+library; an unchanged one is reused). The library is loaded with
+``ctypes``. Nothing here runs at import: the CPU tests import every module
+of the package on machines without ``nvcc``.
+
+Each C entry point launches on the stream it is given (PyTorch's current
+stream) and returns ``cudaGetLastError()``; :meth:`Kernel.launch` raises if
+that is not 0 and counts the launch. A build or launch failure raises.
+Nothing falls back to the plain PyTorch versions: those are taken only for
+tensors that lie on the CPU, by the wrappers in the ops modules.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+_P, _I, _U64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64
+# C signatures of the entry points (csrc/*.cu); every one returns cudaError_t
+_SIGNATURES = {
+    "joint_sample_rollout": [_P, _P, _P, _P, _P, _P, _P, _P, _U64, _P, _P,
+                             _I, _I, _I, _I, _P],
+    "primal": [_P, _P, _P, _P, _P, _I, _P],
+    "sens_chain": [_P, _P, _I, _I, _I, _P],
+}
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+    return path
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """Compile (if the sources changed) and load the kernel library. Its
+    ``build_seconds`` attribute is the nvcc time of this process (0.0 when
+    the library was already built)."""
+    build_seconds = 0.0
+    digest = hashlib.sha256()
+    for src in _sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    lib_path = BUILD_DIR / f"libcovo_kernels_{digest.hexdigest()[:16]}.so"
+    if not lib_path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               *map(str, sorted(CSRC.glob("*.cu")))]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
+            )
+        build_seconds = time.perf_counter() - t0
+        os.replace(tmp, lib_path)  # atomic: concurrent builds agree
+    lib = ctypes.CDLL(str(lib_path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.build_seconds = build_seconds
+    return lib
+
+
+class Kernel:
+    """One C entry point of the library, with its launch count (counted
+    only where the kernel is launched)."""
+
+    def __init__(self, symbol: str, source: str, replaces: str):
+        self.symbol = symbol
+        self.source = source  # the .cu file, path in the repository
+        self.replaces = replaces  # file:line of the Pallas kernel it ports
+        self.launches = 0
+
+    def launch(self, *args) -> None:
+        fn = getattr(library(), self.symbol)
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*args, stream)
+        if err != 0:
+            raise RuntimeError(f"{self.symbol}: CUDA launch failed, cudaError {err}")
+        self.launches += 1
+
+
+def check_cuda(name: str, t: torch.Tensor, shape, dtype=torch.float32,
+               device=None) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``shape``/``dtype``
+    (on ``device`` when given)."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+
+
+def route(*tensors: torch.Tensor) -> str:
+    """"plain" when every tensor lies on the CPU, "cuda" when every one
+    lies on a CUDA device; anything else raises."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return "plain"
+    if kinds == {"cuda"}:
+        return "cuda"
+    raise ValueError(f"kernel inputs on devices {sorted(kinds)}: need all "
+                     "CPU (plain version) or all CUDA (kernel)")

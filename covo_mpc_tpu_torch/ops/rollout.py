@@ -1,0 +1,121 @@
+"""Batched rollout engine (plain PyTorch path).
+
+Counterpart of :func:`covo_mpc_tpu.ops.rollout.make_rollout`: N samples x
+H steps of quadrotor dynamics plus cost accumulation, as one wide tensor
+program over packed states ``(N, 16)``, with a Python loop over the
+horizon. It is the ``engine="torch"`` rollout and the plain version the
+joint sample + rollout kernel is checked against.
+
+Semantics kept: rewards on PRE-step states, frozen once a sample has
+terminated (the freeze reads ``d_prev``); termination reads
+``max_steps_in_episode`` from the runtime params; one disturbance draw is
+shared by every sample and step (the reference's key-reuse quirk).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from covo_mpc_tpu_torch.models import dynamics, rewards
+from covo_mpc_tpu_torch.models.quad_env import QuadEnv
+from covo_mpc_tpu_torch.models.structs import OMEGA, POS, QUAT, VEL
+
+
+def check_penyaw_reward(env: QuadEnv) -> None:
+    """The rollouts and the Hessian run the penyaw cost model only (the
+    realworld reward of "tracking_slow" is not ported to them yet)."""
+    if env.reward_name != "penyaw":
+        raise NotImplementedError(
+            f"the rollouts run the penyaw reward only, not {env.reward_name!r}"
+        )
+
+
+def _make_done(env: QuadEnv):
+    check_rollover = not env.config.disable_rollover_terminate
+    cos_45 = math.cos(math.pi / 4.0)
+
+    def done_fn(x, t, max_steps):
+        """Termination on the pre-step state; ``max_steps`` comes from the
+        runtime params."""
+        d = (t >= max_steps) | (torch.abs(x[..., POS]) > 3.0).any(dim=-1)
+        if check_rollover:
+            d = d | (x[..., QUAT][..., 3] < cos_45)
+            d = d | (torch.abs(x[..., OMEGA]) > 100.0).any(dim=-1)
+        return d
+
+    return done_fn
+
+
+def shared_disturb(env: QuadEnv, params, draw: Optional[torch.Tensor],
+                   deterministic: bool, device) -> torch.Tensor:
+    """The one disturbance every sample uses from step 1 on: zero for
+    deterministic rollouts and for "none", else the disturbance model
+    applied to ``draw``, the caller's (3,) standard normals."""
+    if deterministic or env.config.disturb_type == "none":
+        return torch.zeros(3, device=device)
+    if draw is None:
+        raise ValueError("a stochastic gaussian rollout needs its normal draw")
+    return env.disturb_fn(params, draw)
+
+
+def target_window(t0, pos_traj, vel_traj, H: int, offset: int = 0):
+    """(H, 3) position and velocity targets at times t0+offset .. +H-1,
+    clamped at the table end (a device gather: no host sync)."""
+    T = pos_traj.shape[0]
+    idx = torch.clamp(t0 + offset + torch.arange(H, device=pos_traj.device),
+                      0, T - 1).long()
+    return pos_traj[idx], vel_traj[idx]
+
+
+def make_rollout(env: QuadEnv):
+    """Build ``rollout_costs(x0, t0, pos_traj, vel_traj, actions, params,
+    draw=None, deterministic=False, discount=1.0, layout="nhd") -> costs (N,)``.
+
+    ``actions`` is (N, H, 4) for ``layout="nhd"``, or (H, 4, N) / (H*4, N)
+    for ``layout="hdn"`` (the samplers' sample-last layout). Cost is the
+    negated discounted reward sum. ``draw`` (3,) are the standard normals
+    of a stochastic gaussian rollout's shared disturbance.
+    """
+    check_penyaw_reward(env)
+    done_fn = _make_done(env)
+    dt = env._dt
+
+    def rollout_costs(x0, t0, pos_traj, vel_traj, actions, params,
+                      draw: Optional[torch.Tensor] = None,
+                      deterministic: bool = False, discount=1.0,
+                      layout: str = "nhd"):
+        if layout == "nhd":
+            acts = actions.permute(1, 0, 2)  # (H, N, 4)
+        elif layout == "hdn":
+            acts = actions.reshape(-1, 4, actions.shape[-1]).permute(0, 2, 1)
+        else:
+            raise ValueError(f"unknown layout {layout!r}")
+        H, N, _ = acts.shape
+        ptar, vtar = target_window(t0, pos_traj, vel_traj, H)
+        f_shared = shared_disturb(env, params, draw, deterministic, x0.device)
+
+        x = x0[:16].expand(N, 16)
+        r_prev = torch.zeros(N, device=x0.device)
+        d_prev = torch.zeros(N, dtype=torch.bool, device=x0.device)
+        rews = []
+        for h in range(H):
+            r = rewards.tracking_penyaw_reward(x[..., POS], x[..., VEL],
+                                               x[..., QUAT], ptar[h], vtar[h])
+            d = done_fn(x, t0 + h, params.max_steps_in_episode)
+            r = torch.where(d_prev, r_prev, r)
+            d = d | d_prev
+            u, _ = dynamics.control_to_thrust_omega(acts[h], params)
+            x_new = dynamics.bodyrate_step(x, u, params, dt)
+            # step 0 integrated with x0's own f; every later step with the
+            # shared draw (state-independent for gaussian / none)
+            x = torch.cat([x_new[:, :13], f_shared.expand(N, 3)], dim=-1)
+            r_prev, d_prev = r, d
+            rews.append(r)
+        disc = torch.pow(discount, torch.arange(H, device=x0.device,
+                                                dtype=torch.float32))
+        return -torch.einsum("h,hn->n", disc, torch.stack(rews))
+
+    return rollout_costs

@@ -1,0 +1,205 @@
+"""Wrappers of the rollout kernels: joint sample + rollout (K1) and primal (K2).
+
+Counterpart of :mod:`covo_mpc_tpu.ops.rollout_pallas` for the main path:
+the host-side packing (:func:`build_kernel_disturb`,
+:func:`_pack_kernel_inputs`) as torch ops, and one wrapper per kernel with
+its plain PyTorch version beside it.
+
+A wrapper takes the plain version only when its tensors lie on the CPU
+(as JAX's ``interpret`` mode does off-TPU); on CUDA tensors it launches
+the kernel (``csrc/joint_sample_rollout.cu``, ``csrc/primal.cu``) or
+raises. Only the "shared" disturbance mode (gaussian / none) is ported;
+the table and in-kernel drag/mixed modes are queued.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from covo_mpc_tpu_torch.models import dynamics
+from covo_mpc_tpu_torch.models.quad_env import QuadEnv
+from covo_mpc_tpu_torch.ops import kernels
+from covo_mpc_tpu_torch.ops.rollout import make_rollout, shared_disturb, target_window
+
+JOINT_KERNEL = kernels.Kernel(
+    "joint_sample_rollout", "covo_mpc_tpu_torch/csrc/joint_sample_rollout.cu",
+    replaces="covo_mpc_tpu/ops/rollout_pallas.py:801",
+)
+PRIMAL_KERNEL = kernels.Kernel(
+    "primal", "covo_mpc_tpu_torch/csrc/primal.cu",
+    replaces="covo_mpc_tpu/ops/rollout_pallas.py:1161",
+)
+
+NSCAL = 17  # scalar pack, layout quad::Scal in csrc/quad_core.cuh
+NINT = 3  # [t0, max_steps, disturb_period]
+
+
+def _full(value, device) -> torch.Tensor:
+    # a fill kernel, not a host-to-device copy (which would sync)
+    return torch.full((), value, dtype=torch.float32, device=device)
+
+
+def _dyn_scalars(env: QuadEnv, params, device):
+    """The first nine scalar-pack entries: the physics constants."""
+    return [params.m, params.g, _full(env._dt, device), params.alpha_bodyrate,
+            params.action_scale, params.max_thrust, params.max_omega[0],
+            params.max_omega[1], params.max_omega[2]]
+
+
+def _check_shared_mode(env: QuadEnv) -> None:
+    if env.config.disturb_type not in ("gaussian", "none"):
+        raise NotImplementedError(
+            f"the CUDA rollout runs the 'shared' disturbance mode only "
+            f"(gaussian / none), not {env.config.disturb_type!r}"
+        )
+
+
+def build_kernel_disturb(env: QuadEnv, params, draw, deterministic, device):
+    """The kernel's disturbance input in "shared" mode: the one force (3,)
+    every sample uses from step 1 on (step 0 uses x0's own f)."""
+    _check_shared_mode(env)
+    return shared_disturb(env, params, draw, deterministic, device)
+
+
+def _pack_kernel_inputs(env: QuadEnv, x0, t0, pos_traj, vel_traj, params,
+                        draw, deterministic, discount, H: int):
+    """Flat kernel operands: (ptar (H*3,), vtar (H*3,), scal (NSCAL,),
+    ints (NINT,) int32), all built on x0's device."""
+    dev = x0.device
+    ptar, vtar = target_window(t0, pos_traj, vel_traj, H)
+    f_shared = build_kernel_disturb(env, params, draw, deterministic, dev)
+    dp = params.disturb_params
+    scal = torch.cat([
+        torch.stack(_dyn_scalars(env, params, dev) + [
+            _full(discount, dev), params.disturb_scale, dp[0], dp[1], dp[2],
+        ]),
+        f_shared,
+    ])
+
+    def int32(v):
+        if isinstance(v, torch.Tensor):
+            return v.to(device=dev, dtype=torch.int32).reshape(())
+        return torch.full((), v, dtype=torch.int32, device=dev)
+
+    ints = torch.stack([int32(t0), int32(params.max_steps_in_episode),
+                        int32(params.disturb_period)])
+    return ptar.reshape(-1), vtar.reshape(-1), scal, ints
+
+
+class JointSampleRollout:
+    """K1: per sample, a = clip(mean + F z) and the H-step rollout cost.
+
+    ``__call__(x0, t0, pos_traj, vel_traj, a_mean (H, 4), factor (D, D),
+    params, seed, N, deterministic=False, discount=1.0, draw=None, z=None)
+    -> (costs (N,), a_t (D, N))``. ``z`` (D, N) feeds given normals (the
+    "input_z" mode); without it the kernel draws Philox normals keyed by
+    ``seed`` (an int) and the plain version draws from a generator seeded
+    with it. ``draw`` (3,) are the standard normals of a stochastic
+    gaussian rollout's shared disturbance.
+    """
+
+    def __init__(self, env: QuadEnv, block: int = 128):
+        _check_shared_mode(env)
+        self.env = env
+        self.block = block
+        self._rollout = make_rollout(env)  # checks the reward
+        self._check_rollover = int(not env.config.disable_rollover_terminate)
+
+    def plain(self, x0, t0, pos_traj, vel_traj, a_mean, factor, params,
+              seed: int, N: int, deterministic: bool = False, discount=1.0,
+              draw: Optional[torch.Tensor] = None,
+              z: Optional[torch.Tensor] = None):
+        D = a_mean.numel()
+        if z is None:
+            g = torch.Generator(device=x0.device).manual_seed(seed)
+            z = torch.randn(D, N, generator=g, device=x0.device)
+        a_t = torch.clamp(a_mean.reshape(D, 1) + factor @ z, -1.0, 1.0)
+        costs = self._rollout(x0, t0, pos_traj, vel_traj, a_t, params, draw,
+                              deterministic, discount, layout="hdn")
+        return costs, a_t
+
+    def __call__(self, x0, t0, pos_traj, vel_traj, a_mean, factor, params,
+                 seed: int, N: int, deterministic: bool = False, discount=1.0,
+                 draw: Optional[torch.Tensor] = None,
+                 z: Optional[torch.Tensor] = None):
+        if kernels.route(x0, a_mean, factor) == "plain":
+            return self.plain(x0, t0, pos_traj, vel_traj, a_mean, factor,
+                              params, seed, N, deterministic, discount, draw, z)
+        H, dA = a_mean.shape
+        if dA != 4:
+            raise ValueError(f"action_dim must be 4, got {dA}")
+        D = H * dA
+        dev = x0.device
+        ptar, vtar, scal, ints = _pack_kernel_inputs(
+            self.env, x0, t0, pos_traj, vel_traj, params, draw, deterministic,
+            discount, H,
+        )
+        x0 = x0[:16].contiguous()
+        mean = a_mean.reshape(D).contiguous()
+        for name, t, shape in (("x0", x0, (16,)), ("scal", scal, (NSCAL,)),
+                               ("ptar", ptar, (3 * H,)), ("vtar", vtar, (3 * H,)),
+                               ("mean", mean, (D,)), ("factor", factor, (D, D))):
+            kernels.check_cuda(name, t, shape, device=dev)
+        kernels.check_cuda("ints", ints, (NINT,), torch.int32, device=dev)
+        if z is not None:
+            kernels.check_cuda("z", z, (D, N), device=dev)
+        costs = torch.empty(N, device=dev)
+        a_t = torch.empty(D, N, device=dev)
+        JOINT_KERNEL.launch(
+            x0.data_ptr(), scal.data_ptr(), ints.data_ptr(), ptar.data_ptr(),
+            vtar.data_ptr(), mean.data_ptr(), factor.data_ptr(),
+            None if z is None else z.data_ptr(), seed % (1 << 64),
+            costs.data_ptr(), a_t.data_ptr(), N, H, self._check_rollover,
+            self.block,
+        )
+        return costs, a_t
+
+
+def make_rollout_joint_sampling(env: QuadEnv, block: int = 128):
+    """The K1 wrapper (JAX: make_pallas_rollout_joint_sampling)."""
+    return JointSampleRollout(env, block)
+
+
+class Primal:
+    """K2: the Hessian's nominal rollout, z_h = (s_h, a_h).
+
+    ``__call__(x0 (16,), a_seq (H, 4), dist (H, 3), params) -> (H, 17)``
+    with s_h the PRE-step state of step h and a_h the raw (unclipped)
+    action; the step clips internally.
+    """
+
+    def __init__(self, env: QuadEnv, H: int):
+        self.env = env
+        self.H = H
+
+    def plain(self, x0, a_seq, dist, params):
+        s = x0[:13]
+        states = []
+        for h in range(self.H):
+            states.append(s)
+            s = dynamics.core_step(s, a_seq[h], dist[h], params, self.env._dt)
+        return torch.cat([torch.stack(states), a_seq], dim=1)
+
+    def __call__(self, x0, a_seq, dist, params):
+        if kernels.route(x0, a_seq, dist) == "plain":
+            return self.plain(x0, a_seq, dist, params)
+        H, dev = self.H, x0.device
+        x0c = x0[:16].contiguous()
+        scal = torch.stack(_dyn_scalars(self.env, params, dev) + [_full(1.0, dev)])
+        a_flat = a_seq.reshape(-1).contiguous()
+        d_flat = dist.reshape(-1).contiguous()
+        for name, t, shape in (("x0", x0c, (16,)), ("scal", scal, (10,)),
+                               ("a_seq", a_flat, (4 * H,)),
+                               ("dist", d_flat, (3 * H,))):
+            kernels.check_cuda(name, t, shape, device=dev)
+        states = torch.empty(H, 13, device=dev)
+        PRIMAL_KERNEL.launch(x0c.data_ptr(), scal.data_ptr(), a_flat.data_ptr(),
+                             d_flat.data_ptr(), states.data_ptr(), H)
+        return torch.cat([states, a_seq], dim=1)
+
+
+def make_primal(env: QuadEnv, H: int):
+    """The K2 wrapper (JAX: make_pallas_primal)."""
+    return Primal(env, H)

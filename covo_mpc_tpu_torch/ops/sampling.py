@@ -1,0 +1,29 @@
+"""Correlated-noise action sampling (CoVO's joint MVN, fast mode).
+
+Counterpart of :func:`covo_mpc_tpu.ops.sampling.sample_joint_t`. Modes:
+``FAST`` draws z with ``torch.randn`` from the caller's generator;
+``KERNEL`` draws inside the joint sample + rollout kernel (Philox) and
+never comes here. The parity and invariant modes are not ported.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+FAST = "fast"
+KERNEL = "kernel"
+
+
+def sample_joint_t(gen: Optional[torch.Generator], mean_flat: torch.Tensor,
+                   factor: torch.Tensor, N: int,
+                   z: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """N samples of mean + factor z (fast mode), emitted sample-last as (D, N).
+
+    ``z`` (N, D) feeds given normals (tests hand in the ones JAX drew);
+    otherwise they come from ``gen`` on ``mean_flat``'s device."""
+    D = mean_flat.shape[0]
+    if z is None:
+        z = torch.randn(N, D, generator=gen, device=mean_flat.device)
+    return mean_flat[:, None] + torch.einsum("ed,nd->en", factor, z)

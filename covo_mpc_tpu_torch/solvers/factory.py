@@ -1,0 +1,68 @@
+"""Solver factory + hyperparameter parsing (the packed "N{N}_H{H}_lam{lam}"
+string of the JAX factory). Only "covo_online" is ported."""
+
+from __future__ import annotations
+
+import torch
+
+from covo_mpc_tpu_torch.ops import sampling
+from covo_mpc_tpu_torch.solvers.covo import CoVOParams, CoVOSolver
+
+DEFAULT_N = 8192
+DEFAULT_H = 32
+DEFAULT_LAM = 0.01
+DEFAULT_SIGMA = 0.5
+
+
+def parse_sample_params(param_text: str):
+    """Parse "N{N}_H{H}_lam{lam}" -> (N, H, lam, sigma)."""
+    if param_text == "" or param_text is None:
+        return DEFAULT_N, DEFAULT_H, DEFAULT_LAM, DEFAULT_SIGMA
+    parts = param_text.split("_")
+    return int(parts[0][1:]), int(parts[1][1:]), float(parts[2][3:]), DEFAULT_SIGMA
+
+
+def hover_sequence(env, H: int) -> torch.Tensor:
+    """Initial nominal sequence (H, 4): normalized hover thrust, zero body
+    rates, on the env's device."""
+    p = env.default_params
+    thrust = (p.m * p.g / p.max_thrust) * 2.0 - 1.0
+    zero = torch.zeros_like(thrust)
+    return torch.stack([thrust, zero, zero, zero]).expand(H, 4).clone()
+
+
+def get_solver(
+    env,
+    name: str,
+    controller_params: str = "",
+    debug: bool = False,
+    rng_mode: str = sampling.FAST,
+    hessian_mode: str = "gn",
+    collect_debug: bool = False,
+    engine: str = "torch",
+    sigma_mode: str = "ns",
+    seed: int = 0,
+):
+    """Build (solver, control_params) by name. Any name containing "covo"
+    without "offline", "spec" or "latency" is CoVO online; the other
+    solvers and modes are not ported yet."""
+    if "covo" not in name or any(k in name for k in ("offline", "spec", "latency")):
+        raise NotImplementedError(f"controller {name!r} is not ported yet")
+    N, H, lam, sigma = parse_sample_params(controller_params)
+    if debug:
+        N, H = 4, 2  # fast-feedback smoke config
+    D = H * env.action_dim
+    params = CoVOParams(
+        gamma_mean=1.0,
+        gamma_sigma=0.0,
+        discount=1.0,
+        sample_sigma=sigma,
+        a_mean=hover_sequence(env, H),
+        a_cov=torch.eye(D, device=env.device) * sigma**2,
+    )
+    solver = CoVOSolver(
+        env, params, N=N, H=H, lam=lam, mode="online", rng_mode=rng_mode,
+        hessian_mode=hessian_mode, collect_debug=collect_debug, engine=engine,
+        sigma_mode=sigma_mode, seed=seed,
+    )
+    return solver, params

@@ -58,6 +58,11 @@ def pytest_configure(config):
         "markers",
         "slow: long-running test — skipped unless --runslow or RUN_SLOW=1",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and nvcc (a CUDA kernel has no CPU mode); "
+        "skips without one",
+    )
 
 
 def pytest_collection_modifyitems(config, items):
