@@ -25,44 +25,18 @@
 // each z load feeds four FMA chains. Each row sums over d in order 0..D-1
 // for every sample. The actions of step h are formed right before the step
 // and written once (coalesced across the warp); they are never read back.
-// The draw is a hand-written Philox4x32-10 keyed by the 64-bit seed, with
+// The draw is Philox4x32-10 (philox.cuh) keyed by the 64-bit seed, with
 // counter (j, n): one call gives 4 uniforms -> 2 Box-Muller pairs -> z rows
-// 4j..4j+3 of sample n.
+// 4j..4j+3 of sample n. The step after the action formation is
+// quad::rollout_step, shared with K4 and K5.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "philox.cuh"
 #include "quad_core.cuh"
 
 namespace {
-
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0,
-                                               uint32_t k1) {
-  constexpr uint32_t kM0 = 0xD2511F53u, kM1 = 0xCD9E8D57u;
-  constexpr uint32_t kW0 = 0x9E3779B9u, kW1 = 0xBB67AE85u;
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r > 0) {
-      k0 += kW0;
-      k1 += kW1;
-    }
-    const uint32_t hi0 = __umulhi(kM0, c.x), lo0 = kM0 * c.x;
-    const uint32_t hi1 = __umulhi(kM1, c.z), lo1 = kM1 * c.z;
-    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
-  }
-  return c;
-}
-
-// Box-Muller on two 32-bit words: u1 in (0, 1] keeps the log finite.
-__device__ __forceinline__ float2 box_muller(uint32_t a, uint32_t b) {
-  constexpr float kInv24 = 1.0f / 16777216.0f;
-  const float u1 = (static_cast<float>(a >> 8) + 1.0f) * kInv24;
-  const float u2 = static_cast<float>(b >> 8) * kInv24;
-  const float r = sqrtf(-2.0f * logf(u1));
-  float s, c;
-  sincosf(6.283185307179586f * u2, &s, &c);
-  return make_float2(r * c, r * s);
-}
 
 __global__ void joint_sample_rollout_kernel(
     const float* __restrict__ x0, const float* __restrict__ scal,
@@ -84,53 +58,25 @@ __global__ void joint_sample_rollout_kernel(
     if (z != nullptr) {
       for (int d = 0; d < D; ++d) z_s[d * B + tid] = z[(size_t)d * N + n];
     } else {
-      const uint32_t k0 = static_cast<uint32_t>(seed);
-      const uint32_t k1 = static_cast<uint32_t>(seed >> 32);
       for (int j = 0; j < D / 4; ++j) {
-        const uint4 r = philox4x32_10(
+        const float4 r = rng::normals4(
             make_uint4(static_cast<uint32_t>(j), static_cast<uint32_t>(n), 0u,
                        0u),
-            k0, k1);
-        const float2 p = box_muller(r.x, r.y);
-        const float2 q = box_muller(r.z, r.w);
-        z_s[(4 * j + 0) * B + tid] = p.x;
-        z_s[(4 * j + 1) * B + tid] = p.y;
-        z_s[(4 * j + 2) * B + tid] = q.x;
-        z_s[(4 * j + 3) * B + tid] = q.y;
+            seed);
+        z_s[(4 * j + 0) * B + tid] = r.x;
+        z_s[(4 * j + 1) * B + tid] = r.y;
+        z_s[(4 * j + 2) * B + tid] = r.z;
+        z_s[(4 * j + 3) * B + tid] = r.w;
       }
     }
   }
   __syncthreads();
   if (n >= N) return;
 
-  quad::State s = quad::load_state(x0);
-  // "shared" disturbance: x0's own f at step 0, the one shared draw after
-  const float f0x = x0[13], f0y = x0[14], f0z = x0[15];
-  const float drx = scal[quad::kDraw0], dry = scal[quad::kDraw1],
-              drz = scal[quad::kDraw2];
-  const float discount = scal[quad::kDiscount];
-  const int t0 = ints[quad::kT0];
-  const int max_steps = ints[quad::kMaxSteps];
-
-  float cost = 0.0f, r_prev = 0.0f, disc = 1.0f;
-  bool d_prev = false;
+  const quad::RolloutShared sh =
+      quad::load_shared(x0, scal, ints, ptar, vtar, check_rollover);
+  quad::Carry c = quad::start(x0);
   for (int h = 0; h < H; ++h) {
-    // reward on the PRE-step state, frozen once the sample terminated
-    float r = quad::penyaw_reward(s, ptar[3 * h], ptar[3 * h + 1],
-                                  ptar[3 * h + 2], vtar[3 * h],
-                                  vtar[3 * h + 1], vtar[3 * h + 2]);
-    r = d_prev ? r_prev : r;
-    r_prev = r;
-    cost = cost - disc * r;
-    disc = disc * discount;
-
-    bool d_now = fabsf(s.px) > 3.0f || fabsf(s.py) > 3.0f || fabsf(s.pz) > 3.0f;
-    if (check_rollover) {
-      d_now = d_now || s.qw < 0.70710678f || fabsf(s.wx) > 100.0f ||
-              fabsf(s.wy) > 100.0f || fabsf(s.wz) > 100.0f;
-    }
-    d_prev = d_prev || d_now || (t0 + h) >= max_steps;
-
     // a_h = clip(mean_h + F[4h:4h+4] z): four rows, one pass over d
     const float* F0 = F_s + (4 * h) * D;
     float acc0 = 0.0f, acc1 = 0.0f, acc2 = 0.0f, acc3 = 0.0f;
@@ -141,19 +87,14 @@ __global__ void joint_sample_rollout_kernel(
       acc2 = fmaf(F0[2 * D + d], zd, acc2);
       acc3 = fmaf(F0[3 * D + d], zd, acc3);
     }
-    float a[4] = {quad::clip1(mean[4 * h] + acc0),
-                  quad::clip1(mean[4 * h + 1] + acc1),
-                  quad::clip1(mean[4 * h + 2] + acc2),
-                  quad::clip1(mean[4 * h + 3] + acc3)};
+    const float a[4] = {quad::clip1(mean[4 * h] + acc0),
+                        quad::clip1(mean[4 * h + 1] + acc1),
+                        quad::clip1(mean[4 * h + 2] + acc2),
+                        quad::clip1(mean[4 * h + 3] + acc3)};
     for (int k = 0; k < 4; ++k) actions[(size_t)(4 * h + k) * N + n] = a[k];
-
-    if (h == 0) {
-      quad::dyn_step(s, a, f0x, f0y, f0z, scal);
-    } else {
-      quad::dyn_step(s, a, drx, dry, drz, scal);
-    }
+    quad::rollout_step(c, sh, h, a);
   }
-  costs[n] = cost;
+  costs[n] = c.cost;
 }
 
 }  // namespace

@@ -1,8 +1,9 @@
 // Component-form quadrotor physics and rewards, shared by the CUDA kernels.
 //
 // Counterpart of covo_mpc_tpu/models/scalar_core.py (bodyrate_step,
-// penyaw_reward) and of the action -> (thrust, omega_tar)
-// map of covo_mpc_tpu/ops/rollout_pallas.py::_dyn_step. The array-form twins
+// penyaw_reward), of the action -> (thrust, omega_tar) map of
+// covo_mpc_tpu/ops/rollout_pallas.py::_dyn_step, and of the per-step body
+// of its _rollout_kernel (rollout_step below). The array-form twins
 // in covo_mpc_tpu_torch/models/{dynamics,rewards}.py are the plain versions
 // these are checked against. Reference semantics: quadjax
 // dynamics/free.py:75-112 (ODE) and dynamics/utils.py:267-313 (rewards).
@@ -117,6 +118,72 @@ __device__ __forceinline__ float penyaw_reward(const State& s, float ptx,
   const float yaw = atan2f(2.0f * (s.qw * s.qz + s.qx * s.qy),
                            1.0f - 2.0f * (s.qy * s.qy + s.qz * s.qz));
   return 1.3f - 0.05f * err_vel - log_pos_penalty(err_pos) - fabsf(yaw) * 0.2f;
+}
+
+// What every sample of one rollout launch shares, in the "shared"
+// disturbance mode (gaussian / none): step 0 integrates with x0's own f,
+// every later step with the one shared force (fx, fy, fz).
+struct RolloutShared {
+  const float* scal;  // the scalar pack (Scal)
+  const float* ptar;  // (H * 3,) position targets
+  const float* vtar;  // (H * 3,) velocity targets
+  float f0x, f0y, f0z, fx, fy, fz, discount;
+  int t0, max_steps;
+  bool check_rollover;
+};
+
+// The shared force comes from scal[kDraw0..2]; a kernel that draws it
+// itself ("krng") overwrites fx, fy, fz.
+__device__ __forceinline__ RolloutShared load_shared(
+    const float* x0, const float* scal, const int* ints, const float* ptar,
+    const float* vtar, int check_rollover) {
+  return RolloutShared{scal, ptar, vtar,
+                       x0[13], x0[14], x0[15],
+                       scal[kDraw0], scal[kDraw1], scal[kDraw2],
+                       scal[kDiscount], ints[kT0], ints[kMaxSteps],
+                       check_rollover != 0};
+}
+
+// One sample's rollout carry: state, cost so far, the reward frozen at
+// termination, the discount of the next step, and whether it terminated.
+struct Carry {
+  State s;
+  float cost, r_prev, disc;
+  bool d_prev;
+};
+
+__device__ __forceinline__ Carry start(const float* x0) {
+  return Carry{load_state(x0), 0.0f, 0.0f, 1.0f, false};
+}
+
+// Step h of one sample under the action a (clipped inside dyn_step): the
+// penyaw reward on the PRE-step state, frozen once the sample terminated
+// (the freeze reads d_prev), the discounted cost, termination (|pos| > 3,
+// the time limit, the rollover check when on), then the bodyrate step.
+// The single step body of K1, K4 and K5.
+__device__ __forceinline__ void rollout_step(Carry& c, const RolloutShared& sh,
+                                             int h, const float a[4]) {
+  const float* pt = sh.ptar + 3 * h;
+  const float* vt = sh.vtar + 3 * h;
+  float r = penyaw_reward(c.s, pt[0], pt[1], pt[2], vt[0], vt[1], vt[2]);
+  r = c.d_prev ? c.r_prev : r;
+  c.r_prev = r;
+  c.cost = c.cost - c.disc * r;
+  c.disc = c.disc * sh.discount;
+
+  const State& s = c.s;
+  bool d_now = fabsf(s.px) > 3.0f || fabsf(s.py) > 3.0f || fabsf(s.pz) > 3.0f;
+  if (sh.check_rollover) {
+    d_now = d_now || s.qw < 0.70710678f || fabsf(s.wx) > 100.0f ||
+            fabsf(s.wy) > 100.0f || fabsf(s.wz) > 100.0f;
+  }
+  c.d_prev = c.d_prev || d_now || (sh.t0 + h) >= sh.max_steps;
+
+  if (h == 0) {
+    dyn_step(c.s, a, sh.f0x, sh.f0y, sh.f0z, sh.scal);
+  } else {
+    dyn_step(c.s, a, sh.fx, sh.fy, sh.fz, sh.scal);
+  }
 }
 
 }  // namespace quad

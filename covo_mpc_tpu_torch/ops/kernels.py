@@ -1,6 +1,7 @@
 """Build, load and launch the hand-written CUDA kernels in ``csrc/``.
 
-At first use, ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` (one
+``nvcc`` per source, all started together) and links the objects into one
 shared library with a plain C interface, under ``build/kernels/`` beside
 the package, named by a hash of the sources (a rebuilt source gets a new
 library; an unchanged one is reused). The library is loaded with
@@ -22,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
@@ -29,8 +31,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 _P, _I, _U64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64
 # C signatures of the entry points (csrc/*.cu); every one returns cudaError_t
@@ -39,6 +41,9 @@ _SIGNATURES = {
                              _I, _I, _I, _I, _P],
     "primal": [_P, _P, _P, _P, _P, _I, _P],
     "sens_chain": [_P, _P, _I, _I, _I, _P],
+    "rollout_costs": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "sample_rollout": [_P, _P, _P, _P, _P, _P, _P, _P, _U64, _U64, _I, _P, _P,
+                       _P, _I, _I, _I, _I, _P],
 }
 
 
@@ -57,6 +62,32 @@ def _nvcc() -> str:
     return path
 
 
+def _run_nvcc(args) -> None:
+    proc = subprocess.run([_nvcc(), *args], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+
+
+def _compile_all(obj_dir: Path) -> list:
+    """One ``nvcc -c`` per ``csrc/*.cu``, all running at once; waits for
+    every one, then raises if any failed. Returns the object paths."""
+    nvcc = _nvcc()
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = obj_dir / f"{src.stem}.o"
+        jobs.append((src, obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for src, _, proc in jobs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode}):\n{out}")
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    return [str(obj) for _, obj, _ in jobs]
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """Compile (if the sources changed) and load the kernel library. Its
@@ -71,14 +102,10 @@ def library() -> ctypes.CDLL:
     if not lib_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *map(str, sorted(CSRC.glob("*.cu")))]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-            )
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as obj_dir:
+            objs = _compile_all(Path(obj_dir))
+            _run_nvcc([*ARCH_FLAGS, "-shared", "-o", str(tmp), *objs])
         build_seconds = time.perf_counter() - t0
         os.replace(tmp, lib_path)  # atomic: concurrent builds agree
     lib = ctypes.CDLL(str(lib_path))

@@ -1,15 +1,17 @@
-"""Wrappers of the rollout kernels: joint sample + rollout (K1) and primal (K2).
+"""Wrappers of the rollout kernels: joint sample + rollout (K1), primal
+(K2), rollout costs of given actions (K4) and per-step sample + rollout (K5).
 
-Counterpart of :mod:`covo_mpc_tpu.ops.rollout_pallas` for the main path:
-the host-side packing (:func:`build_kernel_disturb`,
-:func:`_pack_kernel_inputs`) as torch ops, and one wrapper per kernel with
-its plain PyTorch version beside it.
+Counterpart of :mod:`covo_mpc_tpu.ops.rollout_pallas`: the host-side
+packing (:func:`build_kernel_disturb`, :func:`_pack_kernel_inputs`) as
+torch ops, and one wrapper per kernel with its plain PyTorch version
+beside it.
 
 A wrapper takes the plain version only when its tensors lie on the CPU
 (as JAX's ``interpret`` mode does off-TPU); on CUDA tensors it launches
-the kernel (``csrc/joint_sample_rollout.cu``, ``csrc/primal.cu``) or
-raises. Only the "shared" disturbance mode (gaussian / none) is ported;
-the table and in-kernel drag/mixed modes are queued.
+the kernel (``csrc/joint_sample_rollout.cu``, ``csrc/primal.cu``,
+``csrc/rollout.cu``, ``csrc/sample_rollout.cu``) or raises. The "shared"
+disturbance mode (gaussian / none) and K5's in-kernel gaussian draw
+("krng") are ported; the table and in-kernel drag/mixed modes are queued.
 """
 
 from __future__ import annotations
@@ -30,6 +32,14 @@ JOINT_KERNEL = kernels.Kernel(
 PRIMAL_KERNEL = kernels.Kernel(
     "primal", "covo_mpc_tpu_torch/csrc/primal.cu",
     replaces="covo_mpc_tpu/ops/rollout_pallas.py:1161",
+)
+ROLLOUT_KERNEL = kernels.Kernel(
+    "rollout_costs", "covo_mpc_tpu_torch/csrc/rollout.cu",
+    replaces="covo_mpc_tpu/ops/rollout_pallas.py:587",
+)
+SAMPLE_KERNEL = kernels.Kernel(
+    "sample_rollout", "covo_mpc_tpu_torch/csrc/sample_rollout.cu",
+    replaces="covo_mpc_tpu/ops/rollout_pallas.py:686",
 )
 
 NSCAL = 17  # scalar pack, layout quad::Scal in csrc/quad_core.cuh
@@ -56,20 +66,35 @@ def _check_shared_mode(env: QuadEnv) -> None:
         )
 
 
-def build_kernel_disturb(env: QuadEnv, params, draw, deterministic, device):
-    """The kernel's disturbance input in "shared" mode: the one force (3,)
-    every sample uses from step 1 on (step 0 uses x0's own f)."""
+def _kernel_draws(env: QuadEnv, draw, deterministic) -> bool:
+    """Whether K5 draws the shared gaussian disturbance itself ("krng"): a
+    stochastic gaussian rollout that was handed no draw."""
+    return (draw is None and not deterministic
+            and env.config.disturb_type == "gaussian")
+
+
+def build_kernel_disturb(env: QuadEnv, params, draw, deterministic, device,
+                         kernel_draw: bool = False):
+    """The kernel's disturbance input (3,). "shared" mode: the one force
+    every sample uses from step 1 on (step 0 uses x0's own f). "krng"
+    mode (``kernel_draw``): [effective noise scale, 0, 0], the kernel
+    draws the normals."""
     _check_shared_mode(env)
+    if kernel_draw:
+        zero = _full(0.0, device)
+        return torch.stack([params.dyn_noise_scale, zero, zero])
     return shared_disturb(env, params, draw, deterministic, device)
 
 
 def _pack_kernel_inputs(env: QuadEnv, x0, t0, pos_traj, vel_traj, params,
-                        draw, deterministic, discount, H: int):
+                        draw, deterministic, discount, H: int,
+                        kernel_draw: bool = False):
     """Flat kernel operands: (ptar (H*3,), vtar (H*3,), scal (NSCAL,),
     ints (NINT,) int32), all built on x0's device."""
     dev = x0.device
     ptar, vtar = target_window(t0, pos_traj, vel_traj, H)
-    f_shared = build_kernel_disturb(env, params, draw, deterministic, dev)
+    f_shared = build_kernel_disturb(env, params, draw, deterministic, dev,
+                                    kernel_draw)
     dp = params.disturb_params
     scal = torch.cat([
         torch.stack(_dyn_scalars(env, params, dev) + [
@@ -88,7 +113,37 @@ def _pack_kernel_inputs(env: QuadEnv, x0, t0, pos_traj, vel_traj, params,
     return ptar.reshape(-1), vtar.reshape(-1), scal, ints
 
 
-class JointSampleRollout:
+def _launch_operands(env: QuadEnv, x0, t0, pos_traj, vel_traj, params, draw,
+                     deterministic, discount, H: int, kernel_draw: bool = False):
+    """The operands every rollout kernel takes first, in its argument order
+    (x0 (16,), scal, ints, ptar, vtar), packed and checked for the launch.
+    The caller keeps the tensors alive until the launch is enqueued."""
+    dev = x0.device
+    ptar, vtar, scal, ints = _pack_kernel_inputs(
+        env, x0, t0, pos_traj, vel_traj, params, draw, deterministic, discount,
+        H, kernel_draw,
+    )
+    x0 = x0[:16].contiguous()
+    for name, t, shape in (("x0", x0, (16,)), ("scal", scal, (NSCAL,)),
+                           ("ptar", ptar, (3 * H,)), ("vtar", vtar, (3 * H,))):
+        kernels.check_cuda(name, t, shape, device=dev)
+    kernels.check_cuda("ints", ints, (NINT,), torch.int32, device=dev)
+    return x0, scal, ints, ptar, vtar
+
+
+class _RolloutKernelWrapper:
+    """What the wrappers of K1, K4 and K5 share: the disturbance-mode
+    check, the block size, the plain rollout and the rollover flag."""
+
+    def __init__(self, env: QuadEnv, block: int = 128):
+        _check_shared_mode(env)
+        self.env = env
+        self.block = block
+        self._rollout = make_rollout(env)  # checks the reward
+        self._check_rollover = int(not env.config.disable_rollover_terminate)
+
+
+class JointSampleRollout(_RolloutKernelWrapper):
     """K1: per sample, a = clip(mean + F z) and the H-step rollout cost.
 
     ``__call__(x0, t0, pos_traj, vel_traj, a_mean (H, 4), factor (D, D),
@@ -99,13 +154,6 @@ class JointSampleRollout:
     with it. ``draw`` (3,) are the standard normals of a stochastic
     gaussian rollout's shared disturbance.
     """
-
-    def __init__(self, env: QuadEnv, block: int = 128):
-        _check_shared_mode(env)
-        self.env = env
-        self.block = block
-        self._rollout = make_rollout(env)  # checks the reward
-        self._check_rollover = int(not env.config.disable_rollover_terminate)
 
     def plain(self, x0, t0, pos_traj, vel_traj, a_mean, factor, params,
               seed: int, N: int, deterministic: bool = False, discount=1.0,
@@ -132,24 +180,17 @@ class JointSampleRollout:
             raise ValueError(f"action_dim must be 4, got {dA}")
         D = H * dA
         dev = x0.device
-        ptar, vtar, scal, ints = _pack_kernel_inputs(
-            self.env, x0, t0, pos_traj, vel_traj, params, draw, deterministic,
-            discount, H,
-        )
-        x0 = x0[:16].contiguous()
+        ops = _launch_operands(self.env, x0, t0, pos_traj, vel_traj, params,
+                               draw, deterministic, discount, H)
         mean = a_mean.reshape(D).contiguous()
-        for name, t, shape in (("x0", x0, (16,)), ("scal", scal, (NSCAL,)),
-                               ("ptar", ptar, (3 * H,)), ("vtar", vtar, (3 * H,)),
-                               ("mean", mean, (D,)), ("factor", factor, (D, D))):
-            kernels.check_cuda(name, t, shape, device=dev)
-        kernels.check_cuda("ints", ints, (NINT,), torch.int32, device=dev)
+        kernels.check_cuda("mean", mean, (D,), device=dev)
+        kernels.check_cuda("factor", factor, (D, D), device=dev)
         if z is not None:
             kernels.check_cuda("z", z, (D, N), device=dev)
         costs = torch.empty(N, device=dev)
         a_t = torch.empty(D, N, device=dev)
         JOINT_KERNEL.launch(
-            x0.data_ptr(), scal.data_ptr(), ints.data_ptr(), ptar.data_ptr(),
-            vtar.data_ptr(), mean.data_ptr(), factor.data_ptr(),
+            *(t.data_ptr() for t in ops), mean.data_ptr(), factor.data_ptr(),
             None if z is None else z.data_ptr(), seed % (1 << 64),
             costs.data_ptr(), a_t.data_ptr(), N, H, self._check_rollover,
             self.block,
@@ -160,6 +201,140 @@ class JointSampleRollout:
 def make_rollout_joint_sampling(env: QuadEnv, block: int = 128):
     """The K1 wrapper (JAX: make_pallas_rollout_joint_sampling)."""
     return JointSampleRollout(env, block)
+
+
+class RolloutCosts(_RolloutKernelWrapper):
+    """K4: the H-step rollout cost of each of N given action sequences.
+
+    ``__call__(x0, t0, pos_traj, vel_traj, actions, params, draw=None,
+    deterministic=False, discount=1.0, layout="nhd") -> costs (N,)``, the
+    contract of :func:`covo_mpc_tpu_torch.ops.rollout.make_rollout` (its
+    plain version): ``actions`` (N, H, 4) for ``layout="nhd"``, (H, 4, N)
+    or (H*4, N) for ``"hdn"``.
+    """
+
+    def __init__(self, env: QuadEnv, block: int = 128):
+        super().__init__(env, block)
+        self.plain = self._rollout
+
+    def __call__(self, x0, t0, pos_traj, vel_traj, actions, params,
+                 draw: Optional[torch.Tensor] = None,
+                 deterministic: bool = False, discount=1.0,
+                 layout: str = "nhd"):
+        if kernels.route(x0, actions) == "plain":
+            return self.plain(x0, t0, pos_traj, vel_traj, actions, params,
+                              draw, deterministic, discount, layout)
+        if layout == "nhd":
+            # the kernel reads sample-last (H, 4, N): one transpose here, as
+            # the JAX wrapper transposes outside its kernel
+            acts = actions.permute(1, 2, 0)
+        elif layout == "hdn":
+            acts = actions.reshape(-1, 4, actions.shape[-1])
+        else:
+            raise ValueError(f"unknown layout {layout!r}")
+        acts = acts.contiguous()
+        H, dA, N = acts.shape
+        if dA != 4:
+            raise ValueError(f"action_dim must be 4, got {dA}")
+        dev = x0.device
+        ops = _launch_operands(self.env, x0, t0, pos_traj, vel_traj, params,
+                               draw, deterministic, discount, H)
+        kernels.check_cuda("actions", acts, (H, 4, N), device=dev)
+        costs = torch.empty(N, device=dev)
+        ROLLOUT_KERNEL.launch(
+            *(t.data_ptr() for t in ops), acts.data_ptr(), costs.data_ptr(),
+            N, H, self._check_rollover, self.block,
+        )
+        return costs
+
+
+def make_rollout_costs(env: QuadEnv, block: int = 128):
+    """The K4 wrapper (JAX: make_pallas_rollout)."""
+    return RolloutCosts(env, block)
+
+
+class SampleRollout(_RolloutKernelWrapper):
+    """K5: per sample and step, a_h = clip(mean_h + L_h z_h) and the H-step
+    rollout cost.
+
+    ``__call__(x0, t0, pos_traj, vel_traj, a_mean (H, 4), chol (H, 4, 4),
+    params, seed, N, deterministic=False, discount=1.0, draw=None, z=None,
+    disturb_seed=None, draw_out=None) -> (costs (N,), a_t (4H, N))``.
+    ``chol`` holds each step's lower Cholesky factor, row-major. ``z``
+    (H, 4, N) feeds given normals (the "input_z" mode); without it the
+    kernel draws Philox normals keyed by ``seed`` (an int) and the plain
+    version draws from a generator seeded with it. ``draw`` (3,) are the
+    standard normals of a stochastic gaussian rollout's shared
+    disturbance; without them such a rollout draws them from
+    ``disturb_seed`` ("krng": in-kernel Philox; the plain version a
+    seeded generator), and ``draw_out`` (3,), when given, receives them.
+    """
+
+    def plain(self, x0, t0, pos_traj, vel_traj, a_mean, chol, params,
+              seed: int, N: int, deterministic: bool = False, discount=1.0,
+              draw: Optional[torch.Tensor] = None,
+              z: Optional[torch.Tensor] = None,
+              disturb_seed: Optional[int] = None,
+              draw_out: Optional[torch.Tensor] = None):
+        dev = x0.device
+        H = a_mean.shape[0]
+        if z is None:
+            g = torch.Generator(device=dev).manual_seed(seed)
+            z = torch.randn(H, 4, N, generator=g, device=dev)
+        if _kernel_draws(self.env, draw, deterministic):
+            g = torch.Generator(device=dev).manual_seed(disturb_seed)
+            draw = torch.randn(3, generator=g, device=dev)
+            if draw_out is not None:
+                draw_out.copy_(draw)
+        a_t = torch.clamp(a_mean[..., None] + torch.einsum("hij,hjn->hin", chol, z),
+                          -1.0, 1.0).reshape(4 * H, N)
+        costs = self._rollout(x0, t0, pos_traj, vel_traj, a_t, params, draw,
+                              deterministic, discount, layout="hdn")
+        return costs, a_t
+
+    def __call__(self, x0, t0, pos_traj, vel_traj, a_mean, chol, params,
+                 seed: int, N: int, deterministic: bool = False, discount=1.0,
+                 draw: Optional[torch.Tensor] = None,
+                 z: Optional[torch.Tensor] = None,
+                 disturb_seed: Optional[int] = None,
+                 draw_out: Optional[torch.Tensor] = None):
+        krng = _kernel_draws(self.env, draw, deterministic)
+        if krng and disturb_seed is None:
+            raise ValueError("a stochastic gaussian rollout needs its draw "
+                             "or a disturb_seed")
+        if kernels.route(x0, a_mean, chol) == "plain":
+            return self.plain(x0, t0, pos_traj, vel_traj, a_mean, chol, params,
+                              seed, N, deterministic, discount, draw, z,
+                              disturb_seed, draw_out)
+        H, dA = a_mean.shape
+        if dA != 4:
+            raise ValueError(f"action_dim must be 4, got {dA}")
+        dev = x0.device
+        ops = _launch_operands(self.env, x0, t0, pos_traj, vel_traj, params,
+                               draw, deterministic, discount, H, kernel_draw=krng)
+        mean = a_mean.reshape(4 * H).contiguous()
+        kernels.check_cuda("mean", mean, (4 * H,), device=dev)
+        kernels.check_cuda("chol", chol, (H, 4, 4), device=dev)
+        if z is not None:
+            kernels.check_cuda("z", z, (H, 4, N), device=dev)
+        if draw_out is not None:
+            kernels.check_cuda("draw_out", draw_out, (3,), device=dev)
+        costs = torch.empty(N, device=dev)
+        a_t = torch.empty(4 * H, N, device=dev)
+        SAMPLE_KERNEL.launch(
+            *(t.data_ptr() for t in ops), mean.data_ptr(), chol.data_ptr(),
+            None if z is None else z.data_ptr(), seed % (1 << 64),
+            (disturb_seed or 0) % (1 << 64), int(krng),
+            None if draw_out is None else draw_out.data_ptr(),
+            costs.data_ptr(), a_t.data_ptr(), N, H, self._check_rollover,
+            self.block,
+        )
+        return costs, a_t
+
+
+def make_rollout_sampling(env: QuadEnv, block: int = 128):
+    """The K5 wrapper (JAX: make_pallas_rollout_sampling)."""
+    return SampleRollout(env, block)
 
 
 class Primal:

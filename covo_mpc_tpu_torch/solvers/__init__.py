@@ -1,8 +1,9 @@
-"""Sampling-based MPC solvers (CoVO online)."""
+"""Sampling-based MPC solvers (MPPI, CoVO online)."""
 
 from covo_mpc_tpu_torch.solvers.base import BaseSolver
 from covo_mpc_tpu_torch.solvers.covo import CoVOParams, CoVOSolver, covo_params_from_numpy
 from covo_mpc_tpu_torch.solvers.factory import get_solver, hover_sequence, parse_sample_params
+from covo_mpc_tpu_torch.solvers.mppi import MPPIParams, MPPISolver, mppi_params_from_numpy
 
 __all__ = [
     "BaseSolver",
@@ -11,5 +12,8 @@ __all__ = [
     "covo_params_from_numpy",
     "get_solver",
     "hover_sequence",
+    "MPPIParams",
+    "MPPISolver",
+    "mppi_params_from_numpy",
     "parse_sample_params",
 ]

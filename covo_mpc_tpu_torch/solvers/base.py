@@ -7,6 +7,25 @@ control_params, env_info)`` — the JAX call signature without the
 
 from __future__ import annotations
 
+from covo_mpc_tpu_torch.ops import sampling
+from covo_mpc_tpu_torch.ops.rollout import make_rollout
+from covo_mpc_tpu_torch.ops.rollout_cuda import make_rollout_costs
+
+
+def make_cost_rollout(env, engine: str, rng_mode: str):
+    """The costs-only rollout a solver's fast sampler feeds: K4 on
+    ``engine="cuda"`` (which runs rng modes "fast" and "kernel"), the plain
+    rollout on ``engine="torch"`` (rng mode "fast" only)."""
+    if engine == "cuda":
+        if rng_mode not in (sampling.FAST, sampling.KERNEL):
+            raise NotImplementedError(f"rng_mode {rng_mode!r} is not ported yet")
+        return make_rollout_costs(env)
+    if engine == "torch":
+        if rng_mode != sampling.FAST:
+            raise ValueError("rng_mode='kernel' requires engine='cuda'")
+        return make_rollout(env)
+    raise ValueError(f"unknown engine {engine!r}")
+
 
 class BaseSolver:
     def __init__(self, env, control_params) -> None:

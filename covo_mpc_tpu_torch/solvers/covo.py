@@ -9,14 +9,16 @@ Counterpart of :class:`covo_mpc_tpu.solvers.covo.CoVOSolver` with
    K2, local derivatives, chain K3 + pullback;
 3. the Newton–Schulz Sigma-designer (matmuls + one Cholesky);
 4. the joint sample + rollout: K1 (``rng_mode="kernel"``), or z from the
-   solver's device generator and the plain rollout (``rng_mode="fast"``);
+   solver's device generator, then K4 (``engine="cuda"``,
+   ``rng_mode="fast"``) or the plain rollout (``engine="torch"``);
 5. softmax weights and the mean update.
 
 A solve never syncs with the host: the per-solve Philox seed comes from a
-CPU generator the solver owns. ``engine="cuda"`` runs K1, K2 and K3 (their
-wrappers take the plain versions for CPU tensors); ``engine="torch"`` is the
-plain path. Offline and speculative modes, the other Hessian estimators and
-the eigh-free ``ns_pallas`` designer are not ported yet.
+CPU generator the solver owns. ``engine="cuda"`` runs K1 or K4, K2 and K3
+(their wrappers take the plain versions for CPU tensors);
+``engine="torch"`` is the plain path. Offline and speculative modes, the
+other Hessian estimators and the eigh-free ``ns_pallas`` designer are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -30,9 +32,8 @@ import torch
 from covo_mpc_tpu_torch.models.structs import pack_state
 from covo_mpc_tpu_torch.ops import covariance, reductions, sampling
 from covo_mpc_tpu_torch.ops.hessian import make_hessian_adjoint
-from covo_mpc_tpu_torch.ops.rollout import make_rollout
 from covo_mpc_tpu_torch.ops.rollout_cuda import make_rollout_joint_sampling
-from covo_mpc_tpu_torch.solvers.base import BaseSolver
+from covo_mpc_tpu_torch.solvers.base import BaseSolver, make_cost_rollout
 
 
 @dataclasses.dataclass
@@ -96,17 +97,7 @@ class CoVOSolver(BaseSolver):
             self._optimize_sigma = covariance.optimize_sigma
         else:
             raise NotImplementedError(f"sigma_mode {sigma_mode!r} is not ported yet")
-        if engine == "cuda":
-            if rng_mode != sampling.KERNEL:
-                raise NotImplementedError(
-                    "engine='cuda' runs rng_mode='kernel' (the rollout kernel "
-                    "for given actions is not ported yet)"
-                )
-        elif engine == "torch":
-            if rng_mode != sampling.FAST:
-                raise ValueError("rng_mode='kernel' requires engine='cuda'")
-        else:
-            raise ValueError(f"unknown engine {engine!r}")
+        self.rollout = make_cost_rollout(env, engine, rng_mode)
 
         self.N, self.H, self.lam = N, H, lam
         self.mode = mode
@@ -119,7 +110,6 @@ class CoVOSolver(BaseSolver):
             env, H, primal=part, tail=part,
             second_order=hessian_mode == "adjoint",
         )
-        self.rollout = make_rollout(env)
         self.rollout_sampling = (make_rollout_joint_sampling(env)
                                  if rng_mode == sampling.KERNEL else None)
         # CPU generator for the kernel's Philox seeds (no device read per

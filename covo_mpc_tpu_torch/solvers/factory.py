@@ -1,5 +1,5 @@
 """Solver factory + hyperparameter parsing (the packed "N{N}_H{H}_lam{lam}"
-string of the JAX factory). Only "covo_online" is ported."""
+string of the JAX factory). "mppi" and "covo_online" are ported."""
 
 from __future__ import annotations
 
@@ -7,6 +7,7 @@ import torch
 
 from covo_mpc_tpu_torch.ops import sampling
 from covo_mpc_tpu_torch.solvers.covo import CoVOParams, CoVOSolver
+from covo_mpc_tpu_torch.solvers.mppi import MPPIParams, MPPISolver
 
 DEFAULT_N = 8192
 DEFAULT_H = 32
@@ -43,14 +44,33 @@ def get_solver(
     sigma_mode: str = "ns",
     seed: int = 0,
 ):
-    """Build (solver, control_params) by name. Any name containing "covo"
-    without "offline", "spec" or "latency" is CoVO online; the other
-    solvers and modes are not ported yet."""
-    if "covo" not in name or any(k in name for k in ("offline", "spec", "latency")):
+    """Build (solver, control_params) by name: "mppi", or any name
+    containing "covo" without "offline", "spec" or "latency" (CoVO online).
+    "pid", "random" and the other CoVO modes are not ported yet.
+    ``hessian_mode`` and ``sigma_mode`` are CoVO's."""
+    if name != "mppi" and ("covo" not in name or any(
+            k in name for k in ("offline", "spec", "latency"))):
         raise NotImplementedError(f"controller {name!r} is not ported yet")
     N, H, lam, sigma = parse_sample_params(controller_params)
     if debug:
         N, H = 4, 2  # fast-feedback smoke config
+    if name == "mppi":
+        a_cov = (torch.eye(env.action_dim, device=env.device) * sigma**2).expand(
+            H, env.action_dim, env.action_dim).contiguous()
+        params = MPPIParams(
+            gamma_mean=1.0,
+            gamma_sigma=0.0,
+            discount=1.0,
+            sample_sigma=sigma,
+            a_mean=hover_sequence(env, H),
+            a_cov=a_cov,
+            # carried factor: the sampler reads it every solve, and the
+            # gamma_sigma == 0 update leaves it as it is
+            a_cov_chol=torch.linalg.cholesky(a_cov).contiguous(),
+        )
+        solver = MPPISolver(env, params, N=N, H=H, lam=lam, rng_mode=rng_mode,
+                            collect_debug=collect_debug, engine=engine, seed=seed)
+        return solver, params
     D = H * env.action_dim
     params = CoVOParams(
         gamma_mean=1.0,

@@ -1,0 +1,145 @@
+"""MPPI: Model Predictive Path Integral control.
+
+Counterpart of :class:`covo_mpc_tpu.solvers.mppi.MPPISolver` (its
+sample-last fast path). One solve, in order:
+
+1. act on ``info["noisy_state"]``;
+2. shift the mean AND the covariance, and the carried Cholesky factor
+   (CoVO shifts the mean only);
+3. sample and roll out, stochastically (the one shared gaussian draw):
+   K5 (``rng_mode="kernel"``: per-step draw, rollout and costs in one
+   launch), or z and the draw from the solver's device generator, then K4
+   (``engine="cuda"``, ``rng_mode="fast"``) or the plain rollout
+   (``engine="torch"``);
+4. softmax weights, the mean update, and the covariance update (which
+   leaves covariance and factor untouched at ``gamma_sigma == 0``).
+
+A solve never syncs with the host: the per-solve Philox seeds come from a
+CPU generator the solver owns.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Mapping, Optional
+
+import numpy as np
+import torch
+
+from covo_mpc_tpu_torch.models.structs import pack_state
+from covo_mpc_tpu_torch.ops import reductions, sampling
+from covo_mpc_tpu_torch.ops.rollout_cuda import make_rollout_sampling
+from covo_mpc_tpu_torch.solvers.base import BaseSolver, make_cost_rollout
+
+
+@dataclasses.dataclass
+class MPPIParams:
+    gamma_mean: float
+    gamma_sigma: float
+    discount: float
+    sample_sigma: float
+    a_mean: torch.Tensor  # (H, dA)
+    a_cov: torch.Tensor  # (H, dA, dA) per-step covariance
+    a_cov_chol: torch.Tensor  # (H, dA, dA) its carried Cholesky factor
+
+    def replace(self, **changes) -> "MPPIParams":
+        return dataclasses.replace(self, **changes)
+
+
+def mppi_params_from_numpy(leaves: Mapping[str, Any], device="cpu") -> MPPIParams:
+    """Build :class:`MPPIParams` from the JAX struct's leaves as numpy
+    arrays: scalars as Python floats, arrays as float32 tensors on
+    ``device`` (the factor made row-major)."""
+    kw = {}
+    for f in dataclasses.fields(MPPIParams):
+        v = np.asarray(leaves[f.name])
+        kw[f.name] = (float(v) if v.ndim == 0 else
+                      torch.from_numpy(np.array(v, np.float32, order="C")).to(device))
+    return MPPIParams(**kw)
+
+
+def _shift(x: torch.Tensor) -> torch.Tensor:
+    """Receding-horizon shift along the step axis, repeating the last."""
+    return torch.cat([x[1:], x[-1:]])
+
+
+class MPPISolver(BaseSolver):
+    def __init__(
+        self,
+        env,
+        control_params: MPPIParams,
+        N: int,
+        H: int,
+        lam: float,
+        rng_mode: str = sampling.FAST,
+        collect_debug: bool = False,
+        engine: str = "torch",
+        seed: int = 0,
+    ) -> None:
+        super().__init__(env, control_params)
+        if collect_debug:
+            raise NotImplementedError("debug pose collection is not ported yet")
+        self.rollout = make_cost_rollout(env, engine, rng_mode)
+        self.N, self.H, self.lam = N, H, lam
+        self.rng_mode = rng_mode
+        self.action_dim = env.action_dim
+        self.rollout_sampling = (make_rollout_sampling(env)
+                                 if rng_mode == sampling.KERNEL else None)
+        self._gaussian = env.config.disturb_type == "gaussian"
+        # CPU generator for the kernel's Philox seeds (no device read per
+        # solve), device generator for the fast sampler's normals and draw
+        self.generator = torch.Generator()
+        self.device_generator = torch.Generator(device=env.device)
+        self.seed(seed)
+
+    def seed(self, seed: int) -> None:
+        self.generator.manual_seed(seed)
+        self.device_generator.manual_seed(seed)
+
+    def __call__(self, obs, env_state, env_params, control_params: MPPIParams,
+                 info: Optional[dict] = None, z: Optional[torch.Tensor] = None,
+                 draw: Optional[torch.Tensor] = None):
+        """One solve. ``z`` (N, H, dA) and ``draw`` (3,) feed given standard
+        normals to the sampler and to the shared disturbance (tests hand in
+        the ones JAX drew; K5 then runs its input-z mode); by default they
+        come from the solver's generators."""
+        if info is not None and info.get("noisy_state") is not None:
+            env_state = info["noisy_state"]
+
+        a_mean = _shift(control_params.a_mean)
+        a_cov = _shift(control_params.a_cov)
+        a_chol = _shift(control_params.a_cov_chol)
+
+        x0 = pack_state(env_state)
+        args = (x0, env_state.time, env_state.pos_traj, env_state.vel_traj)
+        if self.rollout_sampling is not None:
+            seed, disturb_seed = torch.randint(0, 2**63 - 1, (2,),
+                                               generator=self.generator).tolist()
+            costs, a_flat = self.rollout_sampling(
+                *args, a_mean, a_chol, env_params, seed, self.N,
+                deterministic=False, discount=control_params.discount,
+                draw=draw, z=None if z is None else z.permute(1, 2, 0).contiguous(),
+                disturb_seed=disturb_seed,
+            )
+            a_t = a_flat.reshape(self.H, self.action_dim, self.N)
+        else:
+            a_t = torch.clamp(
+                sampling.sample_per_step_t(self.device_generator, a_mean, a_chol,
+                                           self.N, z=z),
+                -1.0, 1.0,
+            )
+            if draw is None and self._gaussian:
+                draw = torch.randn(3, generator=self.device_generator,
+                                   device=x0.device)
+            costs = self.rollout(*args, a_t, env_params, draw, deterministic=False,
+                                 discount=control_params.discount, layout="hdn")
+
+        weight = reductions.mppi_weights(costs, self.lam)
+        new_mean = reductions.mean_update_t(weight, a_t, a_mean,
+                                            control_params.gamma_mean)
+        a_cov, a_chol = reductions.cov_factor_update_t(
+            weight, a_t, new_mean, a_cov, a_chol, control_params.gamma_sigma,
+        )
+        control_params = control_params.replace(a_mean=new_mean, a_cov=a_cov,
+                                                a_cov_chol=a_chol)
+        return new_mean[0], control_params, {}

@@ -5,9 +5,10 @@ A CUDA kernel has no CPU mode, so every test here needs an NVIDIA GPU and
 ``python -m pytest tests/test_torch_cuda.py -q``. ``chip_smoke.py`` checks
 the kernels at the main path's shapes; these tests take the shapes it does
 not: a ragged sample count (N not a multiple of the block), a short
-horizon, the 16-dim sensitivity state of K3, and the exact-adjoint
-Hessian through K2 and K3. Tolerances are the ones ``chip_smoke.py``
-states (the JAX kernel tests' own).
+horizon, both action layouts of K4, K5's in-kernel disturbance draw and
+the moments of its Philox draws, the 16-dim sensitivity state of K3, and
+the exact-adjoint Hessian through K2 and K3. Tolerances are the ones
+``chip_smoke.py`` states (the JAX kernel tests' own).
 """
 
 import pytest
@@ -60,6 +61,110 @@ def test_joint_sample_rollout_matches_plain(dev):
     c_k, _ = k1(*args, discount=0.98, draw=draw, z=z)
     c_p, _ = k1.plain(*args, discount=0.98, draw=draw, z=z)
     torch.testing.assert_close(c_k, c_p, atol=2e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("layout", ["nhd", "hdn"])
+def test_rollout_costs_matches_plain(dev, layout):
+    env, p, st = _env_state(dev)
+    g = torch.Generator(dev).manual_seed(5)
+    shape = (N, H, 4) if layout == "nhd" else (H, 4, N)
+    actions = torch.randn(*shape, generator=g, device=dev) * 0.5
+    draw = torch.randn(3, generator=g, device=dev)
+    args = (pack_state(st), st.time, st.pos_traj, st.vel_traj, actions, p)
+    k4 = rollout_cuda.make_rollout_costs(env, block=128)
+    for kw in (dict(deterministic=True), dict(draw=draw)):
+        c_k = k4(*args, discount=0.98, layout=layout, **kw)
+        c_p = k4.plain(*args, discount=0.98, layout=layout, **kw)
+        torch.testing.assert_close(c_k, c_p, atol=2e-4, rtol=1e-5)
+        c_64 = rollout_cuda.make_rollout_costs(env, block=64)(
+            *args, discount=0.98, layout=layout, **kw)
+        assert torch.equal(c_64, c_k)
+
+
+def _per_step_inputs(dev, seed=6):
+    g = torch.Generator(dev).manual_seed(seed)
+    a_mean = torch.randn(H, 4, generator=g, device=dev) * 0.2
+    A = torch.randn(H, 4, 4, generator=g, device=dev) * 0.2
+    cov = A @ A.transpose(1, 2) + 0.05 * torch.eye(4, device=dev)
+    return g, a_mean, torch.linalg.cholesky(cov).contiguous()
+
+
+def test_sample_rollout_matches_plain(dev):
+    env, p, st = _env_state(dev)
+    g, a_mean, chol = _per_step_inputs(dev)
+    z = torch.randn(H, 4, N, generator=g, device=dev)
+    draw = torch.randn(3, generator=g, device=dev)
+    args = (pack_state(st), st.time, st.pos_traj, st.vel_traj, a_mean, chol, p,
+            0, N)
+    k5 = rollout_cuda.make_rollout_sampling(env, block=128)
+    for kw in (dict(deterministic=True), dict(draw=draw)):
+        c_k, a_k = k5(*args, discount=0.98, z=z, **kw)
+        c_p, a_p = k5.plain(*args, discount=0.98, z=z, **kw)
+        torch.testing.assert_close(a_k, a_p, atol=1e-5, rtol=0)
+        torch.testing.assert_close(c_k, c_p, atol=2e-4, rtol=1e-5)
+    # in-kernel draws: the same for blocks of 64 and 128
+    c_k, a_k = k5(*args[:7], 11, N, disturb_seed=12)
+    c_64, a_64 = rollout_cuda.make_rollout_sampling(env, block=64)(
+        *args[:7], 11, N, disturb_seed=12)
+    assert torch.equal(c_64, c_k) and torch.equal(a_64, a_k)
+
+
+def test_sample_rollout_krng_draw_feeds_plain(dev):
+    """"krng": the kernel draws the shared disturbance itself; fed the
+    normals it wrote to draw_out, the plain rollout gives the same costs on
+    the kernel's own actions."""
+    env, p, st = _env_state(dev)
+    _, a_mean, chol = _per_step_inputs(dev)
+    k5 = rollout_cuda.make_rollout_sampling(env)
+    args = (pack_state(st), st.time, st.pos_traj, st.vel_traj, a_mean, chol, p,
+            21, N)
+    draw_out = torch.zeros(3, device=dev)
+    c_k, a_k = k5(*args, discount=0.98, disturb_seed=22, draw_out=draw_out)
+    ref = k5._rollout(pack_state(st), st.time, st.pos_traj, st.vel_traj, a_k, p,
+                      draw_out.clone(), discount=0.98, layout="hdn")
+    torch.testing.assert_close(c_k, ref, atol=2e-4, rtol=1e-5)
+    assert float(draw_out.abs().sum()) > 0.0
+    # the draw is shared: another disturb seed moves every cost
+    c_k2, a_k2 = k5(*args, discount=0.98, disturb_seed=23)
+    assert torch.equal(a_k2, a_k) and not torch.equal(c_k2, c_k)
+
+
+def test_sample_rollout_philox_moments(dev):
+    """K5's per-step draws at the main path's size (N=8192, H=32): mean 0,
+    L = 0.1 I, so each action dimension is N(0, 0.01)."""
+    env, p, st = _env_state(dev)
+    Nm, Hm = 8192, 32
+    k5 = rollout_cuda.make_rollout_sampling(env)
+    zero = torch.zeros(Hm, 4, device=dev)
+    eye = (0.1 * torch.eye(4, device=dev)).expand(Hm, 4, 4).contiguous()
+    args = (pack_state(st), st.time, st.pos_traj, st.vel_traj, zero, eye, p)
+    _, a1 = k5(*args, 1234, Nm, deterministic=True)
+    _, a1b = k5(*args, 1234, Nm, deterministic=True)
+    _, a2 = k5(*args, 1235, Nm, deterministic=True)
+    mean_d = a1.mean(dim=1)
+    var_d = a1.var(dim=1, correction=0)
+    pooled = float(a1.pow(2).mean() - a1.mean().pow(2))
+    assert float(mean_d.abs().max()) <= 5e-3
+    assert float((var_d / 0.01 - 1).abs().max()) <= 0.10
+    assert abs(pooled / 0.01 - 1) <= 0.01
+    assert torch.equal(a1, a1b) and not torch.equal(a1, a2)
+
+
+def test_sample_rollout_krng_draw_moments(dev):
+    """The in-kernel shared disturbance draw over 2000 disturb seeds: 6000
+    standard normals (limits about 4.5 standard errors)."""
+    env, p, st = _env_state(dev)
+    _, a_mean, chol = _per_step_inputs(dev)
+    k5 = rollout_cuda.make_rollout_sampling(env)
+    args = (pack_state(st), st.time, st.pos_traj, st.vel_traj, a_mean, chol, p,
+            0, 32)
+    draws = torch.zeros(2000, 3, device=dev)
+    for i in range(2000):
+        k5(*args, disturb_seed=i, draw_out=draws[i])
+    assert float(draws.mean().abs()) <= 0.06
+    assert float((draws.var(correction=0) - 1).abs()) <= 0.08
+    assert float(draws.mean(dim=0).abs().max()) <= 0.1
+    assert len({tuple(d) for d in draws.tolist()}) == 2000
 
 
 def test_primal_matches_plain(dev):

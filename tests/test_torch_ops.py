@@ -22,12 +22,17 @@ from covo_mpc_tpu.ops.hessian import make_hessian_adjoint as j_hessian_adjoint
 from covo_mpc_tpu.ops.hessian_pallas import make_tail_pullback as j_tail_pullback
 from covo_mpc_tpu.ops.rollout import make_rollout as j_make_rollout
 from covo_mpc_tpu.ops.rollout_pallas import SUB
+from covo_mpc_tpu.ops import sampling as jsamp
 from covo_mpc_tpu.ops.rollout_pallas import make_pallas_primal as j_primal
+from covo_mpc_tpu.ops.rollout_pallas import make_pallas_rollout as j_pallas_rollout
 from covo_mpc_tpu.ops.rollout_pallas import (
     make_pallas_rollout_joint_sampling as j_joint_sampling,
 )
+from covo_mpc_tpu.ops.rollout_pallas import (
+    make_pallas_rollout_sampling as j_rollout_sampling,
+)
 from covo_mpc_tpu_torch.models import pack_state
-from covo_mpc_tpu_torch.ops import covariance, hessian_cuda, reductions, rollout_cuda
+from covo_mpc_tpu_torch.ops import covariance, hessian_cuda, reductions, rollout_cuda, sampling
 from covo_mpc_tpu_torch.ops.hessian import make_hessian_adjoint
 from covo_mpc_tpu_torch.ops.rollout import make_rollout
 from tests.test_torch_models import make_envs, t, to_torch_params, to_torch_state
@@ -141,6 +146,108 @@ def test_pack_kernel_inputs_layout():
     np.testing.assert_array_equal(ints.numpy(), np.asarray(jints))
 
 
+# --- K4: rollout costs of given actions ---------------------------------------
+
+
+@pytest.mark.parametrize("deterministic", [True, False])
+@pytest.mark.parametrize("layout", ["nhd", "hdn"])
+def test_rollout_costs_plain_matches_pallas(layout, deterministic):
+    """K4's plain route == the Pallas kernel in interpret mode, fed the same
+    actions and the normals of JAX's shared draw (fast keys: the draw hashes
+    the step key itself)."""
+    jenv, env, jp, noisy, p, st = _reset()
+    rng = np.random.default_rng(8)
+    actions = (rng.normal(size=(N, H, 4)) * 0.5).astype(np.float32)
+    if layout == "hdn":
+        actions = np.ascontiguousarray(actions.transpose(1, 2, 0))
+    step_key = jax.random.PRNGKey(3)
+    ref, _ = j_pallas_rollout(jenv, interpret=True, fast_keys=True)(
+        jpack(noisy), noisy.time, noisy.pos_traj, noisy.vel_traj, actions, jp,
+        step_key, deterministic=deterministic, discount=0.98, layout=layout,
+    )
+    draw = t(jax.random.normal(jdyn.derive_dynamics_keys(step_key, fast=True), (3,)))
+    launches = rollout_cuda.ROLLOUT_KERNEL.launches
+    got = rollout_cuda.make_rollout_costs(env)(
+        pack_state(st), st.time, st.pos_traj, st.vel_traj, t(actions), p, draw,
+        deterministic=deterministic, discount=0.98, layout=layout,
+    )
+    assert rollout_cuda.ROLLOUT_KERNEL.launches == launches  # CPU: plain version
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=2e-4, rtol=1e-5)
+
+
+# --- K5: per-step sample + rollout ------------------------------------------------
+
+
+def _per_step_inputs(seed=9):
+    """A mean and per-step lower Cholesky factors of SPD covariances."""
+    rng = np.random.default_rng(seed)
+    a_mean = (rng.normal(size=(H, 4)) * 0.2).astype(np.float32)
+    A = rng.normal(size=(H, 4, 4)) * 0.2
+    cov = A @ A.transpose(0, 2, 1) + 0.05 * np.eye(4)
+    return a_mean, np.linalg.cholesky(cov).astype(np.float32), cov.astype(np.float32)
+
+
+@pytest.mark.parametrize("deterministic", [True, False])
+def test_sample_rollout_plain_matches_pallas(deterministic):
+    """K5's plain route == the Pallas kernel in interpret mode, fed the
+    normals its interpret path draws from act_key and the shared draw from
+    step_key."""
+    jenv, env, jp, noisy, p, st = _reset()
+    a_mean, chol, _ = _per_step_inputs()
+    step_key, act_key = jax.random.PRNGKey(3), jax.random.PRNGKey(4)
+    costs_r, a_r = j_rollout_sampling(jenv, interpret=True, fast_keys=True)(
+        jpack(noisy), noisy.time, noisy.pos_traj, noisy.vel_traj, a_mean, chol,
+        jp, step_key, act_key, N, deterministic=deterministic, discount=0.98,
+    )
+    z = jax.random.normal(act_key, (H, 4, SUB, N // SUB)).reshape(H, 4, N)
+    draw = t(jax.random.normal(jdyn.derive_dynamics_keys(step_key, fast=True), (3,)))
+    launches = rollout_cuda.SAMPLE_KERNEL.launches
+    costs, a_t = rollout_cuda.make_rollout_sampling(env)(
+        pack_state(st), st.time, st.pos_traj, st.vel_traj, t(a_mean), t(chol),
+        p, seed=0, N=N, deterministic=deterministic, discount=0.98, draw=draw,
+        z=t(z),
+    )
+    assert rollout_cuda.SAMPLE_KERNEL.launches == launches  # CPU: plain version
+    np.testing.assert_allclose(a_t.numpy(), np.asarray(a_r), atol=1e-5)
+    np.testing.assert_allclose(costs.numpy(), np.asarray(costs_r),
+                               atol=2e-4, rtol=1e-5)
+
+
+def test_sample_rollout_plain_draws_from_seeds():
+    """The plain route's own draws: the actions from ``seed``, the shared
+    disturbance (when no draw is given) from ``disturb_seed``, written to
+    ``draw_out``; feeding that draw back gives the same costs."""
+    _, env, _, _, p, st = _reset()
+    a_mean, chol, _ = _per_step_inputs()
+    k5 = rollout_cuda.make_rollout_sampling(env)
+    args = (pack_state(st), st.time, st.pos_traj, st.vel_traj, t(a_mean),
+            t(chol), p)
+    draw_out = torch.zeros(3)
+    c1, a1 = k5(*args, seed=5, N=256, disturb_seed=8, draw_out=draw_out)
+    c2, a2 = k5(*args, seed=5, N=256, draw=draw_out.clone())
+    c3, a3 = k5(*args, seed=6, N=256, disturb_seed=8)
+    assert torch.equal(c1, c2) and torch.equal(a1, a2)
+    assert not torch.equal(a1, a3)
+    assert float(draw_out.abs().sum()) > 0.0
+    assert float(a1.abs().max()) <= 1.0
+    with pytest.raises(ValueError):
+        k5(*args, seed=5, N=256)  # stochastic gaussian: a draw or a seed
+
+
+@pytest.mark.parametrize("env_kw,deterministic,expect", [
+    (dict(), False, [0.05, 0.0, 0.0]),  # "krng": the scale, the kernel draws
+    (dict(), True, [0.0, 0.0, 0.0]),
+    (dict(disturb_type="none"), False, [0.0, 0.0, 0.0]),
+])
+def test_build_kernel_disturb_modes(env_kw, deterministic, expect):
+    _, env, _, _, p, _ = _reset(**env_kw)
+    krng = rollout_cuda._kernel_draws(env, None, deterministic)
+    assert krng == (expect[0] > 0)
+    got = rollout_cuda.build_kernel_disturb(env, p, None, deterministic, "cpu",
+                                            kernel_draw=krng)
+    np.testing.assert_allclose(got.numpy(), expect, rtol=1e-7)
+
+
 # --- K2: primal ---------------------------------------------------------------
 
 
@@ -239,3 +346,35 @@ def test_weights_and_mean_update_match():
     ref = jred.mean_update_t(w_ref, a_t, a_mean, 0.7)
     got = reductions.mean_update_t(w, t(a_t), t(a_mean), 0.7)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5)
+
+
+def test_sample_per_step_t_matches_jax():
+    a_mean, chol, cov = _per_step_inputs()
+    z = jax.random.normal(jax.random.PRNGKey(2), (N, H, 4))
+    ref = jsamp.sample_per_step_t(jax.random.PRNGKey(2), a_mean, cov, N, mode="fast")
+    got = sampling.sample_per_step_t(None, t(a_mean), t(chol), N, z=t(z))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5)
+    drawn = sampling.sample_per_step_t(torch.Generator().manual_seed(0),
+                                       t(a_mean), t(chol), N)
+    assert drawn.shape == (H, 4, N)
+
+
+@pytest.mark.parametrize("gamma_sigma", [0.0, 0.5])
+def test_cov_updates_match_jax(gamma_sigma):
+    rng = np.random.default_rng(6)
+    costs = rng.normal(size=N).astype(np.float32) * 0.05
+    a_t = rng.normal(size=(H, 4, N)).astype(np.float32) * 0.5
+    a_mean, chol, cov = _per_step_inputs()
+    w = jred.mppi_weights(costs, 0.01)
+    new_mean = jred.mean_update_t(w, a_t, a_mean, 1.0)
+    ref = jred.cov_update_t(w, a_t, new_mean, cov, gamma_sigma)
+    ref_c, ref_l = jred.cov_factor_update_t(w, a_t, new_mean, cov, chol, gamma_sigma)
+    tw, tm, tcov, tchol = t(w), t(new_mean), t(cov), t(chol)
+    got = reductions.cov_update_t(tw, t(a_t), tm, tcov, gamma_sigma)
+    got_c, got_l = reductions.cov_factor_update_t(tw, t(a_t), tm, tcov, tchol,
+                                                  gamma_sigma)
+    for g, r in ((got, ref), (got_c, ref_c), (got_l, ref_l)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=1e-5)
+    assert got_l.is_contiguous()
+    if gamma_sigma == 0.0:  # the carried tensors, untouched
+        assert got is tcov and got_c is tcov and got_l is tchol

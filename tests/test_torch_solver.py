@@ -1,10 +1,13 @@
-"""The port's CoVO-online solve and its closed loop, against the JAX solver.
+"""The port's CoVO-online and MPPI solves and their closed loop, against
+the JAX solvers.
 
-One whole solve is held against ``CoVOSolver(engine="jnp",
-rng_mode="fast", hessian_mode="gn", sigma_mode="ns")`` on the same state,
-params and normals: the port is handed the z that JAX draws from its key
-chain (solvers/covo.py:453, ops/sampling.py:40). Per-solve contract
-(BASELINE.md): action, a_mean and a_cov within 2e-4.
+Whole solves are held against ``CoVOSolver(engine="jnp", rng_mode="fast",
+hessian_mode="gn", sigma_mode="ns")`` and ``MPPISolver(engine="jnp",
+rng_mode="fast")`` on the same state, params and normals: the port is
+handed the z (and, for MPPI's stochastic rollouts, the disturbance draw)
+that JAX draws from its key chain (solvers/covo.py:453,
+solvers/mppi.py:137-138, ops/sampling.py:40). Per-solve contract
+(BASELINE.md): action, a_mean and the covariance within 2e-4.
 """
 
 import subprocess
@@ -18,7 +21,7 @@ import torch
 
 from covo_mpc_tpu.solvers import get_solver as j_get_solver
 from covo_mpc_tpu_torch.runtime import evaluate, make_episode_runner
-from covo_mpc_tpu_torch.solvers import covo_params_from_numpy, get_solver
+from covo_mpc_tpu_torch.solvers import covo_params_from_numpy, get_solver, mppi_params_from_numpy
 from tests.test_torch_models import leaves, make_envs, to_torch_params, to_torch_state
 
 REPO = Path(__file__).resolve().parents[1]
@@ -28,6 +31,7 @@ PSTR = f"N{N}_H{H}_lam0.01"
 
 @pytest.mark.parametrize("engine,rng_mode,hessian_mode", [
     ("torch", "fast", "gn"), ("cuda", "kernel", "gn"), ("torch", "fast", "adjoint"),
+    ("cuda", "fast", "gn"),
 ])
 def test_solve_matches_jax(engine, rng_mode, hessian_mode):
     jenv, env = make_envs()
@@ -64,12 +68,48 @@ def test_solve_matches_jax(engine, rng_mode, hessian_mode):
         cp = covo_params_from_numpy(leaves(jcp_ref))
 
 
+@pytest.mark.parametrize("engine,rng_mode", [
+    ("torch", "fast"), ("cuda", "fast"), ("cuda", "kernel"),
+])
+def test_mppi_solve_matches_jax(engine, rng_mode):
+    """Two chained MPPI solves, each fed the normals JAX's fast sampler drew
+    (act_key = split(rng)[1]) and its shared disturbance draw (step_key =
+    split(split(rng)[0])[1], hashed as it is under fast keys)."""
+    jenv, env = make_envs()
+    jsolver, jcp = j_get_solver(jenv, "mppi", PSTR, rng_mode="fast",
+                                engine="jnp", collect_debug=False)
+    jp = jenv.default_params
+    obs, info, state = jenv.reset_env(jax.random.PRNGKey(0), jp)
+    solver, _ = get_solver(env, "mppi", PSTR, rng_mode=rng_mode, engine=engine)
+    p = to_torch_params(jp)
+    st = to_torch_state(state)
+    tinfo = {"noisy_state": to_torch_state(info["noisy_state"])}
+    cp = mppi_params_from_numpy(leaves(jcp))
+    for key in (jax.random.PRNGKey(5), jax.random.PRNGKey(6)):
+        a_r, jcp, _ = jsolver(obs, state, jp, key, jcp, info)
+        rest, act_key = jax.random.split(key)
+        z = jax.random.normal(act_key, (N, H, 4))
+        draw = jax.random.normal(jax.random.split(rest)[1], (3,))
+        a, cp, _ = solver(None, st, p, cp, tinfo, z=torch.from_numpy(np.array(z)),
+                          draw=torch.from_numpy(np.array(draw)))
+        np.testing.assert_allclose(a.numpy(), np.asarray(a_r), atol=2e-4)
+        for name in ("a_mean", "a_cov", "a_cov_chol"):
+            np.testing.assert_allclose(getattr(cp, name).numpy(),
+                                       np.asarray(getattr(jcp, name)), atol=2e-4)
+        # continue from the reference's params so errors do not compound
+        cp = mppi_params_from_numpy(leaves(jcp))
+
+
 def test_solver_modes_that_are_not_ported_raise():
     _, env = make_envs()
     with pytest.raises(ValueError):
         get_solver(env, "covo_online", PSTR, rng_mode="kernel", engine="torch")
     with pytest.raises(NotImplementedError):
-        get_solver(env, "covo_online", PSTR, rng_mode="fast", engine="cuda")
+        get_solver(env, "pid")
+    with pytest.raises(NotImplementedError):
+        get_solver(env, "random")
+    with pytest.raises(ValueError):
+        get_solver(env, "mppi", PSTR, rng_mode="kernel", engine="torch")
     with pytest.raises(NotImplementedError):
         get_solver(env, "covo_offline", PSTR)
     with pytest.raises(NotImplementedError):
@@ -94,8 +134,25 @@ def test_episode_runner_and_evaluate():
     assert result.summary().endswith("cm")
 
 
+def test_mppi_episode_runner_and_evaluate():
+    """MPPI's closed loop on the CPU at a tiny size, for each engine and
+    sampler: a short episode through the runner, then one protocol episode."""
+    _, env = make_envs()
+    for engine, rng_mode in (("torch", "fast"), ("cuda", "fast"), ("cuda", "kernel")):
+        solver, _ = get_solver(env, "mppi", "N64_H4_lam0.01", rng_mode=rng_mode,
+                               engine=engine)
+        run = make_episode_runner(env, solver, steps=20)
+        err, dones = run(torch.Generator().manual_seed(0),
+                         torch.Generator().manual_seed(1))
+        assert err.shape == (20,) and dones.shape == (20,)
+        assert bool(torch.isfinite(err).all())
+    result = evaluate(env, solver, total_steps=300, seed=1)
+    assert np.isfinite(result.mean) and result.err_pos_ep.shape == (1,)
+
+
 def test_package_never_imports_jax():
-    code = ("import sys, covo_mpc_tpu_torch, covo_mpc_tpu_torch.ops.hessian; "
+    code = ("import sys, covo_mpc_tpu_torch, covo_mpc_tpu_torch.ops.hessian, "
+            "covo_mpc_tpu_torch.solvers.mppi; "
             "assert 'jax' not in sys.modules, 'jax imported'")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)
