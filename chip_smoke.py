@@ -22,15 +22,29 @@ source, at first use), then:
    times the solves of both engines;
 4. breaks one cuda-engine CoVO solve and one MPPI solve down by layer
    (CUDA events and torch.profiler device time) and reads the device's
-   busy share.
+   busy share;
+5. the scenario-batched solves (``covo_mpc_tpu_torch.parallel``) on a
+   domain-randomized env, B=16 scenarios at N=8192, H=32: (a) K6, K7
+   per-step and K7 joint against their plain versions, at B=1 against
+   K4, K5 and K1, and the in-kernel draws of one scenario at B=4 and
+   B=16, timed with CUDA events; (b) one batched CoVO solve and one
+   batched MPPI solve per rng, ``engine="cuda"`` against
+   ``engine="torch"`` on the same normals (2e-4, no host sync); (c) the
+   batched closed loops on the main path's env, B=4 scenarios reset from
+   seed 1, 300 steps (CoVO below 5.0 cm, MPPI below 8.0 cm and above
+   CoVO's); (d) aggregate solves/s at B = 1, 16, 64 for both solvers and
+   engines, the device kernels per batched solve at B=16 and B=64, and
+   one batched CoVO and MPPI solve broken down by layer at B=16.
 
 Each kernel's launch count in the JSON record is read from the closed loop
 that runs it: K1-K3 from CoVO's, K5 from MPPI's kernel-rng loop, K4 from
-MPPI's fast loop (counts set to 0 just before each loop). Any failed
-check raises, so the script exits non-zero; without a CUDA device it exits
-at once. The line before the last is the kernels' JSON record, the last
-``{"ok": true, "device": {...}}``. ``--total-steps 12000`` runs the
-40-episode protocols in phase 3.
+MPPI's fast loop, K7 joint from the batched CoVO loop, K7 per-step from
+the batched MPPI kernel-rng loop, K6 from the batched MPPI fast loop
+(counts set to 0 just before each loop). Any failed check raises, so the
+script exits non-zero; without a CUDA device it exits at once. The line
+before the last is the kernels' JSON record, the last ``{"ok": true,
+"device": {...}}``. ``--total-steps 12000`` runs the 40-episode protocols
+in phase 3.
 """
 
 from __future__ import annotations
@@ -52,6 +66,9 @@ ENV_KW = dict(task="tracking_zigzag", enable_randomizer=False,
               generate_noisy_state=True)
 ERR_POS_LIMIT_CM = 5.0
 MPPI_ERR_POS_LIMIT_CM = 8.0
+SCEN_B = 16  # the checks' scenario count (RESULTS.md's "64 chips at B=16")
+SCEN_TIMING_B = (1, 16, 64)
+SCEN_LOOP_B, SCEN_LOOP_STEPS = 4, 300
 
 
 def say(*args):
@@ -92,6 +109,37 @@ def rel_fro(a: torch.Tensor, b: torch.Tensor) -> float:
     return float(torch.linalg.norm((a - b).double()) / torch.linalg.norm(b.double()))
 
 
+def err_by_scenario(label: str, got: torch.Tensor, ref: torch.Tensor) -> None:
+    """Print, for each scenario (leading axis; one when ``ref`` is 1-d), the
+    max abs error of ``got`` against ``ref``, |ref| where it sits, and the
+    max relative error |got - ref| / |ref|."""
+    d, r = (got - ref).abs().reshape(-1, ref.shape[-1]), ref.abs().reshape(-1, ref.shape[-1])
+    at = d.argmax(1, keepdim=True)
+
+    def row(x):
+        return "[" + ", ".join(f"{float(v):.2e}" for v in x.flatten()) + "]"
+
+    say(f"  {label} per scenario: max abs err {row(d.gather(1, at))}, |plain| there "
+        f"{row(r.gather(1, at))}, max rel err {row((d / r).amax(1))}")
+
+
+def bare_launch_ms(kernel, *args, reps: int = 50) -> float:
+    """Device ms per launch of ``kernel``'s C entry point alone, operands
+    packed once: CUDA events around ``reps`` back-to-back launches, which
+    are not the wrapper's and so not counted."""
+    from covo_mpc_tpu_torch.ops import kernels
+
+    fn = getattr(kernels.library(), kernel.symbol)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        err = fn(*args, stream)
+        if err != 0:
+            raise RuntimeError(f"{kernel.symbol}: CUDA launch failed, cudaError {err}")
+
+    return time_ms(launch, reps)
+
+
 def phase_kernels(env, dev, records):
     from covo_mpc_tpu_torch.models import pack_state
     from covo_mpc_tpu_torch.ops import hessian_cuda, rollout_cuda
@@ -118,6 +166,7 @@ def phase_kernels(env, dev, records):
     torch.cuda.synchronize()
     err_a, err_c = max_err(a_k, a_p), max_err(c_k, c_p)
     say(f"  K1 max |actions - plain| = {err_a:.3e}, max |costs - plain| = {err_c:.3e}")
+    err_by_scenario("K1 costs", c_k, c_p)
     check(err_a <= 1e-5, "K1 actions within atol 1e-5")
     check(bool(((c_k - c_p).abs() <= 2e-4 + 1e-5 * c_p.abs()).all()),
           "K1 costs within atol 2e-4, rtol 1e-5")
@@ -277,17 +326,17 @@ def make_mppi(env, engine, seed=0, rng_mode=None):
                       engine=engine, collect_debug=False, seed=seed)
 
 
-def solve_once(solver, cp, args, kernel_list, **kw):
-    """One warm-up solve, then one with the launch counters at 0 and host
-    syncs turned into errors; returns its result and the counts."""
-    solver(*args[:3], cp, args[3], **kw)
+def run_once(fn, kernel_list):
+    """``fn()`` once to warm up, then once with the launch counters at 0 and
+    host syncs turned into errors; returns its result and the counts."""
+    fn()
     torch.cuda.synchronize()
     for k in kernel_list:
         k.launches = 0
     # a host sync anywhere in the solve raises here
     torch.cuda.set_sync_debug_mode("error")
     try:
-        out = solver(*args[:3], cp, args[3], **kw)
+        out = fn()
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
@@ -310,8 +359,8 @@ def phase_solve(env, dev, kernel_list):
                                     ("cuda", "fast", rollout_cuda.ROLLOUT_KERNEL),
                                     ("torch", "fast", None)):
         solver, cp = make_solver(env, engine, rng_mode=rng_mode)
-        out[engine, rng_mode], counts = solve_once(solver, cp, args,
-                                                   kernel_list, z=z)
+        out[engine, rng_mode], counts = run_once(
+            lambda: solver(*args[:3], cp, args[3], z=z), kernel_list)
         if engine == "cuda":
             say(f"  launch counters after the cuda ({rng_mode}) solve: {counts}")
             used = [first.symbol, "primal", "sens_chain"]
@@ -340,8 +389,8 @@ def phase_solve(env, dev, kernel_list):
                                    ("cuda", "fast", rollout_cuda.ROLLOUT_KERNEL),
                                    ("torch", "fast", None)):
         solver, cp = make_mppi(env, engine, rng_mode=rng_mode)
-        out[engine, rng_mode], counts = solve_once(solver, cp, args, kernel_list,
-                                                   z=z, draw=draw)
+        out[engine, rng_mode], counts = run_once(
+            lambda: solver(*args[:3], cp, args[3], z=z, draw=draw), kernel_list)
         if used is not None:
             say(f"  launch counters after the cuda ({rng_mode}) solve: {counts}")
             check(counts[used.symbol] > 0, f"{used.symbol} launched by the solve")
@@ -383,25 +432,66 @@ def solve_times(env, dev, make=make_solver, reps=60, warmup=5):
         k: len(v) for k, v in times.items()}
 
 
-def device_ms(fn, reps: int = 10, name: str = "") -> float:
-    """Device-only ms per call of ``fn`` from torch.profiler: the summed
-    kernel and copy time on the card (only kernels whose name contains
-    ``name``, when given), divided by ``reps``. Used in phase 4 only: a
-    profiler session early in the run, followed by minutes of unprofiled
-    work, made later sessions lose device events (sums below their own
-    kernel's time) on the H100."""
+PROFILER_PAD_S = 0.05
+# CUDA API calls that enqueue device work (kernel launches, copies, fills)
+ENQUEUE_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cuMemcpy", "cudaMemset",
+                 "cuMemset")
+
+
+def profiled(fn, reps: int = 1):
+    """``reps`` calls of ``fn`` under one torch.profiler session whose
+    window has PROFILER_PAD_S of idle time at both ends: ``(device kernels
+    and copies recorded, host calls that enqueued device work, wall ms of
+    the calls)``. On the H100 a session can lose device events, up to a few
+    hundred and more as the process has run more sessions; the host calls
+    that enqueue them are counted exactly in every session."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILER_PAD_S)
+        t0 = time.perf_counter()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.events()
-             if e.device_type == DeviceType.CUDA and name in e.name)
-    return us / reps / 1e3
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(PROFILER_PAD_S)
+    events = prof.events()
+    return ([e for e in events if e.device_type == DeviceType.CUDA],
+            sum(e.device_type == DeviceType.CPU and e.name.startswith(ENQUEUE_CALLS)
+                for e in events), wall_ms)
+
+
+def device_profile(fn, reps: int = 1, sessions: int = 3, name: str = ""):
+    """``sessions`` profiler sessions of ``reps`` calls of ``fn`` each,
+    after one warm-up call. Device time is read only from the complete
+    sessions, those that recorded every device kernel and copy the host
+    enqueued: one that lost events would undercount. Returns a dict with
+    ``ops``, the device kernels and copies enqueued per call (the same in
+    every session, or this raises); the medians over the complete sessions
+    of ``ms``, device ms per call, ``kernel_ms``, the same for the kernels
+    whose name contains ``name``, ``wall_ms`` per call (profiler on) and
+    ``busy``, the device's busy share of that wall time, each None when no
+    session was complete; and ``complete``, "k of n"."""
+    fn()
+    torch.cuda.synchronize()
+    enqueued, full = set(), []
+    for _ in range(sessions):
+        device, launches, wall_ms = profiled(fn, reps)
+        enqueued.add(launches)
+        if len(device) == launches:
+            ms = sum(e.self_device_time_total for e in device) / 1e3 / reps
+            kernel_ms = sum(e.self_device_time_total for e in device
+                            if name and name in e.name) / 1e3 / reps
+            full.append((ms, kernel_ms, wall_ms / reps, ms * reps / wall_ms))
+    check(len(enqueued) == 1, f"the same device work enqueued in every session: {enqueued}")
+    med = [float(np.median(v)) for v in zip(*full)] or [None] * 4
+    return dict(zip(("ms", "kernel_ms", "wall_ms", "busy"), med),
+                ops=enqueued.pop() // reps, complete=f"{len(full)} of {sessions}")
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:9.4f} ms"
 
 
 def profile_solves(env, dev):
@@ -453,33 +543,23 @@ def profile_solves(env, dev):
 def time_layers(layers):
     for name, (fn, kernel) in layers.items():
         ev = time_ms(fn, 20)
-        dev_ms = device_ms(fn)
-        line = f"  {name:30s} events {ev:9.4f} ms, device {dev_ms:9.4f} ms"
+        prof = device_profile(fn, reps=5, name=kernel)
+        line = f"  {name:30s} events {ev:9.4f} ms, device {fmt_ms(prof['ms'])}"
         if kernel:
-            line += f", of it the kernel {device_ms(fn, name=kernel):9.4f} ms"
-        say(line)
+            line += f", of it the kernel {fmt_ms(prof['kernel_ms'])}"
+        say(line + f" ({prof['complete']} sessions complete)")
 
 
 def busy_window(solver, cp, obs, state, p, info):
-    """Ten chained solves under the profiler: device work per solve and the
-    device's busy share of the window."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(3):
-        _, cp, _ = solver(obs, state, p, cp, info)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(10):
-            _, cp, _ = solver(obs, state, p, cp, info)
-        torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in device) / 1e3
-    say(f"  profiler window: 10 solves, wall {wall_ms:.3f} ms (profiler on), "
-        f"device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.2f}%), "
-        f"{len(device) / 10:.0f} device kernels and copies per solve")
+    """Solves under the profiler, five to a session: the device work one
+    solve enqueues and, from the complete sessions, the device's busy share
+    of the solves' wall time."""
+    prof = device_profile(lambda: solver(obs, state, p, cp, info), reps=5)
+    busy = ("not measured" if prof["busy"] is None else
+            f"{prof['ms']:.4f} of {prof['wall_ms']:.4f} ms ({100 * prof['busy']:.2f}%)")
+    say(f"  profiler window: {prof['ops']} device kernels and copies per solve; "
+        f"device busy per solve {busy} (profiler on; {prof['complete']} sessions "
+        "complete)")
 
 
 def profile_mppi(env, dev):
@@ -541,6 +621,414 @@ def closed_loop(env, solver, total_steps, kernel_list):
     return result, launches
 
 
+def phase_closed_loops(env, dev, total_steps, covo_kernels, kernel_list):
+    """Phase 3: the single-scenario closed loops and solve times; returns
+    each kernel's launch count from the loop that runs it."""
+    say(f"phase 3: closed loop, evaluate(total_steps={total_steps}, seed=1), "
+        "engine='cuda', rng_mode='kernel'")
+    solver, _ = make_solver(env, "cuda")
+    result, launches = closed_loop(env, solver, total_steps, kernel_list)
+    check(all(launches[k.symbol] > 0 for k in covo_kernels),
+          "every kernel of the CoVO path launched by the main path")
+    check(np.isfinite(result.mean) and result.mean * 100 < ERR_POS_LIMIT_CM,
+          f"err_pos finite and below {ERR_POS_LIMIT_CM} cm")
+    med, counts = solve_times(env, dev)
+    say(f"  median device ms per solve: cuda {med['cuda']:.4f} ({counts['cuda']} solves), "
+        f"torch {med['torch']:.4f} ({counts['torch']} solves)")
+
+    say(f"phase 3b: MPPI closed loop, evaluate(total_steps={total_steps}, "
+        "seed=1), engine='cuda', rng_mode='kernel'")
+    solver, _ = make_mppi(env, "cuda")
+    mppi, mppi_launches = closed_loop(env, solver, total_steps, kernel_list)
+    launches["sample_rollout"] = mppi_launches["sample_rollout"]
+    check(launches["sample_rollout"] > 0, "sample_rollout launched by the MPPI loop")
+    check(np.isfinite(mppi.mean) and mppi.mean * 100 < MPPI_ERR_POS_LIMIT_CM,
+          f"MPPI err_pos finite and below {MPPI_ERR_POS_LIMIT_CM} cm")
+    check(mppi.mean > result.mean,
+          "MPPI err_pos above CoVO's on the same reset trajectories")
+    say(f"phase 3c: MPPI closed loop, evaluate(total_steps={total_steps}, "
+        "seed=1), engine='cuda', rng_mode='fast'")
+    solver, _ = make_mppi(env, "cuda", rng_mode="fast")
+    fast, fast_launches = closed_loop(env, solver, total_steps, kernel_list)
+    launches["rollout_costs"] = fast_launches["rollout_costs"]
+    check(launches["rollout_costs"] > 0, "rollout_costs launched by the MPPI fast loop")
+    check(np.isfinite(fast.mean) and fast.mean * 100 < MPPI_ERR_POS_LIMIT_CM,
+          f"MPPI (fast) err_pos finite and below {MPPI_ERR_POS_LIMIT_CM} cm")
+    med, counts = solve_times(env, dev, make=make_mppi)
+    say(f"  MPPI median device ms per solve: cuda {med['cuda']:.4f} "
+        f"({counts['cuda']} solves), torch {med['torch']:.4f} ({counts['torch']} solves)")
+    return launches
+
+
+# --- phase 5: the scenario-batched solves -----------------------------------
+
+
+def solve_args(infos):
+    """(x0s (B, 16), t0s (B,), pos_trajs (B, T, 3), vel_trajs) of the
+    scenarios' noisy states: the state inputs of one batched solve."""
+    from covo_mpc_tpu_torch.models import pack_state
+
+    sts = [info["noisy_state"] for info in infos]
+    return (torch.stack([pack_state(s) for s in sts]),
+            torch.stack([s.time for s in sts]),
+            torch.stack([s.pos_traj for s in sts]),
+            torch.stack([s.vel_traj for s in sts]))
+
+
+def scenario_batch(env, B: int, seed: int, randomize: bool = True):
+    """B scenarios drawn from one generator seeded ``seed``: each one's
+    params (``env.sample_params`` when ``randomize``, else the defaults),
+    then its reset. Returns (the solve's state inputs, params_b, the
+    states, the infos)."""
+    from covo_mpc_tpu_torch.models.structs import stack_params
+
+    gen = torch.Generator(env.device).manual_seed(seed)
+    params = [env.sample_params(gen) if randomize else env.default_params
+              for _ in range(B)]
+    resets = [env.reset(gen, p) for p in params]
+    infos = [r[1] for r in resets]
+    return solve_args(infos), stack_params(params), [r[2] for r in resets], infos
+
+
+def sub_batch(args, params_b, idx):
+    """Scenarios ``idx`` (a list) of batched solve inputs and params."""
+    from covo_mpc_tpu_torch.models.structs import index_params, stack_params
+
+    return (tuple(x[idx] for x in args),
+            stack_params([index_params(params_b, b) for b in idx]))
+
+
+def initial_means(env, B: int):
+    """B copies of the hover sequence and of MPPI's sigma^2 I per step."""
+    from covo_mpc_tpu_torch.solvers.factory import DEFAULT_SIGMA, hover_sequence
+
+    a_means = hover_sequence(env, H).expand(B, H, 4).contiguous()
+    a_covs = (DEFAULT_SIGMA**2 * torch.eye(4, device=env.device)).expand(
+        B, H, 4, 4).contiguous()
+    return a_means, a_covs
+
+
+def make_batched(env, kind: str, engine: str, rng_mode=None, seed: int = 0):
+    """A batched CoVO-online (adjoint Hessian, as ``bench.py --scenarios``)
+    or MPPI solve at N8192_H32_lam0.01; rng_mode defaults to "kernel" on
+    the cuda engine, "fast" on torch."""
+    from covo_mpc_tpu_torch.parallel import make_batched_covo_solve, make_batched_mppi_solve
+
+    rng_mode = rng_mode or ("kernel" if engine == "cuda" else "fast")
+    make = make_batched_covo_solve if kind == "covo" else make_batched_mppi_solve
+    return make(env, N, H, 0.01, rng=rng_mode, engine=engine, seed=seed)
+
+
+def phase_scenario_kernels(env, dev, records):
+    from covo_mpc_tpu_torch.models.structs import index_params
+    from covo_mpc_tpu_torch.ops import rollout_cuda
+
+    B = SCEN_B
+    say(f"phase 5a: K6 and K7 against their plain versions (B={B}, N={N}, "
+        f"H={H}, D={D}, domain-randomized scenarios)")
+    args, pb, _, _ = scenario_batch(env, B, seed=21)
+    say(f"  masses {[round(float(m), 5) for m in pb.m]}, alpha_bodyrate "
+        f"{[round(float(a), 4) for a in pb.alpha_bodyrate]}, action_scale "
+        f"{[round(float(a), 4) for a in pb.action_scale]}")
+    rng = np.random.default_rng(5)
+
+    def cuda(x):
+        return torch.from_numpy(np.asarray(x, dtype=np.float32)).to(dev)
+
+    draws = cuda(rng.standard_normal((B, 3)))
+    one, pb1 = sub_batch(args, pb, [0])
+    four, pb4 = sub_batch(args, pb, [0, 1, 2, 3])
+    single, p0 = tuple(x[0] for x in args), index_params(pb, 0)
+    modes = (("deterministic", dict(deterministic=True)),
+             ("per-scenario gaussian draws", dict(draws=draws)))
+
+    # K6: rollout costs of given actions, both layouts
+    acts = cuda(rng.normal(size=(B, H, 4, N)) * 0.5)
+    k6 = rollout_cuda.make_rollout_batched_costs(env)
+    err6 = 0.0
+    for layout, a in (("hdn", acts), ("nhd", acts.permute(0, 3, 1, 2).contiguous())):
+        for what, kw in modes:
+            c_k = k6(*args, a, pb, layout=layout, **kw)
+            c_p = k6.plain(*args, a, pb, layout=layout, **kw)
+            err6 = max(err6, max_err(c_k, c_p))
+            check(costs_close(c_k, c_p),
+                  f"K6 costs ({layout}, {what}) within atol 2e-4, rtol 1e-5")
+            if layout == "hdn":
+                err_by_scenario(f"K6 costs ({what})", c_k, c_p)
+    say(f"  K6 max |costs - plain| = {err6:.3e}")
+    c1 = k6(*one, acts[:1], pb1, draws=draws[:1])
+    c4 = rollout_cuda.make_rollout_costs(env)(*single, acts[0], p0, draws[0],
+                                              layout="hdn")
+    say(f"  K6 at B=1 against K4: max |costs| diff {max_err(c1[0], c4):.3e}")
+    check(max_err(c1[0], c4) <= 2e-6, "K6 at B=1: costs within 2e-6 of K4's")
+    ms6 = time_ms(lambda: k6(*args, acts, pb, draws=draws), 50)
+    ms6p = time_ms(lambda: k6.plain(*args, acts, pb, draws=draws), 5, warmup=1)
+    records["rollout_costs_batched"] = dict(max_abs_err=err6, ms=ms6, plain_ms=ms6p)
+    # the bare launches, on operands the wrapper's own packing made
+    ops = rollout_cuda._launch_operands(env, *args, pb, draws, False, 1.0, H)
+    ptrs = [t.data_ptr() for t in ops]
+    costs = torch.empty(B, N, device=dev)
+    ms6k = bare_launch_ms(rollout_cuda.ROLLOUT_BATCHED_KERNEL, *ptrs, acts.data_ptr(),
+                          costs.data_ptr(), B, N, H, k6._check_rollover, k6.block)
+    say(f"  K6 {ms6:.4f} ms, plain {ms6p:.4f} ms, kernel alone {ms6k:.4f} ms")
+
+    # K7 per-step (MPPI) and joint (CoVO): input-z against the plain
+    # versions, then in-kernel draws at B=1 against K5 / K1 and at B=4
+    # against B=16
+    a_means = cuda(rng.normal(size=(B, H, 4)) * 0.2)
+    A = rng.normal(size=(B, H, 4, 4)) * 0.2
+    chols = cuda(np.linalg.cholesky(A @ A.swapaxes(-1, -2) + 0.05 * np.eye(4)))
+    factors = cuda(rng.normal(size=(B, D, D)) * 0.1)
+    k5 = rollout_cuda.make_rollout_sampling(env)
+    k1 = rollout_cuda.make_rollout_joint_sampling(env)
+    for joint, name, fac, z, single_k in (
+            (False, "sample_rollout_batched", chols,
+             cuda(rng.standard_normal((B, H, 4, N))), k5),
+            (True, "joint_sample_rollout_batched", factors,
+             cuda(rng.standard_normal((B, D, N))), k1)):
+        label = "K7 joint" if joint else "K7 per-step"
+        k7 = rollout_cuda.make_rollout_batched_sampling(env, joint=joint)
+        kargs = (*args, a_means, fac, pb)
+        err_a = err_c = 0.0
+        for what, kw in modes:
+            c_k, a_k = k7(*kargs, 0, N, z=z, **kw)
+            c_p, a_p = k7.plain(*kargs, 0, N, z=z, **kw)
+            err_a, err_c = max(err_a, max_err(a_k, a_p)), max(err_c, max_err(c_k, c_p))
+            check(max_err(a_k, a_p) <= 1e-5, f"{label} actions ({what}) within atol 1e-5")
+            check(costs_close(c_k, c_p), f"{label} costs ({what}) within atol 2e-4, rtol 1e-5")
+            err_by_scenario(f"{label} costs ({what})", c_k, c_p)
+        say(f"  {label} max |actions - plain| = {err_a:.3e}, max |costs - plain| = {err_c:.3e}")
+        # B=1 against the single-scenario kernel, the same seed and draw
+        c1, a1 = k7(*one, a_means[:1], fac[:1], pb1, 7, N, draws=draws[:1])
+        cs, a_s = single_k(*single, a_means[0], fac[0], p0, 7, N, draw=draws[0])
+        say(f"  {label} at B=1 against {'K1' if joint else 'K5'}: actions equal "
+            f"{torch.equal(a1[0], a_s)}, max |costs| diff {max_err(c1[0], cs):.3e}")
+        check(torch.equal(a1[0], a_s) and max_err(c1[0], cs) <= 2e-6,
+              f"{label} at B=1: the single-scenario kernel's draws, costs within 2e-6")
+        # scenario 2's in-kernel draws do not depend on the scenario count
+        _, a16 = k7(*kargs, 9, N, deterministic=True)
+        _, a4 = k7(*four, a_means[:4], fac[:4], pb4, 9, N, deterministic=True)
+        check(torch.equal(a4[2], a16[2]),
+              f"{label}: scenario 2's in-kernel draws the same at B=4 and B={B}")
+        ms = time_ms(lambda: k7(*kargs, 7, N, draws=draws), 50)
+        ms_p = time_ms(lambda: k7.plain(*kargs, 7, N, draws=draws), 5, warmup=1)
+        records[name] = dict(max_abs_err=max(err_a, err_c), ms=ms, plain_ms=ms_p)
+        mean = a_means.reshape(B, -1).contiguous()
+        a_out = torch.empty(B, D, N, device=dev)
+        kern = (rollout_cuda.JOINT_BATCHED_KERNEL if joint
+                else rollout_cuda.SAMPLE_BATCHED_KERNEL)
+        ms_k = bare_launch_ms(kern, *ptrs, mean.data_ptr(), fac.data_ptr(), None, 7,
+                              costs.data_ptr(), a_out.data_ptr(), B, N, H,
+                              k7._check_rollover, k7.block)
+        say(f"  {label} {ms:.4f} ms, plain {ms_p:.4f} ms, kernel alone {ms_k:.4f} ms")
+
+
+def phase_scenario_solves(env, dev, kernel_list):
+    from covo_mpc_tpu_torch.ops import rollout_cuda
+
+    B = SCEN_B
+    say(f"phase 5b: one full-width batched solve per rng (B={B}), engine='cuda' "
+        "against engine='torch' on the same normals")
+    args, pb, _, _ = scenario_batch(env, B, seed=22)
+    a_means, a_covs = initial_means(env, B)
+    g = np.random.default_rng(6)
+
+    def cuda(x):
+        return torch.from_numpy(np.asarray(x, dtype=np.float32)).to(dev)
+
+    for kind, z, extra in (
+            ("covo", cuda(g.standard_normal((B, N, D))), ()),
+            ("mppi", cuda(g.standard_normal((B, N, H, 4))), (a_covs,))):
+        kw = dict(z=z)
+        if kind == "mppi":  # γ_σ > 0: the covariance update is checked too
+            kw.update(draws=cuda(g.standard_normal((B, 3))), gamma_sigma=0.5)
+        out = {}
+        for engine, rng_mode, used in (
+                ("cuda", "kernel", rollout_cuda.JOINT_BATCHED_KERNEL if kind == "covo"
+                 else rollout_cuda.SAMPLE_BATCHED_KERNEL),
+                ("cuda", "fast", rollout_cuda.ROLLOUT_BATCHED_KERNEL),
+                ("torch", "fast", None)):
+            solve = make_batched(env, kind, engine, rng_mode)
+            out[engine, rng_mode], counts = run_once(
+                lambda: solve(*args, a_means, *extra, pb, **kw), kernel_list)
+            if used is not None:
+                launched = {k: v for k, v in counts.items() if v}
+                say(f"  {kind} cuda ({rng_mode}): launches {launched}")
+                check(counts[used.symbol] > 0, f"{used.symbol} launched by the solve")
+        ref = out["torch", "fast"]
+        for rng_mode in ("kernel", "fast"):
+            got = out["cuda", rng_mode]
+            errs = {"action": max_err(got[0][:, 0], ref[0][:, 0]),
+                    "a_mean": max_err(got[0], ref[0])}
+            if kind == "mppi":
+                errs["a_cov"] = max_err(got[1], ref[1])
+            say(f"  batched {kind} ({rng_mode}) max |cuda - torch|: {errs}, "
+                f"min cost {max_err(got[-1], ref[-1]):.3e}")
+            check(all(v <= 2e-4 for v in errs.values()),
+                  f"batched {kind} ({rng_mode}): action, a_mean"
+                  f"{' and a_cov' if kind == 'mppi' else ''} within 2e-4 "
+                  "(no host sync in either solve)")
+            check(costs_close(got[-1], ref[-1]),
+                  "min costs within atol 2e-4, rtol 1e-5")
+            check(all(bool(torch.isfinite(x).all()) for x in got),
+                  "batched solve outputs finite")
+
+
+def batched_closed_loop(env, solve, kind: str, kernel_list):
+    """SCEN_LOOP_B scenarios of the main path's env (default params), reset
+    from one generator seeded 1, SCEN_LOOP_STEPS steps: each step one
+    batched solve on the noisy states, then each scenario's auto-resetting
+    env step. Launch counters at 0 just before; returns the mean err_pos
+    [m] and the counts just after."""
+    B = SCEN_LOOP_B
+    _, pb, states, infos = scenario_batch(env, B, seed=1, randomize=False)
+    p = env.default_params
+    gen = torch.Generator(env.device).manual_seed(2)
+    solve.seed(1)
+    a_means, a_covs = initial_means(env, B)
+    for k in kernel_list:
+        k.launches = 0
+    t0 = time.perf_counter()
+    errs = []
+    for _ in range(SCEN_LOOP_STEPS):
+        args = solve_args(infos)
+        if kind == "covo":
+            a_means, _ = solve(*args, a_means, pb)
+        else:
+            a_means, a_covs, _ = solve(*args, a_means, a_covs, pb)
+        row = []
+        for b in range(B):
+            _, states[b], _, _, infos[b] = env.step(gen, states[b], a_means[b, 0], p)
+            row.append(infos[b]["err_pos"])
+        errs.append(torch.stack(row))
+    err = torch.stack(errs).mean(dim=0).cpu()
+    wall = time.perf_counter() - t0
+    launches = {k.symbol: k.launches for k in kernel_list}
+    say(f"  err_pos {100 * float(err.mean()):.2f} cm over {B} scenarios x "
+        f"{SCEN_LOOP_STEPS} steps ({wall:.1f} s); per scenario [cm]: "
+        f"{[round(100 * float(e), 3) for e in err]}")
+    say(f"  launches in the loop: { {k: v for k, v in launches.items() if v} }")
+    return float(err.mean()), launches
+
+
+def phase_scenario_loops(env, kernel_list):
+    """5c: the batched closed loops; returns each batched kernel's launch
+    count from the loop that runs it."""
+    say(f"phase 5c: batched closed loops, B={SCEN_LOOP_B} scenarios from seed 1, "
+        f"{SCEN_LOOP_STEPS} steps, engine='cuda'")
+    say("  CoVO (kernel rng: K7 joint)")
+    covo, launches = batched_closed_loop(env, make_batched(env, "covo", "cuda"),
+                                         "covo", kernel_list)
+    out = {"joint_sample_rollout_batched": launches["joint_sample_rollout_batched"]}
+    check(np.isfinite(covo) and covo * 100 < ERR_POS_LIMIT_CM,
+          f"batched CoVO err_pos finite and below {ERR_POS_LIMIT_CM} cm")
+    say("  MPPI (kernel rng: K7 per-step)")
+    mppi, launches = batched_closed_loop(env, make_batched(env, "mppi", "cuda"),
+                                         "mppi", kernel_list)
+    out["sample_rollout_batched"] = launches["sample_rollout_batched"]
+    check(np.isfinite(mppi) and mppi * 100 < MPPI_ERR_POS_LIMIT_CM,
+          f"batched MPPI err_pos finite and below {MPPI_ERR_POS_LIMIT_CM} cm")
+    check(mppi > covo, "batched MPPI err_pos above batched CoVO's")
+    say("  MPPI (fast rng: torch draw + K6)")
+    fast, launches = batched_closed_loop(
+        env, make_batched(env, "mppi", "cuda", "fast"), "mppi", kernel_list)
+    out["rollout_costs_batched"] = launches["rollout_costs_batched"]
+    check(np.isfinite(fast) and fast * 100 < MPPI_ERR_POS_LIMIT_CM,
+          f"batched MPPI (fast) err_pos finite and below {MPPI_ERR_POS_LIMIT_CM} cm")
+    check(all(v > 0 for v in out.values()),
+          f"every batched kernel launched by its loop: {out}")
+    return out
+
+
+def phase_scenario_timing(env, dev):
+    """5d: aggregate solves/s = B / (median events ms per batched solve) at
+    each B, both solvers, engines in turns torch, cuda, cuda, torch (cuda
+    with kernel rng); then the device kernels and copies one batched cuda
+    solve enqueues at B=16 and B=64, which must not grow with B."""
+    say(f"phase 5d: aggregate solves/s at B = {SCEN_TIMING_B} (events; cuda "
+        "engine with kernel rng)")
+    kernels_per_solve = {}
+    for B in SCEN_TIMING_B:
+        args, pb, _, _ = scenario_batch(env, B, seed=23)
+        a_means, a_covs = initial_means(env, B)
+        for kind in ("covo", "mppi"):
+            extra = () if kind == "covo" else (a_covs,)
+            times = {"cuda": [], "torch": []}
+            for engine in ("torch", "cuda", "cuda", "torch"):
+                solve = make_batched(env, kind, engine)
+                events = []
+                for i in range(2 + 5):
+                    e0 = torch.cuda.Event(enable_timing=True)
+                    e1 = torch.cuda.Event(enable_timing=True)
+                    e0.record()
+                    solve(*args, a_means, *extra, pb)
+                    e1.record()
+                    if i >= 2:
+                        events.append((e0, e1))
+                torch.cuda.synchronize()
+                times[engine] += [a.elapsed_time(b) for a, b in events]
+            med = {k: float(np.median(v)) for k, v in times.items()}
+            say(f"  B={B:3d} {kind}: " + ", ".join(
+                f"{e} {med[e]:.4f} ms per batch-step, {1e3 * B / med[e]:.1f} solves/s"
+                for e in ("cuda", "torch")) + f" ({len(times['cuda'])} solves each)")
+            if B in (16, 64):
+                solve = make_batched(env, kind, "cuda")
+                prof = device_profile(lambda: solve(*args, a_means, *extra, pb), sessions=5)
+                kernels_per_solve[kind, B] = prof["ops"]
+                say(f"  B={B:3d} {kind} cuda: {prof['ops']} device kernels and copies per "
+                    f"batched solve; device {fmt_ms(prof['ms'])} ({prof['complete']} "
+                    "sessions complete)")
+    for kind in ("covo", "mppi"):
+        check(kernels_per_solve[kind, 16] == kernels_per_solve[kind, 64],
+              f"batched {kind}: device kernels and copies per solve the same at "
+              "B=16 and B=64")
+
+
+def profile_batched(env, dev):
+    """Where one batched cuda-engine solve's time goes (kernel rng, B=SCEN_B):
+    each layer alone on the inputs the solve gives it; CUDA-event ms, the
+    device kernels and copies it enqueues and, from the complete profiler
+    sessions, its device ms (and its kernel's)."""
+    from covo_mpc_tpu_torch.ops import covariance, reductions, rollout_cuda
+    from covo_mpc_tpu_torch.ops.hessian import make_hessian_batched
+
+    B = SCEN_B
+    say(f"profile: layers of one batched cuda-engine solve (B={B}, N={N}, H={H}, "
+        "kernel rng)")
+    args, pb, _, _ = scenario_batch(env, B, seed=24)
+    a_means, a_covs = initial_means(env, B)
+    m = torch.cat([a_means[:, 1:], a_means[:, -1:]], dim=1)
+    hess = make_hessian_batched(env, H)
+    R = hess(m.reshape(B, D), *args, pb)
+    _, factors = covariance.optimize_sigma_ns(R, 0.5, D)
+    k7j = rollout_cuda.make_rollout_batched_sampling(env, joint=True)
+    costs, a_t = k7j(*args, m, factors, pb, 11, N, deterministic=True)
+    chols = torch.linalg.cholesky_ex(a_covs).L.contiguous()
+    draws = torch.randn(B, 3, generator=torch.Generator(dev).manual_seed(25), device=dev)
+    k7p = rollout_cuda.make_rollout_batched_sampling(env, joint=False)
+    covo, mppi = make_batched(env, "covo", "cuda"), make_batched(env, "mppi", "cuda")
+    layers = {
+        "CoVO: Hessian (vmap, adjoint)": (lambda: hess(m.reshape(B, D), *args, pb), ""),
+        "CoVO: NS designer": (lambda: covariance.optimize_sigma_ns(R, 0.5, D), ""),
+        "CoVO: K7 joint": (lambda: k7j(*args, m, factors, pb, 11, N, deterministic=True),
+                           "joint_sample_rollout_kernel"),
+        "CoVO: weights + mean update": (lambda: reductions.mean_update_t(
+            reductions.mppi_weights(costs, 0.01), a_t.reshape(B, H, 4, N), m, 1.0), ""),
+        "CoVO: whole solve": (lambda: covo(*args, a_means, pb), ""),
+        "MPPI: K7 per-step": (lambda: k7p(*args, m, chols, pb, 11, N, draws=draws),
+                              "sample_rollout_kernel"),
+        "MPPI: whole solve": (lambda: mppi(*args, a_means, a_covs, pb), ""),
+    }
+    for name, (fn, kernel) in layers.items():
+        ev = time_ms(fn, 5, warmup=1)
+        prof = device_profile(fn, name=kernel)
+        line = (f"  {name:30s} events {ev:9.4f} ms, {prof['ops']:5d} device kernels and "
+                f"copies; device {fmt_ms(prof['ms'])}")
+        if kernel:
+            line += f", of it the kernel {fmt_ms(prof['kernel_ms'])}"
+        say(line + f" ({prof['complete']} sessions complete)")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--total-steps", type=int, default=1200,
@@ -572,48 +1060,24 @@ def main(argv=None) -> int:
     env = QuadEnv(EnvConfig(**ENV_KW), device=dev)
     covo_kernels = [rollout_cuda.JOINT_KERNEL, rollout_cuda.PRIMAL_KERNEL,
                     hessian_cuda.CHAIN_KERNEL]
-    kernel_list = covo_kernels + [rollout_cuda.ROLLOUT_KERNEL,
-                                  rollout_cuda.SAMPLE_KERNEL]
+    single_kernels = covo_kernels + [rollout_cuda.ROLLOUT_KERNEL,
+                                     rollout_cuda.SAMPLE_KERNEL]
+    kernel_list = single_kernels + [rollout_cuda.ROLLOUT_BATCHED_KERNEL,
+                                    rollout_cuda.SAMPLE_BATCHED_KERNEL,
+                                    rollout_cuda.JOINT_BATCHED_KERNEL]
     records = {}
     phase_kernels(env, dev, records)
-    phase_solve(env, dev, kernel_list)
-
-    say(f"phase 3: closed loop, evaluate(total_steps={args.total_steps}, seed=1), "
-        "engine='cuda', rng_mode='kernel'")
-    solver, _ = make_solver(env, "cuda")
-    result, launches = closed_loop(env, solver, args.total_steps, kernel_list)
-    check(all(launches[k.symbol] > 0 for k in covo_kernels),
-          "every kernel of the CoVO path launched by the main path")
-    check(np.isfinite(result.mean) and result.mean * 100 < ERR_POS_LIMIT_CM,
-          f"err_pos finite and below {ERR_POS_LIMIT_CM} cm")
-    med, counts = solve_times(env, dev)
-    say(f"  median device ms per solve: cuda {med['cuda']:.4f} ({counts['cuda']} solves), "
-        f"torch {med['torch']:.4f} ({counts['torch']} solves)")
-
-    say(f"phase 3b: MPPI closed loop, evaluate(total_steps={args.total_steps}, "
-        "seed=1), engine='cuda', rng_mode='kernel'")
-    solver, _ = make_mppi(env, "cuda")
-    mppi, mppi_launches = closed_loop(env, solver, args.total_steps, kernel_list)
-    launches["sample_rollout"] = mppi_launches["sample_rollout"]
-    check(launches["sample_rollout"] > 0, "sample_rollout launched by the MPPI loop")
-    check(np.isfinite(mppi.mean) and mppi.mean * 100 < MPPI_ERR_POS_LIMIT_CM,
-          f"MPPI err_pos finite and below {MPPI_ERR_POS_LIMIT_CM} cm")
-    check(mppi.mean > result.mean,
-          "MPPI err_pos above CoVO's on the same reset trajectories")
-    say(f"phase 3c: MPPI closed loop, evaluate(total_steps={args.total_steps}, "
-        "seed=1), engine='cuda', rng_mode='fast'")
-    solver, _ = make_mppi(env, "cuda", rng_mode="fast")
-    fast, fast_launches = closed_loop(env, solver, args.total_steps, kernel_list)
-    launches["rollout_costs"] = fast_launches["rollout_costs"]
-    check(launches["rollout_costs"] > 0, "rollout_costs launched by the MPPI fast loop")
-    check(np.isfinite(fast.mean) and fast.mean * 100 < MPPI_ERR_POS_LIMIT_CM,
-          f"MPPI (fast) err_pos finite and below {MPPI_ERR_POS_LIMIT_CM} cm")
-    med, counts = solve_times(env, dev, make=make_mppi)
-    say(f"  MPPI median device ms per solve: cuda {med['cuda']:.4f} "
-        f"({counts['cuda']} solves), torch {med['torch']:.4f} ({counts['torch']} solves)")
-
+    phase_solve(env, dev, single_kernels)
+    launches = phase_closed_loops(env, dev, args.total_steps, covo_kernels,
+                                  single_kernels)
     profile_solves(env, dev)
     profile_mppi(env, dev)
+    env_dr = QuadEnv(EnvConfig(**{**ENV_KW, "enable_randomizer": True}), device=dev)
+    phase_scenario_kernels(env_dr, dev, records)
+    phase_scenario_solves(env_dr, dev, kernel_list)
+    launches.update(phase_scenario_loops(env, kernel_list))
+    phase_scenario_timing(env_dr, dev)
+    profile_batched(env_dr, dev)
 
     say(json.dumps({"kernels": [
         {"name": k.symbol, "route": "cuda", "source": k.source,
@@ -625,7 +1089,6 @@ def main(argv=None) -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -9,15 +9,16 @@ that mirrors its layout and public names:
   ops/      the plain rollout, the CUDA kernel wrappers (rollout_cuda,
             hessian_cuda, built by ops/kernels), the Hessian (Gauss–Newton
             and exact adjoint), the Sigma-designers, sampling and reductions
-  solvers/  CoVO online and the factory
+  solvers/  CoVO online, MPPI and the factory
+  parallel/ the scenario-batched CoVO and MPPI solves (B scenarios per call)
   runtime/  the episode runner and the evaluation protocol
   csrc/     the CUDA C++ kernels (compiled by nvcc at first use)
 
 Importing the package imports torch and never jax, and builds no kernel.
 """
 
-from covo_mpc_tpu_torch import models, ops, runtime, solvers
+from covo_mpc_tpu_torch import models, ops, parallel, runtime, solvers
 
 __version__ = "0.1.0"
 
-__all__ = ["models", "ops", "runtime", "solvers"]
+__all__ = ["models", "ops", "parallel", "runtime", "solvers"]

@@ -1,34 +1,43 @@
-// Joint sample + rollout: CoVO's fused MVN draw and N x H rollout.
+// Joint sample + rollout: CoVO's fused MVN draw and N x H rollout, for one
+// scenario (K1) or for B scenarios in one launch (K7, joint).
 //
 // Replaces covo_mpc_tpu/ops/rollout_pallas.py::make_pallas_rollout_joint_sampling
-// (_rollout_kernel with sample="prng_joint", disturbance mode "shared").
-// Per sample n: z ~ N(0, I_D) (or z[:, n] when a z pointer is given, the
-// "input_z" mode of the Pallas kernel), a = clip(mean + F z, +-1) with F the
-// Sigma-designer's full (D, D) factor, then H steps of pre-step penyaw
-// reward, termination freeze (|pos| > 3 or time up; rollover optional),
-// bodyrate step and discounted cost. Outputs costs (N,) and the clipped
-// actions (D, N), sample-last.
+// (_rollout_kernel with sample="prng_joint", disturbance mode "shared") and
+// ::make_pallas_rollout_batched_sampling with joint=True (the same kernel
+// with batched=True over a (B, lane-tiles) grid). Per scenario b and sample
+// n: z ~ N(0, I_D) (or z[(b D + d) N + n] when a z pointer is given, the
+// "input_z" mode of the Pallas kernel), a = clip(mean_b + F_b z, +-1) with
+// F_b the Sigma-designer's full (D, D) factor of scenario b, then H steps of
+// pre-step penyaw reward, termination freeze (|pos| > 3 or time up;
+// rollover optional), bodyrate step and discounted cost. Outputs costs
+// (B, N) and the clipped actions (B, D, N), sample-last; x0, the packs and
+// the targets are scenario-strided (quad::scenario_tables), the means
+// (B, D), the factors (B, D, D).
 //
 // What bounds it on an H100: the correlate is D^2 fp32 FMAs per sample
-// (134 MFMA at N=8192, D=128, ~4 us at the 67 TFLOP/s fp32 peak) and the
-// action write is 4 MB (~1.3 us at 3.35 TB/s); the rollout is ~5k flops per
-// sample. At this size the kernel is latency-bound, not throughput-bound:
-// F (64 KB) and the block's z (64 KB at 128 threads) sit in 128 KB of
-// dynamic shared memory, so one block of 4 warps runs per SM, and N=8192
-// fills only 64 blocks of the 132 SMs. A later PR should split a sample's
-// correlate over a warp or run it on tensor cores (wgmma) to fill the card.
+// (134 MFMA per scenario at N=8192, D=128, ~4 us at the 67 TFLOP/s fp32
+// peak) and the action write is 4 MB per scenario (~1.3 us at 3.35 TB/s);
+// the rollout is ~5k flops per sample. One scenario is latency-bound, not
+// throughput-bound: F (64 KB) and the block's z (64 KB at 128 threads) sit
+// in 128 KB of dynamic shared memory, so one block of 4 warps runs per SM,
+// and N=8192 fills only 64 blocks of the 132 SMs. B scenarios are B x 64
+// blocks, one scenario per block, so from B = 3 on the card is full and the
+// launch runs in waves of 132 blocks. A later PR should split a sample's
+// correlate over a warp or run it on tensor cores (wgmma).
 //
-// What the design does about it: one thread per sample, so results do not
-// depend on the block size. z is staged d-major in shared memory (thread-
-// minor: conflict-free), F rows are read as shared-memory broadcasts, and
-// the four rows of step h are accumulated together in one pass over d, so
-// each z load feeds four FMA chains. Each row sums over d in order 0..D-1
-// for every sample. The actions of step h are formed right before the step
-// and written once (coalesced across the warp); they are never read back.
-// The draw is Philox4x32-10 (philox.cuh) keyed by the 64-bit seed, with
-// counter (j, n): one call gives 4 uniforms -> 2 Box-Muller pairs -> z rows
-// 4j..4j+3 of sample n. The step after the action formation is
-// quad::rollout_step, shared with K4 and K5.
+// What the design does about it: one thread per sample, the scenario in
+// blockIdx.y, so results depend neither on the block size nor on B. Each
+// block stages its own scenario's F. z is staged d-major in shared memory
+// (thread-minor: conflict-free), F rows are read as shared-memory
+// broadcasts, and the four rows of step h are accumulated together in one
+// pass over d, so each z load feeds four FMA chains. Each row sums over d in
+// order 0..D-1 for every sample. The actions of step h are formed right
+// before the step and written once (coalesced across the warp); they are
+// never read back. The draw is Philox4x32-10 (philox.cuh) keyed by the
+// 64-bit seed, with counter (j, n, 0, b): one call gives 4 uniforms -> 2
+// Box-Muller pairs -> z rows 4j..4j+3 of sample n of scenario b, so
+// scenario 0 draws what K1 draws. The step after the action formation is
+// quad::rollout_step, shared with K4-K7.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -50,18 +59,22 @@ __global__ void joint_sample_rollout_kernel(
   const int B = blockDim.x;
   const int tid = threadIdx.x;
   const int n = blockIdx.x * B + tid;
+  const int b = blockIdx.y;
+  const size_t off = (size_t)b * D * N;  // scenario b of z and actions
+  const float* F = factor + (size_t)b * D * D;
+  const float* mu = mean + (size_t)b * D;
   float* F_s = smem;           // (D, D) row-major
   float* z_s = smem + D * D;   // z_s[d * B + tid]
 
-  for (int i = tid; i < D * D; i += B) F_s[i] = factor[i];
+  for (int i = tid; i < D * D; i += B) F_s[i] = F[i];
   if (n < N) {
     if (z != nullptr) {
-      for (int d = 0; d < D; ++d) z_s[d * B + tid] = z[(size_t)d * N + n];
+      for (int d = 0; d < D; ++d) z_s[d * B + tid] = z[off + (size_t)d * N + n];
     } else {
       for (int j = 0; j < D / 4; ++j) {
         const float4 r = rng::normals4(
             make_uint4(static_cast<uint32_t>(j), static_cast<uint32_t>(n), 0u,
-                       0u),
+                       static_cast<uint32_t>(b)),
             seed);
         z_s[(4 * j + 0) * B + tid] = r.x;
         z_s[(4 * j + 1) * B + tid] = r.y;
@@ -73,9 +86,9 @@ __global__ void joint_sample_rollout_kernel(
   __syncthreads();
   if (n >= N) return;
 
-  const quad::RolloutShared sh =
-      quad::load_shared(x0, scal, ints, ptar, vtar, check_rollover);
-  quad::Carry c = quad::start(x0);
+  const quad::Tables t = quad::scenario_tables(b, H, x0, scal, ints, ptar, vtar);
+  const quad::RolloutShared sh = quad::load_shared(t, check_rollover);
+  quad::Carry c = quad::start(t.x0);
   for (int h = 0; h < H; ++h) {
     // a_h = clip(mean_h + F[4h:4h+4] z): four rows, one pass over d
     const float* F0 = F_s + (4 * h) * D;
@@ -87,26 +100,23 @@ __global__ void joint_sample_rollout_kernel(
       acc2 = fmaf(F0[2 * D + d], zd, acc2);
       acc3 = fmaf(F0[3 * D + d], zd, acc3);
     }
-    const float a[4] = {quad::clip1(mean[4 * h] + acc0),
-                        quad::clip1(mean[4 * h + 1] + acc1),
-                        quad::clip1(mean[4 * h + 2] + acc2),
-                        quad::clip1(mean[4 * h + 3] + acc3)};
-    for (int k = 0; k < 4; ++k) actions[(size_t)(4 * h + k) * N + n] = a[k];
+    const float a[4] = {quad::clip1(mu[4 * h] + acc0),
+                        quad::clip1(mu[4 * h + 1] + acc1),
+                        quad::clip1(mu[4 * h + 2] + acc2),
+                        quad::clip1(mu[4 * h + 3] + acc3)};
+    for (int k = 0; k < 4; ++k) actions[off + (size_t)(4 * h + k) * N + n] = a[k];
     quad::rollout_step(c, sh, h, a);
   }
-  costs[n] = c.cost;
+  costs[(size_t)b * N + n] = c.cost;
 }
 
-}  // namespace
-
-// Launch on `stream`; returns cudaGetLastError(). z may be null (draw
-// in-kernel from `seed`).
-extern "C" int joint_sample_rollout(
-    const float* x0, const float* scal, const int* ints, const float* ptar,
-    const float* vtar, const float* mean, const float* factor, const float* z,
-    uint64_t seed, float* costs, float* actions, int N, int H,
-    int check_rollover, int block, cudaStream_t stream) {
-  if (N <= 0 || H <= 0 || block <= 0 || block > 1024) {
+int launch(const float* x0, const float* scal, const int* ints,
+           const float* ptar, const float* vtar, const float* mean,
+           const float* factor, const float* z, uint64_t seed, float* costs,
+           float* actions, int B, int N, int H, int check_rollover, int block,
+           cudaStream_t stream) {
+  if (B <= 0 || B > quad::kMaxScenarios || N <= 0 || H <= 0 || block <= 0 ||
+      block > 1024) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int D = 4 * H;
@@ -116,9 +126,33 @@ extern "C" int joint_sample_rollout(
       joint_sample_rollout_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int grid = (N + block - 1) / block;
+  const dim3 grid((N + block - 1) / block, B);
   joint_sample_rollout_kernel<<<grid, block, smem, stream>>>(
       x0, scal, ints, ptar, vtar, mean, factor, z, seed, costs, actions, N, H,
       check_rollover);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// K1: one scenario. Launch on `stream`; returns cudaGetLastError(). z may
+// be null (draw in-kernel from `seed`).
+extern "C" int joint_sample_rollout(
+    const float* x0, const float* scal, const int* ints, const float* ptar,
+    const float* vtar, const float* mean, const float* factor, const float* z,
+    uint64_t seed, float* costs, float* actions, int N, int H,
+    int check_rollover, int block, cudaStream_t stream) {
+  return launch(x0, scal, ints, ptar, vtar, mean, factor, z, seed, costs,
+                actions, 1, N, H, check_rollover, block, stream);
+}
+
+// K7, joint: B scenarios, every table scenario-strided; mean (B, D), factor
+// (B, D, D), z (B, D, N) or null, costs (B, N), actions (B, D, N).
+extern "C" int joint_sample_rollout_batched(
+    const float* x0, const float* scal, const int* ints, const float* ptar,
+    const float* vtar, const float* mean, const float* factor, const float* z,
+    uint64_t seed, float* costs, float* actions, int B, int N, int H,
+    int check_rollover, int block, cudaStream_t stream) {
+  return launch(x0, scal, ints, ptar, vtar, mean, factor, z, seed, costs,
+                actions, B, N, H, check_rollover, block, stream);
 }

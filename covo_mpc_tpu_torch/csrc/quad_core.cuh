@@ -120,6 +120,33 @@ __device__ __forceinline__ float penyaw_reward(const State& s, float ptx,
   return 1.3f - 0.05f * err_vel - log_pos_penalty(err_pos) - fabsf(yaw) * 0.2f;
 }
 
+// One scenario's rollout operands: x0 (16), the scalar and int packs, the
+// (3H) position and velocity targets.
+struct Tables {
+  const float* x0;
+  const float* scal;
+  const int* ints;
+  const float* ptar;
+  const float* vtar;
+};
+
+// Scenario b of a launch's scenario-strided tables: x0 (B, 16), scal
+// (B, kNScal), ints (B, kNInt), ptar and vtar (B, 3H). The batched launches
+// (K6, K7) run scenario blockIdx.y; a single-scenario launch (K1, K4, K5)
+// is the grid's only scenario, b = 0.
+__device__ __forceinline__ Tables scenario_tables(int b, int H,
+                                                  const float* x0,
+                                                  const float* scal,
+                                                  const int* ints,
+                                                  const float* ptar,
+                                                  const float* vtar) {
+  return Tables{x0 + 16 * b, scal + kNScal * b, ints + kNInt * b,
+                ptar + 3 * H * b, vtar + 3 * H * b};
+}
+
+// Largest scenario count of one launch (the grid's y dimension).
+constexpr int kMaxScenarios = 65535;
+
 // What every sample of one rollout launch shares, in the "shared"
 // disturbance mode (gaussian / none): step 0 integrates with x0's own f,
 // every later step with the one shared force (fx, fy, fz).
@@ -134,13 +161,12 @@ struct RolloutShared {
 
 // The shared force comes from scal[kDraw0..2]; a kernel that draws it
 // itself ("krng") overwrites fx, fy, fz.
-__device__ __forceinline__ RolloutShared load_shared(
-    const float* x0, const float* scal, const int* ints, const float* ptar,
-    const float* vtar, int check_rollover) {
-  return RolloutShared{scal, ptar, vtar,
-                       x0[13], x0[14], x0[15],
-                       scal[kDraw0], scal[kDraw1], scal[kDraw2],
-                       scal[kDiscount], ints[kT0], ints[kMaxSteps],
+__device__ __forceinline__ RolloutShared load_shared(const Tables& t,
+                                                     int check_rollover) {
+  return RolloutShared{t.scal, t.ptar, t.vtar,
+                       t.x0[13], t.x0[14], t.x0[15],
+                       t.scal[kDraw0], t.scal[kDraw1], t.scal[kDraw2],
+                       t.scal[kDiscount], t.ints[kT0], t.ints[kMaxSteps],
                        check_rollover != 0};
 }
 
@@ -160,7 +186,7 @@ __device__ __forceinline__ Carry start(const float* x0) {
 // penyaw reward on the PRE-step state, frozen once the sample terminated
 // (the freeze reads d_prev), the discounted cost, termination (|pos| > 3,
 // the time limit, the rollover check when on), then the bodyrate step.
-// The single step body of K1, K4 and K5.
+// The single step body of K1 and K4-K7.
 __device__ __forceinline__ void rollout_step(Carry& c, const RolloutShared& sh,
                                              int h, const float a[4]) {
   const float* pt = sh.ptar + 3 * h;

@@ -71,8 +71,9 @@ def core_step(s: torch.Tensor, a: torch.Tensor, fdist: torch.Tensor,
 
 def gaussian_disturb(params: EnvParams3D, draw: torch.Tensor) -> torch.Tensor:
     """i.i.d. Gaussian force noise: ``dyn_noise_scale * draw`` (the scale is
-    zeroed in deterministic rollouts)."""
-    return params.dyn_noise_scale * draw
+    zeroed in deterministic rollouts); a leading scenario axis on both, the
+    scale (B,) and the draws (B, 3), carries through."""
+    return params.dyn_noise_scale[..., None] * draw
 
 
 def none_disturb(params: EnvParams3D, draw: torch.Tensor) -> torch.Tensor:

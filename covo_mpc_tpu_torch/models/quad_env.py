@@ -91,8 +91,6 @@ class QuadEnv:
             raise NotImplementedError("only the 'base' lower controller is supported")
         if config.substeps != 1:
             raise NotImplementedError("only substeps=1 is ported")
-        if config.enable_randomizer:
-            raise NotImplementedError("domain randomization is not ported yet")
         obs = {
             "quad": (self.get_obs_quadonly, 19 + self._traj_obs_len * 6),
             "quad_params": (self.get_obs_quad_params,
@@ -111,6 +109,32 @@ class QuadEnv:
     @property
     def default_params(self) -> EnvParams3D:
         return self._default_params
+
+    def draw_params(self, gen: torch.Generator) -> torch.Tensor:
+        """The uniforms in [-1, 1) that :meth:`params_from_draws` maps to
+        parameters: 17 under domain randomization, else 6."""
+        n = 17 if self.config.enable_randomizer else 6
+        return torch.rand(n, generator=gen, device=self.device) * 2.0 - 1.0
+
+    def params_from_draws(self, u: torch.Tensor) -> EnvParams3D:
+        """Domain-randomized (or default) parameters from the uniforms of
+        :meth:`draw_params` (JAX: QuadEnv.sample_params). DR sets m,
+        I_diag, action_scale, alpha_bodyrate around their means and
+        disturb_params to u[6:12] x disturb_scale (u[12:17] unused, as in
+        the reference); without DR only disturb_params is drawn, unscaled."""
+        p = self.default_params
+        if not self.config.enable_randomizer:
+            return p.replace(disturb_params=u)
+        return p.replace(
+            m=p.m_mean + u[0] * p.m_std,
+            I_diag=p.I_diag_mean + u[1:4] * p.I_diag_std,
+            action_scale=p.action_scale_mean + u[4] * p.action_scale_std,
+            alpha_bodyrate=p.alpha_bodyrate_mean + u[5] * p.alpha_bodyrate_std,
+            disturb_params=u[6:12] * p.disturb_scale,
+        )
+
+    def sample_params(self, gen: torch.Generator) -> EnvParams3D:
+        return self.params_from_draws(self.draw_params(gen))
 
     # -- error metrics ------------------------------------------------------
     @staticmethod

@@ -12,7 +12,7 @@ packages compute on the same inputs.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Mapping
+from typing import Any, Callable, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -143,11 +143,22 @@ def _f32(x, device) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=np.float32)).to(device)
 
 
+def _int_leaf(name: str, v) -> int:
+    """An integer episode constant; a batched leaf must hold one value."""
+    v = np.unique(np.asarray(v))
+    if v.size != 1:
+        raise ValueError(f"{name}: scenarios differ ({v.tolist()}), the port "
+                         "keeps one integer episode constant")
+    return int(v[0])
+
+
 def params_from_numpy(leaves: Mapping[str, Any], device="cpu") -> EnvParams3D:
     """Build :class:`EnvParams3D` from the JAX struct's leaves as numpy
     arrays (or Python numbers): float leaves become float32 tensors on
-    ``device``, the integer episode constants Python ints. Keys the JAX
-    struct has and the port does not are an error."""
+    ``device``, the integer episode constants Python ints. Leaves batched
+    over scenarios (``jax.vmap(env.sample_params)``) keep their leading
+    axis; their integer constants must agree. Keys the JAX struct has and
+    the port does not are an error."""
     fields = {f.name for f in dataclasses.fields(EnvParams3D)}
     unknown = set(leaves) - fields
     if unknown:
@@ -155,8 +166,48 @@ def params_from_numpy(leaves: Mapping[str, Any], device="cpu") -> EnvParams3D:
     kw = {}
     for name in fields:
         v = leaves.get(name, _DEFAULTS[name])
-        kw[name] = int(np.asarray(v)) if name in _INT_FIELDS else _f32(v, device)
+        kw[name] = _int_leaf(name, v) if name in _INT_FIELDS else _f32(v, device)
     return EnvParams3D(**kw)
+
+
+def float_leaves(params: EnvParams3D) -> dict:
+    """The tensor fields of ``params`` by name (every field but the integer
+    episode constants)."""
+    return {f.name: getattr(params, f.name) for f in dataclasses.fields(params)
+            if f.name not in _INT_FIELDS}
+
+
+def stack_params(params: Sequence[EnvParams3D]) -> EnvParams3D:
+    """B scenarios' parameters as one :class:`EnvParams3D` whose tensor
+    leaves carry a leading B axis; the integer constants must agree."""
+    for name in _INT_FIELDS:
+        _int_leaf(name, [getattr(p, name) for p in params])
+    return params[0].replace(**{
+        name: torch.stack([float_leaves(p)[name] for p in params])
+        for name in float_leaves(params[0])
+    })
+
+
+def index_params(params_b: EnvParams3D, b: int) -> EnvParams3D:
+    """Scenario ``b`` of parameters batched by :func:`stack_params`."""
+    return params_b.replace(**{k: v[b] for k, v in float_leaves(params_b).items()})
+
+
+def vmap_scenarios(fn: Callable, params_b: EnvParams3D) -> Callable:
+    """``fn(params, *args)`` over B scenarios at once: ``torch.func.vmap``
+    with ``params_b``'s tensor leaves and every tensor in ``args`` batched
+    on axis 0; other args (None) are passed as they are. EnvParams3D is not
+    a pytree vmap knows, so its leaves are handed in as a dict. Returns
+    ``batched(*args)``."""
+
+    def one(leaves, *args):
+        return fn(params_b.replace(**leaves), *args)
+
+    def batched(*args):
+        in_dims = (0, *(0 if isinstance(a, torch.Tensor) else None for a in args))
+        return torch.func.vmap(one, in_dims=in_dims)(float_leaves(params_b), *args)
+
+    return batched
 
 
 def state_from_numpy(leaves: Mapping[str, Any], device="cpu") -> EnvState3D:

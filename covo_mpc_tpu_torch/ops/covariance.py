@@ -35,14 +35,19 @@ def optimize_sigma(R: torch.Tensor, sample_sigma, horizon_dim: int):
     return (a_cov + a_cov.T) / 2.0, factor
 
 
+def _fro(M: torch.Tensor) -> torch.Tensor:
+    """||M||_F of each matrix of a (..., D, D) stack, shaped (..., 1, 1)."""
+    return torch.linalg.norm(M, dim=(-2, -1), keepdim=True)
+
+
 def _unit(M: torch.Tensor) -> torch.Tensor:
     """M / ||M||_F, leaving a zero (or underflowed) M as it is."""
-    n = torch.linalg.norm(M)
+    n = _fro(M)
     return M / torch.where(n > 0, n, torch.ones_like(n))
 
 
 def _vdot(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
-    return (A * B).sum()
+    return (A * B).sum(dim=(-2, -1), keepdim=True)
 
 
 def _extreme_eig(B: torch.Tensor, squarings: int, norm_every: int = 3):
@@ -66,7 +71,7 @@ _LIFT_A, _LIFT_B, _LIFT_C = 3.4445, -4.7750, 2.0315
 def _ns_sqrt(Ahat: torch.Tensor, lift: int, polish: int):
     """Coupled iteration (Y, Z) -> (A^{1/2}, A^{-1/2}): ``lift`` quintic
     steps then ``polish`` cubic steps. Requires spec(Ahat) in (0, 1]."""
-    eye = torch.eye(Ahat.shape[0], dtype=Ahat.dtype, device=Ahat.device)
+    eye = torch.eye(Ahat.shape[-1], dtype=Ahat.dtype, device=Ahat.device)
     Y, Z = Ahat, eye
     for _ in range(lift):
         X = Z @ Y
@@ -87,7 +92,9 @@ def optimize_sigma_ns(
     ns_rough: Tuple[int, int] = (3, 4),
     ns_main: Tuple[int, int] = (8, 5),
 ):
-    """Eigh-free :func:`optimize_sigma`: matmuls plus one Cholesky.
+    """Eigh-free :func:`optimize_sigma`: matmuls plus one Cholesky, on one
+    (D, D) matrix or a stack of B scenarios' (B, D, D): every norm, inner
+    product and log det is per matrix (JAX vmaps it over scenarios).
 
     1. lambda_max bound ``||R||_F`` and a rough lambda_min by power squaring;
     2. lambda_min refined through the inverse of a generously shifted A1;
@@ -97,9 +104,9 @@ def optimize_sigma_ns(
     See the JAX twin for the derivation of every constant.
     """
     D = horizon_dim
-    R = (R + R.T) / 2.0
+    R = (R + R.mT) / 2.0
     eye = torch.eye(D, dtype=R.dtype, device=R.device)
-    fnorm = torch.linalg.norm(R) + 1e-30
+    fnorm = _fro(R) + 1e-30  # (..., 1, 1), as every scalar below
 
     bound = fnorm  # >= lambda_max(R), certified
     lam_min_rough = bound - _extreme_eig(bound * eye - R, squarings)
@@ -116,9 +123,10 @@ def optimize_sigma_ns(
     s = (bound + offset) * 1.05 + 1e-30  # >= lambda_max(A), certified
     _, Z = _ns_sqrt(A / s, *ns_main)
 
-    Z = (Z + Z.T) / 2.0
+    Z = (Z + Z.mT) / 2.0
     Lz, _ = torch.linalg.cholesky_ex(Z)
-    log_det_A = D * torch.log(s) - 4.0 * torch.sum(torch.log(torch.diagonal(Lz)))
+    log_diag = torch.log(torch.diagonal(Lz, dim1=-2, dim2=-1))
+    log_det_A = D * torch.log(s) - 4.0 * log_diag.sum(dim=-1)[..., None, None]
     # a Python float: a host scalar must not become a device copy mid-solve
     log_det_a_cov = D * (math.log(sample_sigma) * 2.0)
     log_const = (log_det_a_cov * 2.0 + log_det_A) / D

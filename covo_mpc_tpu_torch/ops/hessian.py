@@ -29,6 +29,7 @@ from torch.func import hessian as func_hessian
 
 from covo_mpc_tpu_torch.models import dynamics, rewards
 from covo_mpc_tpu_torch.models.quad_env import QuadEnv
+from covo_mpc_tpu_torch.models.structs import vmap_scenarios
 from covo_mpc_tpu_torch.ops.hessian_cuda import make_tail_pullback, pullback, sens_chain_plain
 from covo_mpc_tpu_torch.ops.rollout import check_penyaw_reward, target_window
 from covo_mpc_tpu_torch.ops.rollout_cuda import make_primal
@@ -145,3 +146,23 @@ def make_hessian_adjoint(env: QuadEnv, H: int, primal: str = "torch",
         return -run_tail(J, M)
 
     return hessian
+
+
+def make_hessian_batched(env: QuadEnv, H: int, second_order: bool = True):
+    """Build ``hessian_b(a_flats (B, D), x0s (B, 16), t0s (B,), pos_trajs
+    (B, T, 3), vel_trajs, params_b) -> (B, D, D)``: :func:`make_hessian_adjoint`
+    for B scenarios at once by ``torch.func.vmap``, with the plain primal and
+    chain, as JAX's scenario-batched solve vmaps ``make_hessian_adjoint(
+    primal="scan")``: K2 and K3 are ctypes launches, which vmap cannot
+    batch, and a loop over B would undo the batching."""
+    hess = make_hessian_adjoint(env, H, primal="torch", tail="torch",
+                                second_order=second_order)
+
+    def one(params, a_flat, x0, t0, pos_traj, vel_traj):
+        return hess(a_flat, x0, t0, pos_traj, vel_traj, params)
+
+    def hessian_b(a_flats, x0s, t0s, pos_trajs, vel_trajs, params_b):
+        return vmap_scenarios(one, params_b)(a_flats, x0s, t0s, pos_trajs,
+                                            vel_trajs)
+
+    return hessian_b

@@ -44,6 +44,12 @@ _SIGNATURES = {
     "rollout_costs": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "sample_rollout": [_P, _P, _P, _P, _P, _P, _P, _P, _U64, _U64, _I, _P, _P,
                        _P, _I, _I, _I, _I, _P],
+    "rollout_costs_batched": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _P],
+    "sample_rollout_batched": [_P, _P, _P, _P, _P, _P, _P, _P, _U64, _P, _P,
+                               _I, _I, _I, _I, _I, _P],
+    "joint_sample_rollout_batched": [_P, _P, _P, _P, _P, _P, _P, _P, _U64, _P,
+                                     _P, _I, _I, _I, _I, _I, _P],
 }
 
 

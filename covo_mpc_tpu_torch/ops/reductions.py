@@ -2,6 +2,9 @@
 MPPI's covariance update.
 
 Counterpart of :mod:`covo_mpc_tpu.ops.reductions` (the sample-last forms).
+Every function reduces over the sample axis only, so a leading scenario
+axis (costs (B, N), a_t (B, H, dA, N), ...) gives each scenario its own
+update, as JAX's vmap over scenarios does.
 ``gamma_sigma`` is a Python float, so the ``gamma_sigma == 0`` branch that
 JAX takes with ``lax.cond`` is a Python ``if`` here: no device read.
 """
@@ -12,14 +15,15 @@ import torch
 
 
 def mppi_weights(costs: torch.Tensor, lam: float) -> torch.Tensor:
-    """Softmax weights ``exp(-(c - min c)/lambda) / sum``."""
-    shifted = torch.exp(-(costs - torch.min(costs)) / lam)
-    return shifted / torch.sum(shifted)
+    """Softmax weights ``exp(-(c - min c)/lambda) / sum`` over the samples
+    (the last axis)."""
+    shifted = torch.exp(-(costs - torch.amin(costs, dim=-1, keepdim=True)) / lam)
+    return shifted / torch.sum(shifted, dim=-1, keepdim=True)
 
 
 def mean_update_t(weight, a_t, a_mean, gamma_mean):
     """Weighted-mean blend on (H, dA, N) samples (sample-last layout)."""
-    weighted = torch.einsum("n,hdn->hd", weight, a_t)
+    weighted = torch.einsum("...n,...hdn->...hd", weight, a_t)
     return weighted * gamma_mean + a_mean * (1.0 - gamma_mean)
 
 
@@ -27,7 +31,7 @@ def _blend_cov(weight, a_t, a_mean_new, a_cov, gamma_sigma):
     """Weighted per-step covariance around the UPDATED mean (the
     reference's quirk), blended with the carried one."""
     dev = a_t - a_mean_new[..., None]
-    weighted = torch.einsum("n,hin,hjn->hij", weight, dev, dev)
+    weighted = torch.einsum("...n,...hin,...hjn->...hij", weight, dev, dev)
     return weighted * gamma_sigma + a_cov * (1.0 - gamma_sigma)
 
 

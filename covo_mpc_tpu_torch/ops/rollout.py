@@ -21,7 +21,7 @@ import torch
 
 from covo_mpc_tpu_torch.models import dynamics, rewards
 from covo_mpc_tpu_torch.models.quad_env import QuadEnv
-from covo_mpc_tpu_torch.models.structs import OMEGA, POS, QUAT, VEL
+from covo_mpc_tpu_torch.models.structs import OMEGA, POS, QUAT, VEL, vmap_scenarios
 
 
 def check_penyaw_reward(env: QuadEnv) -> None:
@@ -63,11 +63,15 @@ def shared_disturb(env: QuadEnv, params, draw: Optional[torch.Tensor],
 
 def target_window(t0, pos_traj, vel_traj, H: int, offset: int = 0):
     """(H, 3) position and velocity targets at times t0+offset .. +H-1,
-    clamped at the table end (a device gather: no host sync)."""
-    T = pos_traj.shape[0]
-    idx = torch.clamp(t0 + offset + torch.arange(H, device=pos_traj.device),
-                      0, T - 1).long()
-    return pos_traj[idx], vel_traj[idx]
+    clamped at the table end (a device gather: no host sync). A leading
+    scenario axis on ``t0`` (B,) and the tables (B, T, 3) gives (B, H, 3)."""
+    T = pos_traj.shape[-2]
+    if not isinstance(t0, torch.Tensor):
+        t0 = torch.as_tensor(t0, device=pos_traj.device)
+    steps = torch.arange(H, device=pos_traj.device)
+    idx = torch.clamp(t0[..., None] + offset + steps, 0, T - 1).long()
+    idx = idx[..., None].expand(*idx.shape, 3)
+    return torch.gather(pos_traj, -2, idx), torch.gather(vel_traj, -2, idx)
 
 
 def make_rollout(env: QuadEnv):
@@ -119,3 +123,32 @@ def make_rollout(env: QuadEnv):
         return -torch.einsum("h,hn->n", disc, torch.stack(rews))
 
     return rollout_costs
+
+
+def make_rollout_batched(env: QuadEnv):
+    """Build ``rollout_costs_b(x0s (B, 16), t0s (B,), pos_trajs (B, T, 3),
+    vel_trajs, actions, params_b, draws=None, deterministic=False,
+    discount=1.0, layout="hdn") -> costs (B, N)``: :func:`make_rollout` for
+    B scenarios at once (JAX: the jnp engine vmapped over scenarios in
+    parallel/scenarios.py), by ``torch.func.vmap`` over its body, so the
+    number of ops does not grow with B.
+
+    ``actions`` is (B, N, H, 4) for ``layout="nhd"``, (B, H, 4, N) or
+    (B, H*4, N) for ``"hdn"``; ``params_b`` holds each scenario's
+    parameters on axis 0 of its tensor leaves (``stack_params``); ``draws``
+    (B, 3) are each scenario's shared-disturbance normals.
+    """
+    rollout = make_rollout(env)
+
+    def rollout_costs_b(x0s, t0s, pos_trajs, vel_trajs, actions, params_b,
+                        draws: Optional[torch.Tensor] = None,
+                        deterministic: bool = False, discount=1.0,
+                        layout: str = "hdn"):
+        def one(params, x0, t0, pos_traj, vel_traj, acts, draw):
+            return rollout(x0, t0, pos_traj, vel_traj, acts, params, draw,
+                           deterministic, discount, layout)
+
+        return vmap_scenarios(one, params_b)(x0s, t0s, pos_trajs, vel_trajs,
+                                             actions, draws)
+
+    return rollout_costs_b

@@ -1,15 +1,18 @@
 """Wrappers of the rollout kernels: joint sample + rollout (K1), primal
-(K2), rollout costs of given actions (K4) and per-step sample + rollout (K5).
+(K2), rollout costs of given actions (K4), per-step sample + rollout (K5),
+and the scenario-batched rollout costs (K6) and sample + rollout (K7,
+per-step and joint).
 
 Counterpart of :mod:`covo_mpc_tpu.ops.rollout_pallas`: the host-side
-packing (:func:`build_kernel_disturb`, :func:`_pack_kernel_inputs`) as
-torch ops, and one wrapper per kernel with its plain PyTorch version
-beside it.
+packing (:func:`build_kernel_disturb`, :func:`_pack_kernel_inputs`, for
+one scenario or B at once) as torch ops, and one wrapper per kernel with
+its plain PyTorch version beside it.
 
 A wrapper takes the plain version only when its tensors lie on the CPU
 (as JAX's ``interpret`` mode does off-TPU); on CUDA tensors it launches
 the kernel (``csrc/joint_sample_rollout.cu``, ``csrc/primal.cu``,
-``csrc/rollout.cu``, ``csrc/sample_rollout.cu``) or raises. The "shared"
+``csrc/rollout.cu``, ``csrc/sample_rollout.cu``; K6 and K7 are the batched
+entry points of the K4, K5 and K1 sources) or raises. The "shared"
 disturbance mode (gaussian / none) and K5's in-kernel gaussian draw
 ("krng") are ported; the table and in-kernel drag/mixed modes are queued.
 """
@@ -23,7 +26,12 @@ import torch
 from covo_mpc_tpu_torch.models import dynamics
 from covo_mpc_tpu_torch.models.quad_env import QuadEnv
 from covo_mpc_tpu_torch.ops import kernels
-from covo_mpc_tpu_torch.ops.rollout import make_rollout, shared_disturb, target_window
+from covo_mpc_tpu_torch.ops.rollout import (
+    make_rollout,
+    make_rollout_batched,
+    shared_disturb,
+    target_window,
+)
 
 JOINT_KERNEL = kernels.Kernel(
     "joint_sample_rollout", "covo_mpc_tpu_torch/csrc/joint_sample_rollout.cu",
@@ -41,6 +49,19 @@ SAMPLE_KERNEL = kernels.Kernel(
     "sample_rollout", "covo_mpc_tpu_torch/csrc/sample_rollout.cu",
     replaces="covo_mpc_tpu/ops/rollout_pallas.py:686",
 )
+ROLLOUT_BATCHED_KERNEL = kernels.Kernel(
+    "rollout_costs_batched", "covo_mpc_tpu_torch/csrc/rollout.cu",
+    replaces="covo_mpc_tpu/ops/rollout_pallas.py:903",
+)
+SAMPLE_BATCHED_KERNEL = kernels.Kernel(
+    "sample_rollout_batched", "covo_mpc_tpu_torch/csrc/sample_rollout.cu",
+    replaces="covo_mpc_tpu/ops/rollout_pallas.py:1005",
+)
+JOINT_BATCHED_KERNEL = kernels.Kernel(
+    "joint_sample_rollout_batched",
+    "covo_mpc_tpu_torch/csrc/joint_sample_rollout.cu",
+    replaces="covo_mpc_tpu/ops/rollout_pallas.py:1005",
+)
 
 NSCAL = 17  # scalar pack, layout quad::Scal in csrc/quad_core.cuh
 NINT = 3  # [t0, max_steps, disturb_period]
@@ -54,8 +75,8 @@ def _full(value, device) -> torch.Tensor:
 def _dyn_scalars(env: QuadEnv, params, device):
     """The first nine scalar-pack entries: the physics constants."""
     return [params.m, params.g, _full(env._dt, device), params.alpha_bodyrate,
-            params.action_scale, params.max_thrust, params.max_omega[0],
-            params.max_omega[1], params.max_omega[2]]
+            params.action_scale, params.max_thrust, params.max_omega[..., 0],
+            params.max_omega[..., 1], params.max_omega[..., 2]]
 
 
 def _check_shared_mode(env: QuadEnv) -> None:
@@ -81,8 +102,9 @@ def build_kernel_disturb(env: QuadEnv, params, draw, deterministic, device,
     draws the normals."""
     _check_shared_mode(env)
     if kernel_draw:
-        zero = _full(0.0, device)
-        return torch.stack([params.dyn_noise_scale, zero, zero])
+        scale = params.dyn_noise_scale
+        zero = torch.zeros_like(scale)
+        return torch.stack([scale, zero, zero], dim=-1)
     return shared_disturb(env, params, draw, deterministic, device)
 
 
@@ -90,56 +112,69 @@ def _pack_kernel_inputs(env: QuadEnv, x0, t0, pos_traj, vel_traj, params,
                         draw, deterministic, discount, H: int,
                         kernel_draw: bool = False):
     """Flat kernel operands: (ptar (H*3,), vtar (H*3,), scal (NSCAL,),
-    ints (NINT,) int32), all built on x0's device."""
+    ints (NINT,) int32), all built on x0's device.
+
+    With a leading scenario axis on x0 (B, 16), t0 (B,), the trajectories
+    (B, T, 3), the params' tensor leaves and the draw (B, 3), every operand
+    gets it too: the scenario-strided tables of K6/K7, (B, H*3), (B, NSCAL),
+    (B, NINT). The number of ops is the same for every B (JAX vmaps its
+    twin over the scenarios)."""
     dev = x0.device
+    batch = x0.shape[:-1]
     ptar, vtar = target_window(t0, pos_traj, vel_traj, H)
     f_shared = build_kernel_disturb(env, params, draw, deterministic, dev,
-                                    kernel_draw)
+                                    kernel_draw).expand(*batch, 3)
     dp = params.disturb_params
-    scal = torch.cat([
-        torch.stack(_dyn_scalars(env, params, dev) + [
-            _full(discount, dev), params.disturb_scale, dp[0], dp[1], dp[2],
-        ]),
-        f_shared,
-    ])
+    scalars = _dyn_scalars(env, params, dev) + [
+        _full(discount, dev), params.disturb_scale, dp[..., 0], dp[..., 1],
+        dp[..., 2],
+    ]
+    scal = torch.cat([torch.stack([v.expand(batch) for v in scalars], dim=-1),
+                      f_shared], dim=-1)
 
     def int32(v):
         if isinstance(v, torch.Tensor):
-            return v.to(device=dev, dtype=torch.int32).reshape(())
-        return torch.full((), v, dtype=torch.int32, device=dev)
+            return v.to(device=dev, dtype=torch.int32).reshape(batch)
+        return torch.full(batch, v, dtype=torch.int32, device=dev)
 
     ints = torch.stack([int32(t0), int32(params.max_steps_in_episode),
-                        int32(params.disturb_period)])
-    return ptar.reshape(-1), vtar.reshape(-1), scal, ints
+                        int32(params.disturb_period)], dim=-1)
+    return ptar.reshape(*batch, -1), vtar.reshape(*batch, -1), scal, ints
 
 
 def _launch_operands(env: QuadEnv, x0, t0, pos_traj, vel_traj, params, draw,
                      deterministic, discount, H: int, kernel_draw: bool = False):
     """The operands every rollout kernel takes first, in its argument order
-    (x0 (16,), scal, ints, ptar, vtar), packed and checked for the launch.
-    The caller keeps the tensors alive until the launch is enqueued."""
+    (x0 (16,), scal, ints, ptar, vtar; each with the leading scenario axis
+    of a batched x0), packed and checked for the launch. The caller keeps
+    the tensors alive until the launch is enqueued."""
     dev = x0.device
+    batch = tuple(x0.shape[:-1])
     ptar, vtar, scal, ints = _pack_kernel_inputs(
         env, x0, t0, pos_traj, vel_traj, params, draw, deterministic, discount,
         H, kernel_draw,
     )
-    x0 = x0[:16].contiguous()
+    x0 = x0[..., :16].contiguous()
     for name, t, shape in (("x0", x0, (16,)), ("scal", scal, (NSCAL,)),
                            ("ptar", ptar, (3 * H,)), ("vtar", vtar, (3 * H,))):
-        kernels.check_cuda(name, t, shape, device=dev)
-    kernels.check_cuda("ints", ints, (NINT,), torch.int32, device=dev)
+        kernels.check_cuda(name, t, batch + shape, device=dev)
+    kernels.check_cuda("ints", ints, batch + (NINT,), torch.int32, device=dev)
     return x0, scal, ints, ptar, vtar
 
 
 class _RolloutKernelWrapper:
-    """What the wrappers of K1, K4 and K5 share: the disturbance-mode
-    check, the block size, the plain rollout and the rollover flag."""
+    """What the rollout kernels' wrappers share: the disturbance-mode
+    check, the block size, the plain rollout (over B scenarios for the
+    batched wrappers) and the rollover flag."""
+
+    batched = False
 
     def __init__(self, env: QuadEnv, block: int = 128):
         _check_shared_mode(env)
         self.env = env
         self.block = block
-        self._rollout = make_rollout(env)  # checks the reward
+        # checks the reward
+        self._rollout = (make_rollout_batched if self.batched else make_rollout)(env)
         self._check_rollover = int(not env.config.disable_rollover_terminate)
 
 
@@ -335,6 +370,191 @@ class SampleRollout(_RolloutKernelWrapper):
 def make_rollout_sampling(env: QuadEnv, block: int = 128):
     """The K5 wrapper (JAX: make_pallas_rollout_sampling)."""
     return SampleRollout(env, block)
+
+
+# --- the scenario-batched kernels (K6, K7): B scenarios in one launch ------
+#
+# Every operand carries a leading scenario axis: x0s (B, 16), t0s (B,), the
+# trajectories (B, T, 3), params_b (EnvParams3D with (B, ...) tensor leaves,
+# ``stack_params``) and draws (B, 3), the shared-disturbance normals of a
+# stochastic gaussian rollout. The disturbance mode is "shared": one draw
+# per scenario, handed in (JAX's batched builders never take "krng").
+
+
+class RolloutCostsBatched(_RolloutKernelWrapper):
+    """K6: K4 for B scenarios in one launch.
+
+    ``__call__(x0s, t0s, pos_trajs, vel_trajs, actions, params_b,
+    draws=None, deterministic=False, discount=1.0, layout="hdn") -> costs
+    (B, N)``, the contract of :func:`~covo_mpc_tpu_torch.ops.rollout.
+    make_rollout_batched` (its plain version): ``actions`` (B, N, H, 4) for
+    ``layout="nhd"``, (B, H, 4, N) or (B, H*4, N) for ``"hdn"``.
+    """
+
+    batched = True
+
+    def __init__(self, env: QuadEnv, block: int = 128):
+        super().__init__(env, block)
+        self.plain = self._rollout
+
+    def __call__(self, x0s, t0s, pos_trajs, vel_trajs, actions, params_b,
+                 draws: Optional[torch.Tensor] = None,
+                 deterministic: bool = False, discount=1.0,
+                 layout: str = "hdn"):
+        if kernels.route(x0s, actions) == "plain":
+            return self.plain(x0s, t0s, pos_trajs, vel_trajs, actions,
+                              params_b, draws, deterministic, discount, layout)
+        B = x0s.shape[0]
+        if layout == "nhd":
+            acts = actions.permute(0, 2, 3, 1)
+        elif layout == "hdn":
+            acts = actions.reshape(B, -1, 4, actions.shape[-1])
+        else:
+            raise ValueError(f"unknown layout {layout!r}")
+        acts = acts.contiguous()
+        _, H, dA, N = acts.shape
+        dev = x0s.device
+        ops = _launch_operands(self.env, x0s, t0s, pos_trajs, vel_trajs,
+                               params_b, draws, deterministic, discount, H)
+        kernels.check_cuda("actions", acts, (B, H, 4, N), device=dev)
+        costs = torch.empty(B, N, device=dev)
+        ROLLOUT_BATCHED_KERNEL.launch(
+            *(t.data_ptr() for t in ops), acts.data_ptr(), costs.data_ptr(),
+            B, N, H, self._check_rollover, self.block,
+        )
+        return costs
+
+
+def make_rollout_batched_costs(env: QuadEnv, block: int = 128):
+    """The K6 wrapper (JAX: make_pallas_rollout_batched)."""
+    return RolloutCostsBatched(env, block)
+
+
+class SampleRolloutBatched(_RolloutKernelWrapper):
+    """K7, per-step: K5 for B scenarios in one launch, a_h = clip(mean_h +
+    L_h z_h) per scenario, sample and step.
+
+    ``__call__(x0s, t0s, pos_trajs, vel_trajs, a_means (B, H, 4), chols
+    (B, H, 4, 4), params_b, seed, N, deterministic=False, discount=1.0,
+    draws=None, z=None) -> (costs (B, N), a_t (B, 4H, N))``. ``chols`` are
+    the per-step lower Cholesky factors, row-major. ``z`` (B, H, 4, N) feeds
+    given normals; without it the kernel draws Philox normals keyed by
+    ``seed`` with the scenario in the counter (scenario 0 draws what K5
+    draws), and the plain version draws from a generator seeded with it.
+    """
+
+    batched = True
+
+    def plain(self, x0s, t0s, pos_trajs, vel_trajs, a_means, chols, params_b,
+              seed: int, N: int, deterministic: bool = False, discount=1.0,
+              draws: Optional[torch.Tensor] = None,
+              z: Optional[torch.Tensor] = None):
+        B, H, dA = a_means.shape
+        if z is None:
+            g = torch.Generator(device=x0s.device).manual_seed(seed)
+            z = torch.randn(B, H, dA, N, generator=g, device=x0s.device)
+        a_t = torch.clamp(
+            a_means[..., None] + torch.einsum("bhij,bhjn->bhin", chols, z),
+            -1.0, 1.0).reshape(B, H * dA, N)
+        costs = self._rollout(x0s, t0s, pos_trajs, vel_trajs, a_t, params_b,
+                                draws, deterministic, discount, layout="hdn")
+        return costs, a_t
+
+    def __call__(self, x0s, t0s, pos_trajs, vel_trajs, a_means, chols,
+                 params_b, seed: int, N: int, deterministic: bool = False,
+                 discount=1.0, draws: Optional[torch.Tensor] = None,
+                 z: Optional[torch.Tensor] = None):
+        if kernels.route(x0s, a_means, chols) == "plain":
+            return self.plain(x0s, t0s, pos_trajs, vel_trajs, a_means, chols,
+                              params_b, seed, N, deterministic, discount,
+                              draws, z)
+        B, H, dA = a_means.shape
+        if dA != 4:
+            raise ValueError(f"action_dim must be 4, got {dA}")
+        dev = x0s.device
+        ops = _launch_operands(self.env, x0s, t0s, pos_trajs, vel_trajs,
+                               params_b, draws, deterministic, discount, H)
+        mean = a_means.contiguous()
+        kernels.check_cuda("a_means", mean, (B, H, 4), device=dev)
+        kernels.check_cuda("chols", chols, (B, H, 4, 4), device=dev)
+        if z is not None:
+            kernels.check_cuda("z", z, (B, H, 4, N), device=dev)
+        costs = torch.empty(B, N, device=dev)
+        a_t = torch.empty(B, 4 * H, N, device=dev)
+        SAMPLE_BATCHED_KERNEL.launch(
+            *(t.data_ptr() for t in ops), mean.data_ptr(), chols.data_ptr(),
+            None if z is None else z.data_ptr(), seed % (1 << 64),
+            costs.data_ptr(), a_t.data_ptr(), B, N, H, self._check_rollover,
+            self.block,
+        )
+        return costs, a_t
+
+
+class JointSampleRolloutBatched(_RolloutKernelWrapper):
+    """K7, joint: K1 for B scenarios in one launch, a = clip(mean_b + F_b z)
+    per scenario and sample.
+
+    ``__call__(x0s, t0s, pos_trajs, vel_trajs, a_means (B, H, 4), factors
+    (B, D, D), params_b, seed, N, deterministic=False, discount=1.0,
+    draws=None, z=None) -> (costs (B, N), a_t (B, D, N))``. ``z`` (B, D, N)
+    feeds given normals; without it the kernel draws Philox normals keyed by
+    ``seed`` with the scenario in the counter (scenario 0 draws what K1
+    draws), and the plain version draws from a generator seeded with it.
+    """
+
+    batched = True
+
+    def plain(self, x0s, t0s, pos_trajs, vel_trajs, a_means, factors,
+              params_b, seed: int, N: int, deterministic: bool = False,
+              discount=1.0, draws: Optional[torch.Tensor] = None,
+              z: Optional[torch.Tensor] = None):
+        B = a_means.shape[0]
+        D = a_means[0].numel()
+        if z is None:
+            g = torch.Generator(device=x0s.device).manual_seed(seed)
+            z = torch.randn(B, D, N, generator=g, device=x0s.device)
+        a_t = torch.clamp(a_means.reshape(B, D, 1) + factors @ z, -1.0, 1.0)
+        costs = self._rollout(x0s, t0s, pos_trajs, vel_trajs, a_t, params_b,
+                                draws, deterministic, discount, layout="hdn")
+        return costs, a_t
+
+    def __call__(self, x0s, t0s, pos_trajs, vel_trajs, a_means, factors,
+                 params_b, seed: int, N: int, deterministic: bool = False,
+                 discount=1.0, draws: Optional[torch.Tensor] = None,
+                 z: Optional[torch.Tensor] = None):
+        if kernels.route(x0s, a_means, factors) == "plain":
+            return self.plain(x0s, t0s, pos_trajs, vel_trajs, a_means,
+                              factors, params_b, seed, N, deterministic,
+                              discount, draws, z)
+        B, H, dA = a_means.shape
+        if dA != 4:
+            raise ValueError(f"action_dim must be 4, got {dA}")
+        D = H * dA
+        dev = x0s.device
+        ops = _launch_operands(self.env, x0s, t0s, pos_trajs, vel_trajs,
+                               params_b, draws, deterministic, discount, H)
+        mean = a_means.reshape(B, D).contiguous()
+        kernels.check_cuda("a_means", mean, (B, D), device=dev)
+        kernels.check_cuda("factors", factors, (B, D, D), device=dev)
+        if z is not None:
+            kernels.check_cuda("z", z, (B, D, N), device=dev)
+        costs = torch.empty(B, N, device=dev)
+        a_t = torch.empty(B, D, N, device=dev)
+        JOINT_BATCHED_KERNEL.launch(
+            *(t.data_ptr() for t in ops), mean.data_ptr(), factors.data_ptr(),
+            None if z is None else z.data_ptr(), seed % (1 << 64),
+            costs.data_ptr(), a_t.data_ptr(), B, N, H, self._check_rollover,
+            self.block,
+        )
+        return costs, a_t
+
+
+def make_rollout_batched_sampling(env: QuadEnv, joint: bool = False,
+                                  block: int = 128):
+    """The K7 wrappers (JAX: make_pallas_rollout_batched_sampling):
+    per-step Cholesky factors (``joint=False``, MPPI) or full factors
+    (``joint=True``, CoVO)."""
+    return (JointSampleRolloutBatched if joint else SampleRolloutBatched)(env, block)
 
 
 class Primal:

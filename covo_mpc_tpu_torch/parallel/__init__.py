@@ -1,0 +1,9 @@
+"""Scenario batching: B scenarios' solves in one call on one device. The
+mesh and sharded steps of the JAX package are not ported yet."""
+
+from covo_mpc_tpu_torch.parallel.scenarios import (
+    make_batched_covo_solve,
+    make_batched_mppi_solve,
+)
+
+__all__ = ["make_batched_covo_solve", "make_batched_mppi_solve"]

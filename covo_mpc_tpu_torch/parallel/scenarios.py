@@ -1,0 +1,220 @@
+"""Scenario-batched CoVO-online and MPPI solves on one device.
+
+Counterpart of :func:`covo_mpc_tpu.parallel.scenarios.make_batched_covo_solve`
+and :func:`~covo_mpc_tpu.parallel.scenarios.make_batched_mppi_solve`: one
+call solves B independent scenarios (B domain-randomized plants, each with
+its own state, trajectory and parameters), so one launch does B scenarios'
+work and the host's launch cost is paid once per batch, not once per
+scenario. Every op is batched over the leading scenario axis; nothing loops
+over B in Python:
+
+- the Hessian is the plain primal and chain under ``torch.func.vmap``
+  (``ops/hessian.make_hessian_batched``; JAX vmaps its scan primal);
+- the Newton–Schulz designer runs on the (B, D, D) stack;
+- the rollout is K6 (``engine="cuda"``, given actions) or K7 (``rng=
+  "kernel"``: per-step draw for MPPI, joint draw for CoVO, one launch over
+  a (lane-tiles, B) grid), or the plain batched rollout (``engine="torch"``);
+- the weights and the updates reduce over each scenario's samples.
+
+The per-solve Philox seed comes from a CPU generator the solve owns, the
+fast sampler's normals and MPPI's per-scenario disturbance draws from a
+device generator, so a solve never syncs with the host. The multichip
+steps (``make_multichip_control_step``, ``make_multichip_covo_step``) and
+``collect_metrics`` are not ported.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from covo_mpc_tpu_torch.ops import covariance, reductions, sampling
+from covo_mpc_tpu_torch.ops.hessian import make_hessian_batched
+from covo_mpc_tpu_torch.ops.rollout import make_rollout_batched
+from covo_mpc_tpu_torch.ops.rollout_cuda import (
+    make_rollout_batched_costs,
+    make_rollout_batched_sampling,
+)
+
+_RNGS = (sampling.FAST, sampling.KERNEL)
+
+
+def _shift(x: torch.Tensor) -> torch.Tensor:
+    """Receding-horizon shift along the step axis (axis 1), repeating the
+    last step."""
+    return torch.cat([x[:, 1:], x[:, -1:]], dim=1)
+
+
+def _check(rng: str, engine: str, collect_metrics: bool) -> None:
+    if rng not in _RNGS:
+        raise ValueError(f"batched solve supports rng='fast'/'kernel', got {rng!r}")
+    if engine not in ("torch", "cuda"):
+        raise ValueError(f"unknown engine {engine!r}")
+    if engine == "torch" and rng == sampling.KERNEL:
+        raise ValueError("rng='kernel' requires engine='cuda'")
+    if collect_metrics:
+        raise NotImplementedError("collect_metrics: runtime/metrics is not ported yet")
+
+
+class _BatchedSolve:
+    """What both batched solves share: the rollout of given actions and the
+    generators."""
+
+    def __init__(self, env, N: int, H: int, lam: float, rng: str, engine: str,
+                 seed: int):
+        self.env = env
+        self.N, self.H, self.lam = N, H, lam
+        self.dA = env.action_dim
+        self.rng, self.engine = rng, engine
+        self._rollout = (make_rollout_batched_costs(env) if engine == "cuda"
+                         else make_rollout_batched(env))
+        # CPU generator for the kernels' Philox seeds (no device read per
+        # solve), device generator for the fast sampler and the draws
+        self.generator = torch.Generator()
+        self.device_generator = torch.Generator(device=env.device)
+        self.seed(seed)
+
+    def seed(self, seed: int) -> None:
+        self.generator.manual_seed(seed)
+        self.device_generator.manual_seed(seed)
+
+    def _philox_seed(self) -> int:
+        return int(torch.randint(0, 2**63 - 1, (), generator=self.generator))
+
+
+class BatchedCoVOSolve(_BatchedSolve):
+    """``solve(x0s (B, 16), t0s (B,), pos_trajs (B, T, 3), vel_trajs,
+    a_means (B, H, dA), params_b, gamma_mean=1.0, discount=1.0, z=None) ->
+    (a_means_new (B, H, dA), min_costs (B,))``: per scenario, the mean
+    shift, the Hessian, the NS designer, the joint sample + deterministic
+    rollout, the weights and the γ-blended mean update (CoVO re-designs Σ
+    every solve, so no covariance is carried). ``z`` (B, N, D) feeds given
+    standard normals (tests hand in JAX's); K7 then runs its input-z mode.
+    """
+
+    def __init__(self, env, N: int, H: int, lam: float, sample_sigma: float,
+                 rng: str, hessian_mode: str, engine: str, seed: int):
+        if hessian_mode not in ("adjoint", "gn"):
+            raise ValueError(f"batched covo supports 'adjoint'/'gn', got "
+                             f"{hessian_mode!r}")
+        # TF32 would truncate the designer's fp32 matmuls (see solvers/covo.py)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        super().__init__(env, N, H, lam, rng, engine, seed)
+        self.sample_sigma = sample_sigma
+        self.D = H * self.dA
+        self._hessian = make_hessian_batched(
+            env, H, second_order=hessian_mode == "adjoint")
+        self._sampler = (make_rollout_batched_sampling(env, joint=True)
+                         if rng == sampling.KERNEL else None)
+
+    def __call__(self, x0s, t0s, pos_trajs, vel_trajs, a_means, params_b,
+                 gamma_mean=1.0, discount=1.0,
+                 z: Optional[torch.Tensor] = None):
+        B, N, D = a_means.shape[0], self.N, self.D
+        a_means = _shift(a_means)
+        R = self._hessian(a_means.reshape(B, D), x0s, t0s, pos_trajs,
+                          vel_trajs, params_b)
+        _, factors = covariance.optimize_sigma_ns(R, self.sample_sigma, D)
+        if self._sampler is not None:
+            costs, a_t = self._sampler(
+                x0s, t0s, pos_trajs, vel_trajs, a_means, factors, params_b,
+                self._philox_seed(), N, deterministic=True, discount=discount,
+                z=None if z is None else z.transpose(1, 2).contiguous(),
+            )
+        else:
+            a_t = torch.clamp(
+                sampling.sample_joint_t(self.device_generator,
+                                        a_means.reshape(B, D), factors, N, z=z),
+                -1.0, 1.0,
+            )
+            costs = self._rollout(x0s, t0s, pos_trajs, vel_trajs, a_t, params_b,
+                                  deterministic=True, discount=discount,
+                                  layout="hdn")
+        weights = reductions.mppi_weights(costs, self.lam)
+        a_means_new = reductions.mean_update_t(
+            weights, a_t.reshape(B, self.H, self.dA, N), a_means, gamma_mean)
+        return a_means_new, torch.amin(costs, dim=-1)
+
+
+class BatchedMPPISolve(_BatchedSolve):
+    """``solve(x0s, t0s, pos_trajs, vel_trajs, a_means (B, H, dA), a_covs
+    (B, H, dA, dA), params_b, gamma_mean=1.0, gamma_sigma=0.0, discount=1.0,
+    z=None, draws=None) -> (a_means_new, a_covs_new, min_costs (B,))``: per
+    scenario, the shift of mean AND covariance, the per-step sample (factors
+    by ``cholesky_ex`` of the shifted covariances, as JAX factors them every
+    solve) + stochastic rollout under one shared disturbance draw, the
+    weights, and the γ-blended mean and covariance updates (the covariance
+    untouched at γ_σ = 0). ``z`` (B, N, H, dA) and ``draws`` (B, 3) feed
+    given standard normals to the sampler and to each scenario's shared
+    disturbance; by default they come from the solve's generators.
+    """
+
+    def __init__(self, env, N: int, H: int, lam: float, rng: str,
+                 engine: str, seed: int):
+        super().__init__(env, N, H, lam, rng, engine, seed)
+        self._sampler = (make_rollout_batched_sampling(env, joint=False)
+                         if rng == sampling.KERNEL else None)
+        self._gaussian = env.config.disturb_type == "gaussian"
+
+    def __call__(self, x0s, t0s, pos_trajs, vel_trajs, a_means, a_covs,
+                 params_b, gamma_mean=1.0, gamma_sigma=0.0, discount=1.0,
+                 z: Optional[torch.Tensor] = None,
+                 draws: Optional[torch.Tensor] = None):
+        B, N, H, dA = a_means.shape[0], self.N, self.H, self.dA
+        a_means, a_covs = _shift(a_means), _shift(a_covs)
+        chols = torch.linalg.cholesky_ex(a_covs).L.contiguous()
+        if draws is None and self._gaussian:
+            draws = torch.randn(B, 3, generator=self.device_generator,
+                                device=x0s.device)
+        if self._sampler is not None:
+            costs, a_flat = self._sampler(
+                x0s, t0s, pos_trajs, vel_trajs, a_means, chols, params_b,
+                self._philox_seed(), N, deterministic=False, discount=discount,
+                draws=draws,
+                z=None if z is None else z.permute(0, 2, 3, 1).contiguous(),
+            )
+            a_t = a_flat.reshape(B, H, dA, N)
+        else:
+            a_t = torch.clamp(
+                sampling.sample_per_step_t(self.device_generator, a_means, chols,
+                                           N, z=z),
+                -1.0, 1.0,
+            )
+            costs = self._rollout(x0s, t0s, pos_trajs, vel_trajs, a_t, params_b,
+                                  draws, deterministic=False, discount=discount,
+                                  layout="hdn")
+        weights = reductions.mppi_weights(costs, self.lam)
+        a_means_new = reductions.mean_update_t(weights, a_t, a_means, gamma_mean)
+        a_covs_new = reductions.cov_update_t(weights, a_t, a_means_new, a_covs,
+                                             gamma_sigma)
+        return a_means_new, a_covs_new, torch.amin(costs, dim=-1)
+
+
+def make_batched_covo_solve(env, N: int, H: int, lam: float,
+                            sample_sigma: float = 0.5, rng: str = "fast",
+                            collect_metrics: bool = False,
+                            hessian_mode: str = "adjoint",
+                            engine: str = "torch",
+                            seed: int = 0) -> BatchedCoVOSolve:
+    """Scenario-batched CoVO-online solve on one device (JAX:
+    make_batched_covo_solve; ``interpret`` has no counterpart, ``engine``
+    picks the CUDA kernels or the plain path). ``rng="kernel"`` runs K7
+    (joint), ``"fast"`` draws with torch and runs K6 (``engine="cuda"``) or
+    the plain rollout (``engine="torch"``, which takes ``rng="fast"``
+    only)."""
+    _check(rng, engine, collect_metrics)
+    return BatchedCoVOSolve(env, N, H, lam, sample_sigma, rng, hessian_mode,
+                            engine, seed)
+
+
+def make_batched_mppi_solve(env, N: int, H: int, lam: float,
+                            rng: str = "fast", collect_metrics: bool = False,
+                            engine: str = "torch",
+                            seed: int = 0) -> BatchedMPPISolve:
+    """Scenario-batched MPPI solve on one device (JAX:
+    make_batched_mppi_solve). ``rng="kernel"`` runs K7 (per-step), ``"fast"``
+    draws with torch and runs K6 or the plain rollout, as for CoVO."""
+    _check(rng, engine, collect_metrics)
+    return BatchedMPPISolve(env, N, H, lam, rng, engine, seed)

@@ -6,15 +6,19 @@ A CUDA kernel has no CPU mode, so every test here needs an NVIDIA GPU and
 the kernels at the main path's shapes; these tests take the shapes it does
 not: a ragged sample count (N not a multiple of the block), a short
 horizon, both action layouts of K4, K5's in-kernel disturbance draw and
-the moments of its Philox draws, the 16-dim sensitivity state of K3, and
-the exact-adjoint Hessian through K2 and K3. Tolerances are the ones
-``chip_smoke.py`` states (the JAX kernel tests' own).
+the moments of its Philox draws, the 16-dim sensitivity state of K3, the
+exact-adjoint Hessian through K2 and K3, and the scenario-batched K6 and
+K7 at a ragged N, at B=1 against K4, K5 and K1, with in-kernel draws that
+do not depend on the scenario count, and K7 joint's per-scenario moments.
+Tolerances are the ones ``chip_smoke.py`` states (the JAX kernel tests'
+own).
 """
 
 import pytest
 import torch
 
 from covo_mpc_tpu_torch.models import EnvConfig, QuadEnv, pack_state
+from covo_mpc_tpu_torch.models.structs import index_params, stack_params
 from covo_mpc_tpu_torch.ops import hessian_cuda, rollout_cuda
 from covo_mpc_tpu_torch.ops.hessian import make_hessian_adjoint
 
@@ -208,3 +212,121 @@ def test_hessian_through_kernels_matches_plain(dev, second_order):
     ref = make_hessian_adjoint(env, H, primal="torch", tail="torch",
                                second_order=second_order)(*args)
     assert _rel(got, ref) < 1e-5
+
+
+# --- the scenario-batched kernels: K6 and K7 (per-step and joint) ----------
+
+B = 3
+
+
+def _scenarios(dev, n_scen=B):
+    """``n_scen`` domain-randomized scenarios from one generator: the
+    batched kernels' state inputs and their stacked params."""
+    env = QuadEnv(EnvConfig(task="tracking_zigzag", enable_randomizer=True,
+                            disturb_type="gaussian",
+                            disable_rollover_terminate=True,
+                            generate_noisy_state=True), device=dev)
+    gen = torch.Generator(dev).manual_seed(7)
+    params = [env.sample_params(gen) for _ in range(n_scen)]
+    sts = [env.reset(gen, p)[1]["noisy_state"] for p in params]
+    args = (torch.stack([pack_state(s) for s in sts]), torch.stack([s.time for s in sts]),
+            torch.stack([s.pos_traj for s in sts]), torch.stack([s.vel_traj for s in sts]))
+    return env, args, stack_params(params)
+
+
+def _batched_inputs(dev, Hs, seed=8):
+    g = torch.Generator(dev).manual_seed(seed)
+    a_means = torch.randn(B, Hs, 4, generator=g, device=dev) * 0.2
+    A = torch.randn(B, Hs, 4, 4, generator=g, device=dev) * 0.2
+    chols = torch.linalg.cholesky(A @ A.mT + 0.05 * torch.eye(4, device=dev)).contiguous()
+    factors = torch.randn(B, 4 * Hs, 4 * Hs, generator=g, device=dev) * 0.1
+    draws = torch.randn(B, 3, generator=g, device=dev)
+    return g, a_means, chols, factors, draws
+
+
+@pytest.mark.parametrize("n", [5000, 6144])
+def test_batched_kernels_match_plain(dev, n):
+    """K6 (both layouts), K7 per-step and K7 joint with given normals,
+    deterministic and under per-scenario shared draws, at a ragged N."""
+    env, args, pb = _scenarios(dev)
+    g, a_means, chols, factors, draws = _batched_inputs(dev, H)
+    acts = torch.randn(B, H, 4, n, generator=g, device=dev) * 0.5
+    k6 = rollout_cuda.make_rollout_batched_costs(env)
+    for kw in (dict(deterministic=True), dict(draws=draws)):
+        for layout, a in (("hdn", acts), ("nhd", acts.permute(0, 3, 1, 2).contiguous())):
+            torch.testing.assert_close(k6(*args, a, pb, discount=0.98, layout=layout, **kw),
+                                       k6.plain(*args, a, pb, discount=0.98, layout=layout,
+                                                **kw), atol=2e-4, rtol=1e-5)
+        for joint, fac, z in ((False, chols, torch.randn(B, H, 4, n, generator=g, device=dev)),
+                              (True, factors, torch.randn(B, D, n, generator=g, device=dev))):
+            k7 = rollout_cuda.make_rollout_batched_sampling(env, joint=joint)
+            kargs = (*args, a_means, fac, pb, 0, n)
+            c_k, a_k = k7(*kargs, discount=0.98, z=z, **kw)
+            c_p, a_p = k7.plain(*kargs, discount=0.98, z=z, **kw)
+            torch.testing.assert_close(a_k, a_p, atol=1e-5, rtol=0)
+            torch.testing.assert_close(c_k, c_p, atol=2e-4, rtol=1e-5)
+
+
+def test_batched_kernels_at_one_scenario_match_single(dev):
+    """B=1: K6 gives K4's costs; K7 per-step and K7 joint draw exactly what
+    K5 and K1 draw for the same seed, and their costs agree (2e-6: one
+    kernel body, so any difference is FMA contraction)."""
+    env, args, pb = _scenarios(dev, 1)
+    g, a_means, chols, factors, draws = _batched_inputs(dev, H)
+    single = tuple(x[0] for x in args)
+    p0 = index_params(pb, 0)
+    acts = torch.randn(1, H, 4, N, generator=g, device=dev) * 0.5
+    c6 = rollout_cuda.make_rollout_batched_costs(env)(*args, acts, pb, draws[:1])
+    c4 = rollout_cuda.make_rollout_costs(env)(*single, acts[0], p0, draws[0], layout="hdn")
+    torch.testing.assert_close(c6[0], c4, atol=2e-6, rtol=0)
+    for joint, fac, k in ((False, chols, rollout_cuda.make_rollout_sampling(env)),
+                          (True, factors, rollout_cuda.make_rollout_joint_sampling(env))):
+        k7 = rollout_cuda.make_rollout_batched_sampling(env, joint=joint)
+        c_b, a_b = k7(*args, a_means[:1], fac[:1], pb, 17, N, draws=draws[:1])
+        c_s, a_s = k(*single, a_means[0], fac[0], p0, 17, N, draw=draws[0])
+        assert torch.equal(a_b[0], a_s)
+        torch.testing.assert_close(c_b[0], c_s, atol=2e-6, rtol=0)
+
+
+@pytest.mark.parametrize("joint", [False, True], ids=["per_step", "joint"])
+def test_batched_draws_scenario_count_invariant(dev, joint):
+    """A scenario's in-kernel draws depend on its index only: scenario 1 of
+    a 2-scenario launch equals scenario 1 of a 3-scenario one, blocks of 64
+    and 128 agree, and the scenarios draw different streams."""
+    env, args, pb = _scenarios(dev)
+    _, _, chols, factors, _ = _batched_inputs(dev, H)
+    zero = torch.zeros(B, H, 4, device=dev)
+    fac = factors if joint else chols
+    k7 = rollout_cuda.make_rollout_batched_sampling(env, joint=joint)
+    c3, a3 = k7(*args, zero, fac, pb, 5, N, deterministic=True)
+    two = stack_params([index_params(pb, b) for b in range(2)])
+    c2, a2 = k7(*(x[:2] for x in args), zero[:2], fac[:2], two, 5, N, deterministic=True)
+    assert torch.equal(a2[1], a3[1]) and torch.equal(c2[1], c3[1])
+    c64, a64 = rollout_cuda.make_rollout_batched_sampling(env, joint=joint, block=64)(
+        *args, zero, fac, pb, 5, N, deterministic=True)
+    assert torch.equal(a64, a3) and torch.equal(c64, c3)
+    same = (0.1 * torch.eye(fac.shape[-1], device=dev)).expand_as(fac).contiguous()
+    _, a_same = k7(*args, zero, same, pb, 5, N, deterministic=True)
+    assert not torch.equal(a_same[0], a_same[1])
+
+
+def test_joint_batched_philox_moments(dev):
+    """K7 joint's per-scenario draws at the main path's size (N=8192, H=32):
+    mean 0, F = 0.1 I, so each action dimension of every scenario is
+    N(0, 0.01); the same limits as K1's."""
+    env, args, pb = _scenarios(dev)
+    Nm, Hm = 8192, 32
+    k7 = rollout_cuda.make_rollout_batched_sampling(env, joint=True)
+    zero = torch.zeros(B, Hm, 4, device=dev)
+    eye = (0.1 * torch.eye(4 * Hm, device=dev)).expand(B, 4 * Hm, 4 * Hm).contiguous()
+    _, a1 = k7(*args, zero, eye, pb, 1234, Nm, deterministic=True)
+    _, a1b = k7(*args, zero, eye, pb, 1234, Nm, deterministic=True)
+    _, a2 = k7(*args, zero, eye, pb, 1235, Nm, deterministic=True)
+    for b in range(B):
+        mean_d = a1[b].mean(dim=1)
+        var_d = a1[b].var(dim=1, correction=0)
+        pooled = float(a1[b].pow(2).mean() - a1[b].mean().pow(2))
+        assert float(mean_d.abs().max()) <= 5e-3
+        assert float((var_d / 0.01 - 1).abs().max()) <= 0.10
+        assert abs(pooled / 0.01 - 1) <= 0.01
+    assert torch.equal(a1, a1b) and not torch.equal(a1, a2)
