@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's CoVO-online and MPPI paths once on one NVIDIA GPU.
+"""Drive the PyTorch port's CoVO, MPPI, PID and Random paths once on one NVIDIA GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It builds the
 CUDA kernels from ``covo_mpc_tpu_torch/csrc`` (nvcc, one process per
@@ -34,17 +34,31 @@ source, at first use), then:
    seed 1, 300 steps (CoVO below 5.0 cm, MPPI below 8.0 cm and above
    CoVO's); (d) aggregate solves/s at B = 1, 16, 64 for both solvers and
    engines, the device kernels per batched solve at B=16 and B=64, and
-   one batched CoVO and MPPI solve broken down by layer at B=16.
+   one batched CoVO and MPPI solve broken down by layer at B=16;
+6. the fused Sigma-designer K8 (``sigma_mode="ns_pallas"``) and the other
+   CoVO modes on the main path's env: (a) K8 against the plain designer on
+   the gn Hessian of a reset state and on the JAX kernel test's R at scales
+   1 and 100, timed alone, through its wrapper and as plain ops; (b) one
+   full-width online solve with ``"ns_pallas"``, ``engine="cuda"`` (K8)
+   against ``engine="torch"`` on the same normals (2e-4, no host sync); (c)
+   the speculative ``act`` + ``prepare`` the same way, and ``act()`` and
+   ``prepare()`` timed alone; (d) the closed loops of covo_speculative
+   (K8, kernel rng) and covo_offline (kernel rng), below 5.0 cm, PID (below
+   40 cm and above both CoVO modes') and one episode of random actions.
 
 Each kernel's launch count in the JSON record is read from the closed loop
 that runs it: K1-K3 from CoVO's, K5 from MPPI's kernel-rng loop, K4 from
 MPPI's fast loop, K7 joint from the batched CoVO loop, K7 per-step from
-the batched MPPI kernel-rng loop, K6 from the batched MPPI fast loop
-(counts set to 0 just before each loop). Any failed check raises, so the
-script exits non-zero; without a CUDA device it exits at once. The line
-before the last is the kernels' JSON record, the last ``{"ok": true,
-"device": {...}}``. ``--total-steps 12000`` runs the 40-episode protocols
-in phase 3.
+the batched MPPI kernel-rng loop, K6 from the batched MPPI fast loop, K8
+from the speculative loop (counts set to 0 just before each loop). Each
+kernel's record also holds its bound, the least time the card could take
+for the same work at the timed shapes (the larger of its fp32 operations
+over the fp32 peak and its bytes over the memory rate), and the time of
+one PyTorch call computing the same function (none exists for K1-K8:
+null). Any failed check raises, so the script exits non-zero; without a
+CUDA device it exits at once. The line before the last is the kernels'
+JSON record, the last ``{"ok": true, "device": {...}}``.
+``--total-steps 12000`` runs the 40-episode protocols in phase 3.
 """
 
 from __future__ import annotations
@@ -69,10 +83,68 @@ MPPI_ERR_POS_LIMIT_CM = 8.0
 SCEN_B = 16  # the checks' scenario count (RESULTS.md's "64 chips at B=16")
 SCEN_TIMING_B = (1, 16, 64)
 SCEN_LOOP_B, SCEN_LOOP_STEPS = 4, 300
+PID_ERR_POS_LIMIT_CM = 40.0
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA's data sheet)
+# fp32 operations of one sample's rollout step (csrc/quad_core.cuh
+# rollout_step, counted by hand, a transcendental as one): dyn_step ~124
+# (the action map 18, bodyrate_step 106), penyaw_reward ~57, bookkeeping ~10
+STEP_FLOPS = 190
+DYN_FLOPS = 124
+BOX_MULLER_FLOPS = 5  # per normal: log, sqrt, sin/cos and scaling per pair
+K8_MATMULS = 104  # optimize_sigma_ns: 2 x 16 (power squaring) + 24 + 1 + 47 (NS)
+T0 = time.perf_counter()
+PEAK = {}  # "fp32": FLOP/s outside the tensor cores, set in main()
 
 
 def say(*args):
     print(*args, flush=True)
+
+
+def phase(title: str) -> None:
+    say(f"[{time.perf_counter() - T0:7.1f} s] {title}")
+
+
+def bound(flops: float, nbytes: float) -> dict:
+    """The least time the card could take for work of ``flops`` fp32
+    operations moving ``nbytes`` (each input read once, each output written
+    once): the larger of the two times, with the one that bounds named."""
+    t_ops = flops / PEAK["fp32"] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                library_ms=None)
+
+
+def rollout_bytes(B: int, N: int, H: int) -> int:
+    """Bytes of a rollout kernel's small per-scenario tables: x0 (16),
+    targets (2 x 3H), scalar pack (17), int pack (3), and its costs (N)."""
+    return 4 * B * (16 + 6 * H + 17 + 3 + N)
+
+
+def k1_bound(B: int, N: int, H: int) -> dict:
+    """K1 / K7 joint with in-kernel draws: F (D, D) and the mean in, the
+    actions (D, N) out; the correlate 2 N D^2, the draws and the steps."""
+    D = 4 * H
+    flops = B * N * (2 * D * D + BOX_MULLER_FLOPS * D + H * STEP_FLOPS)
+    return bound(flops, rollout_bytes(B, N, H) + 4 * B * (D * D + D + D * N))
+
+
+def k5_bound(B: int, N: int, H: int) -> dict:
+    """K5 / K7 per-step with in-kernel draws: the means and 4x4 factors in,
+    the actions (4H, N) out; a lower 4x4 correlate (20) + mean (4) a step."""
+    flops = B * N * H * (24 + 4 * BOX_MULLER_FLOPS + STEP_FLOPS)
+    return bound(flops, rollout_bytes(B, N, H) + 4 * B * (4 * H + 16 * H + 4 * H * N))
+
+
+def k4_bound(B: int, N: int, H: int) -> dict:
+    """K4 / K6: the actions (4H, N) in, the costs out."""
+    return bound(B * N * H * STEP_FLOPS, rollout_bytes(B, N, H) + 4 * B * 4 * H * N)
+
+
+def k8_bound(D: int) -> dict:
+    """K8: R in, a_cov and the factor out; 104 (D, D) products and a
+    Cholesky (D^3 / 3)."""
+    return bound(K8_MATMULS * 2 * D**3 + D**3 / 3, 4 * 3 * D * D)
 
 
 def time_ms(fn, reps: int, warmup: int = 3) -> float:
@@ -144,7 +216,7 @@ def phase_kernels(env, dev, records):
     from covo_mpc_tpu_torch.models import pack_state
     from covo_mpc_tpu_torch.ops import hessian_cuda, rollout_cuda
 
-    say("phase 1: kernels against their plain versions (N=8192, H=32, D=128)")
+    phase("phase 1: kernels against their plain versions (N=8192, H=32, D=128)")
     p = env.default_params
     _, info, _ = env.reset(torch.Generator(dev).manual_seed(3), p)
     st = info["noisy_state"]
@@ -206,7 +278,7 @@ def phase_kernels(env, dev, records):
     ms_k1 = time_ms(lambda: k1(*args, 7, N, **kw), 50)
     ms_k1p = time_ms(lambda: k1.plain(*args, 7, N, **kw), 10)
     records["joint_sample_rollout"] = dict(max_abs_err=max(err_a, err_c),
-                                          ms=ms_k1, plain_ms=ms_k1p)
+                                          ms=ms_k1, plain_ms=ms_k1p, **k1_bound(1, N, H))
     say(f"  K1 {ms_k1:.4f} ms, plain {ms_k1p:.4f} ms")
 
     # K2: primal
@@ -219,7 +291,9 @@ def phase_kernels(env, dev, records):
     check(err2 <= 1e-5, "K2 within atol 1e-5")
     ms_k2 = time_ms(lambda: k2(x0, a_seq, dist, p), 200)
     ms_k2p = time_ms(lambda: k2.plain(x0, a_seq, dist, p), 20)
-    records["primal"] = dict(max_abs_err=err2, ms=ms_k2, plain_ms=ms_k2p)
+    # x0, actions (H, 4), disturbance table (H, 3), the scalars in; (H, 13) out
+    records["primal"] = dict(max_abs_err=err2, ms=ms_k2, plain_ms=ms_k2p,
+                             **bound(H * DYN_FLOPS, 4 * (16 + 7 * H + 17 + 13 * H)))
     say(f"  K2 {ms_k2:.4f} ms, plain {ms_k2p:.4f} ms")
 
     # K3: sensitivity chain (J = [A | B] with A near the identity, as a
@@ -237,8 +311,10 @@ def phase_kernels(env, dev, records):
     check(rel_T < 1e-5 and rel_R < 1e-5, "K3 T and Hessian within 1e-5 (relative)")
     ms_k3 = time_ms(lambda: hessian_cuda.sens_chain(J, 4), 200)
     ms_k3p = time_ms(lambda: hessian_cuda.sens_chain_plain(J, 4), 20)
+    # J (H, 13, 17) in, T (H, 17, D) out; per step a (13 x 17) x (17 x D) product
     records["sens_chain"] = dict(max_abs_err=max_err(T_k, T_p), ms=ms_k3,
-                                 plain_ms=ms_k3p)
+                                 plain_ms=ms_k3p,
+                                 **bound(H * 13 * 17 * D * 2, 4 * H * 17 * (13 + D)))
     say(f"  K3 {ms_k3:.4f} ms, plain {ms_k3p:.4f} ms")
 
     # K4: rollout costs of given actions, both layouts, deterministic and
@@ -263,7 +339,8 @@ def phase_kernels(env, dev, records):
           "K4 results independent of the block size (64 vs 128)")
     ms_k4 = time_ms(lambda: k4(*roll, acts, p, draw=draw, layout="hdn"), 50)
     ms_k4p = time_ms(lambda: k4.plain(*roll, acts, p, draw=draw, layout="hdn"), 10)
-    records["rollout_costs"] = dict(max_abs_err=err4, ms=ms_k4, plain_ms=ms_k4p)
+    records["rollout_costs"] = dict(max_abs_err=err4, ms=ms_k4, plain_ms=ms_k4p,
+                                    **k4_bound(1, N, H))
     say(f"  K4 {ms_k4:.4f} ms, plain {ms_k4p:.4f} ms")
 
     # K5: per-step sample + rollout, z given ("input_z"), then its own draws
@@ -301,18 +378,20 @@ def phase_kernels(env, dev, records):
     ms_k5 = time_ms(lambda: k5(*args5, 7, N, disturb_seed=8), 50)
     ms_k5p = time_ms(lambda: k5.plain(*args5, 7, N, disturb_seed=8), 10)
     records["sample_rollout"] = dict(max_abs_err=max(err_a5, err_c5, err_k5),
-                                     ms=ms_k5, plain_ms=ms_k5p)
+                                     ms=ms_k5, plain_ms=ms_k5p, **k5_bound(1, N, H))
     say(f"  K5 {ms_k5:.4f} ms, plain {ms_k5p:.4f} ms")
 
 
-def make_solver(env, engine, seed=0, rng_mode=None):
-    """The CoVO-online main-path solver; rng_mode defaults to "kernel" on
-    the cuda engine, "fast" on torch."""
+def make_solver(env, engine, seed=0, rng_mode=None, name="covo_online",
+                sigma_mode="ns"):
+    """A CoVO solver at the main path's configuration (default: the
+    CoVO-online main path); rng_mode defaults to "kernel" on the cuda
+    engine, "fast" on torch."""
     from covo_mpc_tpu_torch.solvers import get_solver
 
     rng_mode = rng_mode or ("kernel" if engine == "cuda" else "fast")
-    return get_solver(env, "covo_online", f"N{N}_H{H}_lam0.01",
-                      rng_mode=rng_mode, hessian_mode="gn", sigma_mode="ns",
+    return get_solver(env, name, f"N{N}_H{H}_lam0.01",
+                      rng_mode=rng_mode, hessian_mode="gn", sigma_mode=sigma_mode,
                       engine=engine, collect_debug=False, seed=seed)
 
 
@@ -346,7 +425,7 @@ def run_once(fn, kernel_list):
 def phase_solve(env, dev, kernel_list):
     from covo_mpc_tpu_torch.ops import rollout_cuda
 
-    say("phase 2: one full-width solve, engine='cuda' against engine='torch'")
+    phase("phase 2: one full-width solve, engine='cuda' against engine='torch'")
     p = env.default_params
     obs, info, state = env.reset(torch.Generator(dev).manual_seed(5), p)
     args = (obs, state, p, info)
@@ -379,7 +458,7 @@ def phase_solve(env, dev, kernel_list):
         check(all(bool(torch.isfinite(x).all()) for x in (a_c, cp_c.a_mean, cp_c.a_cov)),
               "solve outputs finite")
 
-    say("phase 2b: one full-width MPPI solve, engine='cuda' against "
+    phase("phase 2b: one full-width MPPI solve, engine='cuda' against "
         "engine='torch', on the same z and draw")
     g = np.random.default_rng(3)
     z = torch.from_numpy(g.standard_normal((N, H, 4)).astype(np.float32)).to(dev)
@@ -505,7 +584,7 @@ def profile_solves(env, dev):
     from covo_mpc_tpu_torch.ops.hessian import build_hessian_disturb_table, gn_curvature
     from covo_mpc_tpu_torch.ops.rollout import target_window
 
-    say("profile: layers of one cuda-engine solve (N=8192, H=32)")
+    phase("profile: layers of one cuda-engine solve (N=8192, H=32)")
     p = env.default_params
     obs, info, state = env.reset(torch.Generator(dev).manual_seed(7), p)
     st = info["noisy_state"]
@@ -569,7 +648,7 @@ def profile_mppi(env, dev):
     from covo_mpc_tpu_torch.models import pack_state
     from covo_mpc_tpu_torch.ops import reductions, rollout_cuda, sampling
 
-    say("profile: layers of one MPPI cuda-engine solve (N=8192, H=32, kernel rng)")
+    phase("profile: layers of one MPPI cuda-engine solve (N=8192, H=32, kernel rng)")
     p = env.default_params
     obs, info, state = env.reset(torch.Generator(dev).manual_seed(7), p)
     st = info["noisy_state"]
@@ -624,7 +703,7 @@ def closed_loop(env, solver, total_steps, kernel_list):
 def phase_closed_loops(env, dev, total_steps, covo_kernels, kernel_list):
     """Phase 3: the single-scenario closed loops and solve times; returns
     each kernel's launch count from the loop that runs it."""
-    say(f"phase 3: closed loop, evaluate(total_steps={total_steps}, seed=1), "
+    phase(f"phase 3: closed loop, evaluate(total_steps={total_steps}, seed=1), "
         "engine='cuda', rng_mode='kernel'")
     solver, _ = make_solver(env, "cuda")
     result, launches = closed_loop(env, solver, total_steps, kernel_list)
@@ -636,7 +715,7 @@ def phase_closed_loops(env, dev, total_steps, covo_kernels, kernel_list):
     say(f"  median device ms per solve: cuda {med['cuda']:.4f} ({counts['cuda']} solves), "
         f"torch {med['torch']:.4f} ({counts['torch']} solves)")
 
-    say(f"phase 3b: MPPI closed loop, evaluate(total_steps={total_steps}, "
+    phase(f"phase 3b: MPPI closed loop, evaluate(total_steps={total_steps}, "
         "seed=1), engine='cuda', rng_mode='kernel'")
     solver, _ = make_mppi(env, "cuda")
     mppi, mppi_launches = closed_loop(env, solver, total_steps, kernel_list)
@@ -646,7 +725,7 @@ def phase_closed_loops(env, dev, total_steps, covo_kernels, kernel_list):
           f"MPPI err_pos finite and below {MPPI_ERR_POS_LIMIT_CM} cm")
     check(mppi.mean > result.mean,
           "MPPI err_pos above CoVO's on the same reset trajectories")
-    say(f"phase 3c: MPPI closed loop, evaluate(total_steps={total_steps}, "
+    phase(f"phase 3c: MPPI closed loop, evaluate(total_steps={total_steps}, "
         "seed=1), engine='cuda', rng_mode='fast'")
     solver, _ = make_mppi(env, "cuda", rng_mode="fast")
     fast, fast_launches = closed_loop(env, solver, total_steps, kernel_list)
@@ -724,7 +803,7 @@ def phase_scenario_kernels(env, dev, records):
     from covo_mpc_tpu_torch.ops import rollout_cuda
 
     B = SCEN_B
-    say(f"phase 5a: K6 and K7 against their plain versions (B={B}, N={N}, "
+    phase(f"phase 5a: K6 and K7 against their plain versions (B={B}, N={N}, "
         f"H={H}, D={D}, domain-randomized scenarios)")
     args, pb, _, _ = scenario_batch(env, B, seed=21)
     say(f"  masses {[round(float(m), 5) for m in pb.m]}, alpha_bodyrate "
@@ -763,7 +842,8 @@ def phase_scenario_kernels(env, dev, records):
     check(max_err(c1[0], c4) <= 2e-6, "K6 at B=1: costs within 2e-6 of K4's")
     ms6 = time_ms(lambda: k6(*args, acts, pb, draws=draws), 50)
     ms6p = time_ms(lambda: k6.plain(*args, acts, pb, draws=draws), 5, warmup=1)
-    records["rollout_costs_batched"] = dict(max_abs_err=err6, ms=ms6, plain_ms=ms6p)
+    records["rollout_costs_batched"] = dict(max_abs_err=err6, ms=ms6, plain_ms=ms6p,
+                                            **k4_bound(B, N, H))
     # the bare launches, on operands the wrapper's own packing made
     ops = rollout_cuda._launch_operands(env, *args, pb, draws, False, 1.0, H)
     ptrs = [t.data_ptr() for t in ops]
@@ -812,7 +892,8 @@ def phase_scenario_kernels(env, dev, records):
               f"{label}: scenario 2's in-kernel draws the same at B=4 and B={B}")
         ms = time_ms(lambda: k7(*kargs, 7, N, draws=draws), 50)
         ms_p = time_ms(lambda: k7.plain(*kargs, 7, N, draws=draws), 5, warmup=1)
-        records[name] = dict(max_abs_err=max(err_a, err_c), ms=ms, plain_ms=ms_p)
+        records[name] = dict(max_abs_err=max(err_a, err_c), ms=ms, plain_ms=ms_p,
+                             **(k1_bound if joint else k5_bound)(B, N, H))
         mean = a_means.reshape(B, -1).contiguous()
         a_out = torch.empty(B, D, N, device=dev)
         kern = (rollout_cuda.JOINT_BATCHED_KERNEL if joint
@@ -827,7 +908,7 @@ def phase_scenario_solves(env, dev, kernel_list):
     from covo_mpc_tpu_torch.ops import rollout_cuda
 
     B = SCEN_B
-    say(f"phase 5b: one full-width batched solve per rng (B={B}), engine='cuda' "
+    phase(f"phase 5b: one full-width batched solve per rng (B={B}), engine='cuda' "
         "against engine='torch' on the same normals")
     args, pb, _, _ = scenario_batch(env, B, seed=22)
     a_means, a_covs = initial_means(env, B)
@@ -914,7 +995,7 @@ def batched_closed_loop(env, solve, kind: str, kernel_list):
 def phase_scenario_loops(env, kernel_list):
     """5c: the batched closed loops; returns each batched kernel's launch
     count from the loop that runs it."""
-    say(f"phase 5c: batched closed loops, B={SCEN_LOOP_B} scenarios from seed 1, "
+    phase(f"phase 5c: batched closed loops, B={SCEN_LOOP_B} scenarios from seed 1, "
         f"{SCEN_LOOP_STEPS} steps, engine='cuda'")
     say("  CoVO (kernel rng: K7 joint)")
     covo, launches = batched_closed_loop(env, make_batched(env, "covo", "cuda"),
@@ -945,7 +1026,7 @@ def phase_scenario_timing(env, dev):
     each B, both solvers, engines in turns torch, cuda, cuda, torch (cuda
     with kernel rng); then the device kernels and copies one batched cuda
     solve enqueues at B=16 and B=64, which must not grow with B."""
-    say(f"phase 5d: aggregate solves/s at B = {SCEN_TIMING_B} (events; cuda "
+    phase(f"phase 5d: aggregate solves/s at B = {SCEN_TIMING_B} (events; cuda "
         "engine with kernel rng)")
     kernels_per_solve = {}
     for B in SCEN_TIMING_B:
@@ -957,13 +1038,15 @@ def phase_scenario_timing(env, dev):
             for engine in ("torch", "cuda", "cuda", "torch"):
                 solve = make_batched(env, kind, engine)
                 events = []
-                for i in range(2 + 5):
+                # 1 warm-up + 3 timed solves per turn (2 + 5 through PR 3;
+                # cut to keep the whole run near half its time limit)
+                for i in range(1 + 3):
                     e0 = torch.cuda.Event(enable_timing=True)
                     e1 = torch.cuda.Event(enable_timing=True)
                     e0.record()
                     solve(*args, a_means, *extra, pb)
                     e1.record()
-                    if i >= 2:
+                    if i >= 1:
                         events.append((e0, e1))
                 torch.cuda.synchronize()
                 times[engine] += [a.elapsed_time(b) for a, b in events]
@@ -993,7 +1076,7 @@ def profile_batched(env, dev):
     from covo_mpc_tpu_torch.ops.hessian import make_hessian_batched
 
     B = SCEN_B
-    say(f"profile: layers of one batched cuda-engine solve (B={B}, N={N}, H={H}, "
+    phase(f"profile: layers of one batched cuda-engine solve (B={B}, N={N}, H={H}, "
         "kernel rng)")
     args, pb, _, _ = scenario_batch(env, B, seed=24)
     a_means, a_covs = initial_means(env, B)
@@ -1028,6 +1111,151 @@ def profile_batched(env, dev):
             line += f", of it the kernel {fmt_ms(prof['kernel_ms'])}"
         say(line + f" ({prof['complete']} sessions complete)")
 
+# --- phase 6: the fused Sigma-designer (K8) and the other CoVO modes ---------
+
+
+def synthetic_R(scale: float, dev) -> torch.Tensor:
+    """The JAX kernel test's R = A A^T / D * scale - 0.3 * scale * I (numpy
+    seed 0)."""
+    A = np.random.default_rng(0).standard_normal((D, D))
+    R = (A @ A.T / D) * scale - 0.3 * scale * np.eye(D)
+    return torch.from_numpy(R.astype(np.float32)).to(dev)
+
+
+def phase_sigma_kernel(env, dev, records):
+    """6a: K8 against the plain designer on three R, and its times."""
+    from covo_mpc_tpu_torch.ops import covariance, covariance_cuda
+
+    phase(f"phase 6a: K8 (fused NS Sigma-designer, D={D}) against the plain designer")
+    p = env.default_params
+    _, info, _ = env.reset(torch.Generator(dev).manual_seed(3), p)
+    solver, cp = make_solver(env, "cuda")
+    nominal = torch.cat([cp.a_mean[1:], cp.a_mean[-1:]])
+    sources = {"gn Hessian of a reset state": solver.get_hessian(info["noisy_state"], p,
+                                                                 nominal),
+               "synthetic R, scale 1": synthetic_R(1.0, dev),
+               "synthetic R, scale 100": synthetic_R(100.0, dev)}
+    err = 0.0
+    for what, R in sources.items():
+        c_k, f_k = covariance_cuda.optimize_sigma_ns_cuda(R, 0.5, D)
+        c_p, f_p = covariance.optimize_sigma_ns(R, 0.5, D)
+        rel_c, rel_f = rel_fro(c_k, c_p), rel_fro(f_k, f_p)
+        abs_c, ffT = max_err(c_k, c_p), max_err(f_k @ f_k.T, c_k)
+        say(f"  {what}: relative Frobenius a_cov {rel_c:.3e}, factor {rel_f:.3e}; "
+            f"max |a_cov - plain| {abs_c:.3e}; max |F F^T - a_cov| {ffT:.3e}")
+        check(rel_c <= 1e-3 and rel_f <= 1e-3 and ffT <= 2e-4
+              and torch.equal(f_k, torch.tril(f_k)),
+              f"K8 ({what}): a_cov and factor within 1e-3 (relative), a lower "
+              "factor with F F^T within 2e-4 of a_cov")
+        if "scale 100" not in what:
+            # at scale 100 the shifted spectrum's floor (an absolute 1e-2
+            # under lambda_min = -30) moves with each ulp of lambda_min
+            check(abs_c <= 2e-4, f"K8 ({what}): a_cov within 2e-4")
+            err = max(err, abs_c)
+    R = sources["gn Hessian of a reset state"]
+    ws = torch.empty(7, D, D, device=dev)
+    a_cov, factor = torch.empty(D, D, device=dev), torch.empty(D, D, device=dev)
+    ms_bare = bare_launch_ms(
+        covariance_cuda.SIGMA_KERNEL, R.data_ptr(), a_cov.data_ptr(), factor.data_ptr(),
+        ws.data_ptr(), D, 0.5, covariance._LIFT_A, covariance._LIFT_B,
+        covariance._LIFT_C, 14, 3, 4, 8, 5, reps=20)
+    ms = time_ms(lambda: covariance_cuda.optimize_sigma_ns_cuda(R, 0.5, D), 20)
+    ms_p = time_ms(lambda: covariance.optimize_sigma_ns(R, 0.5, D), 20)
+    rec = dict(max_abs_err=err, ms=ms, plain_ms=ms_p, **k8_bound(D))
+    records["sigma_ns"] = rec
+    say(f"  K8 alone {ms_bare:.4f} ms, wrapper {ms:.4f} ms, plain {ms_p:.4f} ms; "
+        f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}): "
+        f"{100 * rec['bound_ms'] / ms_bare:.2f}% of it")
+
+
+def phase_sigma_solves(env, dev, kernel_list):
+    """6b and 6c: full-width online and speculative solves with
+    ``sigma_mode="ns_pallas"``, engine="cuda" (K8) against engine="torch"
+    on the same normals; then act() and prepare() timed alone."""
+    from covo_mpc_tpu_torch.ops import covariance_cuda, rollout_cuda
+
+    phase("phase 6b: one full-width online solve, sigma_mode='ns_pallas', "
+          "engine='cuda' (K8) against engine='torch'")
+    p = env.default_params
+    obs, info, state = env.reset(torch.Generator(dev).manual_seed(5), p)
+    z = torch.from_numpy(
+        np.random.default_rng(7).standard_normal((N, D)).astype(np.float32)).to(dev)
+    used = [covariance_cuda.SIGMA_KERNEL.symbol, rollout_cuda.JOINT_KERNEL.symbol,
+            "primal", "sens_chain"]
+    for name in ("covo_online", "covo_speculative"):
+        out = {}
+        for engine in ("cuda", "torch"):
+            solver, cp = make_solver(env, engine, name=name, sigma_mode="ns_pallas")
+            cp = solver.reset(state, p, cp)
+            out[engine], counts = run_once(
+                lambda: solver(obs, state, p, cp, info, z=z), kernel_list)
+            if engine == "cuda":
+                say(f"  {name} launch counters after the cuda solve: "
+                    f"{ {k: v for k, v in counts.items() if v} }")
+                check(all(counts[k] > 0 for k in used),
+                      f"{', '.join(used)} each launched by the {name} solve")
+        a_c, cp_c, _ = out["cuda"]
+        a_t, cp_t, _ = out["torch"]
+        names = ("a_mean", "a_cov") + (("a_factor",) if name == "covo_speculative" else ())
+        errs = {"action": max_err(a_c, a_t),
+                **{k: max_err(getattr(cp_c, k), getattr(cp_t, k)) for k in names}}
+        say(f"  {name} max |cuda - torch|: {errs}")
+        check(all(v <= 2e-4 for v in errs.values()),
+              f"{name}: action and {', '.join(names)} within 2e-4 (no host sync)")
+        check(all(bool(torch.isfinite(x).all()) for x in (a_c, cp_c.a_mean, cp_c.a_cov)),
+              "solve outputs finite")
+        if name == "covo_online":
+            phase("phase 6c: speculative act() + prepare(), the same way")
+
+    solver, cp = make_solver(env, "cuda", name="covo_speculative", sigma_mode="ns_pallas")
+    cp = solver.reset(state, p, cp)
+    _, cp_next, _ = solver.act(obs, state, p, cp, info)
+    ms_act = time_ms(lambda: solver.act(obs, state, p, cp, info), 50)
+    ms_prep = time_ms(lambda: solver.prepare(state, p, cp_next, info), 20)
+    walls = []
+    for _ in range(50):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a, _, _ = solver.act(obs, state, p, cp, info)
+        a.cpu()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    say(f"  act() {ms_act:.4f} ms per call (events, 50 back to back), "
+        f"obs->action {float(np.median(walls)):.4f} ms median wall with the "
+        f"action on the host (50 calls); prepare() {ms_prep:.4f} ms (events, 20)")
+
+
+def phase_mode_loops(env, total_steps, kernel_list, covo_kernels):
+    """6d: the closed loops of the speculative and offline CoVO modes, PID
+    and random; returns K8's launch count from the speculative loop."""
+    from covo_mpc_tpu_torch.ops import covariance_cuda
+    from covo_mpc_tpu_torch.solvers import get_solver
+
+    phase(f"phase 6d: closed loops, evaluate(total_steps={total_steps}, seed=1): "
+          "covo_speculative (ns_pallas, kernel rng)")
+    solver, _ = make_solver(env, "cuda", name="covo_speculative", sigma_mode="ns_pallas")
+    spec, launches = closed_loop(env, solver, total_steps, kernel_list)
+    k8 = launches[covariance_cuda.SIGMA_KERNEL.symbol]
+    check(k8 > 0 and all(launches[k.symbol] > 0 for k in covo_kernels),
+          "sigma_ns and every kernel of the CoVO path launched by the speculative loop")
+    check(np.isfinite(spec.mean) and spec.mean * 100 < ERR_POS_LIMIT_CM,
+          f"speculative err_pos finite and below {ERR_POS_LIMIT_CM} cm")
+    phase("  covo_offline (kernel rng)")
+    solver, _ = make_solver(env, "cuda", name="covo_offline")
+    off, _ = closed_loop(env, solver, total_steps, kernel_list)
+    check(np.isfinite(off.mean) and off.mean * 100 < ERR_POS_LIMIT_CM,
+          f"offline err_pos finite and below {ERR_POS_LIMIT_CM} cm")
+    phase("  pid")
+    pid, _ = closed_loop(env, get_solver(env, "pid")[0], total_steps, kernel_list)
+    check(np.isfinite(pid.mean) and pid.mean * 100 < PID_ERR_POS_LIMIT_CM,
+          f"pid err_pos finite and below {PID_ERR_POS_LIMIT_CM} cm")
+    check(pid.mean > max(spec.mean, off.mean),
+          "pid err_pos above both CoVO modes' on the same reset trajectories")
+    phase("  random (one episode)")
+    rnd, _ = closed_loop(env, get_solver(env, "random")[0],
+                         env.default_params.max_steps_in_episode, kernel_list)
+    check(np.isfinite(rnd.mean), "random err_pos finite")
+    return {covariance_cuda.SIGMA_KERNEL.symbol: k8}
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1041,7 +1269,7 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from covo_mpc_tpu_torch.models import EnvConfig, QuadEnv
-    from covo_mpc_tpu_torch.ops import hessian_cuda, kernels, rollout_cuda
+    from covo_mpc_tpu_torch.ops import covariance_cuda, hessian_cuda, kernels, rollout_cuda
 
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -1053,18 +1281,27 @@ def main(argv=None) -> int:
                           text=True, check=True, timeout=60).stdout.strip()
     say(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"nvcc: {nvcc.splitlines()[-1]}")
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    # 128 fp32 lanes per SM, an FMA counted as two operations
+    PEAK["fp32"] = sms * 128 * 2 * clock_mhz * 1e6
+    say(f"fp32 peak {PEAK['fp32'] / 1e12:.2f} TFLOP/s ({sms} SMs at {clock_mhz:.0f} MHz), "
+        f"memory {HBM_BYTES_PER_S / 1e12:.2f} TB/s")
     t0 = time.perf_counter()
     lib = kernels.library()
     say(f"kernel build: nvcc {lib.build_seconds:.2f} s, load {time.perf_counter() - t0:.2f} s")
 
-    env = QuadEnv(EnvConfig(**ENV_KW), device=dev)
+    env = QuadEnv(EnvConfig(**ENV_KW))
     covo_kernels = [rollout_cuda.JOINT_KERNEL, rollout_cuda.PRIMAL_KERNEL,
                     hessian_cuda.CHAIN_KERNEL]
     single_kernels = covo_kernels + [rollout_cuda.ROLLOUT_KERNEL,
                                      rollout_cuda.SAMPLE_KERNEL]
     kernel_list = single_kernels + [rollout_cuda.ROLLOUT_BATCHED_KERNEL,
                                     rollout_cuda.SAMPLE_BATCHED_KERNEL,
-                                    rollout_cuda.JOINT_BATCHED_KERNEL]
+                                    rollout_cuda.JOINT_BATCHED_KERNEL,
+                                    covariance_cuda.SIGMA_KERNEL]
     records = {}
     phase_kernels(env, dev, records)
     phase_solve(env, dev, single_kernels)
@@ -1072,12 +1309,16 @@ def main(argv=None) -> int:
                                   single_kernels)
     profile_solves(env, dev)
     profile_mppi(env, dev)
-    env_dr = QuadEnv(EnvConfig(**{**ENV_KW, "enable_randomizer": True}), device=dev)
+    env_dr = QuadEnv(EnvConfig(**{**ENV_KW, "enable_randomizer": True}))
     phase_scenario_kernels(env_dr, dev, records)
     phase_scenario_solves(env_dr, dev, kernel_list)
     launches.update(phase_scenario_loops(env, kernel_list))
     phase_scenario_timing(env_dr, dev)
     profile_batched(env_dr, dev)
+    phase_sigma_kernel(env, dev, records)
+    phase_sigma_solves(env, dev, kernel_list)
+    launches.update(phase_mode_loops(env, args.total_steps, kernel_list, covo_kernels))
+    phase("done")
 
     say(json.dumps({"kernels": [
         {"name": k.symbol, "route": "cuda", "source": k.source,

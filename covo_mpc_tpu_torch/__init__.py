@@ -7,14 +7,18 @@ that mirrors its layout and public names:
   models/   structs, rotation math, bodyrate dynamics, rewards, the zigzag
             trajectory, the Quad3D environment
   ops/      the plain rollout, the CUDA kernel wrappers (rollout_cuda,
-            hessian_cuda, built by ops/kernels), the Hessian (Gauss–Newton
-            and exact adjoint), the Sigma-designers, sampling and reductions
-  solvers/  CoVO online, MPPI and the factory
+            hessian_cuda, covariance_cuda, built by ops/kernels), the
+            Hessian (Gauss–Newton and exact adjoint), the Sigma-designers,
+            sampling and reductions
+  solvers/  CoVO (online, speculative, offline), MPPI, PID, Random and the
+            factory
   parallel/ the scenario-batched CoVO and MPPI solves (B scenarios per call)
   runtime/  the episode runner and the evaluation protocol
   csrc/     the CUDA C++ kernels (compiled by nvcc at first use)
+  tools/    chip-only measurement tools (not imported here)
 
 Importing the package imports torch and never jax, and builds no kernel.
+Its entry points run on the card unless asked for the CPU (``device="cpu"``).
 """
 
 from covo_mpc_tpu_torch import models, ops, parallel, runtime, solvers

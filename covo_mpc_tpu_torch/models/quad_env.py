@@ -1,7 +1,8 @@
 """Quad3D environment in PyTorch: reset, step, auto-reset, info, obs.
 
-Counterpart of :mod:`covo_mpc_tpu.models.quad_env`, with an explicit
-``device`` and a ``torch.Generator`` in place of each JAX key. Every random
+Counterpart of :mod:`covo_mpc_tpu.models.quad_env`, with a ``device`` (the
+card by default; ``device="cpu"`` asks for the CPU) and a
+``torch.Generator`` in place of each JAX key. Every random
 number an env method needs comes from one small draw method
 (:meth:`QuadEnv.draw_reset`, :meth:`QuadEnv.draw_step`) and enters a pure
 method (:meth:`QuadEnv.reset_from_draws`, :meth:`QuadEnv.step_from_draws`)
@@ -66,12 +67,15 @@ class StepDraws:
 class QuadEnv:
     """Crazyflie-2 quadrotor with first-order bodyrate dynamics."""
 
-    def __init__(self, config: EnvConfig = EnvConfig(), device="cpu",
+    def __init__(self, config: EnvConfig = EnvConfig(), device="cuda",
                  **overrides):
         if overrides:
             config = dataclasses.replace(config, **overrides)
         self.config = config
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("QuadEnv: no CUDA device; the port runs on the "
+                               "card unless asked for the CPU (device='cpu')")
 
         defaults = EnvParams3D.default("cpu")
         self._max_steps = defaults.max_steps_in_episode

@@ -24,12 +24,19 @@ def log_pos_penalty(err_pos: torch.Tensor) -> torch.Tensor:
     )
 
 
+def _abs(x: torch.Tensor) -> torch.Tensor:
+    """|x| with JAX's derivative at 0 (+1, where torch.abs has 0): the
+    Hessian at a state of exactly zero yaw (a reset state, hovering with
+    zero body rates) keeps the yaw penalty's curvature, as JAX's does."""
+    return torch.where(x >= 0, x, -x)
+
+
 def tracking_penyaw_reward(pos, vel, quat, pos_tar, vel_tar) -> torch.Tensor:
     """The MPPI / CoVO cost model: tracking reward with a yaw penalty."""
     err_pos = torch.linalg.norm(pos_tar - pos, dim=-1)
     err_vel = torch.linalg.norm(vel_tar - vel, dim=-1)
     yaw = yaw_from_quat(quat)
-    return 1.3 - 0.05 * err_vel - log_pos_penalty(err_pos) - torch.abs(yaw) * 0.2
+    return 1.3 - 0.05 * err_vel - log_pos_penalty(err_pos) - _abs(yaw) * 0.2
 
 
 def tracking_realworld_reward(pos, quat, pos_tar) -> torch.Tensor:

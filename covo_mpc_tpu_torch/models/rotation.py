@@ -1,4 +1,5 @@
-"""Batch-first quaternion algebra: the pieces the dynamics and rewards use.
+"""Batch-first quaternion and SO(3) algebra: the pieces the dynamics, the
+rewards and the PID controller use.
 
 Counterpart of :mod:`covo_mpc_tpu.models.rotation`. Quaternions are
 (x, y, z, w); every function broadcasts over leading batch dimensions.
@@ -51,3 +52,52 @@ def yaw_from_quat(q: torch.Tensor) -> torch.Tensor:
     x, y, z, w = _xyzw(q)
     return torch.atan2(2.0 * (w * z + x * y),
                        1.0 - 2.0 * (y * y + z * z)).squeeze(-1)
+
+
+def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion -> rotation matrix (..., 3, 3), homogeneous form: it
+    scales by ||q||^2 for a non-unit q, as the reference's composition does
+    (the PID is fed un-normalized noisy quaternions)."""
+    x, y, z, w = _xyzw(q)
+    xx, yy, zz, ww = x * x, y * y, z * z, w * w
+    xy, xz, yz = x * y, x * z, y * z
+    wx, wy, wz = w * x, w * y, w * z
+    row0 = torch.cat([ww + xx - yy - zz, 2.0 * (xy - wz), 2.0 * (xz + wy)], dim=-1)
+    row1 = torch.cat([2.0 * (xy + wz), ww - xx + yy - zz, 2.0 * (yz - wx)], dim=-1)
+    row2 = torch.cat([2.0 * (xz - wy), 2.0 * (yz + wx), ww - xx - yy + zz], dim=-1)
+    return torch.stack([row0, row1, row2], dim=-2)
+
+
+def rotmat_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix -> quaternion (x, y, z, w) by the w-branch formula
+    only (valid for w bounded away from 0), as the reference."""
+    tr = R[..., 0, 0:1] + R[..., 1, 1:2] + R[..., 2, 2:3]
+    w = 0.5 * torch.sqrt(1.0 + tr)
+    scale = 0.5 / torch.sqrt(1.0 + tr)
+    x = scale * (R[..., 2, 1:2] - R[..., 1, 2:3])
+    y = scale * (R[..., 0, 2:3] - R[..., 2, 0:1])
+    z = scale * (R[..., 1, 0:1] - R[..., 0, 1:2])
+    return torch.cat([x, y, z, w], dim=-1)
+
+
+def hat(v: torch.Tensor) -> torch.Tensor:
+    """Skew-symmetric (cross-product) matrix (..., 3, 3) of v (..., 3)."""
+    vx, vy, vz = v[..., 0:1], v[..., 1:2], v[..., 2:3]
+    zero = torch.zeros_like(vx)
+    return torch.stack([torch.cat([zero, -vz, vy], dim=-1),
+                        torch.cat([vz, zero, -vx], dim=-1),
+                        torch.cat([-vy, vx, zero], dim=-1)], dim=-2)
+
+
+def vee(R: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`hat`: skew matrix (..., 3, 3) -> vector (..., 3)."""
+    return torch.cat([R[..., 2, 1:2], R[..., 0, 2:3], R[..., 1, 0:1]], dim=-1)
+
+
+def axis_angle_to_rotmat(axis: torch.Tensor, angle) -> torch.Tensor:
+    """Rodrigues' formula; normalizes ``axis`` (..., 3), ``angle`` (...)."""
+    axis = axis / torch.linalg.norm(axis, dim=-1, keepdim=True)
+    K = hat(axis)
+    eye = torch.eye(3, dtype=axis.dtype, device=axis.device).expand(K.shape)
+    ang = torch.as_tensor(angle, dtype=axis.dtype, device=axis.device)[..., None, None]
+    return eye + torch.sin(ang) * K + (1.0 - torch.cos(ang)) * (K @ K)

@@ -110,7 +110,7 @@ class EnvParams3D:
     obs_noise_scale: torch.Tensor
 
     @classmethod
-    def default(cls, device="cpu", **overrides) -> "EnvParams3D":
+    def default(cls, device="cuda", **overrides) -> "EnvParams3D":
         values = dict(_DEFAULTS, **overrides)
         return params_from_numpy(values, device)
 
@@ -152,7 +152,7 @@ def _int_leaf(name: str, v) -> int:
     return int(v[0])
 
 
-def params_from_numpy(leaves: Mapping[str, Any], device="cpu") -> EnvParams3D:
+def params_from_numpy(leaves: Mapping[str, Any], device="cuda") -> EnvParams3D:
     """Build :class:`EnvParams3D` from the JAX struct's leaves as numpy
     arrays (or Python numbers): float leaves become float32 tensors on
     ``device``, the integer episode constants Python ints. Leaves batched
@@ -210,7 +210,7 @@ def vmap_scenarios(fn: Callable, params_b: EnvParams3D) -> Callable:
     return batched
 
 
-def state_from_numpy(leaves: Mapping[str, Any], device="cpu") -> EnvState3D:
+def state_from_numpy(leaves: Mapping[str, Any], device="cuda") -> EnvState3D:
     """Build :class:`EnvState3D` from the JAX struct's leaves as numpy
     arrays: float32 tensors, int32 ``time``, on ``device``."""
     kw = {}
@@ -226,9 +226,10 @@ def state_from_numpy(leaves: Mapping[str, Any], device="cpu") -> EnvState3D:
 
 
 def pack_state(state: EnvState3D) -> torch.Tensor:
-    """The 16 physical entries of an EnvState3D as one flat vector."""
+    """The 16 physical entries of an EnvState3D as one vector, (..., 16) for
+    a state whose fields carry leading batch axes."""
     return torch.cat(
-        [state.pos, state.quat, state.vel, state.omega, state.f_disturb]
+        [state.pos, state.quat, state.vel, state.omega, state.f_disturb], dim=-1
     )
 
 

@@ -20,19 +20,19 @@ def optimize_sigma(R: torch.Tensor, sample_sigma, horizon_dim: int):
     """The reference recipe by eigh: symmetrize, shift the spectrum by
     ``-lambda_min + 1e-2``, then ``log s = ½ log c - ½ log lambda`` with c
     chosen so that ``det Sigma = det(sigma^2 I)``. Returns (a_cov, factor)
-    with ``factor @ factor.T == a_cov``."""
-    R = (R + R.T) / 2.0
+    with ``factor @ factor.T == a_cov``; on one (D, D) matrix or a stack."""
+    R = (R + R.mT) / 2.0
     eigs, u = torch.linalg.eigh(R)
-    offset = -torch.min(eigs) + 1e-2
+    offset = -torch.amin(eigs, dim=-1, keepdim=True) + 1e-2
     log_o = torch.log(eigs + offset)
     log_det_a_cov = horizon_dim * (math.log(sample_sigma) * 2.0)
-    log_const = (log_det_a_cov * 2.0 + torch.sum(log_o)) / horizon_dim
+    log_const = (log_det_a_cov * 2.0 + torch.sum(log_o, dim=-1, keepdim=True)) / horizon_dim
     log_s = 0.5 * log_const - 0.5 * log_o
     # eigh and cholesky return column-major matrices; the factor feeds the
     # joint sample + rollout kernel, which takes row-major operands
-    factor = (u * torch.exp(0.5 * log_s)[None, :]).contiguous()
-    a_cov = (u * torch.exp(log_s)[None, :]) @ u.T
-    return (a_cov + a_cov.T) / 2.0, factor
+    factor = (u * torch.exp(0.5 * log_s)[..., None, :]).contiguous()
+    a_cov = (u * torch.exp(log_s)[..., None, :]) @ u.mT
+    return (a_cov + a_cov.mT) / 2.0, factor
 
 
 def _fro(M: torch.Tensor) -> torch.Tensor:

@@ -34,7 +34,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
-_P, _I, _U64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64
+_P, _I, _U64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64, ctypes.c_float
 # C signatures of the entry points (csrc/*.cu); every one returns cudaError_t
 _SIGNATURES = {
     "joint_sample_rollout": [_P, _P, _P, _P, _P, _P, _P, _P, _U64, _P, _P,
@@ -50,6 +50,7 @@ _SIGNATURES = {
                                _I, _I, _I, _I, _I, _P],
     "joint_sample_rollout_batched": [_P, _P, _P, _P, _P, _P, _P, _P, _U64, _P,
                                      _P, _I, _I, _I, _I, _I, _P],
+    "sigma_ns": [_P, _P, _P, _P, _I, _F, _F, _F, _F, _I, _I, _I, _I, _I, _P],
 }
 
 

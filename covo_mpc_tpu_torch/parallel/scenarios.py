@@ -36,6 +36,7 @@ from covo_mpc_tpu_torch.ops.rollout_cuda import (
     make_rollout_batched_costs,
     make_rollout_batched_sampling,
 )
+from covo_mpc_tpu_torch.solvers.base import resolve_engine
 
 _RNGS = (sampling.FAST, sampling.KERNEL)
 
@@ -196,14 +197,15 @@ def make_batched_covo_solve(env, N: int, H: int, lam: float,
                             sample_sigma: float = 0.5, rng: str = "fast",
                             collect_metrics: bool = False,
                             hessian_mode: str = "adjoint",
-                            engine: str = "torch",
+                            engine: str = "auto",
                             seed: int = 0) -> BatchedCoVOSolve:
     """Scenario-batched CoVO-online solve on one device (JAX:
     make_batched_covo_solve; ``interpret`` has no counterpart, ``engine``
-    picks the CUDA kernels or the plain path). ``rng="kernel"`` runs K7
-    (joint), ``"fast"`` draws with torch and runs K6 (``engine="cuda"``) or
-    the plain rollout (``engine="torch"``, which takes ``rng="fast"``
-    only)."""
+    picks the CUDA kernels or the plain path, "auto" by the env's device).
+    ``rng="kernel"`` runs K7 (joint), ``"fast"`` draws with torch and runs
+    K6 (``engine="cuda"``) or the plain rollout (``engine="torch"``, which
+    takes ``rng="fast"`` only)."""
+    engine = resolve_engine(env, engine)
     _check(rng, engine, collect_metrics)
     return BatchedCoVOSolve(env, N, H, lam, sample_sigma, rng, hessian_mode,
                             engine, seed)
@@ -211,10 +213,11 @@ def make_batched_covo_solve(env, N: int, H: int, lam: float,
 
 def make_batched_mppi_solve(env, N: int, H: int, lam: float,
                             rng: str = "fast", collect_metrics: bool = False,
-                            engine: str = "torch",
+                            engine: str = "auto",
                             seed: int = 0) -> BatchedMPPISolve:
     """Scenario-batched MPPI solve on one device (JAX:
     make_batched_mppi_solve). ``rng="kernel"`` runs K7 (per-step), ``"fast"``
     draws with torch and runs K6 or the plain rollout, as for CoVO."""
+    engine = resolve_engine(env, engine)
     _check(rng, engine, collect_metrics)
     return BatchedMPPISolve(env, N, H, lam, rng, engine, seed)

@@ -1,9 +1,11 @@
-"""Sampling-based MPC solvers (MPPI, CoVO online)."""
+"""Sampling-based MPC solvers (MPPI, CoVO online / speculative / offline)
+and the PID and Random baselines."""
 
-from covo_mpc_tpu_torch.solvers.base import BaseSolver
+from covo_mpc_tpu_torch.solvers.base import BaseSolver, RandomSolver, resolve_engine
 from covo_mpc_tpu_torch.solvers.covo import CoVOParams, CoVOSolver, covo_params_from_numpy
 from covo_mpc_tpu_torch.solvers.factory import get_solver, hover_sequence, parse_sample_params
 from covo_mpc_tpu_torch.solvers.mppi import MPPIParams, MPPISolver, mppi_params_from_numpy
+from covo_mpc_tpu_torch.solvers.pid import PIDParams, PIDSolver
 
 __all__ = [
     "BaseSolver",
@@ -16,4 +18,8 @@ __all__ = [
     "MPPISolver",
     "mppi_params_from_numpy",
     "parse_sample_params",
+    "PIDParams",
+    "PIDSolver",
+    "RandomSolver",
+    "resolve_engine",
 ]

@@ -7,6 +7,8 @@ control_params, env_info)`` — the JAX call signature without the
 
 from __future__ import annotations
 
+import torch
+
 from covo_mpc_tpu_torch.ops import sampling
 from covo_mpc_tpu_torch.ops.rollout import make_rollout
 from covo_mpc_tpu_torch.ops.rollout_cuda import make_rollout_costs
@@ -41,3 +43,30 @@ class BaseSolver:
 
     def __call__(self, obs, state, env_params, control_params, env_info=None):
         raise NotImplementedError
+
+
+def resolve_engine(env, engine: str) -> str:
+    """Resolve ``engine="auto"`` (JAX: factory.resolve_engine, with "cuda"
+    in the place of "pallas"): the CUDA kernels when the env lies on a CUDA
+    device, the plain PyTorch path when it lies on the CPU."""
+    if engine != "auto":
+        return engine
+    return "cuda" if torch.device(env.device).type == "cuda" else "torch"
+
+
+class RandomSolver(BaseSolver):
+    """N(0, 0.3^2) actions, drawn from the solver's own generator on the
+    env's device (JAX: solvers/base.RandomSolver)."""
+
+    def __init__(self, env, control_params=None, seed: int = 0) -> None:
+        super().__init__(env, control_params)
+        self.generator = torch.Generator(device=env.device)
+        self.seed(seed)
+
+    def seed(self, seed: int) -> None:
+        self.generator.manual_seed(seed)
+
+    def __call__(self, obs, state, env_params, control_params, env_info=None):
+        action = torch.randn(self.env.action_dim, generator=self.generator,
+                             device=self.env.device) * 0.3
+        return action, control_params, {}

@@ -1,13 +1,15 @@
 """Solver factory + hyperparameter parsing (the packed "N{N}_H{H}_lam{lam}"
-string of the JAX factory). "mppi" and "covo_online" are ported."""
+string of the JAX factory): "pid", "random", "mppi" and the CoVO modes."""
 
 from __future__ import annotations
 
 import torch
 
 from covo_mpc_tpu_torch.ops import sampling
+from covo_mpc_tpu_torch.solvers.base import RandomSolver, resolve_engine
 from covo_mpc_tpu_torch.solvers.covo import CoVOParams, CoVOSolver
 from covo_mpc_tpu_torch.solvers.mppi import MPPIParams, MPPISolver
+from covo_mpc_tpu_torch.solvers.pid import PIDParams, PIDSolver
 
 DEFAULT_N = 8192
 DEFAULT_H = 32
@@ -40,20 +42,27 @@ def get_solver(
     rng_mode: str = sampling.FAST,
     hessian_mode: str = "gn",
     collect_debug: bool = False,
-    engine: str = "torch",
+    engine: str = "auto",
     sigma_mode: str = "ns",
     seed: int = 0,
 ):
-    """Build (solver, control_params) by name: "mppi", or any name
-    containing "covo" without "offline", "spec" or "latency" (CoVO online).
-    "pid", "random" and the other CoVO modes are not ported yet.
-    ``hessian_mode`` and ``sigma_mode`` are CoVO's."""
-    if name != "mppi" and ("covo" not in name or any(
-            k in name for k in ("offline", "spec", "latency"))):
-        raise NotImplementedError(f"controller {name!r} is not ported yet")
+    """Build (solver, control_params) by name: "pid", "random", "mppi", or
+    any name containing "covo" (the mode by substring, as the reference:
+    "offline", then "spec" / "latency" for speculative, else online).
+    ``engine="auto"`` runs the CUDA kernels for an env on the card and the
+    plain path for one on the CPU. ``hessian_mode`` and ``sigma_mode`` are
+    CoVO's."""
+    if name == "pid":
+        params = PIDParams.default(env.device, Kp=10.0, Kd=5.0, Ki=0.0, Kp_att=10.0)
+        return PIDSolver(env, params), params
+    if name == "random":
+        return RandomSolver(env, None, seed=seed), None
+    if name != "mppi" and "covo" not in name:
+        raise NotImplementedError(f"unknown controller {name!r}")
     N, H, lam, sigma = parse_sample_params(controller_params)
     if debug:
         N, H = 4, 2  # fast-feedback smoke config
+    engine = resolve_engine(env, engine)
     if name == "mppi":
         a_cov = (torch.eye(env.action_dim, device=env.device) * sigma**2).expand(
             H, env.action_dim, env.action_dim).contiguous()
@@ -71,17 +80,27 @@ def get_solver(
         solver = MPPISolver(env, params, N=N, H=H, lam=lam, rng_mode=rng_mode,
                             collect_debug=collect_debug, engine=engine, seed=seed)
         return solver, params
+    if "offline" in name:
+        mode = "offline"
+    elif "spec" in name or "latency" in name:
+        mode = "speculative"
+    else:
+        mode = "online"
     D = H * env.action_dim
+    eye = torch.eye(D, device=env.device)
     params = CoVOParams(
         gamma_mean=1.0,
         gamma_sigma=0.0,
         discount=1.0,
         sample_sigma=sigma,
         a_mean=hover_sequence(env, H),
-        a_cov=torch.eye(D, device=env.device) * sigma**2,
+        a_cov=eye * sigma**2,
+        # isotropic cold-start factor for step 0 when reset() is given no
+        # state to design from (factor @ factor.T == a_cov)
+        a_factor=eye * sigma if mode == "speculative" else None,
     )
     solver = CoVOSolver(
-        env, params, N=N, H=H, lam=lam, mode="online", rng_mode=rng_mode,
+        env, params, N=N, H=H, lam=lam, mode=mode, rng_mode=rng_mode,
         hessian_mode=hessian_mode, collect_debug=collect_debug, engine=engine,
         sigma_mode=sigma_mode, seed=seed,
     )

@@ -10,7 +10,7 @@ sample-last fast path). One solve, in order:
    K5 (``rng_mode="kernel"``: per-step draw, rollout and costs in one
    launch), or z and the draw from the solver's device generator, then K4
    (``engine="cuda"``, ``rng_mode="fast"``) or the plain rollout
-   (``engine="torch"``);
+   (``engine="torch"``); ``engine="auto"`` picks by the env's device;
 4. softmax weights, the mean update, and the covariance update (which
    leaves covariance and factor untouched at ``gamma_sigma == 0``).
 
@@ -29,7 +29,7 @@ import torch
 from covo_mpc_tpu_torch.models.structs import pack_state
 from covo_mpc_tpu_torch.ops import reductions, sampling
 from covo_mpc_tpu_torch.ops.rollout_cuda import make_rollout_sampling
-from covo_mpc_tpu_torch.solvers.base import BaseSolver, make_cost_rollout
+from covo_mpc_tpu_torch.solvers.base import BaseSolver, make_cost_rollout, resolve_engine
 
 
 @dataclasses.dataclass
@@ -46,7 +46,7 @@ class MPPIParams:
         return dataclasses.replace(self, **changes)
 
 
-def mppi_params_from_numpy(leaves: Mapping[str, Any], device="cpu") -> MPPIParams:
+def mppi_params_from_numpy(leaves: Mapping[str, Any], device="cuda") -> MPPIParams:
     """Build :class:`MPPIParams` from the JAX struct's leaves as numpy
     arrays: scalars as Python floats, arrays as float32 tensors on
     ``device`` (the factor made row-major)."""
@@ -73,13 +73,13 @@ class MPPISolver(BaseSolver):
         lam: float,
         rng_mode: str = sampling.FAST,
         collect_debug: bool = False,
-        engine: str = "torch",
+        engine: str = "auto",
         seed: int = 0,
     ) -> None:
         super().__init__(env, control_params)
         if collect_debug:
             raise NotImplementedError("debug pose collection is not ported yet")
-        self.rollout = make_cost_rollout(env, engine, rng_mode)
+        self.rollout = make_cost_rollout(env, resolve_engine(env, engine), rng_mode)
         self.N, self.H, self.lam = N, H, lam
         self.rng_mode = rng_mode
         self.action_dim = env.action_dim

@@ -9,10 +9,13 @@ horizon, both action layouts of K4, K5's in-kernel disturbance draw and
 the moments of its Philox draws, the 16-dim sensitivity state of K3, the
 exact-adjoint Hessian through K2 and K3, and the scenario-batched K6 and
 K7 at a ragged N, at B=1 against K4, K5 and K1, with in-kernel draws that
-do not depend on the scenario count, and K7 joint's per-scenario moments.
-Tolerances are the ones ``chip_smoke.py`` states (the JAX kernel tests'
+do not depend on the scenario count, and K7 joint's per-scenario moments;
+the Sigma-designer K8 at D = 32 and 64 on a near-singular and on a badly
+scaled R. Tolerances are the ones ``chip_smoke.py`` states (the JAX kernel tests'
 own).
 """
+
+import math
 
 import pytest
 import torch
@@ -330,3 +333,73 @@ def test_joint_batched_philox_moments(dev):
         assert float((var_d / 0.01 - 1).abs().max()) <= 0.10
         assert abs(pooled / 0.01 - 1) <= 0.01
     assert torch.equal(a1, a1b) and not torch.equal(a1, a2)
+
+
+# --- the fused Newton–Schulz Sigma-designer: K8 ----------------------------
+
+
+def _near_singular(D, seed):
+    """A PSD R with eigenvalues log-spaced from 1e-6 to 1."""
+    g = torch.Generator().manual_seed(seed)
+    Q, _ = torch.linalg.qr(torch.randn(D, D, generator=g, dtype=torch.float64))
+    ev = torch.logspace(-6, 0, D, dtype=torch.float64)
+    return ((Q * ev) @ Q.T).float()
+
+
+def _badly_scaled(D, seed, scale=1e3):
+    """The JAX kernel test's R = A A^T / D - 0.3 I, at ``scale``."""
+    g = torch.Generator().manual_seed(seed)
+    A = torch.randn(D, D, generator=g, dtype=torch.float64)
+    return ((A @ A.T / D - 0.3 * torch.eye(D, dtype=torch.float64)) * scale).float()
+
+
+@pytest.mark.parametrize("D", [32, 64])
+def test_sigma_ns_matches_plain_near_singular(dev, D):
+    """K8 against its plain version on a near-singular R (smallest
+    eigenvalue 1e-6): relative Frobenius 1e-3 on a_cov and the factor (the
+    JAX package's bar between its two designers), max abs 2e-4 on a_cov,
+    and the factor a lower square root of a_cov."""
+    from covo_mpc_tpu_torch.ops import covariance, covariance_cuda
+
+    R = _near_singular(D, D).to(dev)
+    c_k, f_k = covariance_cuda.optimize_sigma_ns_cuda(R, 0.5, D)
+    c_p, f_p = covariance.optimize_sigma_ns(R, 0.5, D)
+    assert _rel(c_k, c_p) <= 1e-3 and _rel(f_k, f_p) <= 1e-3
+    assert float((c_k - c_p).abs().max()) <= 2e-4
+    assert torch.equal(f_k, torch.tril(f_k))
+    torch.testing.assert_close(f_k @ f_k.T, c_k, atol=2e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("D", [32, 64])
+def test_sigma_ns_matches_plain_badly_scaled(dev, D):
+    """K8 on R scaled by 1e3: both designers shift the spectrum's floor to
+    an absolute 1e-2, so one fp32 ulp of lambda_min (~1e-4 at this scale)
+    moves a_cov by up to ~1e-2 of its norm whichever designer runs; what
+    stays exact is checked tightly: a finite lower square root of a_cov at
+    log det a_cov = 2 D log sigma."""
+    from covo_mpc_tpu_torch.ops import covariance, covariance_cuda
+
+    R = _badly_scaled(D, D).to(dev)
+    c_k, f_k = covariance_cuda.optimize_sigma_ns_cuda(R, 0.5, D)
+    c_p, f_p = covariance.optimize_sigma_ns(R, 0.5, D)
+    assert bool(torch.isfinite(c_k).all() and torch.isfinite(f_k).all())
+    assert _rel(c_k, c_p) <= 1e-2 and _rel(f_k, f_p) <= 1e-2
+    assert torch.equal(f_k, torch.tril(f_k))
+    torch.testing.assert_close(f_k @ f_k.T, c_k, atol=2e-5, rtol=1e-5)
+    logdet = float(torch.linalg.slogdet(c_k.double()).logabsdet)
+    assert abs(logdet - 2 * D * math.log(0.5)) <= 1e-3
+
+
+def test_sigma_ns_counts_and_rejects(dev):
+    """One launch per call, counted; D above 128 or not a multiple of 4
+    raises before any launch."""
+    from covo_mpc_tpu_torch.ops import covariance_cuda
+
+    k = covariance_cuda.SIGMA_KERNEL
+    before = k.launches
+    covariance_cuda.optimize_sigma_ns_cuda(_near_singular(32, 1).to(dev), 0.5, 32)
+    assert k.launches == before + 1
+    for D in (132, 30):
+        with pytest.raises(ValueError):
+            covariance_cuda.optimize_sigma_ns_cuda(torch.eye(D, device=dev), 0.5, D)
+    assert k.launches == before + 1

@@ -42,7 +42,7 @@ ENV_KW = dict(task="tracking_zigzag", enable_randomizer=False,
 
 def make_envs(**overrides):
     kw = dict(ENV_KW, **overrides)
-    return JQuadEnv(JEnvConfig(**kw)), QuadEnv(EnvConfig(**kw))
+    return JQuadEnv(JEnvConfig(**kw)), QuadEnv(EnvConfig(**kw), device="cpu")
 
 
 def leaves(struct) -> dict:
@@ -53,11 +53,11 @@ def leaves(struct) -> dict:
 
 
 def to_torch_state(jstate):
-    return state_from_numpy(leaves(jstate))
+    return state_from_numpy(leaves(jstate), device="cpu")
 
 
 def to_torch_params(jparams):
-    return params_from_numpy(leaves(jparams))
+    return params_from_numpy(leaves(jparams), device="cpu")
 
 
 def t(x):

@@ -22,6 +22,7 @@ from covo_mpc_tpu.ops.hessian import make_hessian_adjoint as j_hessian_adjoint
 from covo_mpc_tpu.ops.hessian_pallas import make_tail_pullback as j_tail_pullback
 from covo_mpc_tpu.ops.rollout import make_rollout as j_make_rollout
 from covo_mpc_tpu.ops.rollout_pallas import SUB
+from covo_mpc_tpu.solvers.factory import hover_sequence as j_hover
 from covo_mpc_tpu.ops import sampling as jsamp
 from covo_mpc_tpu.ops.rollout_pallas import make_pallas_primal as j_primal
 from covo_mpc_tpu.ops.rollout_pallas import make_pallas_rollout as j_pallas_rollout
@@ -299,6 +300,30 @@ def test_hessian_adjoint_matches_jax(part, second_order):
         t(a).reshape(-1), pack_state(st), st.time, st.pos_traj, st.vel_traj, p,
     )
     assert got.dtype == torch.float32
+    assert _rel(got.numpy(), ref) < 1e-5
+
+
+@pytest.mark.parametrize("second_order", [False, True], ids=["gn", "adjoint"])
+def test_hessian_at_zero_yaw_matches_jax(second_order):
+    """At the exact reset state (identity attitude, zero body rates) the
+    hover nominal keeps the yaw at exactly 0 over the horizon, where |yaw|
+    is not differentiable: JAX's derivative of abs at 0 is +1, so its
+    Hessian keeps the yaw penalty's curvature. The port's did not (torch.abs
+    has 0 there: 100% relative error) until the reward took JAX's
+    convention."""
+    jenv, env = make_envs()
+    jp = jenv.default_params
+    _, _, state = jenv.reset_env(jax.random.PRNGKey(0), jp)
+    a = np.tile(np.asarray(j_hover(jenv, 1)), (H, 1)).astype(np.float32)
+    ref = j_hessian_adjoint(jenv, H, second_order=second_order)(
+        a.reshape(-1), jpack(state), state.time, state.pos_traj, state.vel_traj,
+        jp, jax.random.PRNGKey(9),
+    )
+    st = to_torch_state(state)
+    got = make_hessian_adjoint(env, H, second_order=second_order)(
+        t(a).reshape(-1), pack_state(st), st.time, st.pos_traj, st.vel_traj,
+        to_torch_params(jp),
+    )
     assert _rel(got.numpy(), ref) < 1e-5
 
 

@@ -122,7 +122,8 @@ def test_batched_params_stack_and_index():
     assert all(torch.equal(getattr(again, k), getattr(pb, k))
                for k, v in vars(pb).items() if isinstance(v, torch.Tensor))
     with pytest.raises(ValueError):
-        stack_params([EnvParams3D.default(), EnvParams3D.default(max_steps_in_episode=9)])
+        stack_params([EnvParams3D.default("cpu"),
+                      EnvParams3D.default("cpu", max_steps_in_episode=9)])
 
 
 def test_pack_kernel_inputs_batched_matches_per_scenario():

@@ -53,7 +53,7 @@ def test_solve_matches_jax(engine, rng_mode, hessian_mode):
     p = to_torch_params(jp)
     st = to_torch_state(state)
     tinfo = {"noisy_state": to_torch_state(info["noisy_state"])}
-    cp = covo_params_from_numpy(leaves(jcp))
+    cp = covo_params_from_numpy(leaves(jcp), device="cpu")
     for key, a_ref, jcp_ref in ((rng, a_r, jcp1), (rng2, a_r2, jcp2)):
         # the normals JAX's fast sampler drew: act_key = split(rng_act)[1]
         z = jax.random.normal(jax.random.split(key)[1], (N, 4 * H))
@@ -65,7 +65,7 @@ def test_solve_matches_jax(engine, rng_mode, hessian_mode):
         np.testing.assert_allclose(cp.a_cov.numpy(), np.asarray(jcp_ref.a_cov),
                                    atol=2e-4)
         # continue from the reference's params so errors do not compound
-        cp = covo_params_from_numpy(leaves(jcp_ref))
+        cp = covo_params_from_numpy(leaves(jcp_ref), device="cpu")
 
 
 @pytest.mark.parametrize("engine,rng_mode", [
@@ -84,7 +84,7 @@ def test_mppi_solve_matches_jax(engine, rng_mode):
     p = to_torch_params(jp)
     st = to_torch_state(state)
     tinfo = {"noisy_state": to_torch_state(info["noisy_state"])}
-    cp = mppi_params_from_numpy(leaves(jcp))
+    cp = mppi_params_from_numpy(leaves(jcp), device="cpu")
     for key in (jax.random.PRNGKey(5), jax.random.PRNGKey(6)):
         a_r, jcp, _ = jsolver(obs, state, jp, key, jcp, info)
         rest, act_key = jax.random.split(key)
@@ -97,7 +97,7 @@ def test_mppi_solve_matches_jax(engine, rng_mode):
             np.testing.assert_allclose(getattr(cp, name).numpy(),
                                        np.asarray(getattr(jcp, name)), atol=2e-4)
         # continue from the reference's params so errors do not compound
-        cp = mppi_params_from_numpy(leaves(jcp))
+        cp = mppi_params_from_numpy(leaves(jcp), device="cpu")
 
 
 def test_solver_modes_that_are_not_ported_raise():
@@ -105,13 +105,15 @@ def test_solver_modes_that_are_not_ported_raise():
     with pytest.raises(ValueError):
         get_solver(env, "covo_online", PSTR, rng_mode="kernel", engine="torch")
     with pytest.raises(NotImplementedError):
-        get_solver(env, "pid")
-    with pytest.raises(NotImplementedError):
-        get_solver(env, "random")
+        get_solver(env, "lqr")
+    with pytest.raises(ValueError):
+        get_solver(env, "covo_online", PSTR, sigma_mode="ns_triton")
+    with pytest.raises(ValueError, match="parity"):
+        get_solver(env, "covo_online", PSTR, rng_mode="parity", sigma_mode="ns_pallas")
     with pytest.raises(ValueError):
         get_solver(env, "mppi", PSTR, rng_mode="kernel", engine="torch")
     with pytest.raises(NotImplementedError):
-        get_solver(env, "covo_offline", PSTR)
+        get_solver(env, "covo_offline", PSTR, hessian_mode="fwd_fwd")
     with pytest.raises(NotImplementedError):
         get_solver(env, "covo_online", PSTR, hessian_mode="sensitivity")
 
