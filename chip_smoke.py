@@ -31,7 +31,7 @@ source, at first use), then:
    batched MPPI solve per rng, ``engine="cuda"`` against
    ``engine="torch"`` on the same normals (2e-4, no host sync); (c) the
    batched closed loops on the main path's env, B=4 scenarios reset from
-   seed 1, 300 steps (CoVO below 5.0 cm, MPPI below 8.0 cm and above
+   seed 1, 150 steps (CoVO below 5.0 cm, MPPI below 8.0 cm and above
    CoVO's); (d) aggregate solves/s at B = 1, 16, 64 for both solvers and
    engines, the device kernels per batched solve at B=16 and B=64, and
    one batched CoVO and MPPI solve broken down by layer at B=16;
@@ -44,14 +44,31 @@ source, at first use), then:
    the speculative ``act`` + ``prepare`` the same way, and ``act()`` and
    ``prepare()`` timed alone; (d) the closed loops of covo_speculative
    (K8, kernel rng) and covo_offline (kernel rng), below 5.0 cm, PID (below
-   40 cm and above both CoVO modes') and one episode of random actions.
+   40 cm and above both CoVO modes') and one episode of random actions;
+7. the disturbance modes of the rollout kernels ("table" for sin and
+   periodic, "drag", "mixed"): (a) K1, K4, K5 and, at B=16, K6 and K7
+   against their plain versions in each mode on given normals and draws,
+   from t0 = 47 (a redraw inside the horizon), and every rollout kernel
+   alone in each mode (bare launches, the gaussian "shared" mode too); K3
+   at sd=16 on the drag Hessian's J and M, K2 on a periodic table; (b)
+   full-width solves under drag (CoVO gn with K1, adjoint with K4, MPPI with
+   K5, the batched CoVO and MPPI at B=16) and mixed (CoVO gn with K1),
+   ``engine="cuda"`` against ``engine="torch"`` on the same normals and
+   draws (2e-4, no host sync); (c) the drag closed loops (1200 steps): CoVO
+   online with RESULTS_DRAG.md's settings (adjoint, fast rng: K4) and with
+   the main path's (gn, kernel rng: K1), both below MPPI's (fast rng: K4),
+   and the drag solve's median events ms.
 
 Each kernel's launch count in the JSON record is read from the closed loop
 that runs it: K1-K3 from CoVO's, K5 from MPPI's kernel-rng loop, K4 from
 MPPI's fast loop, K7 joint from the batched CoVO loop, K7 per-step from
 the batched MPPI kernel-rng loop, K6 from the batched MPPI fast loop, K8
-from the speculative loop (counts set to 0 just before each loop). Each
-kernel's record also holds its bound, the least time the card could take
+from the speculative loop (counts set to 0 just before each loop). A
+record's ``modes`` holds, for each disturbance mode it was checked in (and
+"sd13" / "sd16" for K3), the kernel's max abs error, the environments that
+ran it, its time alone, its bound counting the mode's extra operations and
+table, and its launches in the drag loops. Each kernel's record also holds
+its bound, the least time the card could take
 for the same work at the timed shapes (the larger of its fp32 operations
 over the fp32 peak and its bytes over the memory rate), and the time of
 one PyTorch call computing the same function (none exists for K1-K8:
@@ -82,13 +99,20 @@ ERR_POS_LIMIT_CM = 5.0
 MPPI_ERR_POS_LIMIT_CM = 8.0
 SCEN_B = 16  # the checks' scenario count (RESULTS.md's "64 chips at B=16")
 SCEN_TIMING_B = (1, 16, 64)
-SCEN_LOOP_B, SCEN_LOOP_STEPS = 4, 300
+# 150 batched steps (300 through PR 5; cut to keep the run with phase 7
+# inside about 800 s)
+SCEN_LOOP_B, SCEN_LOOP_STEPS = 4, 150
 PID_ERR_POS_LIMIT_CM = 40.0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA's data sheet)
 # fp32 operations of one sample's rollout step (csrc/quad_core.cuh
 # rollout_step, counted by hand, a transcendental as one): dyn_step ~124
 # (the action map 18, bodyrate_step 106), penyaw_reward ~57, bookkeeping ~10
 STEP_FLOPS = 190
+# what a disturbance mode adds to a sample's step: "drag" the next force
+# from the pre-step velocity, 3 x (v - wind/2, -|s| rel, x |rel|, / 2.25:
+# 6 with the abs and the scaling) = 18; "mixed" adds 3 x (two adds, the
+# redraw select, / 3) = 12 more; "table" reads its force, "shared" as before
+MODE_FLOPS = {"shared": 0, "table": 0, "drag": 18, "mixed": 30}
 DYN_FLOPS = 124
 BOX_MULLER_FLOPS = 5  # per normal: log, sqrt, sin/cos and scaling per pair
 K8_MATMULS = 104  # optimize_sigma_ns: 2 x 16 (power squaring) + 24 + 1 + 47 (NS)
@@ -115,30 +139,38 @@ def bound(flops: float, nbytes: float) -> dict:
                 library_ms=None)
 
 
-def rollout_bytes(B: int, N: int, H: int) -> int:
+def rollout_bytes(B: int, N: int, H: int, mode: str = "shared") -> int:
     """Bytes of a rollout kernel's small per-scenario tables: x0 (16),
-    targets (2 x 3H), scalar pack (17), int pack (3), and its costs (N)."""
-    return 4 * B * (16 + 6 * H + 17 + 3 + N)
+    targets (2 x 3H), scalar pack (17), int pack (3), the dist table (3H,
+    read in the "table" and "mixed" modes), and its costs (N)."""
+    dist = 3 * H if mode in ("table", "mixed") else 0
+    return 4 * B * (16 + 6 * H + dist + 17 + 3 + N)
 
 
-def k1_bound(B: int, N: int, H: int) -> dict:
+def step_flops(mode: str) -> int:
+    return STEP_FLOPS + MODE_FLOPS[mode]
+
+
+def k1_bound(B: int, N: int, H: int, mode: str = "shared") -> dict:
     """K1 / K7 joint with in-kernel draws: F (D, D) and the mean in, the
     actions (D, N) out; the correlate 2 N D^2, the draws and the steps."""
     D = 4 * H
-    flops = B * N * (2 * D * D + BOX_MULLER_FLOPS * D + H * STEP_FLOPS)
-    return bound(flops, rollout_bytes(B, N, H) + 4 * B * (D * D + D + D * N))
+    flops = B * N * (2 * D * D + BOX_MULLER_FLOPS * D + H * step_flops(mode))
+    return bound(flops, rollout_bytes(B, N, H, mode) + 4 * B * (D * D + D + D * N))
 
 
-def k5_bound(B: int, N: int, H: int) -> dict:
+def k5_bound(B: int, N: int, H: int, mode: str = "shared") -> dict:
     """K5 / K7 per-step with in-kernel draws: the means and 4x4 factors in,
     the actions (4H, N) out; a lower 4x4 correlate (20) + mean (4) a step."""
-    flops = B * N * H * (24 + 4 * BOX_MULLER_FLOPS + STEP_FLOPS)
-    return bound(flops, rollout_bytes(B, N, H) + 4 * B * (4 * H + 16 * H + 4 * H * N))
+    flops = B * N * H * (24 + 4 * BOX_MULLER_FLOPS + step_flops(mode))
+    return bound(flops, rollout_bytes(B, N, H, mode)
+                 + 4 * B * (4 * H + 16 * H + 4 * H * N))
 
 
-def k4_bound(B: int, N: int, H: int) -> dict:
+def k4_bound(B: int, N: int, H: int, mode: str = "shared") -> dict:
     """K4 / K6: the actions (4H, N) in, the costs out."""
-    return bound(B * N * H * STEP_FLOPS, rollout_bytes(B, N, H) + 4 * B * 4 * H * N)
+    return bound(B * N * H * step_flops(mode),
+                 rollout_bytes(B, N, H, mode) + 4 * B * 4 * H * N)
 
 
 def k8_bound(D: int) -> dict:
@@ -591,7 +623,7 @@ def profile_solves(env, dev):
     solver, cp = make_solver(env, "cuda")
     x0 = pack_state(st)
     a_mean = torch.cat([cp.a_mean[1:], cp.a_mean[-1:]])
-    aux = build_hessian_disturb_table(env, x0, H)
+    aux = build_hessian_disturb_table(env, x0, st.time, p, None, H)
     ptars, vtars = target_window(st.time, st.pos_traj, st.vel_traj, H, offset=1)
     k2 = rollout_cuda.make_primal(env, H)
     zs = k2(x0, a_mean, aux, p)
@@ -622,7 +654,9 @@ def profile_solves(env, dev):
 def time_layers(layers):
     for name, (fn, kernel) in layers.items():
         ev = time_ms(fn, 20)
-        prof = device_profile(fn, reps=5, name=kernel)
+        # two calls per profiler session (five through PR 5: the sessions'
+        # event processing cost ~3 s each on the CoVO layers)
+        prof = device_profile(fn, reps=2, name=kernel)
         line = f"  {name:30s} events {ev:9.4f} ms, device {fmt_ms(prof['ms'])}"
         if kernel:
             line += f", of it the kernel {fmt_ms(prof['kernel_ms'])}"
@@ -633,7 +667,7 @@ def busy_window(solver, cp, obs, state, p, info):
     """Solves under the profiler, five to a session: the device work one
     solve enqueues and, from the complete sessions, the device's busy share
     of the solves' wall time."""
-    prof = device_profile(lambda: solver(obs, state, p, cp, info), reps=5)
+    prof = device_profile(lambda: solver(obs, state, p, cp, info), reps=2)
     busy = ("not measured" if prof["busy"] is None else
             f"{prof['ms']:.4f} of {prof['wall_ms']:.4f} ms ({100 * prof['busy']:.2f}%)")
     say(f"  profiler window: {prof['ops']} device kernels and copies per solve; "
@@ -849,7 +883,8 @@ def phase_scenario_kernels(env, dev, records):
     ptrs = [t.data_ptr() for t in ops]
     costs = torch.empty(B, N, device=dev)
     ms6k = bare_launch_ms(rollout_cuda.ROLLOUT_BATCHED_KERNEL, *ptrs, acts.data_ptr(),
-                          costs.data_ptr(), B, N, H, k6._check_rollover, k6.block)
+                          costs.data_ptr(), B, N, H, k6._check_rollover, k6.mode,
+                          k6.block)
     say(f"  K6 {ms6:.4f} ms, plain {ms6p:.4f} ms, kernel alone {ms6k:.4f} ms")
 
     # K7 per-step (MPPI) and joint (CoVO): input-z against the plain
@@ -900,7 +935,7 @@ def phase_scenario_kernels(env, dev, records):
                 else rollout_cuda.SAMPLE_BATCHED_KERNEL)
         ms_k = bare_launch_ms(kern, *ptrs, mean.data_ptr(), fac.data_ptr(), None, 7,
                               costs.data_ptr(), a_out.data_ptr(), B, N, H,
-                              k7._check_rollover, k7.block)
+                              k7._check_rollover, k7.mode, k7.block)
         say(f"  {label} {ms:.4f} ms, plain {ms_p:.4f} ms, kernel alone {ms_k:.4f} ms")
 
 
@@ -1038,9 +1073,10 @@ def phase_scenario_timing(env, dev):
             for engine in ("torch", "cuda", "cuda", "torch"):
                 solve = make_batched(env, kind, engine)
                 events = []
-                # 1 warm-up + 3 timed solves per turn (2 + 5 through PR 3;
-                # cut to keep the whole run near half its time limit)
-                for i in range(1 + 3):
+                # 1 warm-up + 2 timed solves per turn (2 + 5 through PR 3,
+                # 1 + 3 through PR 5; cut to keep the whole run inside
+                # about 800 s)
+                for i in range(1 + 2):
                     e0 = torch.cuda.Event(enable_timing=True)
                     e1 = torch.cuda.Event(enable_timing=True)
                     e0.record()
@@ -1056,7 +1092,9 @@ def phase_scenario_timing(env, dev):
                 for e in ("cuda", "torch")) + f" ({len(times['cuda'])} solves each)")
             if B in (16, 64):
                 solve = make_batched(env, kind, "cuda")
-                prof = device_profile(lambda: solve(*args, a_means, *extra, pb), sessions=5)
+                # 3 sessions (5 through PR 5; each processes a whole batched
+                # solve's events)
+                prof = device_profile(lambda: solve(*args, a_means, *extra, pb), sessions=3)
                 kernels_per_solve[kind, B] = prof["ops"]
                 say(f"  B={B:3d} {kind} cuda: {prof['ops']} device kernels and copies per "
                     f"batched solve; device {fmt_ms(prof['ms'])} ({prof['complete']} "
@@ -1104,7 +1142,7 @@ def profile_batched(env, dev):
     }
     for name, (fn, kernel) in layers.items():
         ev = time_ms(fn, 5, warmup=1)
-        prof = device_profile(fn, name=kernel)
+        prof = device_profile(fn, sessions=2, name=kernel)  # 3 through PR 5
         line = (f"  {name:30s} events {ev:9.4f} ms, {prof['ops']:5d} device kernels and "
                 f"copies; device {fmt_ms(prof['ms'])}")
         if kernel:
@@ -1257,6 +1295,355 @@ def phase_mode_loops(env, total_steps, kernel_list, covo_kernels):
     return {covariance_cuda.SIGMA_KERNEL.symbol: k8}
 
 
+# --- phase 7: the disturbance modes (table, drag, mixed) --------------------
+
+DISTURB_T0 = 47  # a redraw (t % disturb_period == 0) falls inside the horizon
+F0 = (0.02, -0.01, 0.015)  # a start force
+MODE_OF = {"gaussian": "shared", "periodic": "table", "sin": "table",
+           "drag": "drag", "mixed": "mixed"}
+
+
+def disturb_env(kind: str, randomize: bool = False):
+    """The main path's env under the disturbance ``kind``."""
+    from covo_mpc_tpu_torch.models import EnvConfig, QuadEnv
+
+    return QuadEnv(EnvConfig(**{**ENV_KW, "disturb_type": kind,
+                                "enable_randomizer": randomize}))
+
+
+def to_dev(x, dev) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(x, dtype=np.float32)).to(dev)
+
+
+def mode_inputs(env, dev, seed: int):
+    """Params with non-zero disturb_params (the wind and the sinusoid, from a
+    numpy seed), a noisy reset state moved to DISTURB_T0 with the start
+    force F0, and the model's rollout draw (None for sin and drag)."""
+    rng = np.random.default_rng(seed)
+    p = env.default_params.replace(disturb_params=to_dev(rng.uniform(-1, 1, 6), dev))
+    _, info, _ = env.reset(torch.Generator(dev).manual_seed(seed), p)
+    st = info["noisy_state"].replace(
+        time=torch.tensor(DISTURB_T0, dtype=torch.int32, device=dev),
+        f_disturb=torch.tensor(F0, device=dev))
+    return p, st, env.draw_disturb(torch.Generator(dev).manual_seed(seed + 1))
+
+
+def mode_record(records, name: str, mode: str, **values) -> None:
+    """Keep a kernel's numbers in one disturbance mode (the JSON record's
+    ``modes``)."""
+    records.setdefault(name, {}).setdefault("modes", {}).setdefault(mode, {}).update(values)
+
+
+def phase_mode_kernels(dev, records):
+    """7a: K1, K4, K5, K6 and K7 in each mode against their plain versions
+    on given normals, at N=8192, H=32 (K6/K7 at B=SCEN_B), t0 = 47; each
+    mode's kernel alone (bare launches); K3 at sd=16 on the drag Hessian's J
+    and M; K2 on a periodic table."""
+    from covo_mpc_tpu_torch.models import pack_state
+    from covo_mpc_tpu_torch.ops import hessian_cuda, rollout_cuda
+    from covo_mpc_tpu_torch.ops.hessian import (
+        adjoint_curvature,
+        build_hessian_aux_table,
+        build_hessian_disturb_table,
+        primal16,
+    )
+    from covo_mpc_tpu_torch.ops.rollout import target_window
+
+    B = SCEN_B
+    phase(f"phase 7a: K1, K4-K7 in the table (sin, periodic), drag and mixed modes "
+          f"against their plain versions (N={N}, H={H}, B={B}, t0={DISTURB_T0}), "
+          "and each mode's kernels alone")
+    rng = np.random.default_rng(71)
+    cuda = lambda x: to_dev(x, dev)  # noqa: E731
+    a_mean, factor = cuda(rng.normal(size=(H, 4)) * 0.2), cuda(rng.normal(size=(D, D)) * 0.1)
+    z1 = cuda(rng.standard_normal((D, N)))
+    acts = cuda(rng.normal(size=(H, 4, N)) * 0.5)
+    A = rng.normal(size=(H, 4, 4)) * 0.2
+    chol = cuda(np.linalg.cholesky(A @ A.transpose(0, 2, 1) + 0.05 * np.eye(4)))
+    z5 = cuda(rng.standard_normal((H, 4, N)))
+    acts_b = cuda(rng.normal(size=(B, H, 4, N)) * 0.5)
+    means_b = cuda(rng.normal(size=(B, H, 4)) * 0.2)
+    Ab = rng.normal(size=(B, H, 4, 4)) * 0.2
+    chols_b = cuda(np.linalg.cholesky(Ab @ Ab.swapaxes(-1, -2) + 0.05 * np.eye(4)))
+    factors_b = cuda(rng.normal(size=(B, D, D)) * 0.1)
+    z7 = {False: cuda(rng.standard_normal((B, H, 4, N))),
+          True: cuda(rng.standard_normal((B, D, N)))}
+    costs, a_out = torch.empty(N, device=dev), torch.empty(D, N, device=dev)
+    costs_b, a_out_b = torch.empty(B, N, device=dev), torch.empty(B, D, N, device=dev)
+    for kind in ("gaussian", "periodic", "sin", "drag", "mixed"):
+        mode = MODE_OF[kind]
+        env = disturb_env(kind)
+        p, st, draw = mode_inputs(env, dev, 72)
+        roll = (pack_state(st), st.time, st.pos_traj, st.vel_traj)
+        env_b = disturb_env(kind, randomize=True)
+        args, pb, _, _ = scenario_batch(env_b, B, seed=73)
+        x0s = args[0].clone()
+        x0s[:, 13:16] = torch.tensor(F0, device=dev)
+        args = (x0s, DISTURB_T0 + torch.arange(B, device=dev, dtype=torch.int32) % 4,
+                *args[2:])
+        draws = env_b.draw_disturb(torch.Generator(dev).manual_seed(74), B)
+        k1 = rollout_cuda.make_rollout_joint_sampling(env)
+        k4 = rollout_cuda.make_rollout_costs(env)
+        k5 = rollout_cuda.make_rollout_sampling(env)
+        k6 = rollout_cuda.make_rollout_batched_costs(env_b)
+        k7 = {j: rollout_cuda.make_rollout_batched_sampling(env_b, joint=j)
+              for j in (False, True)}
+        if kind != "gaussian":  # the shared mode's checks are phases 1 and 5's
+            errs = {}
+            # CoVO's rollouts are deterministic, MPPI's stochastic
+            kw1 = dict(deterministic=True, draw=draw, z=z1)
+            c_k, a_k = k1(*roll, a_mean, factor, p, 0, N, **kw1)
+            c_p, a_p = k1.plain(*roll, a_mean, factor, p, 0, N, **kw1)
+            check(max_err(a_k, a_p) <= 1e-5 and costs_close(c_k, c_p),
+                  f"K1 ({kind}): actions within 1e-5, costs within atol 2e-4, rtol 1e-5")
+            errs["joint_sample_rollout"] = max(max_err(a_k, a_p), max_err(c_k, c_p))
+            c_k, c_p = (f(*roll, acts, p, draw, layout="hdn") for f in (k4, k4.plain))
+            check(costs_close(c_k, c_p), f"K4 ({kind}): costs within atol 2e-4, rtol 1e-5")
+            errs["rollout_costs"] = max_err(c_k, c_p)
+            c_k, a_k = k5(*roll, a_mean, chol, p, 0, N, draw=draw, z=z5)
+            c_p, a_p = k5.plain(*roll, a_mean, chol, p, 0, N, draw=draw, z=z5)
+            check(max_err(a_k, a_p) <= 1e-5 and costs_close(c_k, c_p),
+                  f"K5 ({kind}): actions within 1e-5, costs within atol 2e-4, rtol 1e-5")
+            errs["sample_rollout"] = max(max_err(a_k, a_p), max_err(c_k, c_p))
+            c_k, c_p = (f(*args, acts_b, pb, draws) for f in (k6, k6.plain))
+            check(costs_close(c_k, c_p), f"K6 ({kind}): costs within atol 2e-4, rtol 1e-5")
+            errs["rollout_costs_batched"] = max_err(c_k, c_p)
+            for joint, name, fac in ((False, "sample_rollout_batched", chols_b),
+                                     (True, "joint_sample_rollout_batched", factors_b)):
+                kw7 = dict(deterministic=joint, draws=draws, z=z7[joint])
+                c_k, a_k = k7[joint](*args, means_b, fac, pb, 0, N, **kw7)
+                c_p, a_p = k7[joint].plain(*args, means_b, fac, pb, 0, N, **kw7)
+                check(max_err(a_k, a_p) <= 1e-5 and costs_close(c_k, c_p),
+                      f"K7 {'joint' if joint else 'per-step'} ({kind}): actions within "
+                      "1e-5, costs within atol 2e-4, rtol 1e-5")
+                errs[name] = max(max_err(a_k, a_p), max_err(c_k, c_p))
+            say(f"  {kind} ({mode} mode) max abs errors: "
+                + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+        else:
+            errs = {name: records[name]["max_abs_err"] for name in (
+                "joint_sample_rollout", "rollout_costs", "sample_rollout",
+                "rollout_costs_batched", "sample_rollout_batched",
+                "joint_sample_rollout_batched")}
+        for name, err in errs.items():
+            rec = records.get(name, {}).get("modes", {}).get(mode, {})
+            mode_record(records, name, mode, max_abs_err=max(err, rec.get("max_abs_err", 0.0)),
+                        checked_in=rec.get("checked_in", []) + [kind])
+        if kind == "sin":  # the "table" mode is timed on periodic's table
+            continue
+        # each kernel alone in this mode: bare launches (in-kernel draws)
+        mi = rollout_cuda.MODES[mode]
+        ops = rollout_cuda._launch_operands(env, *roll, p, draw, False, 1.0, H)
+        ptrs = [t.data_ptr() for t in ops]
+        ops_b = rollout_cuda._launch_operands(env_b, *args, pb, draws, False, 1.0, H)
+        ptrs_b = [t.data_ptr() for t in ops_b]
+        mean = a_mean.reshape(-1).contiguous()
+        mean_b = means_b.reshape(B, -1).contiguous()
+        alone = {
+            "joint_sample_rollout": (bare_launch_ms(
+                rollout_cuda.JOINT_KERNEL, *ptrs, mean.data_ptr(), factor.data_ptr(), None,
+                7, costs.data_ptr(), a_out.data_ptr(), N, H, 0, mi, 128), k1_bound(1, N, H, mode)),
+            "rollout_costs": (bare_launch_ms(
+                rollout_cuda.ROLLOUT_KERNEL, *ptrs, acts.data_ptr(), costs.data_ptr(), N, H,
+                0, mi, 128), k4_bound(1, N, H, mode)),
+            "sample_rollout": (bare_launch_ms(
+                rollout_cuda.SAMPLE_KERNEL, *ptrs, mean.data_ptr(), chol.data_ptr(), None, 7,
+                8, 0, None, costs.data_ptr(), a_out.data_ptr(), N, H, 0, mi, 128),
+                k5_bound(1, N, H, mode)),
+            "rollout_costs_batched": (bare_launch_ms(
+                rollout_cuda.ROLLOUT_BATCHED_KERNEL, *ptrs_b, acts_b.data_ptr(),
+                costs_b.data_ptr(), B, N, H, 0, mi, 128), k4_bound(B, N, H, mode)),
+            "sample_rollout_batched": (bare_launch_ms(
+                rollout_cuda.SAMPLE_BATCHED_KERNEL, *ptrs_b, mean_b.data_ptr(),
+                chols_b.data_ptr(), None, 7, costs_b.data_ptr(), a_out_b.data_ptr(), B, N, H,
+                0, mi, 128), k5_bound(B, N, H, mode)),
+            "joint_sample_rollout_batched": (bare_launch_ms(
+                rollout_cuda.JOINT_BATCHED_KERNEL, *ptrs_b, mean_b.data_ptr(),
+                factors_b.data_ptr(), None, 7, costs_b.data_ptr(), a_out_b.data_ptr(), B, N,
+                H, 0, mi, 128), k1_bound(B, N, H, mode)),
+        }
+        for name, (ms, bnd) in alone.items():
+            mode_record(records, name, mode, alone_ms=ms, bound_ms=bnd["bound_ms"],
+                        bound_by=bnd["bound_by"])
+        say(f"  {mode} mode ({kind}) alone ms: " + ", ".join(
+            f"{k} {v[0]:.4f} (bound {v[1]['bound_ms']:.5f})" for k, v in alone.items()))
+
+    phase("phase 7a: K3 at sd=16 on the drag Hessian's J and M; K2 on a periodic table")
+    env = disturb_env("drag")
+    p, st, _ = mode_inputs(env, dev, 75)
+    x0 = pack_state(st)
+    a_seq = cuda(rng.normal(size=(H, 4)) * 0.3)
+    aux = build_hessian_aux_table(env, st.time, p, None, H)
+    zs = primal16(env, x0, a_seq, aux, p)
+    ptars, vtars = target_window(st.time, st.pos_traj, st.vel_traj, H, offset=1)
+    J, M = adjoint_curvature(env, p, zs, aux, ptars, vtars)
+    J = J.contiguous()
+    T_k, T_p = hessian_cuda.sens_chain(J, 4), hessian_cuda.sens_chain_plain(J, 4)
+    R_k, R_p = hessian_cuda.pullback(T_k, M), hessian_cuda.pullback(T_p, M)
+    rel_T, rel_R = rel_fro(T_k, T_p), rel_fro(R_k, R_p)
+    say(f"  K3 sd=16: J {tuple(J.shape)}, M {tuple(M.shape)}; relative Frobenius error "
+        f"T {rel_T:.3e}, Hessian {rel_R:.3e}")
+    check(rel_T < 1e-5 and rel_R < 1e-5, "K3 at sd=16: T and Hessian within 1e-5 (relative)")
+    T_out = torch.empty_like(T_k)
+    ms3 = bare_launch_ms(hessian_cuda.CHAIN_KERNEL, J.data_ptr(), T_out.data_ptr(), H, 16, 4,
+                         reps=200)
+    b3 = bound(H * 16 * 20 * D * 2, 4 * H * 20 * (16 + D))
+    mode_record(records, "sens_chain", "sd13", max_abs_err=records["sens_chain"]["max_abs_err"],
+                checked_in=["gaussian"])
+    mode_record(records, "sens_chain", "sd16", alone_ms=ms3, max_abs_err=max_err(T_k, T_p),
+                bound_ms=b3["bound_ms"], bound_by=b3["bound_by"], checked_in=["drag"])
+    say(f"  K3 sd=16 alone {ms3:.4f} ms, bound {b3['bound_ms']:.7f} ms")
+    env = disturb_env("periodic")
+    p, st, _ = mode_inputs(env, dev, 76)
+    x0 = pack_state(st)
+    draws = env.draw_disturb(torch.Generator(dev).manual_seed(77), H, deterministic=True)
+    dist = build_hessian_disturb_table(env, x0, st.time, p, draws, H)
+    k2 = rollout_cuda.make_primal(env, H)
+    zs_k, zs_p = k2(x0, a_seq, dist, p), k2.plain(x0, a_seq, dist, p)
+    err2 = max_err(zs_k, zs_p)
+    say(f"  K2 on a periodic table (rows {int((dist.abs().sum(1) > 0).sum())} of {H} "
+        f"non-zero): max |z - plain| = {err2:.3e}")
+    check(err2 <= 1e-5 and bool((dist[1:] != 0).any()), "K2 on a non-zero table within 1e-5")
+    scal = torch.stack(rollout_cuda._dyn_scalars(env, p, dev) + [rollout_cuda._full(1.0, dev)])
+    a_flat, d_flat = a_seq.reshape(-1).contiguous(), dist.reshape(-1).contiguous()
+    states = torch.empty(H, 13, device=dev)
+    ms2 = bare_launch_ms(rollout_cuda.PRIMAL_KERNEL, x0.contiguous().data_ptr(), scal.data_ptr(),
+                         a_flat.data_ptr(), d_flat.data_ptr(), states.data_ptr(), H, reps=200)
+    b2 = bound(H * DYN_FLOPS, 4 * (16 + 7 * H + 17 + 13 * H))
+    mode_record(records, "primal", "shared", max_abs_err=records["primal"]["max_abs_err"],
+                checked_in=["gaussian"])
+    mode_record(records, "primal", "table", alone_ms=ms2, max_abs_err=err2,
+                bound_ms=b2["bound_ms"], bound_by=b2["bound_by"], checked_in=["periodic"])
+    say(f"  K2 (table) alone {ms2:.4f} ms")
+
+
+def phase_mode_solves(dev, kernel_list):
+    """7b: full-width solves under drag and mixed, engine="cuda" against
+    engine="torch" on the same normals and draws (2e-4, no host sync)."""
+    from covo_mpc_tpu_torch.ops import hessian_cuda, rollout_cuda
+    from covo_mpc_tpu_torch.solvers import get_solver
+
+    phase("phase 7b: full-width solves under drag and mixed, engine='cuda' against "
+          "engine='torch' on the same normals and draws")
+    g = np.random.default_rng(78)
+    z = to_dev(g.standard_normal((N, D)), dev)
+    for kind, hessian_mode, rng_mode, used in (
+            ("drag", "gn", "kernel", rollout_cuda.JOINT_KERNEL),
+            ("drag", "adjoint", "fast", rollout_cuda.ROLLOUT_KERNEL),
+            ("mixed", "gn", "kernel", rollout_cuda.JOINT_KERNEL)):
+        env = disturb_env(kind)
+        p = env.default_params
+        obs, info, state = env.reset(torch.Generator(dev).manual_seed(5), p)
+        gen = torch.Generator(dev).manual_seed(79)
+        draw = env.draw_disturb(gen, deterministic=True)
+        hess_draws = env.draw_disturb(gen, H, deterministic=True)
+        out = {}
+        for engine in ("cuda", "torch"):
+            solver, cp = get_solver(
+                env, "covo_online", f"N{N}_H{H}_lam0.01",
+                rng_mode=rng_mode if engine == "cuda" else "fast",
+                hessian_mode=hessian_mode, sigma_mode="ns", engine=engine,
+                collect_debug=False)
+            out[engine], counts = run_once(
+                lambda: solver(obs, state, p, cp, info, z=z, draw=draw,
+                               hess_draws=hess_draws), kernel_list)
+            if engine == "cuda":
+                say(f"  CoVO {kind} {hessian_mode} ({rng_mode}) cuda launches: "
+                    f"{ {k: v for k, v in counts.items() if v} }")
+                check(counts[used.symbol] > 0 and counts["sens_chain"] > 0
+                      and counts["primal"] == 0,
+                      f"{used.symbol} and sens_chain (sd=16) launched, the plain primal "
+                      "(no K2) under a velocity-coupled force")
+        (a_c, cp_c, _), (a_t, cp_t, _) = out["cuda"], out["torch"]
+        errs = {"action": max_err(a_c, a_t), "a_mean": max_err(cp_c.a_mean, cp_t.a_mean),
+                "a_cov": max_err(cp_c.a_cov, cp_t.a_cov)}
+        say(f"  CoVO {kind} {hessian_mode} ({rng_mode}) max |cuda - torch|: {errs}")
+        check(all(v <= 2e-4 for v in errs.values())
+              and all(bool(torch.isfinite(x).all()) for x in (a_c, cp_c.a_mean, cp_c.a_cov)),
+              f"CoVO {kind}: action, a_mean and a_cov finite and within 2e-4 (no host sync)")
+
+    env = disturb_env("drag")
+    p = env.default_params
+    obs, info, state = env.reset(torch.Generator(dev).manual_seed(5), p)
+    z5 = to_dev(g.standard_normal((N, H, 4)), dev)
+    out = {}
+    for engine, rng_mode in (("cuda", "kernel"), ("torch", "fast")):
+        solver, cp = make_mppi(env, engine, rng_mode=rng_mode)
+        out[engine], counts = run_once(lambda: solver(obs, state, p, cp, info, z=z5),
+                                       kernel_list)
+        if engine == "cuda":
+            check(counts["sample_rollout"] > 0, "sample_rollout launched by the drag MPPI solve")
+    (a_c, cp_c, _), (a_t, cp_t, _) = out["cuda"], out["torch"]
+    errs = {"action": max_err(a_c, a_t)}
+    errs.update({k: max_err(getattr(cp_c, k), getattr(cp_t, k))
+                 for k in ("a_mean", "a_cov", "a_cov_chol")})
+    say(f"  MPPI drag (kernel) max |cuda - torch|: {errs}")
+    check(all(v <= 2e-4 for v in errs.values()),
+          "MPPI drag: action, a_mean, a_cov and a_cov_chol within 2e-4 (no host sync)")
+
+    B = SCEN_B
+    env_b = disturb_env("drag", randomize=True)
+    args, pb, _, _ = scenario_batch(env_b, B, seed=80)
+    a_means, a_covs = initial_means(env_b, B)
+    for kind, zb, extra, used in (
+            ("covo", to_dev(g.standard_normal((B, N, D)), dev), (),
+             rollout_cuda.JOINT_BATCHED_KERNEL),
+            ("mppi", to_dev(g.standard_normal((B, N, H, 4)), dev), (a_covs,),
+             rollout_cuda.SAMPLE_BATCHED_KERNEL)):
+        out = {}
+        for engine in ("cuda", "torch"):
+            solve = make_batched(env_b, kind, engine)
+            out[engine], counts = run_once(lambda: solve(*args, a_means, *extra, pb, z=zb),
+                                           kernel_list)
+            if engine == "cuda":
+                check(counts[used.symbol] > 0, f"{used.symbol} launched by the batched "
+                      f"drag {kind} solve")
+        got, ref = out["cuda"], out["torch"]
+        errs = {"action": max_err(got[0][:, 0], ref[0][:, 0]), "a_mean": max_err(got[0], ref[0])}
+        if kind == "mppi":
+            errs["a_cov"] = max_err(got[1], ref[1])
+        say(f"  batched {kind} drag (B={B}) max |cuda - torch|: {errs}")
+        check(all(v <= 2e-4 for v in errs.values())
+              and all(bool(torch.isfinite(x).all()) for x in got),
+              f"batched {kind} under drag: finite, within 2e-4 (no host sync)")
+
+
+def phase_drag_loops(dev, total_steps, kernel_list, records):
+    """7c: the closed loops on the drag env (4 episodes at 1200 steps):
+    CoVO online with RESULTS_DRAG.md's settings (adjoint, ns, fast rng: K4)
+    and with the main path's (gn, kernel rng: K1), MPPI (fast rng: K4) as
+    the same-run anchor; the drag solve's events ms."""
+    from covo_mpc_tpu_torch.solvers import get_solver
+
+    env = disturb_env("drag")
+    phase(f"phase 7c: drag closed loops, evaluate(total_steps={total_steps}, seed=1): "
+          "covo_online adjoint, ns, fast rng (K4; RESULTS_DRAG.md's settings)")
+    solver, _ = get_solver(env, "covo_online", f"N{N}_H{H}_lam0.01", rng_mode="fast",
+                           hessian_mode="adjoint", sigma_mode="ns", engine="cuda",
+                           collect_debug=False)
+    covo_fast, l_fast = closed_loop(env, solver, total_steps, kernel_list)
+    check(l_fast["rollout_costs"] > 0 and l_fast["sens_chain"] > 0
+          and l_fast["primal"] == 0,
+          "rollout_costs and sens_chain (sd=16) launched by the drag loop, no K2")
+    phase("  covo_online gn, kernel rng (K1; the main path's settings)")
+    covo_k, l_k = closed_loop(env, make_solver(env, "cuda")[0], total_steps, kernel_list)
+    check(l_k["joint_sample_rollout"] > 0, "joint_sample_rollout launched by the drag loop")
+    phase("  mppi, fast rng (K4), the same-run anchor")
+    mppi, l_m = closed_loop(env, make_mppi(env, "cuda", rng_mode="fast")[0], total_steps,
+                            kernel_list)
+    check(all(np.isfinite(r.mean) for r in (covo_fast, covo_k, mppi)),
+          "drag err_pos finite for every loop")
+    check(covo_fast.mean < mppi.mean and covo_k.mean < mppi.mean,
+          "CoVO's drag err_pos (both settings) below MPPI's on the same episodes")
+    for name, n in (("rollout_costs", l_fast["rollout_costs"]),
+                    ("joint_sample_rollout", l_k["joint_sample_rollout"])):
+        mode_record(records, name, "drag", launches=n)
+    mode_record(records, "sens_chain", "sd16", launches=l_fast["sens_chain"])
+    med, counts = solve_times(env, dev, reps=12, warmup=2)
+    say(f"  drag CoVO (gn, kernel rng) median events ms per solve: cuda {med['cuda']:.4f} "
+        f"({counts['cuda']} solves), torch {med['torch']:.4f} ({counts['torch']} solves)")
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--total-steps", type=int, default=1200,
@@ -1318,6 +1705,9 @@ def main(argv=None) -> int:
     phase_sigma_kernel(env, dev, records)
     phase_sigma_solves(env, dev, kernel_list)
     launches.update(phase_mode_loops(env, args.total_steps, kernel_list, covo_kernels))
+    phase_mode_kernels(dev, records)
+    phase_mode_solves(dev, kernel_list)
+    phase_drag_loops(dev, args.total_steps, kernel_list, records)
     phase("done")
 
     say(json.dumps({"kernels": [

@@ -2,7 +2,7 @@
 // scenario (K1) or for B scenarios in one launch (K7, joint).
 //
 // Replaces covo_mpc_tpu/ops/rollout_pallas.py::make_pallas_rollout_joint_sampling
-// (_rollout_kernel with sample="prng_joint", disturbance mode "shared") and
+// (_rollout_kernel with sample="prng_joint", every disturbance mode) and
 // ::make_pallas_rollout_batched_sampling with joint=True (the same kernel
 // with batched=True over a (B, lane-tiles) grid). Per scenario b and sample
 // n: z ~ N(0, I_D) (or z[(b D + d) N + n] when a z pointer is given, the
@@ -50,10 +50,10 @@ namespace {
 __global__ void joint_sample_rollout_kernel(
     const float* __restrict__ x0, const float* __restrict__ scal,
     const int* __restrict__ ints, const float* __restrict__ ptar,
-    const float* __restrict__ vtar, const float* __restrict__ mean,
-    const float* __restrict__ factor, const float* __restrict__ z,
-    uint64_t seed, float* __restrict__ costs, float* __restrict__ actions,
-    int N, int H, int check_rollover) {
+    const float* __restrict__ vtar, const float* __restrict__ dist,
+    const float* __restrict__ mean, const float* __restrict__ factor,
+    const float* __restrict__ z, uint64_t seed, float* __restrict__ costs,
+    float* __restrict__ actions, int N, int H, int check_rollover, int mode) {
   extern __shared__ float smem[];
   const int D = 4 * H;
   const int B = blockDim.x;
@@ -86,8 +86,9 @@ __global__ void joint_sample_rollout_kernel(
   __syncthreads();
   if (n >= N) return;
 
-  const quad::Tables t = quad::scenario_tables(b, H, x0, scal, ints, ptar, vtar);
-  const quad::RolloutShared sh = quad::load_shared(t, check_rollover);
+  const quad::Tables t =
+      quad::scenario_tables(b, H, x0, scal, ints, ptar, vtar, dist);
+  const quad::RolloutShared sh = quad::load_shared(t, check_rollover, mode);
   quad::Carry c = quad::start(t.x0);
   for (int h = 0; h < H; ++h) {
     // a_h = clip(mean_h + F[4h:4h+4] z): four rows, one pass over d
@@ -111,12 +112,12 @@ __global__ void joint_sample_rollout_kernel(
 }
 
 int launch(const float* x0, const float* scal, const int* ints,
-           const float* ptar, const float* vtar, const float* mean,
-           const float* factor, const float* z, uint64_t seed, float* costs,
-           float* actions, int B, int N, int H, int check_rollover, int block,
-           cudaStream_t stream) {
+           const float* ptar, const float* vtar, const float* dist,
+           const float* mean, const float* factor, const float* z,
+           uint64_t seed, float* costs, float* actions, int B, int N, int H,
+           int check_rollover, int mode, int block, cudaStream_t stream) {
   if (B <= 0 || B > quad::kMaxScenarios || N <= 0 || H <= 0 || block <= 0 ||
-      block > 1024) {
+      block > 1024 || mode < quad::kShared || mode > quad::kMixed) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int D = 4 * H;
@@ -128,8 +129,8 @@ int launch(const float* x0, const float* scal, const int* ints,
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((N + block - 1) / block, B);
   joint_sample_rollout_kernel<<<grid, block, smem, stream>>>(
-      x0, scal, ints, ptar, vtar, mean, factor, z, seed, costs, actions, N, H,
-      check_rollover);
+      x0, scal, ints, ptar, vtar, dist, mean, factor, z, seed, costs, actions,
+      N, H, check_rollover, mode);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -139,20 +140,22 @@ int launch(const float* x0, const float* scal, const int* ints,
 // be null (draw in-kernel from `seed`).
 extern "C" int joint_sample_rollout(
     const float* x0, const float* scal, const int* ints, const float* ptar,
-    const float* vtar, const float* mean, const float* factor, const float* z,
-    uint64_t seed, float* costs, float* actions, int N, int H,
-    int check_rollover, int block, cudaStream_t stream) {
-  return launch(x0, scal, ints, ptar, vtar, mean, factor, z, seed, costs,
-                actions, 1, N, H, check_rollover, block, stream);
+    const float* vtar, const float* dist, const float* mean,
+    const float* factor, const float* z, uint64_t seed, float* costs,
+    float* actions, int N, int H, int check_rollover, int mode, int block,
+    cudaStream_t stream) {
+  return launch(x0, scal, ints, ptar, vtar, dist, mean, factor, z, seed,
+                costs, actions, 1, N, H, check_rollover, mode, block, stream);
 }
 
 // K7, joint: B scenarios, every table scenario-strided; mean (B, D), factor
 // (B, D, D), z (B, D, N) or null, costs (B, N), actions (B, D, N).
 extern "C" int joint_sample_rollout_batched(
     const float* x0, const float* scal, const int* ints, const float* ptar,
-    const float* vtar, const float* mean, const float* factor, const float* z,
-    uint64_t seed, float* costs, float* actions, int B, int N, int H,
-    int check_rollover, int block, cudaStream_t stream) {
-  return launch(x0, scal, ints, ptar, vtar, mean, factor, z, seed, costs,
-                actions, B, N, H, check_rollover, block, stream);
+    const float* vtar, const float* dist, const float* mean,
+    const float* factor, const float* z, uint64_t seed, float* costs,
+    float* actions, int B, int N, int H, int check_rollover, int mode,
+    int block, cudaStream_t stream) {
+  return launch(x0, scal, ints, ptar, vtar, dist, mean, factor, z, seed,
+                costs, actions, B, N, H, check_rollover, mode, block, stream);
 }

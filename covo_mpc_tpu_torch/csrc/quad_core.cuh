@@ -121,72 +121,96 @@ __device__ __forceinline__ float penyaw_reward(const State& s, float ptx,
 }
 
 // One scenario's rollout operands: x0 (16), the scalar and int packs, the
-// (3H) position and velocity targets.
+// (3H) position and velocity targets and the (3H) disturbance table.
 struct Tables {
   const float* x0;
   const float* scal;
   const int* ints;
   const float* ptar;
   const float* vtar;
+  const float* dist;
 };
 
 // Scenario b of a launch's scenario-strided tables: x0 (B, 16), scal
-// (B, kNScal), ints (B, kNInt), ptar and vtar (B, 3H). The batched launches
-// (K6, K7) run scenario blockIdx.y; a single-scenario launch (K1, K4, K5)
-// is the grid's only scenario, b = 0.
+// (B, kNScal), ints (B, kNInt), ptar, vtar and dist (B, 3H). The batched
+// launches (K6, K7) run scenario blockIdx.y; a single-scenario launch (K1,
+// K4, K5) is the grid's only scenario, b = 0.
 __device__ __forceinline__ Tables scenario_tables(int b, int H,
                                                   const float* x0,
                                                   const float* scal,
                                                   const int* ints,
                                                   const float* ptar,
-                                                  const float* vtar) {
+                                                  const float* vtar,
+                                                  const float* dist) {
   return Tables{x0 + 16 * b, scal + kNScal * b, ints + kNInt * b,
-                ptar + 3 * H * b, vtar + 3 * H * b};
+                ptar + 3 * H * b, vtar + 3 * H * b, dist + 3 * H * b};
 }
 
 // Largest scenario count of one launch (the grid's y dimension).
 constexpr int kMaxScenarios = 65535;
 
-// What every sample of one rollout launch shares, in the "shared"
-// disturbance mode (gaussian / none): step 0 integrates with x0's own f,
-// every later step with the one shared force (fx, fy, fz).
+// The disturbance modes (ops/rollout_cuda.py::MODES; JAX's _disturb_mode),
+// a launch argument uniform across the grid:
+// - kShared (gaussian / none): step 0 integrates with x0's own force, every
+//   later step with the one shared force, the scalar pack's draw lanes;
+// - kTable (sin / periodic): step h integrates with dist[3h .. 3h + 2];
+// - kDrag, kMixed: the force rides each sample's carry from x0[13:16]; each
+//   step integrates with it and replaces it with the model's output from
+//   the PRE-step velocity: drag -|scale| v_rel |v_rel| / 1.5^2 with v_rel =
+//   v - disturb_params[:3] / 2; mixed (drag + dist[3h..] (the sin value) +
+//   periodic) / 3, the periodic term the draw lanes when (t0 + h) is a
+//   multiple of disturb_period, else the carried force.
+enum Mode { kShared = 0, kTable = 1, kDrag = 2, kMixed = 3 };
+
+// What every sample of one rollout launch shares.
 struct RolloutShared {
   const float* scal;  // the scalar pack (Scal)
   const float* ptar;  // (H * 3,) position targets
   const float* vtar;  // (H * 3,) velocity targets
-  float f0x, f0y, f0z, fx, fy, fz, discount;
-  int t0, max_steps;
+  const float* dist;  // (H * 3,) force table (kTable) or sin values (kMixed)
+  float f0x, f0y, f0z;
+  // the draw lanes: the shared force (kShared) or the periodic draw (kMixed)
+  float fx, fy, fz;
+  float discount;
+  float abs_ds, windx, windy, windz;  // |disturb_scale|, disturb_params[:3]
+  int t0, max_steps, period, mode;
   bool check_rollover;
 };
 
-// The shared force comes from scal[kDraw0..2]; a kernel that draws it
-// itself ("krng") overwrites fx, fy, fz.
+// The draw lanes come from scal[kDraw0..2]; a kernel that draws the shared
+// force itself ("krng") overwrites fx, fy, fz.
 __device__ __forceinline__ RolloutShared load_shared(const Tables& t,
-                                                     int check_rollover) {
-  return RolloutShared{t.scal, t.ptar, t.vtar,
+                                                     int check_rollover,
+                                                     int mode) {
+  return RolloutShared{t.scal, t.ptar, t.vtar, t.dist,
                        t.x0[13], t.x0[14], t.x0[15],
                        t.scal[kDraw0], t.scal[kDraw1], t.scal[kDraw2],
-                       t.scal[kDiscount], t.ints[kT0], t.ints[kMaxSteps],
+                       t.scal[kDiscount], fabsf(t.scal[kDScale]),
+                       t.scal[kDp0], t.scal[kDp1], t.scal[kDp2],
+                       t.ints[kT0], t.ints[kMaxSteps], t.ints[kPeriod], mode,
                        check_rollover != 0};
 }
 
 // One sample's rollout carry: state, cost so far, the reward frozen at
-// termination, the discount of the next step, and whether it terminated.
+// termination, the discount of the next step, whether it terminated, and
+// the force of the next step (kDrag, kMixed).
 struct Carry {
   State s;
   float cost, r_prev, disc;
   bool d_prev;
+  float fx, fy, fz;
 };
 
 __device__ __forceinline__ Carry start(const float* x0) {
-  return Carry{load_state(x0), 0.0f, 0.0f, 1.0f, false};
+  return Carry{load_state(x0), 0.0f, 0.0f, 1.0f, false, x0[13], x0[14], x0[15]};
 }
 
 // Step h of one sample under the action a (clipped inside dyn_step): the
 // penyaw reward on the PRE-step state, frozen once the sample terminated
 // (the freeze reads d_prev), the discounted cost, termination (|pos| > 3,
-// the time limit, the rollover check when on), then the bodyrate step.
-// The single step body of K1 and K4-K7.
+// the time limit, the rollover check when on), the force of the step (and,
+// under kDrag / kMixed, the next one's from the pre-step velocity), then the
+// bodyrate step. The single step body of K1 and K4-K7.
 __device__ __forceinline__ void rollout_step(Carry& c, const RolloutShared& sh,
                                              int h, const float a[4]) {
   const float* pt = sh.ptar + 3 * h;
@@ -205,11 +229,37 @@ __device__ __forceinline__ void rollout_step(Carry& c, const RolloutShared& sh,
   }
   c.d_prev = c.d_prev || d_now || (sh.t0 + h) >= sh.max_steps;
 
-  if (h == 0) {
-    dyn_step(c.s, a, sh.f0x, sh.f0y, sh.f0z, sh.scal);
+  const float* dh = sh.dist + 3 * h;
+  float fdx, fdy, fdz;
+  if (sh.mode == kShared) {
+    fdx = h == 0 ? sh.f0x : sh.fx;
+    fdy = h == 0 ? sh.f0y : sh.fy;
+    fdz = h == 0 ? sh.f0z : sh.fz;
+  } else if (sh.mode == kTable) {
+    fdx = dh[0];
+    fdy = dh[1];
+    fdz = dh[2];
   } else {
-    dyn_step(c.s, a, sh.fx, sh.fy, sh.fz, sh.scal);
+    fdx = c.fx;
+    fdy = c.fy;
+    fdz = c.fz;
+    const float relx = s.vx - sh.windx * 0.5f;
+    const float rely = s.vy - sh.windy * 0.5f;
+    const float relz = s.vz - sh.windz * 0.5f;
+    float nx = -sh.abs_ds * relx * fabsf(relx) / 2.25f;
+    float ny = -sh.abs_ds * rely * fabsf(rely) / 2.25f;
+    float nz = -sh.abs_ds * relz * fabsf(relz) / 2.25f;
+    if (sh.mode == kMixed) {
+      const bool redraw = (sh.t0 + h) % sh.period == 0;
+      nx = (nx + dh[0] + (redraw ? sh.fx : fdx)) / 3.0f;
+      ny = (ny + dh[1] + (redraw ? sh.fy : fdy)) / 3.0f;
+      nz = (nz + dh[2] + (redraw ? sh.fz : fdz)) / 3.0f;
+    }
+    c.fx = nx;
+    c.fy = ny;
+    c.fz = nz;
   }
+  dyn_step(c.s, a, fdx, fdy, fdz, sh.scal);
 }
 
 }  // namespace quad

@@ -2,10 +2,9 @@
 // one scenario (K5) or for B scenarios in one launch (K7, per-step).
 //
 // Replaces covo_mpc_tpu/ops/rollout_pallas.py::make_pallas_rollout_sampling
-// (_rollout_kernel with sample="prng" or "input_z", disturbance mode
-// "shared" or "krng") and ::make_pallas_rollout_batched_sampling with
-// joint=False (the same kernel with batched=True over a (B, lane-tiles)
-// grid, "shared" mode). Per scenario b, sample n and step h: z_h ~ N(0, I_4)
+// (_rollout_kernel with sample="prng" or "input_z", every disturbance mode,
+// and "krng") and ::make_pallas_rollout_batched_sampling with joint=False
+// (the same kernel with batched=True over a (B, lane-tiles) grid). Per scenario b, sample n and step h: z_h ~ N(0, I_4)
 // (or z[((b H + h) 4 + k) N + n] when a z pointer is given, the "input_z"
 // mode), then a_h = clip(mean_h + L_h z_h, +-1) with L_h the step's
 // lower-triangular 4x4 Cholesky factor, read row-major (chol[16 (b H + h) +
@@ -14,8 +13,9 @@
 // (B, 4H, N), sample-last; x0, the packs and the targets are scenario-
 // strided (quad::scenario_tables), the means (B, H, 4).
 //
-// Disturbance: "shared" takes the force of steps >= 1 from the scalar pack.
-// "krng" (krng != 0, single-scenario K5 only) draws it here: every thread
+// Disturbance: the mode of quad::rollout_step; "shared" takes the force of
+// steps >= 1 from the scalar pack. "krng" (krng != 0, "shared" mode of the
+// single-scenario K5 only) draws it here: every thread
 // derives the same three standard normals from Philox keyed by
 // disturb_seed, counter (0, 0, 1, b) (word 2 set: disjoint from the action
 // stream even for equal seeds), and scales them by scal[kDraw0], the
@@ -49,17 +49,18 @@ namespace {
 __global__ void sample_rollout_kernel(
     const float* __restrict__ x0, const float* __restrict__ scal,
     const int* __restrict__ ints, const float* __restrict__ ptar,
-    const float* __restrict__ vtar, const float* __restrict__ mean,
-    const float* __restrict__ chol, const float* __restrict__ z,
-    uint64_t seed, uint64_t disturb_seed, int krng,
-    float* __restrict__ draw_out, float* __restrict__ costs,
-    float* __restrict__ actions, int N, int H, int check_rollover) {
+    const float* __restrict__ vtar, const float* __restrict__ dist,
+    const float* __restrict__ mean, const float* __restrict__ chol,
+    const float* __restrict__ z, uint64_t seed, uint64_t disturb_seed,
+    int krng, float* __restrict__ draw_out, float* __restrict__ costs,
+    float* __restrict__ actions, int N, int H, int check_rollover, int mode) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= N) return;
   const int b = blockIdx.y;
-  const quad::Tables t = quad::scenario_tables(b, H, x0, scal, ints, ptar, vtar);
+  const quad::Tables t =
+      quad::scenario_tables(b, H, x0, scal, ints, ptar, vtar, dist);
   const size_t off = (size_t)b * 4 * H * N;  // scenario b of z and actions
-  quad::RolloutShared sh = quad::load_shared(t, check_rollover);
+  quad::RolloutShared sh = quad::load_shared(t, check_rollover, mode);
   if (krng) {
     const float4 d = rng::normals4(
         make_uint4(0u, 0u, 1u, static_cast<uint32_t>(b)), disturb_seed);
@@ -101,19 +102,20 @@ __global__ void sample_rollout_kernel(
 }
 
 int launch(const float* x0, const float* scal, const int* ints,
-           const float* ptar, const float* vtar, const float* mean,
-           const float* chol, const float* z, uint64_t seed,
+           const float* ptar, const float* vtar, const float* dist,
+           const float* mean, const float* chol, const float* z, uint64_t seed,
            uint64_t disturb_seed, int krng, float* draw_out, float* costs,
-           float* actions, int B, int N, int H, int check_rollover, int block,
-           cudaStream_t stream) {
+           float* actions, int B, int N, int H, int check_rollover, int mode,
+           int block, cudaStream_t stream) {
   if (B <= 0 || B > quad::kMaxScenarios || N <= 0 || H <= 0 || block <= 0 ||
-      block > 1024) {
+      block > 1024 || mode < quad::kShared || mode > quad::kMixed ||
+      (krng && mode != quad::kShared)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const dim3 grid((N + block - 1) / block, B);
   sample_rollout_kernel<<<grid, block, 0, stream>>>(
-      x0, scal, ints, ptar, vtar, mean, chol, z, seed, disturb_seed, krng,
-      draw_out, costs, actions, N, H, check_rollover);
+      x0, scal, ints, ptar, vtar, dist, mean, chol, z, seed, disturb_seed,
+      krng, draw_out, costs, actions, N, H, check_rollover, mode);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -123,24 +125,24 @@ int launch(const float* x0, const float* scal, const int* ints,
 // be null (draw in-kernel from `seed`); draw_out may be null.
 extern "C" int sample_rollout(
     const float* x0, const float* scal, const int* ints, const float* ptar,
-    const float* vtar, const float* mean, const float* chol, const float* z,
-    uint64_t seed, uint64_t disturb_seed, int krng, float* draw_out,
-    float* costs, float* actions, int N, int H, int check_rollover, int block,
-    cudaStream_t stream) {
-  return launch(x0, scal, ints, ptar, vtar, mean, chol, z, seed, disturb_seed,
-                krng, draw_out, costs, actions, 1, N, H, check_rollover, block,
-                stream);
+    const float* vtar, const float* dist, const float* mean, const float* chol,
+    const float* z, uint64_t seed, uint64_t disturb_seed, int krng,
+    float* draw_out, float* costs, float* actions, int N, int H,
+    int check_rollover, int mode, int block, cudaStream_t stream) {
+  return launch(x0, scal, ints, ptar, vtar, dist, mean, chol, z, seed,
+                disturb_seed, krng, draw_out, costs, actions, 1, N, H,
+                check_rollover, mode, block, stream);
 }
 
-// K7, per-step: B scenarios in the "shared" disturbance mode, every table
-// scenario-strided; mean (B, H, 4), chol (B, H, 4, 4), z (B, H, 4, N) or
-// null, costs (B, N), actions (B, 4H, N).
+// K7, per-step: B scenarios, every table scenario-strided; mean (B, H, 4),
+// chol (B, H, 4, 4), z (B, H, 4, N) or null, costs (B, N), actions
+// (B, 4H, N).
 extern "C" int sample_rollout_batched(
     const float* x0, const float* scal, const int* ints, const float* ptar,
-    const float* vtar, const float* mean, const float* chol, const float* z,
-    uint64_t seed, float* costs, float* actions, int B, int N, int H,
-    int check_rollover, int block, cudaStream_t stream) {
-  return launch(x0, scal, ints, ptar, vtar, mean, chol, z, seed, 0, 0,
-                nullptr, costs, actions, B, N, H, check_rollover, block,
+    const float* vtar, const float* dist, const float* mean, const float* chol,
+    const float* z, uint64_t seed, float* costs, float* actions, int B, int N,
+    int H, int check_rollover, int mode, int block, cudaStream_t stream) {
+  return launch(x0, scal, ints, ptar, vtar, dist, mean, chol, z, seed, 0, 0,
+                nullptr, costs, actions, B, N, H, check_rollover, mode, block,
                 stream);
 }

@@ -5,17 +5,23 @@ action map). The CUDA kernels run the component-form twin in
 ``csrc/quad_core.cuh``; this array form is what the plain rollout
 integrates and what the Hessian differentiates.
 
-Disturbances: "gaussian" and "none" are ported. A disturbance function
-here takes its random draw as an argument (``draw``, standard normals of
-shape (3,)) instead of a key, so callers and tests choose where the draw
-comes from.
+Disturbances: every model of the JAX package. A disturbance function takes
+JAX's arguments with its random draw in place of the key, ``fn(params,
+draw, time, vel, f_disturb)``, so callers and tests choose where the draw
+comes from. ``draw`` is the model's raw random input: standard normals for
+"gaussian" (and "none", which ignores them), uniforms in
+``[-disturb_scale, disturb_scale)`` for "periodic" and "mixed", unused (None)
+for "sin" and "drag".
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from covo_mpc_tpu_torch.models import rotation
+from covo_mpc_tpu_torch.models.rewards import _abs
 from covo_mpc_tpu_torch.models.structs import FDIST, OMEGA, POS, QUAT, VEL, EnvParams3D
 
 
@@ -69,28 +75,73 @@ def core_step(s: torch.Tensor, a: torch.Tensor, fdist: torch.Tensor,
     return bodyrate_step(torch.cat([s, fdist], dim=-1), u, params, dt)[..., :13]
 
 
-def gaussian_disturb(params: EnvParams3D, draw: torch.Tensor) -> torch.Tensor:
+def periodic_disturb(params: EnvParams3D, draw, time, vel, f_disturb):
+    """The uniform ``draw`` every ``disturb_period`` steps, else the
+    previous force carried through."""
+    redraw = torch.as_tensor(time % params.disturb_period == 0)
+    return torch.where(redraw[..., None], draw, f_disturb)
+
+
+def sin_disturb(params: EnvParams3D, draw, time, vel, f_disturb):
+    """A per-axis sinusoid of the step count (the period in floats, as
+    JAX's). ``time``'s last axis lines up with the params' scenario axis;
+    leading axes of ``time`` are free (a table of times)."""
+    time = torch.as_tensor(time)[..., None]
+    dp = params.disturb_params
+    scale = dp[..., :3] * params.disturb_scale[..., None]
+    period = dp[..., :3] * (params.disturb_period / 3) + params.disturb_period
+    phase = dp[..., 3:6] * 2.0 * math.pi
+    d = scale * torch.sin(2.0 * math.pi / period * time + phase)
+    return d if f_disturb is None else d.expand_as(f_disturb)
+
+
+def drag_disturb(params: EnvParams3D, draw, time, vel, f_disturb):
+    """Quadratic drag against the relative wind; |rel_v| takes JAX's
+    derivative at 0 (``rewards._abs``), so the exact Hessian, which
+    differentiates this twice, keeps d^2(x|x|)/dx^2 = 2 there."""
+    rel_vel = vel - params.disturb_params[..., :3] * 0.5
+    return (-torch.abs(params.disturb_scale)[..., None] * rel_vel * _abs(rel_vel)
+            / (1.5**2))
+
+
+def mixed_disturb(params: EnvParams3D, draw, time, vel, f_disturb):
+    """(drag + sin + periodic) / 3; the periodic term passes the previous
+    MIXED force through between redraws."""
+    d = (drag_disturb(params, draw, time, vel, f_disturb)
+         + sin_disturb(params, draw, time, vel, f_disturb)
+         + periodic_disturb(params, draw, time, vel, f_disturb))
+    return d / 3.0
+
+
+def gaussian_disturb(params: EnvParams3D, draw, time=None, vel=None,
+                     f_disturb=None) -> torch.Tensor:
     """i.i.d. Gaussian force noise: ``dyn_noise_scale * draw`` (the scale is
     zeroed in deterministic rollouts); a leading scenario axis on both, the
     scale (B,) and the draws (B, 3), carries through."""
     return params.dyn_noise_scale[..., None] * draw
 
 
-def none_disturb(params: EnvParams3D, draw: torch.Tensor) -> torch.Tensor:
-    return torch.zeros_like(draw)
+def none_disturb(params: EnvParams3D, draw, time=None, vel=None,
+                 f_disturb=None) -> torch.Tensor:
+    return torch.zeros_like(draw if f_disturb is None else f_disturb)
 
 
-DISTURB_FNS = {"gaussian": gaussian_disturb, "none": none_disturb}
-# ported later (ROADMAP queue 1, item 12)
-_QUEUED = ("periodic", "sin", "drag", "mixed")
+DISTURB_FNS = {
+    "periodic": periodic_disturb,
+    "sin": sin_disturb,
+    "drag": drag_disturb,
+    "mixed": mixed_disturb,
+    "gaussian": gaussian_disturb,
+    "none": none_disturb,
+}
+# the models whose draw is a uniform, and the velocity-coupled ones (the
+# force depends on the rollout's own velocity)
+UNIFORM_DRAW = ("periodic", "mixed")
+VEL_COUPLED = ("drag", "mixed")
 
 
 def get_disturb_fn(disturb_type: str):
-    """Disturbance name -> ``fn(params, draw) -> (3,)``."""
-    if disturb_type in _QUEUED:
-        raise NotImplementedError(
-            f"disturb_type {disturb_type!r} is not ported yet"
-        )
+    """Disturbance name -> ``fn(params, draw, time, vel, f_disturb) -> (..., 3)``."""
     if disturb_type not in DISTURB_FNS:
         raise NotImplementedError(f"unknown disturb_type {disturb_type!r}")
     return DISTURB_FNS[disturb_type]

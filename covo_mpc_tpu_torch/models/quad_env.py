@@ -60,7 +60,9 @@ class ResetDraws:
 
 @dataclasses.dataclass
 class StepDraws:
-    disturb: torch.Tensor  # (3,) standard normals (the gaussian disturbance)
+    # (3,) the disturbance model's draw (QuadEnv.draw_disturb): standard
+    # normals, uniforms in [-disturb_scale, disturb_scale), or None
+    disturb: Optional[torch.Tensor]
     obs_noise: Optional[torch.Tensor]  # (13,) standard normals
 
 
@@ -162,9 +164,26 @@ class QuadEnv:
             obs_noise=self._draw_obs_noise(gen),
         )
 
+    def draw_disturb(self, gen: torch.Generator, *batch: int,
+                     deterministic: bool = False) -> Optional[torch.Tensor]:
+        """The draws (*batch, 3) the disturbance model takes for one step,
+        or for one rollout (which shares its draw across samples and steps):
+        standard normals for "gaussian" and "none" (None when
+        ``deterministic``: the zeroed noise scale needs none), uniforms in
+        [-disturb_scale, disturb_scale) for "periodic" and "mixed" (drawn
+        even when deterministic: only the gaussian scale is zeroed), None
+        for "sin" and "drag"."""
+        kind = self.config.disturb_type
+        if kind in dynamics.UNIFORM_DRAW:
+            u = torch.rand(*batch, 3, generator=gen, device=self.device)
+            return (u * 2.0 - 1.0) * self._default_params.disturb_scale
+        if kind in ("gaussian", "none") and not deterministic:
+            return torch.randn(*batch, 3, generator=gen, device=self.device)
+        return None
+
     def draw_step(self, gen: torch.Generator) -> StepDraws:
         return StepDraws(
-            disturb=torch.randn(3, generator=gen, device=self.device),
+            disturb=self.draw_disturb(gen),
             obs_noise=self._draw_obs_noise(gen),
         )
 
@@ -206,15 +225,18 @@ class QuadEnv:
 
     # -- step ---------------------------------------------------------------
     def raw_step(self, state: EnvState3D, sub_action: torch.Tensor,
-                 params: EnvParams3D, disturb_draw: torch.Tensor) -> EnvState3D:
-        """One dynamics step + bookkeeping over the packed state."""
+                 params: EnvParams3D,
+                 disturb_draw: Optional[torch.Tensor]) -> EnvState3D:
+        """One dynamics step + bookkeeping over the packed state;
+        ``disturb_draw`` is the disturbance model's draw (:meth:`draw_disturb`)."""
         sub_action = torch.clamp(sub_action, -1.0, 1.0)
         u, torque = dynamics.control_to_thrust_omega(sub_action, params)
         thrust = u[..., 0]
         x_new = dynamics.bodyrate_step(pack_state(state), u, params, self._dt)
 
         # disturbance update from the PRE-step state
-        f_disturb = self.disturb_fn(params, disturb_draw)
+        f_disturb = self.disturb_fn(params, disturb_draw, state.time, state.vel,
+                                    state.f_disturb)
 
         time = state.time + 1
         # a (1,) index: indexing with a 0-d tensor would read it on the host

@@ -9,7 +9,12 @@ joint sample + rollout kernel is checked against.
 Semantics kept: rewards on PRE-step states, frozen once a sample has
 terminated (the freeze reads ``d_prev``); termination reads
 ``max_steps_in_episode`` from the runtime params; one disturbance draw is
-shared by every sample and step (the reference's key-reuse quirk).
+shared by every sample and step (the reference's key-reuse quirk). The
+force rides each sample's state: step 0 integrates x0's own, step h + 1 the
+model's output at time t0 + h from the PRE-step velocity and force (JAX:
+ops/rollout.py:132-149; for "gaussian" and "none" that is the one shared
+force). A deterministic rollout zeroes only the gaussian scale: "periodic"
+and "mixed" still take their uniform draw.
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ import torch
 
 from covo_mpc_tpu_torch.models import dynamics, rewards
 from covo_mpc_tpu_torch.models.quad_env import QuadEnv
-from covo_mpc_tpu_torch.models.structs import OMEGA, POS, QUAT, VEL, vmap_scenarios
+from covo_mpc_tpu_torch.models.structs import FDIST, OMEGA, POS, QUAT, VEL, vmap_scenarios
 
 
 def check_penyaw_reward(env: QuadEnv) -> None:
@@ -49,16 +54,16 @@ def _make_done(env: QuadEnv):
     return done_fn
 
 
-def shared_disturb(env: QuadEnv, params, draw: Optional[torch.Tensor],
-                   deterministic: bool, device) -> torch.Tensor:
-    """The one disturbance every sample uses from step 1 on: zero for
-    deterministic rollouts and for "none", else the disturbance model
-    applied to ``draw``, the caller's (3,) standard normals."""
-    if deterministic or env.config.disturb_type == "none":
-        return torch.zeros(3, device=device)
-    if draw is None:
-        raise ValueError("a stochastic gaussian rollout needs its normal draw")
-    return env.disturb_fn(params, draw)
+def check_draw(env: QuadEnv, draw: Optional[torch.Tensor],
+               deterministic: bool) -> None:
+    """Raise unless a rollout that needs a draw got one: a stochastic
+    gaussian rollout its normals, a "periodic" or "mixed" one (deterministic
+    or not) its uniforms."""
+    kind = env.config.disturb_type
+    if draw is None and (kind in dynamics.UNIFORM_DRAW
+                         or (kind == "gaussian" and not deterministic)):
+        raise ValueError(f"a {'deterministic' if deterministic else 'stochastic'} "
+                         f"{kind} rollout needs its draw")
 
 
 def target_window(t0, pos_traj, vel_traj, H: int, offset: int = 0):
@@ -74,14 +79,61 @@ def target_window(t0, pos_traj, vel_traj, H: int, offset: int = 0):
     return torch.gather(pos_traj, -2, idx), torch.gather(vel_traj, -2, idx)
 
 
+def step_times(t0, K: int, device) -> torch.Tensor:
+    """(..., K) the times t0 .. t0 + K - 1 (a leading scenario axis on t0
+    carries through)."""
+    return torch.as_tensor(t0, device=device)[..., None] + torch.arange(K, device=device)
+
+
+def sin_table(params, t0, K: int, device) -> torch.Tensor:
+    """(..., K, 3): the "sin" model at times t0 .. t0 + K - 1, closed form."""
+    times = step_times(t0, K, device).movedim(-1, 0)  # the model's time axes lead
+    return dynamics.sin_disturb(params, None, times, None, None).movedim(0, -2)
+
+
+def periodic_table(params, f0, t0, draws, K: int) -> torch.Tensor:
+    """(..., K, 3): the "periodic" model's output at times t0 .. t0 + K - 1
+    chained from ``f0``: the draw of the last redraw at or before each time,
+    f0 before the first. ``draws`` is one draw (..., 3) every step shares
+    (a rollout's) or (..., K, 3), one per step (the Hessian's)."""
+    times = step_times(t0, K, f0.device)
+    # step index of the last redraw at or before each time (< 0: none yet)
+    k = times - times % params.disturb_period - times[..., :1]
+    if draws.dim() == f0.dim():
+        picked = draws[..., None, :]
+    else:
+        idx = k.clamp(min=0).long()[..., None].expand(*k.shape, 3)
+        picked = torch.gather(draws, -2, idx)
+    return torch.where((k >= 0)[..., None], picked, f0[..., None, :])
+
+
+def disturb_table(env: QuadEnv, params, f0, t0, draws, H: int) -> torch.Tensor:
+    """(..., H, 3): the force in effect during each step of a rollout whose
+    force does not depend on its state: ``f0`` at step 0, then the model's
+    output at time t0 + h - 1 (JAX: rollout_pallas.build_disturb_table and
+    hessian.build_hessian_disturb_table). "gaussian" / "none" give zeros
+    after f0 (a deterministic rollout's); "periodic" takes ``draws`` (see
+    :func:`periodic_table`, one per step of H - 1)."""
+    kind = env.config.disturb_type
+    if kind in ("gaussian", "none"):
+        rest = f0.new_zeros(*f0.shape[:-1], H - 1, 3)
+    elif kind == "sin":
+        rest = sin_table(params, t0, H - 1, f0.device)
+    elif kind == "periodic":
+        rest = periodic_table(params, f0, t0, draws, H - 1)
+    else:
+        raise ValueError(f"the {kind!r} force depends on the state: no table")
+    return torch.cat([f0[..., None, :], rest], dim=-2)
+
+
 def make_rollout(env: QuadEnv):
     """Build ``rollout_costs(x0, t0, pos_traj, vel_traj, actions, params,
     draw=None, deterministic=False, discount=1.0, layout="nhd") -> costs (N,)``.
 
     ``actions`` is (N, H, 4) for ``layout="nhd"``, or (H, 4, N) / (H*4, N)
     for ``layout="hdn"`` (the samplers' sample-last layout). Cost is the
-    negated discounted reward sum. ``draw`` (3,) are the standard normals
-    of a stochastic gaussian rollout's shared disturbance.
+    negated discounted reward sum. ``draw`` (3,) is the disturbance model's
+    draw shared by the rollout (:meth:`QuadEnv.draw_disturb`).
     """
     check_penyaw_reward(env)
     done_fn = _make_done(env)
@@ -99,7 +151,11 @@ def make_rollout(env: QuadEnv):
             raise ValueError(f"unknown layout {layout!r}")
         H, N, _ = acts.shape
         ptar, vtar = target_window(t0, pos_traj, vel_traj, H)
-        f_shared = shared_disturb(env, params, draw, deterministic, x0.device)
+        check_draw(env, draw, deterministic)
+        if deterministic:
+            params = params.replace(dyn_noise_scale=params.dyn_noise_scale * 0.0)
+        if draw is None:  # a model that reads none, or a deterministic gaussian
+            draw = x0.new_zeros(3)
 
         x = x0[:16].expand(N, 16)
         r_prev = torch.zeros(N, device=x0.device)
@@ -113,9 +169,8 @@ def make_rollout(env: QuadEnv):
             d = d | d_prev
             u, _ = dynamics.control_to_thrust_omega(acts[h], params)
             x_new = dynamics.bodyrate_step(x, u, params, dt)
-            # step 0 integrated with x0's own f; every later step with the
-            # shared draw (state-independent for gaussian / none)
-            x = torch.cat([x_new[:, :13], f_shared.expand(N, 3)], dim=-1)
+            f_new = env.disturb_fn(params, draw, t0 + h, x[..., VEL], x[..., FDIST])
+            x = torch.cat([x_new[:, :13], f_new.expand(N, 3)], dim=-1)
             r_prev, d_prev = r, d
             rews.append(r)
         disc = torch.pow(discount, torch.arange(H, device=x0.device,
@@ -136,7 +191,7 @@ def make_rollout_batched(env: QuadEnv):
     ``actions`` is (B, N, H, 4) for ``layout="nhd"``, (B, H, 4, N) or
     (B, H*4, N) for ``"hdn"``; ``params_b`` holds each scenario's
     parameters on axis 0 of its tensor leaves (``stack_params``); ``draws``
-    (B, 3) are each scenario's shared-disturbance normals.
+    (B, 3) are each scenario's disturbance draw.
     """
     rollout = make_rollout(env)
 

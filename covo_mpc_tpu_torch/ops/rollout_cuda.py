@@ -12,9 +12,16 @@ A wrapper takes the plain version only when its tensors lie on the CPU
 (as JAX's ``interpret`` mode does off-TPU); on CUDA tensors it launches
 the kernel (``csrc/joint_sample_rollout.cu``, ``csrc/primal.cu``,
 ``csrc/rollout.cu``, ``csrc/sample_rollout.cu``; K6 and K7 are the batched
-entry points of the K4, K5 and K1 sources) or raises. The "shared"
-disturbance mode (gaussian / none) and K5's in-kernel gaussian draw
-("krng") are ported; the table and in-kernel drag/mixed modes are queued.
+entry points of the K4, K5 and K1 sources) or raises.
+
+Every rollout kernel runs the four disturbance modes of JAX's
+``_disturb_mode``, a launch argument: "shared" (gaussian / none: x0's own
+force at step 0, the one shared force after), "table" (sin / periodic: the
+force of each step read from the (3H) ``dist`` operand), "drag" and "mixed"
+(the force carried per sample and updated in-kernel from the pre-step
+velocity; "mixed" reads the sin values from ``dist`` and its periodic draw
+from the scalar pack). K5 alone also draws the shared gaussian force itself
+("krng").
 """
 
 from __future__ import annotations
@@ -27,9 +34,11 @@ from covo_mpc_tpu_torch.models import dynamics
 from covo_mpc_tpu_torch.models.quad_env import QuadEnv
 from covo_mpc_tpu_torch.ops import kernels
 from covo_mpc_tpu_torch.ops.rollout import (
+    check_draw,
+    disturb_table,
     make_rollout,
     make_rollout_batched,
-    shared_disturb,
+    sin_table,
     target_window,
 )
 
@@ -65,6 +74,9 @@ JOINT_BATCHED_KERNEL = kernels.Kernel(
 
 NSCAL = 17  # scalar pack, layout quad::Scal in csrc/quad_core.cuh
 NINT = 3  # [t0, max_steps, disturb_period]
+# the disturbance modes' launch argument (quad::Mode in csrc/quad_core.cuh);
+# "krng" is the shared mode with K5's in-kernel draw
+MODES = {"shared": 0, "krng": 0, "table": 1, "drag": 2, "mixed": 3}
 
 
 def _full(value, device) -> torch.Tensor:
@@ -79,12 +91,14 @@ def _dyn_scalars(env: QuadEnv, params, device):
             params.max_omega[..., 1], params.max_omega[..., 2]]
 
 
-def _check_shared_mode(env: QuadEnv) -> None:
-    if env.config.disturb_type not in ("gaussian", "none"):
-        raise NotImplementedError(
-            f"the CUDA rollout runs the 'shared' disturbance mode only "
-            f"(gaussian / none), not {env.config.disturb_type!r}"
-        )
+def disturb_mode(env: QuadEnv, kernel_draw: bool = False) -> str:
+    """The kernels' disturbance mode for ``env`` (JAX: _disturb_mode)."""
+    kind = env.config.disturb_type
+    if kind in dynamics.VEL_COUPLED:
+        return kind
+    if kind in ("gaussian", "none"):
+        return "krng" if kernel_draw else "shared"
+    return "table"
 
 
 def _kernel_draws(env: QuadEnv, draw, deterministic) -> bool:
@@ -94,25 +108,48 @@ def _kernel_draws(env: QuadEnv, draw, deterministic) -> bool:
             and env.config.disturb_type == "gaussian")
 
 
-def build_kernel_disturb(env: QuadEnv, params, draw, deterministic, device,
-                         kernel_draw: bool = False):
-    """The kernel's disturbance input (3,). "shared" mode: the one force
-    every sample uses from step 1 on (step 0 uses x0's own f). "krng"
-    mode (``kernel_draw``): [effective noise scale, 0, 0], the kernel
-    draws the normals."""
-    _check_shared_mode(env)
-    if kernel_draw:
+def build_kernel_disturb(env: QuadEnv, x0, t0, params, draw, deterministic,
+                         H: int, kernel_draw: bool = False):
+    """The kernels' disturbance inputs ``(dist (..., 3H), draw (..., 3))``
+    (JAX: rollout_pallas.build_kernel_disturb), a leading scenario axis on
+    x0, t0, the params and ``draw`` carrying through:
+
+    - "shared": zeros, and the force every sample uses from step 1 on;
+    - "krng" (``kernel_draw``): zeros, and [effective noise scale, 0, 0]:
+      the kernel draws the normals;
+    - "table": x0's force at step 0, then the model at t0 + h - 1, chained
+      (periodic takes ``draw``); zeros;
+    - "drag": zeros, and ``draw`` (zeros without one; drag reads none);
+    - "mixed": the sin values at t0 + h (not t0 + h - 1: the step's update
+      reads them), and the uniform ``draw``.
+    """
+    batch = x0.shape[:-1]
+    dev = x0.device
+    mode = disturb_mode(env, kernel_draw)
+    zeros = torch.zeros(*batch, 3 * H, device=dev)
+    if mode == "krng":
         scale = params.dyn_noise_scale
         zero = torch.zeros_like(scale)
-        return torch.stack([scale, zero, zero], dim=-1)
-    return shared_disturb(env, params, draw, deterministic, device)
+        return zeros, torch.stack([scale, zero, zero], dim=-1).expand(*batch, 3)
+    check_draw(env, draw, deterministic)
+    if mode == "shared":
+        if deterministic or env.config.disturb_type == "none":
+            return zeros, torch.zeros(*batch, 3, device=dev)
+        return zeros, env.disturb_fn(params, draw).expand(*batch, 3)
+    if mode == "table":
+        dist = disturb_table(env, params, x0[..., 13:16], t0, draw, H)
+        return dist.reshape(*batch, 3 * H), torch.zeros(*batch, 3, device=dev)
+    draw = torch.zeros(*batch, 3, device=dev) if draw is None else draw.expand(*batch, 3)
+    if mode == "drag":
+        return zeros, draw
+    return sin_table(params, t0, H, dev).reshape(*batch, 3 * H), draw
 
 
 def _pack_kernel_inputs(env: QuadEnv, x0, t0, pos_traj, vel_traj, params,
                         draw, deterministic, discount, H: int,
                         kernel_draw: bool = False):
-    """Flat kernel operands: (ptar (H*3,), vtar (H*3,), scal (NSCAL,),
-    ints (NINT,) int32), all built on x0's device.
+    """Flat kernel operands: (ptar (H*3,), vtar (H*3,), dist (H*3,), scal
+    (NSCAL,), ints (NINT,) int32), all built on x0's device.
 
     With a leading scenario axis on x0 (B, 16), t0 (B,), the trajectories
     (B, T, 3), the params' tensor leaves and the draw (B, 3), every operand
@@ -122,15 +159,15 @@ def _pack_kernel_inputs(env: QuadEnv, x0, t0, pos_traj, vel_traj, params,
     dev = x0.device
     batch = x0.shape[:-1]
     ptar, vtar = target_window(t0, pos_traj, vel_traj, H)
-    f_shared = build_kernel_disturb(env, params, draw, deterministic, dev,
-                                    kernel_draw).expand(*batch, 3)
+    dist, kdraw = build_kernel_disturb(env, x0, t0, params, draw, deterministic,
+                                       H, kernel_draw)
     dp = params.disturb_params
     scalars = _dyn_scalars(env, params, dev) + [
         _full(discount, dev), params.disturb_scale, dp[..., 0], dp[..., 1],
         dp[..., 2],
     ]
     scal = torch.cat([torch.stack([v.expand(batch) for v in scalars], dim=-1),
-                      f_shared], dim=-1)
+                      kdraw], dim=-1)
 
     def int32(v):
         if isinstance(v, torch.Tensor):
@@ -139,39 +176,42 @@ def _pack_kernel_inputs(env: QuadEnv, x0, t0, pos_traj, vel_traj, params,
 
     ints = torch.stack([int32(t0), int32(params.max_steps_in_episode),
                         int32(params.disturb_period)], dim=-1)
-    return ptar.reshape(*batch, -1), vtar.reshape(*batch, -1), scal, ints
+    return (ptar.reshape(*batch, -1), vtar.reshape(*batch, -1), dist, scal,
+            ints)
 
 
 def _launch_operands(env: QuadEnv, x0, t0, pos_traj, vel_traj, params, draw,
                      deterministic, discount, H: int, kernel_draw: bool = False):
     """The operands every rollout kernel takes first, in its argument order
-    (x0 (16,), scal, ints, ptar, vtar; each with the leading scenario axis
-    of a batched x0), packed and checked for the launch. The caller keeps
-    the tensors alive until the launch is enqueued."""
+    (x0 (16,), scal, ints, ptar, vtar, dist; each with the leading scenario
+    axis of a batched x0), packed and checked for the launch. The caller
+    keeps the tensors alive until the launch is enqueued."""
     dev = x0.device
     batch = tuple(x0.shape[:-1])
-    ptar, vtar, scal, ints = _pack_kernel_inputs(
+    ptar, vtar, dist, scal, ints = _pack_kernel_inputs(
         env, x0, t0, pos_traj, vel_traj, params, draw, deterministic, discount,
         H, kernel_draw,
     )
     x0 = x0[..., :16].contiguous()
+    scal, dist = scal.contiguous(), dist.contiguous()
     for name, t, shape in (("x0", x0, (16,)), ("scal", scal, (NSCAL,)),
-                           ("ptar", ptar, (3 * H,)), ("vtar", vtar, (3 * H,))):
+                           ("ptar", ptar, (3 * H,)), ("vtar", vtar, (3 * H,)),
+                           ("dist", dist, (3 * H,))):
         kernels.check_cuda(name, t, batch + shape, device=dev)
     kernels.check_cuda("ints", ints, batch + (NINT,), torch.int32, device=dev)
-    return x0, scal, ints, ptar, vtar
+    return x0, scal, ints, ptar, vtar, dist
 
 
 class _RolloutKernelWrapper:
-    """What the rollout kernels' wrappers share: the disturbance-mode
-    check, the block size, the plain rollout (over B scenarios for the
-    batched wrappers) and the rollover flag."""
+    """What the rollout kernels' wrappers share: the disturbance mode's
+    launch argument, the block size, the plain rollout (over B scenarios
+    for the batched wrappers) and the rollover flag."""
 
     batched = False
 
     def __init__(self, env: QuadEnv, block: int = 128):
-        _check_shared_mode(env)
         self.env = env
+        self.mode = MODES[disturb_mode(env)]
         self.block = block
         # checks the reward
         self._rollout = (make_rollout_batched if self.batched else make_rollout)(env)
@@ -186,8 +226,8 @@ class JointSampleRollout(_RolloutKernelWrapper):
     -> (costs (N,), a_t (D, N))``. ``z`` (D, N) feeds given normals (the
     "input_z" mode); without it the kernel draws Philox normals keyed by
     ``seed`` (an int) and the plain version draws from a generator seeded
-    with it. ``draw`` (3,) are the standard normals of a stochastic
-    gaussian rollout's shared disturbance.
+    with it. ``draw`` (3,) is the disturbance model's draw the rollout
+    shares (``QuadEnv.draw_disturb``).
     """
 
     def plain(self, x0, t0, pos_traj, vel_traj, a_mean, factor, params,
@@ -228,7 +268,7 @@ class JointSampleRollout(_RolloutKernelWrapper):
             *(t.data_ptr() for t in ops), mean.data_ptr(), factor.data_ptr(),
             None if z is None else z.data_ptr(), seed % (1 << 64),
             costs.data_ptr(), a_t.data_ptr(), N, H, self._check_rollover,
-            self.block,
+            self.mode, self.block,
         )
         return costs, a_t
 
@@ -278,7 +318,7 @@ class RolloutCosts(_RolloutKernelWrapper):
         costs = torch.empty(N, device=dev)
         ROLLOUT_KERNEL.launch(
             *(t.data_ptr() for t in ops), acts.data_ptr(), costs.data_ptr(),
-            N, H, self._check_rollover, self.block,
+            N, H, self._check_rollover, self.mode, self.block,
         )
         return costs
 
@@ -298,11 +338,12 @@ class SampleRollout(_RolloutKernelWrapper):
     ``chol`` holds each step's lower Cholesky factor, row-major. ``z``
     (H, 4, N) feeds given normals (the "input_z" mode); without it the
     kernel draws Philox normals keyed by ``seed`` (an int) and the plain
-    version draws from a generator seeded with it. ``draw`` (3,) are the
-    standard normals of a stochastic gaussian rollout's shared
-    disturbance; without them such a rollout draws them from
-    ``disturb_seed`` ("krng": in-kernel Philox; the plain version a
-    seeded generator), and ``draw_out`` (3,), when given, receives them.
+    version draws from a generator seeded with it. ``draw`` (3,) is the
+    disturbance model's draw the rollout shares; without one a stochastic
+    gaussian rollout draws its normals from ``disturb_seed`` ("krng":
+    in-kernel Philox; the plain version a seeded generator, both gaussian
+    only, as JAX's kernel_draw), and ``draw_out`` (3,), when given,
+    receives them.
     """
 
     def plain(self, x0, t0, pos_traj, vel_traj, a_mean, chol, params,
@@ -362,7 +403,7 @@ class SampleRollout(_RolloutKernelWrapper):
             (disturb_seed or 0) % (1 << 64), int(krng),
             None if draw_out is None else draw_out.data_ptr(),
             costs.data_ptr(), a_t.data_ptr(), N, H, self._check_rollover,
-            self.block,
+            self.mode, self.block,
         )
         return costs, a_t
 
@@ -376,9 +417,10 @@ def make_rollout_sampling(env: QuadEnv, block: int = 128):
 #
 # Every operand carries a leading scenario axis: x0s (B, 16), t0s (B,), the
 # trajectories (B, T, 3), params_b (EnvParams3D with (B, ...) tensor leaves,
-# ``stack_params``) and draws (B, 3), the shared-disturbance normals of a
-# stochastic gaussian rollout. The disturbance mode is "shared": one draw
-# per scenario, handed in (JAX's batched builders never take "krng").
+# ``stack_params``) and draws (B, 3), each scenario's disturbance draw. The
+# disturbance modes are the single-scenario kernels' with a scenario-strided
+# (B, 3H) dist table; the draw is handed in (JAX's batched builders never
+# take "krng").
 
 
 class RolloutCostsBatched(_RolloutKernelWrapper):
@@ -420,7 +462,7 @@ class RolloutCostsBatched(_RolloutKernelWrapper):
         costs = torch.empty(B, N, device=dev)
         ROLLOUT_BATCHED_KERNEL.launch(
             *(t.data_ptr() for t in ops), acts.data_ptr(), costs.data_ptr(),
-            B, N, H, self._check_rollover, self.block,
+            B, N, H, self._check_rollover, self.mode, self.block,
         )
         return costs
 
@@ -485,7 +527,7 @@ class SampleRolloutBatched(_RolloutKernelWrapper):
             *(t.data_ptr() for t in ops), mean.data_ptr(), chols.data_ptr(),
             None if z is None else z.data_ptr(), seed % (1 << 64),
             costs.data_ptr(), a_t.data_ptr(), B, N, H, self._check_rollover,
-            self.block,
+            self.mode, self.block,
         )
         return costs, a_t
 
@@ -544,7 +586,7 @@ class JointSampleRolloutBatched(_RolloutKernelWrapper):
             *(t.data_ptr() for t in ops), mean.data_ptr(), factors.data_ptr(),
             None if z is None else z.data_ptr(), seed % (1 << 64),
             costs.data_ptr(), a_t.data_ptr(), B, N, H, self._check_rollover,
-            self.block,
+            self.mode, self.block,
         )
         return costs, a_t
 

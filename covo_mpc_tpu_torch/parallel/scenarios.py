@@ -17,8 +17,10 @@ over B in Python:
 - the weights and the updates reduce over each scenario's samples.
 
 The per-solve Philox seed comes from a CPU generator the solve owns, the
-fast sampler's normals and MPPI's per-scenario disturbance draws from a
-device generator, so a solve never syncs with the host. The multichip
+fast sampler's normals and the per-scenario disturbance draws (MPPI's
+stochastic ones; under "periodic" / "mixed" CoVO's rollout and Hessian
+uniforms too) from a device generator, so a solve never syncs with the
+host. The multichip
 steps (``make_multichip_control_step``, ``make_multichip_covo_step``) and
 ``collect_metrics`` are not ported.
 """
@@ -83,15 +85,22 @@ class _BatchedSolve:
     def _philox_seed(self) -> int:
         return int(torch.randint(0, 2**63 - 1, (), generator=self.generator))
 
+    def _draw(self, *batch: int, deterministic: bool):
+        return self.env.draw_disturb(self.device_generator, *batch,
+                                     deterministic=deterministic)
+
 
 class BatchedCoVOSolve(_BatchedSolve):
     """``solve(x0s (B, 16), t0s (B,), pos_trajs (B, T, 3), vel_trajs,
-    a_means (B, H, dA), params_b, gamma_mean=1.0, discount=1.0, z=None) ->
-    (a_means_new (B, H, dA), min_costs (B,))``: per scenario, the mean
-    shift, the Hessian, the NS designer, the joint sample + deterministic
-    rollout, the weights and the γ-blended mean update (CoVO re-designs Σ
-    every solve, so no covariance is carried). ``z`` (B, N, D) feeds given
-    standard normals (tests hand in JAX's); K7 then runs its input-z mode.
+    a_means (B, H, dA), params_b, gamma_mean=1.0, discount=1.0, z=None,
+    draws=None, hess_draws=None) -> (a_means_new (B, H, dA), min_costs
+    (B,))``: per scenario, the mean shift, the Hessian, the NS designer, the
+    joint sample + deterministic rollout, the weights and the γ-blended mean
+    update (CoVO re-designs Σ every solve, so no covariance is carried).
+    ``z`` (B, N, D) feeds given standard normals (tests hand in JAX's); K7
+    then runs its input-z mode. ``draws`` (B, 3) and ``hess_draws`` (B, H,
+    3) are the rollouts' and the Hessians' disturbance uniforms ("periodic"
+    / "mixed"; drawn here when not given).
     """
 
     def __init__(self, env, N: int, H: int, lam: float, sample_sigma: float,
@@ -112,16 +121,23 @@ class BatchedCoVOSolve(_BatchedSolve):
 
     def __call__(self, x0s, t0s, pos_trajs, vel_trajs, a_means, params_b,
                  gamma_mean=1.0, discount=1.0,
-                 z: Optional[torch.Tensor] = None):
+                 z: Optional[torch.Tensor] = None,
+                 draws: Optional[torch.Tensor] = None,
+                 hess_draws: Optional[torch.Tensor] = None):
         B, N, D = a_means.shape[0], self.N, self.D
         a_means = _shift(a_means)
+        if hess_draws is None:
+            hess_draws = self._draw(B, self.H, deterministic=True)
+        if draws is None:
+            draws = self._draw(B, deterministic=True)
         R = self._hessian(a_means.reshape(B, D), x0s, t0s, pos_trajs,
-                          vel_trajs, params_b)
+                          vel_trajs, params_b, hess_draws)
         _, factors = covariance.optimize_sigma_ns(R, self.sample_sigma, D)
         if self._sampler is not None:
             costs, a_t = self._sampler(
                 x0s, t0s, pos_trajs, vel_trajs, a_means, factors, params_b,
                 self._philox_seed(), N, deterministic=True, discount=discount,
+                draws=draws,
                 z=None if z is None else z.transpose(1, 2).contiguous(),
             )
         else:
@@ -131,7 +147,7 @@ class BatchedCoVOSolve(_BatchedSolve):
                 -1.0, 1.0,
             )
             costs = self._rollout(x0s, t0s, pos_trajs, vel_trajs, a_t, params_b,
-                                  deterministic=True, discount=discount,
+                                  draws, deterministic=True, discount=discount,
                                   layout="hdn")
         weights = reductions.mppi_weights(costs, self.lam)
         a_means_new = reductions.mean_update_t(
@@ -157,7 +173,6 @@ class BatchedMPPISolve(_BatchedSolve):
         super().__init__(env, N, H, lam, rng, engine, seed)
         self._sampler = (make_rollout_batched_sampling(env, joint=False)
                          if rng == sampling.KERNEL else None)
-        self._gaussian = env.config.disturb_type == "gaussian"
 
     def __call__(self, x0s, t0s, pos_trajs, vel_trajs, a_means, a_covs,
                  params_b, gamma_mean=1.0, gamma_sigma=0.0, discount=1.0,
@@ -166,9 +181,8 @@ class BatchedMPPISolve(_BatchedSolve):
         B, N, H, dA = a_means.shape[0], self.N, self.H, self.dA
         a_means, a_covs = _shift(a_means), _shift(a_covs)
         chols = torch.linalg.cholesky_ex(a_covs).L.contiguous()
-        if draws is None and self._gaussian:
-            draws = torch.randn(B, 3, generator=self.device_generator,
-                                device=x0s.device)
+        if draws is None:
+            draws = self._draw(B, deterministic=False)
         if self._sampler is not None:
             costs, a_flat = self._sampler(
                 x0s, t0s, pos_trajs, vel_trajs, a_means, chols, params_b,

@@ -26,7 +26,11 @@ episode, then the Hessians and designers of all its states at once) and a
 solve reads step t's. Offline always runs the plain designer, as JAX does.
 
 A solve never syncs with the host: the per-solve Philox seed comes from a
-CPU generator the solver owns. ``engine="cuda"`` runs K1 or K4, K2, K3
+CPU generator the solver owns. Under "periodic" and "mixed" a solve also
+draws its disturbance uniforms from the solver's device generator (the
+rollout's shared draw, the Hessian's per-step draws, the speculative model
+step's draw): CoVO's rollouts are deterministic, which zeroes the gaussian
+scale only. Every other model draws nothing there. ``engine="cuda"`` runs K1 or K4, K2, K3
 and, under ``"ns_pallas"``, K8 (their wrappers take the plain versions for
 CPU tensors); ``engine="torch"`` is the plain path; ``engine="auto"`` picks
 ``"cuda"`` for an env on a CUDA device and ``"torch"`` for one on the CPU.
@@ -184,18 +188,31 @@ class CoVOSolver(BaseSolver):
         self.generator.manual_seed(seed)
         self.device_generator.manual_seed(seed)
 
+    # -- the disturbance draws ---------------------------------------------------
+    def _draw(self, *batch: int) -> Optional[torch.Tensor]:
+        """The disturbance draws (*batch, 3) of deterministic model steps
+        (uniforms for "periodic" / "mixed", else None), from the device
+        generator."""
+        return self.env.draw_disturb(self.device_generator, *batch,
+                                     deterministic=True)
+
     # -- Sigma design ----------------------------------------------------------
-    def get_hessian(self, env_state, env_params, a_mean):
+    def get_hessian(self, env_state, env_params, a_mean,
+                    draws: Optional[torch.Tensor] = None):
         """R = d^2 cost / d a^2 around the nominal sequence (Gauss–Newton
-        or the exact adjoint)."""
+        or the exact adjoint). ``draws`` (H, 3): the per-step uniforms of
+        "periodic" / "mixed" (drawn here when not given)."""
+        if draws is None:
+            draws = self._draw(self.H)
         return self._hessian(a_mean.flatten(), pack_state(env_state),
                              env_state.time, env_state.pos_traj,
-                             env_state.vel_traj, env_params)
+                             env_state.vel_traj, env_params, draws)
 
-    def design(self, env_state, env_params, a_mean, sample_sigma):
+    def design(self, env_state, env_params, a_mean, sample_sigma,
+               draws: Optional[torch.Tensor] = None):
         """(a_cov, factor) around the nominal ``a_mean`` at ``env_state``:
         the Hessian, then the designer."""
-        R = self.get_hessian(env_state, env_params, a_mean)
+        R = self.get_hessian(env_state, env_params, a_mean, draws)
         return self._optimize_sigma(R, sample_sigma, self.D)
 
     @staticmethod
@@ -208,25 +225,31 @@ class CoVOSolver(BaseSolver):
 
     # -- speculative mode ------------------------------------------------------
     def prepare(self, env_state, env_params, control_params: CoVOParams,
-                info: Optional[dict] = None) -> CoVOParams:
+                info: Optional[dict] = None, draw: Optional[torch.Tensor] = None,
+                hess_draws: Optional[torch.Tensor] = None) -> CoVOParams:
         """Design Sigma for the NEXT step at the model-predicted state: one
         deterministic model step with the action about to be applied
-        (``a_mean[0]``), then the Hessian and the designer there around the
-        shifted nominal; stores ``(a_cov, a_factor)`` for the next
-        :meth:`act`. Off the obs->action path: a deployed loop runs it in
-        the idle time after the action is sent."""
+        (``a_mean[0]``; ``draw`` (3,) its disturbance draw), then the
+        Hessian (``hess_draws``) and the designer there around the shifted
+        nominal; stores ``(a_cov, a_factor)`` for the next :meth:`act`. Off
+        the obs->action path: a deployed loop runs it in the idle time after
+        the action is sent."""
         if self.mode != "speculative":
             raise ValueError("prepare() requires mode='speculative'")
         env_state = self._observed(env_state, info)
-        # the deterministic step: the disturbance drawn now is zero
+        if draw is None:
+            draw = self._draw()
+        if draw is None:  # the deterministic gaussian step's zero draw
+            draw = torch.zeros(3, device=env_state.pos.device)
         x_next = self.env.raw_step(env_state, control_params.a_mean[0], env_params,
-                                   torch.zeros(3, device=env_state.pos.device))
+                                   draw)
         a_cov, factor = self.design(x_next, env_params, _shift(control_params.a_mean),
-                                    control_params.sample_sigma)
+                                    control_params.sample_sigma, hess_draws)
         return control_params.replace(a_cov=a_cov, a_factor=factor)
 
     def act(self, obs, env_state, env_params, control_params: CoVOParams,
-            info: Optional[dict] = None, z: Optional[torch.Tensor] = None):
+            info: Optional[dict] = None, z: Optional[torch.Tensor] = None,
+            draw: Optional[torch.Tensor] = None):
         """Speculative mode's obs->action path: shift, sample, rollout and
         update with the Sigma prepared last step; no Hessian, no designer."""
         if self.mode != "speculative":
@@ -234,7 +257,7 @@ class CoVOSolver(BaseSolver):
         env_state = self._observed(env_state, info)
         new_mean = self._sample_rollout_update(
             env_state, env_params, control_params, _shift(control_params.a_mean),
-            control_params.a_factor, z)
+            control_params.a_factor, z, draw)
         return new_mean[0], control_params.replace(a_mean=new_mean), {}
 
     # -- reset: the speculative cold start and the offline schedule ------------
@@ -264,32 +287,36 @@ class CoVOSolver(BaseSolver):
                                 disturb: Optional[torch.Tensor] = None) -> EnvState3D:
         """The offline schedule's states: the PID expansion episode from
         ``env_state``, max_steps stochastic model steps, each state taken
-        before its step. ``disturb`` (max_steps, 3) are the steps' standard
-        normals (tests hand in JAX's); by default they come from the
-        solver's device generator, in one draw. Returns the states stacked
-        on a leading axis."""
+        before its step. ``disturb`` (max_steps, 3) are the steps'
+        disturbance draws (tests hand in JAX's); by default they come from
+        the solver's device generator, in one draw (none for "sin" and
+        "drag"). Returns the states stacked on a leading axis."""
         max_steps = self.env.default_params.max_steps_in_episode
         if disturb is None:
-            disturb = torch.randn(max_steps, 3, generator=self.device_generator,
-                                  device=env_state.pos.device)
+            disturb = self.env.draw_disturb(self.device_generator, max_steps)
         states, state = [], env_state
         for t in range(max_steps):
             states.append(state)
             action, _, _ = self.expansion(None, state, env_params,
                                           self.expansion_params)
-            state = self.env.raw_step(state, action, env_params, disturb[t])
+            state = self.env.raw_step(state, action, env_params,
+                                      None if disturb is None else disturb[t])
         return EnvState3D(**{
             f.name: (torch.stack([getattr(s, f.name) for s in states])
                      if f.name != "control_params" else env_state.control_params)
             for f in dataclasses.fields(EnvState3D)
         })
 
-    def _model_step_b(self, st: EnvState3D, action, params) -> EnvState3D:
+    def _model_step_b(self, st: EnvState3D, action, params, draw) -> EnvState3D:
         """One deterministic model step of stacked states (leading axis B):
         the fields the PID and the Hessian read. The disturbance after it is
-        zero (the deterministic step's draw)."""
+        the model's from the pre-step state under ``draw`` (B, 3) (zero for
+        gaussian: the deterministic step zeroes its scale)."""
         u, _ = dynamics.control_to_thrust_omega(action, params)
         x = dynamics.bodyrate_step(pack_state(st), u, params, self.env._dt)
+        det = params.replace(dyn_noise_scale=params.dyn_noise_scale * 0.0)
+        f = self.env.disturb_fn(det, torch.zeros_like(st.f_disturb) if draw is None
+                                else draw, st.time, st.vel, st.f_disturb)
         time = st.time + 1
         idx = torch.clamp(time, 0, st.pos_traj.shape[-2] - 1).long()
         idx = idx[..., None, None].expand(*idx.shape, 1, 3)
@@ -298,7 +325,7 @@ class CoVOSolver(BaseSolver):
             return torch.gather(table, -2, idx)[..., 0, :]
 
         return st.replace(pos=x[..., POS], quat=x[..., QUAT], vel=x[..., VEL],
-                          omega=x[..., OMEGA], f_disturb=torch.zeros_like(st.f_disturb),
+                          omega=x[..., OMEGA], f_disturb=f,
                           time=time, pos_tar=at_t(st.pos_traj),
                           vel_tar=at_t(st.vel_traj), acc_tar=at_t(st.acc_traj))
 
@@ -309,32 +336,38 @@ class CoVOSolver(BaseSolver):
         (B, D, D) stack. Returns (a_cov, factor), (B, D, D) each."""
         B = states.time.shape[0]
         st, actions = states, []
-        for _ in range(self.H):
+        step_draws = self._draw(self.H, B)
+        for h in range(self.H):
             action, _, _ = self.expansion(None, st, env_params, self.expansion_params)
             actions.append(action)
-            st = self._model_step_b(st, action, env_params)
+            st = self._model_step_b(st, action, env_params,
+                                    None if step_draws is None else step_draws[h])
         a_mean = torch.stack(actions, dim=1)  # (B, H, dA)
         R = self._hessian_b(a_mean.reshape(B, self.D), pack_state(states),
                             states.time, states.pos_traj, states.vel_traj,
-                            stack_params([env_params] * B))
+                            stack_params([env_params] * B), self._draw(B, self.H))
         return self._optimize_sigma(R, sample_sigma, self.D)
 
     # -- solve -------------------------------------------------------------------
     def __call__(self, obs, env_state, env_params, control_params: CoVOParams,
-                 info: Optional[dict] = None, z: Optional[torch.Tensor] = None):
+                 info: Optional[dict] = None, z: Optional[torch.Tensor] = None,
+                 draw: Optional[torch.Tensor] = None,
+                 hess_draws: Optional[torch.Tensor] = None):
         """One solve. ``z`` (N, D) feeds given standard normals to the
-        sampler (tests hand in the ones JAX drew); by default they come
-        from the solver's generators."""
+        sampler, ``draw`` (3,) the rollout's disturbance draw and
+        ``hess_draws`` (H, 3) the Hessian's (tests hand in the ones JAX
+        drew); by default they come from the solver's generators."""
         if self.mode == "speculative":
             action, control_params, out = self.act(obs, env_state, env_params,
-                                                   control_params, info, z=z)
+                                                   control_params, info, z=z,
+                                                   draw=draw)
             return action, self.prepare(env_state, env_params, control_params,
-                                        info), out
+                                        info, hess_draws=hess_draws), out
         env_state = self._observed(env_state, info)
         a_mean = _shift(control_params.a_mean)
         if self.mode == "online":
             a_cov, factor = self.design(env_state, env_params, a_mean,
-                                        control_params.sample_sigma)
+                                        control_params.sample_sigma, hess_draws)
         else:
             if control_params.a_factor_offline is None:
                 raise ValueError("offline mode: reset(env_state, env_params) "
@@ -342,21 +375,24 @@ class CoVOSolver(BaseSolver):
             a_cov = _at(control_params.a_cov_offline, env_state.time)
             factor = _at(control_params.a_factor_offline, env_state.time)
         new_mean = self._sample_rollout_update(env_state, env_params,
-                                               control_params, a_mean, factor, z)
+                                               control_params, a_mean, factor, z,
+                                               draw)
         return new_mean[0], control_params.replace(a_mean=new_mean, a_cov=a_cov), {}
 
     def _sample_rollout_update(self, env_state, env_params, control_params,
-                               a_mean, factor, z):
+                               a_mean, factor, z, draw=None):
         """The joint sample + deterministic rollout around the shifted
         ``a_mean`` with the sampling ``factor``, the weights and the mean
         update; returns the new mean (H, dA)."""
         x0 = pack_state(env_state)
         args = (x0, env_state.time, env_state.pos_traj, env_state.vel_traj)
+        if draw is None:
+            draw = self._draw()
         if self.rollout_sampling is not None:
             seed = int(torch.randint(0, 2**63 - 1, (), generator=self.generator))
             costs, a_t = self.rollout_sampling(
                 *args, a_mean, factor, env_params, seed, self.N,
-                deterministic=True, discount=control_params.discount,
+                deterministic=True, discount=control_params.discount, draw=draw,
                 z=None if z is None else z.T.contiguous(),
             )
         else:
@@ -365,7 +401,7 @@ class CoVOSolver(BaseSolver):
                                         factor, self.N, z=z),
                 -1.0, 1.0,
             )
-            costs = self.rollout(*args, a_t, env_params, deterministic=True,
+            costs = self.rollout(*args, a_t, env_params, draw, deterministic=True,
                                  discount=control_params.discount, layout="hdn")
 
         weight = reductions.mppi_weights(costs, self.lam)

@@ -6,9 +6,11 @@ sample-last fast path). One solve, in order:
 1. act on ``info["noisy_state"]``;
 2. shift the mean AND the covariance, and the carried Cholesky factor
    (CoVO shifts the mean only);
-3. sample and roll out, stochastically (the one shared gaussian draw):
-   K5 (``rng_mode="kernel"``: per-step draw, rollout and costs in one
-   launch), or z and the draw from the solver's device generator, then K4
+3. sample and roll out, stochastically (the one shared disturbance draw:
+   gaussian normals, or the uniforms of "periodic" / "mixed"): K5
+   (``rng_mode="kernel"``: per-step draw, rollout and costs in one launch;
+   the gaussian draw in-kernel too, the uniforms from the device
+   generator), or z and the draw from the solver's device generator, then K4
    (``engine="cuda"``, ``rng_mode="fast"``) or the plain rollout
    (``engine="torch"``); ``engine="auto"`` picks by the env's device;
 4. softmax weights, the mean update, and the covariance update (which
@@ -85,7 +87,6 @@ class MPPISolver(BaseSolver):
         self.action_dim = env.action_dim
         self.rollout_sampling = (make_rollout_sampling(env)
                                  if rng_mode == sampling.KERNEL else None)
-        self._gaussian = env.config.disturb_type == "gaussian"
         # CPU generator for the kernel's Philox seeds (no device read per
         # solve), device generator for the fast sampler's normals and draw
         self.generator = torch.Generator()
@@ -99,8 +100,8 @@ class MPPISolver(BaseSolver):
     def __call__(self, obs, env_state, env_params, control_params: MPPIParams,
                  info: Optional[dict] = None, z: Optional[torch.Tensor] = None,
                  draw: Optional[torch.Tensor] = None):
-        """One solve. ``z`` (N, H, dA) and ``draw`` (3,) feed given standard
-        normals to the sampler and to the shared disturbance (tests hand in
+        """One solve. ``z`` (N, H, dA) feeds given standard normals to the
+        sampler and ``draw`` (3,) the shared disturbance draw (tests hand in
         the ones JAX drew; K5 then runs its input-z mode); by default they
         come from the solver's generators."""
         if info is not None and info.get("noisy_state") is not None:
@@ -115,6 +116,9 @@ class MPPISolver(BaseSolver):
         if self.rollout_sampling is not None:
             seed, disturb_seed = torch.randint(0, 2**63 - 1, (2,),
                                                generator=self.generator).tolist()
+            if draw is None and self.env.config.disturb_type != "gaussian":
+                # K5 draws the gaussian force itself, no other model's
+                draw = self.env.draw_disturb(self.device_generator)
             costs, a_flat = self.rollout_sampling(
                 *args, a_mean, a_chol, env_params, seed, self.N,
                 deterministic=False, discount=control_params.discount,
@@ -128,9 +132,8 @@ class MPPISolver(BaseSolver):
                                            self.N, z=z),
                 -1.0, 1.0,
             )
-            if draw is None and self._gaussian:
-                draw = torch.randn(3, generator=self.device_generator,
-                                   device=x0.device)
+            if draw is None:
+                draw = self.env.draw_disturb(self.device_generator)
             costs = self.rollout(*args, a_t, env_params, draw, deterministic=False,
                                  discount=control_params.discount, layout="hdn")
 

@@ -11,7 +11,9 @@ exact-adjoint Hessian through K2 and K3, and the scenario-batched K6 and
 K7 at a ragged N, at B=1 against K4, K5 and K1, with in-kernel draws that
 do not depend on the scenario count, and K7 joint's per-scenario moments;
 the Sigma-designer K8 at D = 32 and 64 on a near-singular and on a badly
-scaled R. Tolerances are the ones ``chip_smoke.py`` states (the JAX kernel tests'
+scaled R; and every disturbance mode (table, drag, mixed) of K1, K4-K7 at a
+ragged N, K6/K7 at B=1 against B=16, and the Hessian through K2 (on a force
+table) and K3 (at sd=16) in each mode. Tolerances are the ones ``chip_smoke.py`` states (the JAX kernel tests'
 own).
 """
 
@@ -403,3 +405,128 @@ def test_sigma_ns_counts_and_rejects(dev):
         with pytest.raises(ValueError):
             covariance_cuda.optimize_sigma_ns_cuda(torch.eye(D, device=dev), 0.5, D)
     assert k.launches == before + 1
+
+
+# --- the disturbance modes: table (sin, periodic), drag, mixed -------------
+
+KINDS = ["periodic", "sin", "drag", "mixed"]
+T0 = 47  # a redraw (t % 50 == 0) inside the horizon
+
+
+def _mode_env(dev, kind, randomize=False):
+    """An env under ``kind`` with non-zero disturb_params (the wind and the
+    sinusoid), its params, and a noisy reset state moved to T0 with a
+    non-zero start force."""
+    env = QuadEnv(EnvConfig(task="tracking_zigzag", enable_randomizer=randomize,
+                            disturb_type=kind, disable_rollover_terminate=True,
+                            generate_noisy_state=True), device=dev)
+    g = torch.Generator(dev).manual_seed(9)
+    p = env.default_params.replace(
+        disturb_params=torch.rand(6, generator=g, device=dev) * 2.0 - 1.0)
+    _, info, _ = env.reset(torch.Generator(dev).manual_seed(0), p)
+    st = info["noisy_state"].replace(
+        time=torch.tensor(T0, dtype=torch.int32, device=dev),
+        f_disturb=torch.tensor([0.02, -0.01, 0.015], device=dev))
+    return env, p, st
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_rollout_kernels_in_each_mode_match_plain(dev, kind):
+    """K1, K4 and K5 in the table / drag / mixed modes at a ragged N,
+    against their plain versions on the same normals and uniform draw."""
+    env, p, st = _mode_env(dev, kind)
+    g = torch.Generator(dev).manual_seed(10)
+    draw = env.draw_disturb(g)
+    roll = (pack_state(st), st.time, st.pos_traj, st.vel_traj)
+    a_mean = torch.randn(H, 4, generator=g, device=dev) * 0.2
+    factor = torch.randn(D, D, generator=g, device=dev) * 0.1
+    z = torch.randn(D, N, generator=g, device=dev)
+    k1 = rollout_cuda.make_rollout_joint_sampling(env)
+    for det in (True, False):
+        kw = dict(deterministic=det, discount=0.98, draw=draw, z=z)
+        c_k, a_k = k1(*roll, a_mean, factor, p, 0, N, **kw)
+        c_p, a_p = k1.plain(*roll, a_mean, factor, p, 0, N, **kw)
+        torch.testing.assert_close(a_k, a_p, atol=1e-5, rtol=0)
+        torch.testing.assert_close(c_k, c_p, atol=2e-4, rtol=1e-5)
+    acts = torch.randn(H, 4, N, generator=g, device=dev) * 0.5
+    k4 = rollout_cuda.make_rollout_costs(env)
+    torch.testing.assert_close(k4(*roll, acts, p, draw, layout="hdn"),
+                               k4.plain(*roll, acts, p, draw, layout="hdn"),
+                               atol=2e-4, rtol=1e-5)
+    _, a_mean5, chol = _per_step_inputs(dev)
+    z5 = torch.randn(H, 4, N, generator=g, device=dev)
+    k5 = rollout_cuda.make_rollout_sampling(env)
+    c_k, a_k = k5(*roll, a_mean5, chol, p, 0, N, draw=draw, z=z5)
+    c_p, a_p = k5.plain(*roll, a_mean5, chol, p, 0, N, draw=draw, z=z5)
+    torch.testing.assert_close(a_k, a_p, atol=1e-5, rtol=0)
+    torch.testing.assert_close(c_k, c_p, atol=2e-4, rtol=1e-5)
+    # the mode changes the costs (the force matters)
+    if kind != "sin":
+        gauss = QuadEnv(EnvConfig(task="tracking_zigzag", enable_randomizer=False,
+                                  disturb_type="none", disable_rollover_terminate=True,
+                                  generate_noisy_state=True), device=dev)
+        c_none = rollout_cuda.make_rollout_costs(gauss)(*roll, acts, p, layout="hdn")
+        assert not torch.allclose(c_none, k4(*roll, acts, p, draw, layout="hdn"))
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_batched_kernels_in_each_mode_scenario_count_invariant(dev, kind):
+    """K6, K7 per-step and K7 joint in each mode at B=16 against their plain
+    versions (ragged N), and scenario 0 of the B=16 launch equal to the B=1
+    launch of the same scenario: per-scenario dist tables and draws."""
+    env, p, st = _mode_env(dev, kind, randomize=True)
+    gen = torch.Generator(dev).manual_seed(11)
+    Bm = 16
+    params = [env.sample_params(gen) for _ in range(Bm)]
+    sts = [env.reset(gen, q)[1]["noisy_state"] for q in params]
+    args = (torch.stack([pack_state(s) for s in sts]),
+            torch.tensor([T0 + b % 4 for b in range(Bm)], dtype=torch.int32, device=dev),
+            torch.stack([s.pos_traj for s in sts]), torch.stack([s.vel_traj for s in sts]))
+    pb = stack_params(params)
+    one = tuple(x[:1] for x in args)
+    pb1 = stack_params(params[:1])
+    draws = env.draw_disturb(gen, Bm)
+    d1 = None if draws is None else draws[:1]
+    acts = torch.randn(Bm, H, 4, N, generator=gen, device=dev) * 0.5
+    k6 = rollout_cuda.make_rollout_batched_costs(env)
+    c16 = k6(*args, acts, pb, draws, discount=0.98)
+    torch.testing.assert_close(c16, k6.plain(*args, acts, pb, draws, discount=0.98),
+                               atol=2e-4, rtol=1e-5)
+    assert torch.equal(k6(*one, acts[:1], pb1, d1, discount=0.98)[0], c16[0])
+    a_means = torch.randn(Bm, H, 4, generator=gen, device=dev) * 0.2
+    A = torch.randn(Bm, H, 4, 4, generator=gen, device=dev) * 0.2
+    chols = torch.linalg.cholesky(A @ A.mT + 0.05 * torch.eye(4, device=dev)).contiguous()
+    factors = torch.randn(Bm, D, D, generator=gen, device=dev) * 0.1
+    for joint, fac, z in ((False, chols, torch.randn(Bm, H, 4, N, generator=gen, device=dev)),
+                          (True, factors, torch.randn(Bm, D, N, generator=gen, device=dev))):
+        k7 = rollout_cuda.make_rollout_batched_sampling(env, joint=joint)
+        kw = dict(deterministic=joint, discount=0.98, draws=draws, z=z)
+        c_k, a_k = k7(*args, a_means, fac, pb, 0, N, **kw)
+        c_p, a_p = k7.plain(*args, a_means, fac, pb, 0, N, **kw)
+        torch.testing.assert_close(a_k, a_p, atol=1e-5, rtol=0)
+        torch.testing.assert_close(c_k, c_p, atol=2e-4, rtol=1e-5)
+        c1, a1 = k7(*one, a_means[:1], fac[:1], pb1, 0, N, deterministic=joint,
+                    discount=0.98, draws=d1, z=z[:1])
+        assert torch.equal(a1[0], a_k[0]) and torch.equal(c1[0], c_k[0])
+
+
+@pytest.mark.parametrize("second_order", [False, True], ids=["gn", "adjoint"])
+@pytest.mark.parametrize("kind", KINDS)
+def test_hessian_in_each_mode_through_kernels(dev, kind, second_order):
+    """The Hessian through the kernels against the plain primal and chain:
+    K2 on the force table (sin, periodic), K3 at sd=16 (drag, mixed) through
+    make_hessian_adjoint, launched once each."""
+    env, p, st = _mode_env(dev, kind)
+    g = torch.Generator(dev).manual_seed(12)
+    a = torch.randn(H * 4, generator=g, device=dev) * 0.3
+    draws = env.draw_disturb(g, H, deterministic=True)
+    args = (a, pack_state(st), st.time, st.pos_traj, st.vel_traj, p, draws)
+    before = (rollout_cuda.PRIMAL_KERNEL.launches, hessian_cuda.CHAIN_KERNEL.launches)
+    got = make_hessian_adjoint(env, H, primal="cuda", tail="cuda",
+                               second_order=second_order)(*args)
+    ref = make_hessian_adjoint(env, H, primal="torch", tail="torch",
+                               second_order=second_order)(*args)
+    assert _rel(got, ref) < 1e-5
+    vel = kind in ("drag", "mixed")
+    assert rollout_cuda.PRIMAL_KERNEL.launches == before[0] + (0 if vel else 1)
+    assert hessian_cuda.CHAIN_KERNEL.launches == before[1] + 1

@@ -131,18 +131,19 @@ def test_joint_sample_rollout_plain_draws_from_seed():
 
 def test_pack_kernel_inputs_layout():
     jenv, env, jp, noisy, p, st = _reset()
-    ptar, vtar, scal, ints = rollout_cuda._pack_kernel_inputs(
+    ptar, vtar, dist, scal, ints = rollout_cuda._pack_kernel_inputs(
         env, pack_state(st), st.time, st.pos_traj, st.vel_traj, p, None,
         True, 0.98, H,
     )
     from covo_mpc_tpu.ops.rollout_pallas import _pack_kernel_inputs as j_pack
 
-    jptar, jvtar, _, jscal, jints = j_pack(
+    jptar, jvtar, jdist, jscal, jints = j_pack(
         jenv, jpack(noisy), noisy.time, noisy.pos_traj, noisy.vel_traj, jp,
         jax.random.PRNGKey(0), True, 0.98, H,
     )
     np.testing.assert_allclose(ptar.numpy(), np.asarray(jptar), atol=0)
     np.testing.assert_allclose(vtar.numpy(), np.asarray(jvtar), atol=0)
+    np.testing.assert_array_equal(dist.numpy(), np.asarray(jdist))
     np.testing.assert_allclose(scal.numpy(), np.asarray(jscal), rtol=1e-7)
     np.testing.assert_array_equal(ints.numpy(), np.asarray(jints))
 
@@ -241,12 +242,13 @@ def test_sample_rollout_plain_draws_from_seeds():
     (dict(disturb_type="none"), False, [0.0, 0.0, 0.0]),
 ])
 def test_build_kernel_disturb_modes(env_kw, deterministic, expect):
-    _, env, _, _, p, _ = _reset(**env_kw)
+    _, env, _, _, p, st = _reset(**env_kw)
     krng = rollout_cuda._kernel_draws(env, None, deterministic)
     assert krng == (expect[0] > 0)
-    got = rollout_cuda.build_kernel_disturb(env, p, None, deterministic, "cpu",
-                                            kernel_draw=krng)
+    dist, got = rollout_cuda.build_kernel_disturb(
+        env, pack_state(st), st.time, p, None, deterministic, H, kernel_draw=krng)
     np.testing.assert_allclose(got.numpy(), expect, rtol=1e-7)
+    np.testing.assert_array_equal(dist.numpy(), np.zeros(3 * H, np.float32))
 
 
 # --- K2: primal ---------------------------------------------------------------

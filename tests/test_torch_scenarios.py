@@ -134,7 +134,7 @@ def test_pack_kernel_inputs_batched_matches_per_scenario():
     env, pb = p["env"], p["params"]
     packed = rollout_cuda._pack_kernel_inputs(env, *_args(p), pb, draws, False,
                                               0.97, H)
-    assert [tuple(x.shape) for x in packed] == [(B, 3 * H), (B, 3 * H),
+    assert [tuple(x.shape) for x in packed] == [(B, 3 * H), (B, 3 * H), (B, 3 * H),
                                                 (B, rollout_cuda.NSCAL),
                                                 (B, rollout_cuda.NINT)]
     for b in range(B):
