@@ -54,10 +54,21 @@ source, at first use), then:
    full-width solves under drag (CoVO gn with K1, adjoint with K4, MPPI with
    K5, the batched CoVO and MPPI at B=16) and mixed (CoVO gn with K1),
    ``engine="cuda"`` against ``engine="torch"`` on the same normals and
-   draws (2e-4, no host sync); (c) the drag closed loops (1200 steps): CoVO
-   online with RESULTS_DRAG.md's settings (adjoint, fast rng: K4) and with
-   the main path's (gn, kernel rng: K1), both below MPPI's (fast rng: K4),
-   and the drag solve's median events ms.
+   draws (2e-4, no host sync); (c) the drag closed loops at half depth (600
+   steps): CoVO online with RESULTS_DRAG.md's settings (adjoint, fast rng:
+   K4) and with the main path's (gn, kernel rng: K1), both below MPPI's
+   (fast rng: K4), and the drag solve's median events ms;
+8. the realworld reward of ``tracking_slow`` (the slow Lissajous task): (a)
+   K1, K4, K5 (and its "krng"), K6 and K7 (B=16) with the realworld reward
+   against their plain versions in the shared (gaussian) and drag modes,
+   and each kernel alone in both; (b) full-width solves on tracking_slow,
+   ``engine="cuda"`` against ``engine="torch"`` on the same normals and draw
+   (2e-4, no host sync): CoVO online gn with kernel rng (K1, K2, K3), CoVO
+   adjoint with fast rng (K4), MPPI with kernel rng (K5), batched CoVO at
+   B=16 (K7 joint), and one main-path CoVO solve on ``tracking`` (the
+   Lissajous tables, penyaw); (c) the tracking_slow closed loops (1200
+   steps): CoVO online with the main path's settings and MPPI with kernel
+   rng, both finite, CoVO below MPPI, and the CoVO solve's median events ms.
 
 Each kernel's launch count in the JSON record is read from the closed loop
 that runs it: K1-K3 from CoVO's, K5 from MPPI's kernel-rng loop, K4 from
@@ -67,7 +78,10 @@ from the speculative loop (counts set to 0 just before each loop). A
 record's ``modes`` holds, for each disturbance mode it was checked in (and
 "sd13" / "sd16" for K3), the kernel's max abs error, the environments that
 ran it, its time alone, its bound counting the mode's extra operations and
-table, and its launches in the drag loops. Each kernel's record also holds
+table, and its launches in the drag loops; its ``realworld`` (K1, K4-K7)
+holds the same for the realworld reward in the shared and drag modes, the
+bound counting that reward's own operations, and K1's and K5's launches in
+the tracking_slow loops. Each kernel's record also holds
 its bound, the least time the card could take
 for the same work at the timed shapes (the larger of its fp32 operations
 over the fp32 peak and its bytes over the memory rate), and the time of
@@ -86,6 +100,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -113,6 +128,10 @@ STEP_FLOPS = 190
 # 6 with the abs and the scaling) = 18; "mixed" adds 3 x (two adds, the
 # redraw select, / 3) = 12 more; "table" reads its force, "shared" as before
 MODE_FLOPS = {"shared": 0, "table": 0, "drag": 18, "mixed": 30}
+# the reward's operations against penyaw's ~57 (two norms, the log barrier,
+# atan2) in STEP_FLOPS: realworld counts 16 (three differences, their
+# squares and sum, / 3, 1 - q_w^2, the two weights, the sum and the scale)
+REWARD_FLOPS = {"penyaw": 0, "realworld": 16 - 57}
 DYN_FLOPS = 124
 BOX_MULLER_FLOPS = 5  # per normal: log, sqrt, sin/cos and scaling per pair
 K8_MATMULS = 104  # optimize_sigma_ns: 2 x 16 (power squaring) + 24 + 1 + 47 (NS)
@@ -139,38 +158,42 @@ def bound(flops: float, nbytes: float) -> dict:
                 library_ms=None)
 
 
-def rollout_bytes(B: int, N: int, H: int, mode: str = "shared") -> int:
-    """Bytes of a rollout kernel's small per-scenario tables: x0 (16),
-    targets (2 x 3H), scalar pack (17), int pack (3), the dist table (3H,
-    read in the "table" and "mixed" modes), and its costs (N)."""
+def rollout_bytes(B: int, N: int, H: int, mode: str = "shared",
+                  reward: str = "penyaw") -> int:
+    """Bytes of a rollout kernel's small per-scenario tables: x0 (16), the
+    position targets (3H) and the velocity targets (3H, which realworld does
+    not read), scalar pack (17), int pack (3), the dist table (3H, read in
+    the "table" and "mixed" modes), and its costs (N)."""
     dist = 3 * H if mode in ("table", "mixed") else 0
-    return 4 * B * (16 + 6 * H + dist + 17 + 3 + N)
+    targets = 3 * H if reward == "realworld" else 6 * H
+    return 4 * B * (16 + targets + dist + 17 + 3 + N)
 
 
-def step_flops(mode: str) -> int:
-    return STEP_FLOPS + MODE_FLOPS[mode]
+def step_flops(mode: str, reward: str = "penyaw") -> int:
+    return STEP_FLOPS + MODE_FLOPS[mode] + REWARD_FLOPS[reward]
 
 
-def k1_bound(B: int, N: int, H: int, mode: str = "shared") -> dict:
+def k1_bound(B: int, N: int, H: int, mode: str = "shared", reward: str = "penyaw") -> dict:
     """K1 / K7 joint with in-kernel draws: F (D, D) and the mean in, the
     actions (D, N) out; the correlate 2 N D^2, the draws and the steps."""
     D = 4 * H
-    flops = B * N * (2 * D * D + BOX_MULLER_FLOPS * D + H * step_flops(mode))
-    return bound(flops, rollout_bytes(B, N, H, mode) + 4 * B * (D * D + D + D * N))
+    flops = B * N * (2 * D * D + BOX_MULLER_FLOPS * D + H * step_flops(mode, reward))
+    return bound(flops, rollout_bytes(B, N, H, mode, reward)
+                 + 4 * B * (D * D + D + D * N))
 
 
-def k5_bound(B: int, N: int, H: int, mode: str = "shared") -> dict:
+def k5_bound(B: int, N: int, H: int, mode: str = "shared", reward: str = "penyaw") -> dict:
     """K5 / K7 per-step with in-kernel draws: the means and 4x4 factors in,
     the actions (4H, N) out; a lower 4x4 correlate (20) + mean (4) a step."""
-    flops = B * N * H * (24 + 4 * BOX_MULLER_FLOPS + step_flops(mode))
-    return bound(flops, rollout_bytes(B, N, H, mode)
+    flops = B * N * H * (24 + 4 * BOX_MULLER_FLOPS + step_flops(mode, reward))
+    return bound(flops, rollout_bytes(B, N, H, mode, reward)
                  + 4 * B * (4 * H + 16 * H + 4 * H * N))
 
 
-def k4_bound(B: int, N: int, H: int, mode: str = "shared") -> dict:
+def k4_bound(B: int, N: int, H: int, mode: str = "shared", reward: str = "penyaw") -> dict:
     """K4 / K6: the actions (4H, N) in, the costs out."""
-    return bound(B * N * H * step_flops(mode),
-                 rollout_bytes(B, N, H, mode) + 4 * B * 4 * H * N)
+    return bound(B * N * H * step_flops(mode, reward),
+                 rollout_bytes(B, N, H, mode, reward) + 4 * B * 4 * H * N)
 
 
 def k8_bound(D: int) -> dict:
@@ -884,7 +907,7 @@ def phase_scenario_kernels(env, dev, records):
     costs = torch.empty(B, N, device=dev)
     ms6k = bare_launch_ms(rollout_cuda.ROLLOUT_BATCHED_KERNEL, *ptrs, acts.data_ptr(),
                           costs.data_ptr(), B, N, H, k6._check_rollover, k6.mode,
-                          k6.block)
+                          k6.reward, k6.block)
     say(f"  K6 {ms6:.4f} ms, plain {ms6p:.4f} ms, kernel alone {ms6k:.4f} ms")
 
     # K7 per-step (MPPI) and joint (CoVO): input-z against the plain
@@ -935,7 +958,7 @@ def phase_scenario_kernels(env, dev, records):
                 else rollout_cuda.SAMPLE_BATCHED_KERNEL)
         ms_k = bare_launch_ms(kern, *ptrs, mean.data_ptr(), fac.data_ptr(), None, 7,
                               costs.data_ptr(), a_out.data_ptr(), B, N, H,
-                              k7._check_rollover, k7.mode, k7.block)
+                              k7._check_rollover, k7.mode, k7.reward, k7.block)
         say(f"  {label} {ms:.4f} ms, plain {ms_p:.4f} ms, kernel alone {ms_k:.4f} ms")
 
 
@@ -1334,6 +1357,139 @@ def mode_record(records, name: str, mode: str, **values) -> None:
     records.setdefault(name, {}).setdefault("modes", {}).setdefault(mode, {}).update(values)
 
 
+def mode_kernel_inputs(dev, seed: int):
+    """The operands K1, K4-K7 are checked and timed on, from a numpy seed: a
+    mean and full factor with normals (K1), actions (K4), per-step means and
+    Cholesky factors with normals (K5), the same at B=SCEN_B (K6, K7), the
+    output buffers of the bare launches, and the numpy generator after its
+    draws (``rng``)."""
+    B = SCEN_B
+    rng = np.random.default_rng(seed)
+    cuda = lambda x: to_dev(x, dev)  # noqa: E731
+    a_mean, factor = cuda(rng.normal(size=(H, 4)) * 0.2), cuda(rng.normal(size=(D, D)) * 0.1)
+    z1 = cuda(rng.standard_normal((D, N)))
+    acts = cuda(rng.normal(size=(H, 4, N)) * 0.5)
+    A = rng.normal(size=(H, 4, 4)) * 0.2
+    chol = cuda(np.linalg.cholesky(A @ A.transpose(0, 2, 1) + 0.05 * np.eye(4)))
+    z5 = cuda(rng.standard_normal((H, 4, N)))
+    acts_b = cuda(rng.normal(size=(B, H, 4, N)) * 0.5)
+    means_b = cuda(rng.normal(size=(B, H, 4)) * 0.2)
+    Ab = rng.normal(size=(B, H, 4, 4)) * 0.2
+    chols_b = cuda(np.linalg.cholesky(Ab @ Ab.swapaxes(-1, -2) + 0.05 * np.eye(4)))
+    factors_b = cuda(rng.normal(size=(B, D, D)) * 0.1)
+    z7 = {False: cuda(rng.standard_normal((B, H, 4, N))),
+          True: cuda(rng.standard_normal((B, D, N)))}
+    return types.SimpleNamespace(
+        a_mean=a_mean, factor=factor, z1=z1, acts=acts, chol=chol, z5=z5, acts_b=acts_b,
+        means_b=means_b, chols_b=chols_b, factors_b=factors_b, z7=z7,
+        costs=torch.empty(N, device=dev), a_out=torch.empty(D, N, device=dev),
+        costs_b=torch.empty(B, N, device=dev), a_out_b=torch.empty(B, D, N, device=dev),
+        rng=rng)
+
+
+def mode_case(env, env_b, dev, seed: int):
+    """One scenario's rollout inputs on ``env`` (:func:`mode_inputs` from
+    ``seed``) and SCEN_B scenarios' on ``env_b`` (domain-randomized, reset
+    from seed + 1, the start force F0, t0 = 47 .. 50, draws from seed + 2)."""
+    from covo_mpc_tpu_torch.models import pack_state
+
+    B = SCEN_B
+    p, st, draw = mode_inputs(env, dev, seed)
+    args, pb, _, _ = scenario_batch(env_b, B, seed=seed + 1)
+    x0s = args[0].clone()
+    x0s[:, 13:16] = torch.tensor(F0, device=dev)
+    args = (x0s, DISTURB_T0 + torch.arange(B, device=dev, dtype=torch.int32) % 4, *args[2:])
+    return types.SimpleNamespace(
+        env=env, roll=(pack_state(st), st.time, st.pos_traj, st.vel_traj), p=p, draw=draw,
+        env_b=env_b, args=args, pb=pb,
+        draws=env_b.draw_disturb(torch.Generator(dev).manual_seed(seed + 2), B))
+
+
+def check_rollout_kernels(label: str, inp, case) -> dict:
+    """K1, K4, K5, K6 and K7 (per-step and joint) against their plain
+    versions on ``inp``'s normals and ``case``'s inputs and draws (CoVO's
+    rollouts deterministic, MPPI's stochastic): actions within 1e-5, costs
+    within atol 2e-4, rtol 1e-5. Returns each kernel's max abs error."""
+    from covo_mpc_tpu_torch.ops import rollout_cuda
+
+    env, roll, p, draw = case.env, case.roll, case.p, case.draw
+    args, pb, draws = case.args, case.pb, case.draws
+    errs = {}
+    k1 = rollout_cuda.make_rollout_joint_sampling(env)
+    kw1 = dict(deterministic=True, draw=draw, z=inp.z1)
+    c_k, a_k = k1(*roll, inp.a_mean, inp.factor, p, 0, N, **kw1)
+    c_p, a_p = k1.plain(*roll, inp.a_mean, inp.factor, p, 0, N, **kw1)
+    check(max_err(a_k, a_p) <= 1e-5 and costs_close(c_k, c_p),
+          f"K1 ({label}): actions within 1e-5, costs within atol 2e-4, rtol 1e-5")
+    errs["joint_sample_rollout"] = max(max_err(a_k, a_p), max_err(c_k, c_p))
+    k4 = rollout_cuda.make_rollout_costs(env)
+    c_k, c_p = (f(*roll, inp.acts, p, draw, layout="hdn") for f in (k4, k4.plain))
+    check(costs_close(c_k, c_p), f"K4 ({label}): costs within atol 2e-4, rtol 1e-5")
+    errs["rollout_costs"] = max_err(c_k, c_p)
+    k5 = rollout_cuda.make_rollout_sampling(env)
+    c_k, a_k = k5(*roll, inp.a_mean, inp.chol, p, 0, N, draw=draw, z=inp.z5)
+    c_p, a_p = k5.plain(*roll, inp.a_mean, inp.chol, p, 0, N, draw=draw, z=inp.z5)
+    check(max_err(a_k, a_p) <= 1e-5 and costs_close(c_k, c_p),
+          f"K5 ({label}): actions within 1e-5, costs within atol 2e-4, rtol 1e-5")
+    errs["sample_rollout"] = max(max_err(a_k, a_p), max_err(c_k, c_p))
+    k6 = rollout_cuda.make_rollout_batched_costs(case.env_b)
+    c_k, c_p = (f(*args, inp.acts_b, pb, draws) for f in (k6, k6.plain))
+    check(costs_close(c_k, c_p), f"K6 ({label}): costs within atol 2e-4, rtol 1e-5")
+    errs["rollout_costs_batched"] = max_err(c_k, c_p)
+    for joint, name, fac in ((False, "sample_rollout_batched", inp.chols_b),
+                             (True, "joint_sample_rollout_batched", inp.factors_b)):
+        k7 = rollout_cuda.make_rollout_batched_sampling(case.env_b, joint=joint)
+        kw7 = dict(deterministic=joint, draws=draws, z=inp.z7[joint])
+        c_k, a_k = k7(*args, inp.means_b, fac, pb, 0, N, **kw7)
+        c_p, a_p = k7.plain(*args, inp.means_b, fac, pb, 0, N, **kw7)
+        check(max_err(a_k, a_p) <= 1e-5 and costs_close(c_k, c_p),
+              f"K7 {'joint' if joint else 'per-step'} ({label}): actions within "
+              "1e-5, costs within atol 2e-4, rtol 1e-5")
+        errs[name] = max(max_err(a_k, a_p), max_err(c_k, c_p))
+    return errs
+
+
+def kernels_alone(inp, case, mode: str, reward: str = "penyaw") -> dict:
+    """Each rollout kernel alone in ``mode`` with ``reward``: bare launches
+    (in-kernel draws, K5 without "krng", rollover off) on operands the
+    wrappers' own packing made from ``case``. Returns {name: (ms, bound)}."""
+    from covo_mpc_tpu_torch.ops import rollout_cuda
+
+    B = SCEN_B
+    mi, ri = rollout_cuda.MODES[mode], rollout_cuda.REWARDS[reward]
+    ops = rollout_cuda._launch_operands(case.env, *case.roll, case.p, case.draw, False, 1.0, H)
+    ptrs = [t.data_ptr() for t in ops]
+    ops_b = rollout_cuda._launch_operands(case.env_b, *case.args, case.pb, case.draws, False,
+                                          1.0, H)
+    ptrs_b = [t.data_ptr() for t in ops_b]
+    mean = inp.a_mean.reshape(-1).contiguous()
+    mean_b = inp.means_b.reshape(B, -1).contiguous()
+    out, out_b = (inp.costs.data_ptr(), inp.a_out.data_ptr()), (inp.costs_b.data_ptr(),
+                                                                 inp.a_out_b.data_ptr())
+    return {
+        "joint_sample_rollout": (bare_launch_ms(
+            rollout_cuda.JOINT_KERNEL, *ptrs, mean.data_ptr(), inp.factor.data_ptr(), None,
+            7, *out, N, H, 0, mi, ri, 128), k1_bound(1, N, H, mode, reward)),
+        "rollout_costs": (bare_launch_ms(
+            rollout_cuda.ROLLOUT_KERNEL, *ptrs, inp.acts.data_ptr(), out[0], N, H,
+            0, mi, ri, 128), k4_bound(1, N, H, mode, reward)),
+        "sample_rollout": (bare_launch_ms(
+            rollout_cuda.SAMPLE_KERNEL, *ptrs, mean.data_ptr(), inp.chol.data_ptr(), None, 7,
+            8, 0, None, *out, N, H, 0, mi, ri, 128), k5_bound(1, N, H, mode, reward)),
+        "rollout_costs_batched": (bare_launch_ms(
+            rollout_cuda.ROLLOUT_BATCHED_KERNEL, *ptrs_b, inp.acts_b.data_ptr(),
+            out_b[0], B, N, H, 0, mi, ri, 128), k4_bound(B, N, H, mode, reward)),
+        "sample_rollout_batched": (bare_launch_ms(
+            rollout_cuda.SAMPLE_BATCHED_KERNEL, *ptrs_b, mean_b.data_ptr(),
+            inp.chols_b.data_ptr(), None, 7, *out_b, B, N, H, 0, mi, ri, 128),
+            k5_bound(B, N, H, mode, reward)),
+        "joint_sample_rollout_batched": (bare_launch_ms(
+            rollout_cuda.JOINT_BATCHED_KERNEL, *ptrs_b, mean_b.data_ptr(),
+            inp.factors_b.data_ptr(), None, 7, *out_b, B, N, H, 0, mi, ri, 128),
+            k1_bound(B, N, H, mode, reward)),
+    }
+
+
 def phase_mode_kernels(dev, records):
     """7a: K1, K4, K5, K6 and K7 in each mode against their plain versions
     on given normals, at N=8192, H=32 (K6/K7 at B=SCEN_B), t0 = 47; each
@@ -1353,70 +1509,14 @@ def phase_mode_kernels(dev, records):
     phase(f"phase 7a: K1, K4-K7 in the table (sin, periodic), drag and mixed modes "
           f"against their plain versions (N={N}, H={H}, B={B}, t0={DISTURB_T0}), "
           "and each mode's kernels alone")
-    rng = np.random.default_rng(71)
+    inp = mode_kernel_inputs(dev, 71)
+    rng = inp.rng  # K2 / K3's actions
     cuda = lambda x: to_dev(x, dev)  # noqa: E731
-    a_mean, factor = cuda(rng.normal(size=(H, 4)) * 0.2), cuda(rng.normal(size=(D, D)) * 0.1)
-    z1 = cuda(rng.standard_normal((D, N)))
-    acts = cuda(rng.normal(size=(H, 4, N)) * 0.5)
-    A = rng.normal(size=(H, 4, 4)) * 0.2
-    chol = cuda(np.linalg.cholesky(A @ A.transpose(0, 2, 1) + 0.05 * np.eye(4)))
-    z5 = cuda(rng.standard_normal((H, 4, N)))
-    acts_b = cuda(rng.normal(size=(B, H, 4, N)) * 0.5)
-    means_b = cuda(rng.normal(size=(B, H, 4)) * 0.2)
-    Ab = rng.normal(size=(B, H, 4, 4)) * 0.2
-    chols_b = cuda(np.linalg.cholesky(Ab @ Ab.swapaxes(-1, -2) + 0.05 * np.eye(4)))
-    factors_b = cuda(rng.normal(size=(B, D, D)) * 0.1)
-    z7 = {False: cuda(rng.standard_normal((B, H, 4, N))),
-          True: cuda(rng.standard_normal((B, D, N)))}
-    costs, a_out = torch.empty(N, device=dev), torch.empty(D, N, device=dev)
-    costs_b, a_out_b = torch.empty(B, N, device=dev), torch.empty(B, D, N, device=dev)
     for kind in ("gaussian", "periodic", "sin", "drag", "mixed"):
         mode = MODE_OF[kind]
-        env = disturb_env(kind)
-        p, st, draw = mode_inputs(env, dev, 72)
-        roll = (pack_state(st), st.time, st.pos_traj, st.vel_traj)
-        env_b = disturb_env(kind, randomize=True)
-        args, pb, _, _ = scenario_batch(env_b, B, seed=73)
-        x0s = args[0].clone()
-        x0s[:, 13:16] = torch.tensor(F0, device=dev)
-        args = (x0s, DISTURB_T0 + torch.arange(B, device=dev, dtype=torch.int32) % 4,
-                *args[2:])
-        draws = env_b.draw_disturb(torch.Generator(dev).manual_seed(74), B)
-        k1 = rollout_cuda.make_rollout_joint_sampling(env)
-        k4 = rollout_cuda.make_rollout_costs(env)
-        k5 = rollout_cuda.make_rollout_sampling(env)
-        k6 = rollout_cuda.make_rollout_batched_costs(env_b)
-        k7 = {j: rollout_cuda.make_rollout_batched_sampling(env_b, joint=j)
-              for j in (False, True)}
+        case = mode_case(disturb_env(kind), disturb_env(kind, randomize=True), dev, 72)
         if kind != "gaussian":  # the shared mode's checks are phases 1 and 5's
-            errs = {}
-            # CoVO's rollouts are deterministic, MPPI's stochastic
-            kw1 = dict(deterministic=True, draw=draw, z=z1)
-            c_k, a_k = k1(*roll, a_mean, factor, p, 0, N, **kw1)
-            c_p, a_p = k1.plain(*roll, a_mean, factor, p, 0, N, **kw1)
-            check(max_err(a_k, a_p) <= 1e-5 and costs_close(c_k, c_p),
-                  f"K1 ({kind}): actions within 1e-5, costs within atol 2e-4, rtol 1e-5")
-            errs["joint_sample_rollout"] = max(max_err(a_k, a_p), max_err(c_k, c_p))
-            c_k, c_p = (f(*roll, acts, p, draw, layout="hdn") for f in (k4, k4.plain))
-            check(costs_close(c_k, c_p), f"K4 ({kind}): costs within atol 2e-4, rtol 1e-5")
-            errs["rollout_costs"] = max_err(c_k, c_p)
-            c_k, a_k = k5(*roll, a_mean, chol, p, 0, N, draw=draw, z=z5)
-            c_p, a_p = k5.plain(*roll, a_mean, chol, p, 0, N, draw=draw, z=z5)
-            check(max_err(a_k, a_p) <= 1e-5 and costs_close(c_k, c_p),
-                  f"K5 ({kind}): actions within 1e-5, costs within atol 2e-4, rtol 1e-5")
-            errs["sample_rollout"] = max(max_err(a_k, a_p), max_err(c_k, c_p))
-            c_k, c_p = (f(*args, acts_b, pb, draws) for f in (k6, k6.plain))
-            check(costs_close(c_k, c_p), f"K6 ({kind}): costs within atol 2e-4, rtol 1e-5")
-            errs["rollout_costs_batched"] = max_err(c_k, c_p)
-            for joint, name, fac in ((False, "sample_rollout_batched", chols_b),
-                                     (True, "joint_sample_rollout_batched", factors_b)):
-                kw7 = dict(deterministic=joint, draws=draws, z=z7[joint])
-                c_k, a_k = k7[joint](*args, means_b, fac, pb, 0, N, **kw7)
-                c_p, a_p = k7[joint].plain(*args, means_b, fac, pb, 0, N, **kw7)
-                check(max_err(a_k, a_p) <= 1e-5 and costs_close(c_k, c_p),
-                      f"K7 {'joint' if joint else 'per-step'} ({kind}): actions within "
-                      "1e-5, costs within atol 2e-4, rtol 1e-5")
-                errs[name] = max(max_err(a_k, a_p), max_err(c_k, c_p))
+            errs = check_rollout_kernels(kind, inp, case)
             say(f"  {kind} ({mode} mode) max abs errors: "
                 + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
         else:
@@ -1430,37 +1530,7 @@ def phase_mode_kernels(dev, records):
                         checked_in=rec.get("checked_in", []) + [kind])
         if kind == "sin":  # the "table" mode is timed on periodic's table
             continue
-        # each kernel alone in this mode: bare launches (in-kernel draws)
-        mi = rollout_cuda.MODES[mode]
-        ops = rollout_cuda._launch_operands(env, *roll, p, draw, False, 1.0, H)
-        ptrs = [t.data_ptr() for t in ops]
-        ops_b = rollout_cuda._launch_operands(env_b, *args, pb, draws, False, 1.0, H)
-        ptrs_b = [t.data_ptr() for t in ops_b]
-        mean = a_mean.reshape(-1).contiguous()
-        mean_b = means_b.reshape(B, -1).contiguous()
-        alone = {
-            "joint_sample_rollout": (bare_launch_ms(
-                rollout_cuda.JOINT_KERNEL, *ptrs, mean.data_ptr(), factor.data_ptr(), None,
-                7, costs.data_ptr(), a_out.data_ptr(), N, H, 0, mi, 128), k1_bound(1, N, H, mode)),
-            "rollout_costs": (bare_launch_ms(
-                rollout_cuda.ROLLOUT_KERNEL, *ptrs, acts.data_ptr(), costs.data_ptr(), N, H,
-                0, mi, 128), k4_bound(1, N, H, mode)),
-            "sample_rollout": (bare_launch_ms(
-                rollout_cuda.SAMPLE_KERNEL, *ptrs, mean.data_ptr(), chol.data_ptr(), None, 7,
-                8, 0, None, costs.data_ptr(), a_out.data_ptr(), N, H, 0, mi, 128),
-                k5_bound(1, N, H, mode)),
-            "rollout_costs_batched": (bare_launch_ms(
-                rollout_cuda.ROLLOUT_BATCHED_KERNEL, *ptrs_b, acts_b.data_ptr(),
-                costs_b.data_ptr(), B, N, H, 0, mi, 128), k4_bound(B, N, H, mode)),
-            "sample_rollout_batched": (bare_launch_ms(
-                rollout_cuda.SAMPLE_BATCHED_KERNEL, *ptrs_b, mean_b.data_ptr(),
-                chols_b.data_ptr(), None, 7, costs_b.data_ptr(), a_out_b.data_ptr(), B, N, H,
-                0, mi, 128), k5_bound(B, N, H, mode)),
-            "joint_sample_rollout_batched": (bare_launch_ms(
-                rollout_cuda.JOINT_BATCHED_KERNEL, *ptrs_b, mean_b.data_ptr(),
-                factors_b.data_ptr(), None, 7, costs_b.data_ptr(), a_out_b.data_ptr(), B, N,
-                H, 0, mi, 128), k1_bound(B, N, H, mode)),
-        }
+        alone = kernels_alone(inp, case, mode)
         for name, (ms, bnd) in alone.items():
             mode_record(records, name, mode, alone_ms=ms, bound_ms=bnd["bound_ms"],
                         bound_by=bnd["bound_by"])
@@ -1608,27 +1678,29 @@ def phase_mode_solves(dev, kernel_list):
 
 
 def phase_drag_loops(dev, total_steps, kernel_list, records):
-    """7c: the closed loops on the drag env (4 episodes at 1200 steps):
-    CoVO online with RESULTS_DRAG.md's settings (adjoint, ns, fast rng: K4)
-    and with the main path's (gn, kernel rng: K1), MPPI (fast rng: K4) as
-    the same-run anchor; the drag solve's events ms."""
+    """7c: the closed loops on the drag env, at half the other loops' depth
+    (600 steps, 2 episodes, at the default) to leave room for phase 8: CoVO
+    online with RESULTS_DRAG.md's settings (adjoint, ns, fast rng: K4) and
+    with the main path's (gn, kernel rng: K1), MPPI (fast rng: K4) as the
+    same-run anchor; the drag solve's events ms."""
     from covo_mpc_tpu_torch.solvers import get_solver
 
     env = disturb_env("drag")
-    phase(f"phase 7c: drag closed loops, evaluate(total_steps={total_steps}, seed=1): "
+    steps = total_steps // 2
+    phase(f"phase 7c: drag closed loops, evaluate(total_steps={steps}, seed=1): "
           "covo_online adjoint, ns, fast rng (K4; RESULTS_DRAG.md's settings)")
     solver, _ = get_solver(env, "covo_online", f"N{N}_H{H}_lam0.01", rng_mode="fast",
                            hessian_mode="adjoint", sigma_mode="ns", engine="cuda",
                            collect_debug=False)
-    covo_fast, l_fast = closed_loop(env, solver, total_steps, kernel_list)
+    covo_fast, l_fast = closed_loop(env, solver, steps, kernel_list)
     check(l_fast["rollout_costs"] > 0 and l_fast["sens_chain"] > 0
           and l_fast["primal"] == 0,
           "rollout_costs and sens_chain (sd=16) launched by the drag loop, no K2")
     phase("  covo_online gn, kernel rng (K1; the main path's settings)")
-    covo_k, l_k = closed_loop(env, make_solver(env, "cuda")[0], total_steps, kernel_list)
+    covo_k, l_k = closed_loop(env, make_solver(env, "cuda")[0], steps, kernel_list)
     check(l_k["joint_sample_rollout"] > 0, "joint_sample_rollout launched by the drag loop")
     phase("  mppi, fast rng (K4), the same-run anchor")
-    mppi, l_m = closed_loop(env, make_mppi(env, "cuda", rng_mode="fast")[0], total_steps,
+    mppi, l_m = closed_loop(env, make_mppi(env, "cuda", rng_mode="fast")[0], steps,
                             kernel_list)
     check(all(np.isfinite(r.mean) for r in (covo_fast, covo_k, mppi)),
           "drag err_pos finite for every loop")
@@ -1642,6 +1714,182 @@ def phase_drag_loops(dev, total_steps, kernel_list, records):
     say(f"  drag CoVO (gn, kernel rng) median events ms per solve: cuda {med['cuda']:.4f} "
         f"({counts['cuda']} solves), torch {med['torch']:.4f} ({counts['torch']} solves)")
 
+
+# --- phase 8: the realworld reward (tracking_slow) ---------------------------
+
+SLOW_KINDS = ("gaussian", "drag")  # the shared mode and a velocity-coupled one
+
+
+def slow_env(kind: str = "gaussian", randomize: bool = False, task: str = "tracking_slow"):
+    """The main path's env on ``task`` (default tracking_slow: the slow
+    Lissajous and the realworld reward) under the disturbance ``kind``."""
+    from covo_mpc_tpu_torch.models import EnvConfig, QuadEnv
+
+    return QuadEnv(EnvConfig(**{**ENV_KW, "task": task, "disturb_type": kind,
+                                "enable_randomizer": randomize}))
+
+
+def reward_record(records, name: str, mode: str, **values) -> None:
+    """Keep a kernel's numbers with the realworld reward in one disturbance
+    mode (the JSON record's ``realworld``)."""
+    records.setdefault(name, {}).setdefault("realworld", {}).setdefault(mode, {}).update(values)
+
+
+def phase_realworld_kernels(dev, records):
+    """8a: K1, K4, K5 (shared and krng), K6 and K7 (per-step and joint,
+    B=SCEN_B) with the realworld reward against their plain versions, in the
+    shared (gaussian) and drag modes, at N=8192, H=32, D=128, t0 = 47; each
+    kernel alone in each (bare launches)."""
+    from covo_mpc_tpu_torch.ops import rollout_cuda
+
+    phase(f"phase 8a: the realworld reward (tracking_slow) in K1, K4-K7 against their "
+          f"plain versions (N={N}, H={H}, B={SCEN_B}), shared and drag modes, and alone")
+    inp = mode_kernel_inputs(dev, 81)
+    for kind in SLOW_KINDS:
+        mode = MODE_OF[kind]
+        case = mode_case(slow_env(kind), slow_env(kind, randomize=True), dev, 82)
+        check(all(w.reward == rollout_cuda.REWARDS["realworld"] for w in (
+            rollout_cuda.make_rollout_costs(case.env),
+            rollout_cuda.make_rollout_batched_sampling(case.env_b, joint=True))),
+            f"the wrappers launch the realworld branch on tracking_slow ({kind})")
+        errs = check_rollout_kernels(f"realworld, {kind}", inp, case)
+        if kind == "gaussian":
+            # "krng": K5 draws the shared force; the plain rollout of its own
+            # actions under the normals it wrote agrees
+            k5 = rollout_cuda.make_rollout_sampling(case.env)
+            draw_out = torch.zeros(3, device=dev)
+            c_k, a_k = k5(*case.roll, inp.a_mean, inp.chol, case.p, 7, N, disturb_seed=8,
+                          draw_out=draw_out)
+            c_p = k5._rollout(*case.roll, a_k, case.p, draw_out.clone(), layout="hdn")
+            check(costs_close(c_k, c_p) and float(draw_out.abs().sum()) > 0,
+                  "K5 krng (realworld) costs within atol 2e-4, rtol 1e-5 of the plain "
+                  "rollout fed its draw")
+            errs["sample_rollout"] = max(errs["sample_rollout"], max_err(c_k, c_p))
+        alone = kernels_alone(inp, case, mode, "realworld")
+        for name, (ms, bnd) in alone.items():
+            reward_record(records, name, mode, max_abs_err=errs[name], alone_ms=ms,
+                          bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"],
+                          checked_in=[f"tracking_slow, {kind}"])
+        say(f"  realworld, {kind} ({mode} mode) max abs errors: "
+            + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+        say(f"  realworld, {mode} mode alone ms: " + ", ".join(
+            f"{k} {v[0]:.4f} (bound {v[1]['bound_ms']:.5f} {v[1]['bound_by']})"
+            for k, v in alone.items()))
+
+
+def compare_solves(label: str, make, call, used, names, kernel_list):
+    """One solve with ``make("cuda")`` against one with ``make("torch")``
+    through ``call(solver, cp)`` on the same inputs (no host sync in either):
+    ``used`` (kernel symbols) each launched by the cuda one; the action and
+    the params ``names`` finite and within 2e-4."""
+    out = {}
+    for engine in ("cuda", "torch"):
+        solver, cp = make(engine)
+        out[engine], counts = run_once(lambda: call(solver, cp), kernel_list)
+        if engine == "cuda":
+            say(f"  {label} cuda launches: { {k: v for k, v in counts.items() if v} }")
+            check(all(counts[k] > 0 for k in used), f"{', '.join(used)} launched by the "
+                  f"{label} solve")
+    (a_c, cp_c, _), (a_t, cp_t, _) = out["cuda"], out["torch"]
+    errs = {"action": max_err(a_c, a_t),
+            **{k: max_err(getattr(cp_c, k), getattr(cp_t, k)) for k in names}}
+    say(f"  {label} max |cuda - torch|: {errs}")
+    check(all(v <= 2e-4 for v in errs.values())
+          and all(bool(torch.isfinite(x).all()) for x in (a_c, *(getattr(cp_c, k)
+                                                               for k in names))),
+          f"{label}: action, {', '.join(names)} finite and within 2e-4 (no host sync)")
+
+
+def phase_realworld_solves(dev, kernel_list):
+    """8b: full-width solves on tracking_slow, engine="cuda" against
+    engine="torch" on the same normals and draw: CoVO online with the main
+    path's settings (gn, ns, kernel rng: K2, K3, K1), CoVO adjoint with fast
+    rng (K4), MPPI with kernel rng (K5), one batched CoVO solve at B=SCEN_B
+    (K7 joint); and one main-path CoVO solve on tracking (the Lissajous
+    tables through the penyaw branch)."""
+    from covo_mpc_tpu_torch.ops import rollout_cuda
+    from covo_mpc_tpu_torch.solvers import get_solver
+
+    phase("phase 8b: full-width solves on tracking_slow (and one on tracking), "
+          "engine='cuda' against engine='torch' on the same normals")
+    g = np.random.default_rng(85)
+    z = to_dev(g.standard_normal((N, D)), dev)
+    covo_names = ("a_mean", "a_cov")
+    for task, hessian_mode, rng_mode, first in (
+            ("tracking_slow", "gn", "kernel", rollout_cuda.JOINT_KERNEL),
+            ("tracking_slow", "adjoint", "fast", rollout_cuda.ROLLOUT_KERNEL),
+            ("tracking", "gn", "kernel", rollout_cuda.JOINT_KERNEL)):
+        env = slow_env(task=task)
+        p = env.default_params
+        obs, info, state = env.reset(torch.Generator(dev).manual_seed(5), p)
+
+        def make(engine, env=env, hessian_mode=hessian_mode, rng_mode=rng_mode):
+            return get_solver(env, "covo_online", f"N{N}_H{H}_lam0.01",
+                              rng_mode=rng_mode if engine == "cuda" else "fast",
+                              hessian_mode=hessian_mode, sigma_mode="ns", engine=engine,
+                              collect_debug=False)
+
+        compare_solves(f"CoVO {task} {hessian_mode} ({rng_mode})", make,
+                       lambda solver, cp: solver(obs, state, p, cp, info, z=z),
+                       [first.symbol, "primal", "sens_chain"], covo_names, kernel_list)
+
+    env = slow_env()
+    p = env.default_params
+    obs, info, state = env.reset(torch.Generator(dev).manual_seed(5), p)
+    z5 = to_dev(g.standard_normal((N, H, 4)), dev)
+    draw = to_dev(g.standard_normal(3), dev)
+    compare_solves("MPPI tracking_slow (kernel)",
+                   lambda engine: make_mppi(env, engine, rng_mode="kernel" if engine == "cuda"
+                                            else "fast"),
+                   lambda solver, cp: solver(obs, state, p, cp, info, z=z5, draw=draw),
+                   [rollout_cuda.SAMPLE_KERNEL.symbol], ("a_mean", "a_cov", "a_cov_chol"),
+                   kernel_list)
+
+    B = SCEN_B
+    env_b = slow_env(randomize=True)
+    args, pb, _, _ = scenario_batch(env_b, B, seed=86)
+    a_means, _ = initial_means(env_b, B)
+    zb = to_dev(g.standard_normal((B, N, D)), dev)
+    out = {}
+    for engine in ("cuda", "torch"):
+        solve = make_batched(env_b, "covo", engine)
+        out[engine], counts = run_once(lambda: solve(*args, a_means, pb, z=zb), kernel_list)
+        if engine == "cuda":
+            check(counts[rollout_cuda.JOINT_BATCHED_KERNEL.symbol] > 0,
+                  "joint_sample_rollout_batched launched by the batched tracking_slow solve")
+    got, ref = out["cuda"], out["torch"]
+    errs = {"action": max_err(got[0][:, 0], ref[0][:, 0]), "a_mean": max_err(got[0], ref[0])}
+    say(f"  batched CoVO tracking_slow (B={B}) max |cuda - torch|: {errs}, min cost "
+        f"{max_err(got[1], ref[1]):.3e}")
+    check(all(v <= 2e-4 for v in errs.values()) and costs_close(got[1], ref[1])
+          and all(bool(torch.isfinite(x).all()) for x in got),
+          "batched CoVO on tracking_slow: finite, within 2e-4 (no host sync)")
+
+
+def phase_realworld_loops(dev, total_steps, kernel_list, records):
+    """8c: the closed loops on tracking_slow, evaluate(total_steps, seed=1):
+    CoVO online with the main path's settings (K2, K3, K1) and MPPI with
+    kernel rng (K5); both finite, CoVO below MPPI on the same episodes; the
+    CoVO solve's median events ms."""
+    env = slow_env()
+    phase(f"phase 8c: tracking_slow closed loops, evaluate(total_steps={total_steps}, "
+          "seed=1): covo_online gn, kernel rng (K1, K2, K3)")
+    covo, l_c = closed_loop(env, make_solver(env, "cuda")[0], total_steps, kernel_list)
+    check(all(l_c[k] > 0 for k in ("joint_sample_rollout", "primal", "sens_chain")),
+          "joint_sample_rollout, primal and sens_chain launched by the tracking_slow loop")
+    phase("  mppi, kernel rng (K5)")
+    mppi, l_m = closed_loop(env, make_mppi(env, "cuda")[0], total_steps, kernel_list)
+    check(l_m["sample_rollout"] > 0, "sample_rollout launched by the tracking_slow MPPI loop")
+    check(np.isfinite(covo.mean) and np.isfinite(mppi.mean),
+          "tracking_slow err_pos finite for both loops")
+    check(covo.mean < mppi.mean, "CoVO's tracking_slow err_pos below MPPI's on the same "
+          "episodes")
+    reward_record(records, "joint_sample_rollout", "shared", launches=l_c["joint_sample_rollout"])
+    reward_record(records, "sample_rollout", "shared", launches=l_m["sample_rollout"])
+    med, counts = solve_times(env, dev, reps=12, warmup=2)
+    say(f"  tracking_slow CoVO (gn, kernel rng) median events ms per solve: cuda "
+        f"{med['cuda']:.4f} ({counts['cuda']} solves), torch {med['torch']:.4f} "
+        f"({counts['torch']} solves)")
 
 
 def main(argv=None) -> int:
@@ -1708,6 +1956,9 @@ def main(argv=None) -> int:
     phase_mode_kernels(dev, records)
     phase_mode_solves(dev, kernel_list)
     phase_drag_loops(dev, args.total_steps, kernel_list, records)
+    phase_realworld_kernels(dev, records)
+    phase_realworld_solves(dev, kernel_list)
+    phase_realworld_loops(dev, args.total_steps, kernel_list, records)
     phase("done")
 
     say(json.dumps({"kernels": [

@@ -2,14 +2,15 @@
 // scenario (K1) or for B scenarios in one launch (K7, joint).
 //
 // Replaces covo_mpc_tpu/ops/rollout_pallas.py::make_pallas_rollout_joint_sampling
-// (_rollout_kernel with sample="prng_joint", every disturbance mode) and
-// ::make_pallas_rollout_batched_sampling with joint=True (the same kernel
-// with batched=True over a (B, lane-tiles) grid). Per scenario b and sample
-// n: z ~ N(0, I_D) (or z[(b D + d) N + n] when a z pointer is given, the
-// "input_z" mode of the Pallas kernel), a = clip(mean_b + F_b z, +-1) with
-// F_b the Sigma-designer's full (D, D) factor of scenario b, then H steps of
-// pre-step penyaw reward, termination freeze (|pos| > 3 or time up;
-// rollover optional), bodyrate step and discounted cost. Outputs costs
+// (_rollout_kernel with sample="prng_joint", every disturbance mode and
+// reward) and ::make_pallas_rollout_batched_sampling with joint=True (the
+// same kernel with batched=True over a (B, lane-tiles) grid). Per scenario b
+// and sample n: z ~ N(0, I_D) (or z[(b D + d) N + n] when a z pointer is
+// given, the "input_z" mode of the Pallas kernel), a = clip(mean_b + F_b z,
+// +-1) with F_b the Sigma-designer's full (D, D) factor of scenario b, then
+// H steps of pre-step reward (penyaw or realworld), termination freeze
+// (|pos| > 3 or time up; rollover optional), bodyrate step and discounted
+// cost. Outputs costs
 // (B, N) and the clipped actions (B, D, N), sample-last; x0, the packs and
 // the targets are scenario-strided (quad::scenario_tables), the means
 // (B, D), the factors (B, D, D).
@@ -47,6 +48,7 @@
 
 namespace {
 
+template <int kReward>
 __global__ void joint_sample_rollout_kernel(
     const float* __restrict__ x0, const float* __restrict__ scal,
     const int* __restrict__ ints, const float* __restrict__ ptar,
@@ -106,7 +108,7 @@ __global__ void joint_sample_rollout_kernel(
                         quad::clip1(mu[4 * h + 2] + acc2),
                         quad::clip1(mu[4 * h + 3] + acc3)};
     for (int k = 0; k < 4; ++k) actions[off + (size_t)(4 * h + k) * N + n] = a[k];
-    quad::rollout_step(c, sh, h, a);
+    quad::rollout_step<kReward>(c, sh, h, a);
   }
   costs[(size_t)b * N + n] = c.cost;
 }
@@ -115,22 +117,27 @@ int launch(const float* x0, const float* scal, const int* ints,
            const float* ptar, const float* vtar, const float* dist,
            const float* mean, const float* factor, const float* z,
            uint64_t seed, float* costs, float* actions, int B, int N, int H,
-           int check_rollover, int mode, int block, cudaStream_t stream) {
+           int check_rollover, int mode, int reward, int block,
+           cudaStream_t stream) {
   if (B <= 0 || B > quad::kMaxScenarios || N <= 0 || H <= 0 || block <= 0 ||
-      block > 1024 || mode < quad::kShared || mode > quad::kMixed) {
+      block > 1024 || mode < quad::kShared || mode > quad::kMixed ||
+      reward < quad::kPenyaw || reward > quad::kRealworld) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int D = 4 * H;
   const size_t smem = sizeof(float) * (static_cast<size_t>(D) * D +
                                        static_cast<size_t>(D) * block);
+  const auto kernel = reward == quad::kRealworld
+                          ? joint_sample_rollout_kernel<quad::kRealworld>
+                          : joint_sample_rollout_kernel<quad::kPenyaw>;
   cudaError_t err = cudaFuncSetAttribute(
-      joint_sample_rollout_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((N + block - 1) / block, B);
-  joint_sample_rollout_kernel<<<grid, block, smem, stream>>>(
-      x0, scal, ints, ptar, vtar, dist, mean, factor, z, seed, costs, actions,
-      N, H, check_rollover, mode);
+  kernel<<<grid, block, smem, stream>>>(x0, scal, ints, ptar, vtar, dist, mean,
+                                        factor, z, seed, costs, actions, N, H,
+                                        check_rollover, mode);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -142,10 +149,11 @@ extern "C" int joint_sample_rollout(
     const float* x0, const float* scal, const int* ints, const float* ptar,
     const float* vtar, const float* dist, const float* mean,
     const float* factor, const float* z, uint64_t seed, float* costs,
-    float* actions, int N, int H, int check_rollover, int mode, int block,
-    cudaStream_t stream) {
+    float* actions, int N, int H, int check_rollover, int mode, int reward,
+    int block, cudaStream_t stream) {
   return launch(x0, scal, ints, ptar, vtar, dist, mean, factor, z, seed,
-                costs, actions, 1, N, H, check_rollover, mode, block, stream);
+                costs, actions, 1, N, H, check_rollover, mode, reward, block,
+                stream);
 }
 
 // K7, joint: B scenarios, every table scenario-strided; mean (B, D), factor
@@ -154,8 +162,9 @@ extern "C" int joint_sample_rollout_batched(
     const float* x0, const float* scal, const int* ints, const float* ptar,
     const float* vtar, const float* dist, const float* mean,
     const float* factor, const float* z, uint64_t seed, float* costs,
-    float* actions, int B, int N, int H, int check_rollover, int mode,
+    float* actions, int B, int N, int H, int check_rollover, int mode, int reward,
     int block, cudaStream_t stream) {
   return launch(x0, scal, ints, ptar, vtar, dist, mean, factor, z, seed,
-                costs, actions, B, N, H, check_rollover, mode, block, stream);
+                costs, actions, B, N, H, check_rollover, mode, reward, block,
+                stream);
 }

@@ -1,8 +1,8 @@
 // Component-form quadrotor physics and rewards, shared by the CUDA kernels.
 //
 // Counterpart of covo_mpc_tpu/models/scalar_core.py (bodyrate_step,
-// penyaw_reward), of the action -> (thrust, omega_tar) map of
-// covo_mpc_tpu/ops/rollout_pallas.py::_dyn_step, and of the per-step body
+// penyaw_reward, realworld_reward), of the action -> (thrust, omega_tar) map
+// of covo_mpc_tpu/ops/rollout_pallas.py::_dyn_step, and of the per-step body
 // of its _rollout_kernel (rollout_step below). The array-form twins
 // in covo_mpc_tpu_torch/models/{dynamics,rewards}.py are the plain versions
 // these are checked against. Reference semantics: quadjax
@@ -120,6 +120,36 @@ __device__ __forceinline__ float penyaw_reward(const State& s, float ptx,
   return 1.3f - 0.05f * err_vel - log_pos_penalty(err_pos) - fabsf(yaw) * 0.2f;
 }
 
+// The quadratic real-world cost of tracking_slow:
+// -(5 mean(p_err^2) + 3 (1 - q_w^2)) 0.02, in scalar_core.realworld_reward's
+// order. It reads no velocity target.
+__device__ __forceinline__ float realworld_reward(const State& s, float ptx,
+                                                  float pty, float ptz) {
+  const float ex = ptx - s.px, ey = pty - s.py, ez = ptz - s.pz;
+  const float pos_err = (ex * ex + ey * ey + ez * ez) / 3.0f;
+  const float quat_err = 1.0f - s.qw * s.qw;
+  return -(5.0f * pos_err + 3.0f * quat_err) * 0.02f;
+}
+
+// The reward of a rollout launch (ops/rollout_cuda.py::REWARDS; JAX's
+// reward_name), a launch argument uniform across the grid as the mode is.
+// Each kernel is instantiated once per reward and the launch picks one: a
+// runtime branch on the reward inside the step changed how ptxas contracted
+// penyaw's arithmetic, and so the penyaw costs in their last bits and every
+// closed loop's digits; the penyaw instantiation compiles as the step did
+// before the realworld branch existed.
+enum Reward { kPenyaw = 0, kRealworld = 1 };
+
+template <int kReward>
+__device__ __forceinline__ float step_reward(const State& s, const float* pt,
+                                             const float* vt) {
+  if constexpr (kReward == kRealworld) {
+    return realworld_reward(s, pt[0], pt[1], pt[2]);
+  } else {
+    return penyaw_reward(s, pt[0], pt[1], pt[2], vt[0], vt[1], vt[2]);
+  }
+}
+
 // One scenario's rollout operands: x0 (16), the scalar and int packs, the
 // (3H) position and velocity targets and the (3H) disturbance table.
 struct Tables {
@@ -206,16 +236,18 @@ __device__ __forceinline__ Carry start(const float* x0) {
 }
 
 // Step h of one sample under the action a (clipped inside dyn_step): the
-// penyaw reward on the PRE-step state, frozen once the sample terminated
-// (the freeze reads d_prev), the discounted cost, termination (|pos| > 3,
-// the time limit, the rollover check when on), the force of the step (and,
-// under kDrag / kMixed, the next one's from the pre-step velocity), then the
-// bodyrate step. The single step body of K1 and K4-K7.
+// reward (penyaw or realworld, kReward) on the PRE-step state, frozen once
+// the sample terminated (the freeze reads d_prev), the discounted cost,
+// termination (|pos| > 3, the time limit, the rollover check when on), the
+// force of the step (and, under kDrag / kMixed, the next one's from the
+// pre-step velocity), then the bodyrate step. The single step body of K1 and
+// K4-K7.
+template <int kReward>
 __device__ __forceinline__ void rollout_step(Carry& c, const RolloutShared& sh,
                                              int h, const float a[4]) {
   const float* pt = sh.ptar + 3 * h;
   const float* vt = sh.vtar + 3 * h;
-  float r = penyaw_reward(c.s, pt[0], pt[1], pt[2], vt[0], vt[1], vt[2]);
+  float r = step_reward<kReward>(c.s, pt, vt);
   r = c.d_prev ? c.r_prev : r;
   c.r_prev = r;
   c.cost = c.cost - c.disc * r;

@@ -2,9 +2,10 @@
 // one scenario (K5) or for B scenarios in one launch (K7, per-step).
 //
 // Replaces covo_mpc_tpu/ops/rollout_pallas.py::make_pallas_rollout_sampling
-// (_rollout_kernel with sample="prng" or "input_z", every disturbance mode,
-// and "krng") and ::make_pallas_rollout_batched_sampling with joint=False
-// (the same kernel with batched=True over a (B, lane-tiles) grid). Per scenario b, sample n and step h: z_h ~ N(0, I_4)
+// (_rollout_kernel with sample="prng" or "input_z", every disturbance mode
+// and reward, and "krng") and ::make_pallas_rollout_batched_sampling with
+// joint=False (the same kernel with batched=True over a (B, lane-tiles)
+// grid). Per scenario b, sample n and step h: z_h ~ N(0, I_4)
 // (or z[((b H + h) 4 + k) N + n] when a z pointer is given, the "input_z"
 // mode), then a_h = clip(mean_h + L_h z_h, +-1) with L_h the step's
 // lower-triangular 4x4 Cholesky factor, read row-major (chol[16 (b H + h) +
@@ -46,6 +47,7 @@
 
 namespace {
 
+template <int kReward>
 __global__ void sample_rollout_kernel(
     const float* __restrict__ x0, const float* __restrict__ scal,
     const int* __restrict__ ints, const float* __restrict__ ptar,
@@ -96,7 +98,7 @@ __global__ void sample_rollout_kernel(
         quad::clip1(m[3] + L[12] * zh.x + L[13] * zh.y + L[14] * zh.z +
                     L[15] * zh.w)};
     for (int k = 0; k < 4; ++k) actions[off + (size_t)(4 * h + k) * N + n] = a[k];
-    quad::rollout_step(c, sh, h, a);
+    quad::rollout_step<kReward>(c, sh, h, a);
   }
   costs[(size_t)b * N + n] = c.cost;
 }
@@ -106,16 +108,21 @@ int launch(const float* x0, const float* scal, const int* ints,
            const float* mean, const float* chol, const float* z, uint64_t seed,
            uint64_t disturb_seed, int krng, float* draw_out, float* costs,
            float* actions, int B, int N, int H, int check_rollover, int mode,
-           int block, cudaStream_t stream) {
+           int reward, int block, cudaStream_t stream) {
   if (B <= 0 || B > quad::kMaxScenarios || N <= 0 || H <= 0 || block <= 0 ||
       block > 1024 || mode < quad::kShared || mode > quad::kMixed ||
+      reward < quad::kPenyaw || reward > quad::kRealworld ||
       (krng && mode != quad::kShared)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const auto kernel = reward == quad::kRealworld
+                          ? sample_rollout_kernel<quad::kRealworld>
+                          : sample_rollout_kernel<quad::kPenyaw>;
   const dim3 grid((N + block - 1) / block, B);
-  sample_rollout_kernel<<<grid, block, 0, stream>>>(
-      x0, scal, ints, ptar, vtar, dist, mean, chol, z, seed, disturb_seed,
-      krng, draw_out, costs, actions, N, H, check_rollover, mode);
+  kernel<<<grid, block, 0, stream>>>(x0, scal, ints, ptar, vtar, dist, mean,
+                                     chol, z, seed, disturb_seed, krng,
+                                     draw_out, costs, actions, N, H,
+                                     check_rollover, mode);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -128,10 +135,10 @@ extern "C" int sample_rollout(
     const float* vtar, const float* dist, const float* mean, const float* chol,
     const float* z, uint64_t seed, uint64_t disturb_seed, int krng,
     float* draw_out, float* costs, float* actions, int N, int H,
-    int check_rollover, int mode, int block, cudaStream_t stream) {
+    int check_rollover, int mode, int reward, int block, cudaStream_t stream) {
   return launch(x0, scal, ints, ptar, vtar, dist, mean, chol, z, seed,
                 disturb_seed, krng, draw_out, costs, actions, 1, N, H,
-                check_rollover, mode, block, stream);
+                check_rollover, mode, reward, block, stream);
 }
 
 // K7, per-step: B scenarios, every table scenario-strided; mean (B, H, 4),
@@ -141,8 +148,9 @@ extern "C" int sample_rollout_batched(
     const float* x0, const float* scal, const int* ints, const float* ptar,
     const float* vtar, const float* dist, const float* mean, const float* chol,
     const float* z, uint64_t seed, float* costs, float* actions, int B, int N,
-    int H, int check_rollover, int mode, int block, cudaStream_t stream) {
+    int H, int check_rollover, int mode, int reward, int block,
+    cudaStream_t stream) {
   return launch(x0, scal, ints, ptar, vtar, dist, mean, chol, z, seed, 0, 0,
-                nullptr, costs, actions, B, N, H, check_rollover, mode, block,
-                stream);
+                nullptr, costs, actions, B, N, H, check_rollover, mode, reward,
+                block, stream);
 }

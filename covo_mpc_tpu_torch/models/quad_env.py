@@ -53,7 +53,7 @@ class EnvConfig:
 
 @dataclasses.dataclass
 class ResetDraws:
-    traj: trajectory.ZigzagDraws
+    traj: trajectory.TrajDraws  # the task's generator's draws
     f_disturb: torch.Tensor  # (3,) uniform in [-1, 1)
     obs_noise: Optional[torch.Tensor]  # (13,) standard normals
 

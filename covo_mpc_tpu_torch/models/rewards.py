@@ -1,8 +1,9 @@
-"""Reward functions for the tracking tasks, batch-first.
+"""Reward functions, batch-first.
 
-Counterpart of :mod:`covo_mpc_tpu.models.rewards` (the penyaw cost model
-and the realworld quadratic cost). The CUDA kernels run the component-form
-twin in ``csrc/quad_core.cuh``.
+Counterpart of :mod:`covo_mpc_tpu.models.rewards`: the hovering and
+tracking rewards, the penyaw cost model and the realworld quadratic cost.
+The CUDA kernels run the component-form twins of the last two in
+``csrc/quad_core.cuh``.
 """
 
 from __future__ import annotations
@@ -31,6 +32,18 @@ def _abs(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 0, x, -x)
 
 
+def hovering_reward(pos, vel, pos_tar, vel_tar) -> torch.Tensor:
+    err_pos = torch.linalg.norm(pos_tar - pos, dim=-1)
+    err_vel = torch.linalg.norm(vel_tar - vel, dim=-1)
+    return 1.0 - 0.6 * err_pos - 0.1 * err_vel
+
+
+def tracking_reward(pos, vel, pos_tar, vel_tar) -> torch.Tensor:
+    err_pos = torch.linalg.norm(pos_tar - pos, dim=-1)
+    err_vel = torch.linalg.norm(vel_tar - vel, dim=-1)
+    return 1.0 - 0.05 * err_vel - log_pos_penalty(err_pos)
+
+
 def tracking_penyaw_reward(pos, vel, quat, pos_tar, vel_tar) -> torch.Tensor:
     """The MPPI / CoVO cost model: tracking reward with a yaw penalty."""
     err_pos = torch.linalg.norm(pos_tar - pos, dim=-1)
@@ -44,6 +57,14 @@ def tracking_realworld_reward(pos, quat, pos_tar) -> torch.Tensor:
     pos_err = torch.mean((pos - pos_tar) ** 2, dim=-1)
     quat_err = 1.0 - quat[..., 3] ** 2
     return -(5.0 * pos_err + 3.0 * quat_err) * 0.02
+
+
+def hovering_reward_fn(state, params=None):
+    return hovering_reward(state.pos, state.vel, state.pos_tar, state.vel_tar)
+
+
+def tracking_reward_fn(state, params=None):
+    return tracking_reward(state.pos, state.vel, state.pos_tar, state.vel_tar)
 
 
 def tracking_penyaw_reward_fn(state, params=None):

@@ -47,6 +47,28 @@ def body_z_world(q: torch.Tensor) -> torch.Tensor:
     )
 
 
+def quat_to_rpy(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion -> (roll, pitch, yaw) Euler angles (..., 3)."""
+    x, y, z, w = _xyzw(q)
+    roll = torch.atan2(2.0 * (w * x + y * z), 1.0 - 2.0 * (x * x + y * y))
+    pitch = torch.arcsin(2.0 * (w * y - z * x))
+    yaw = torch.atan2(2.0 * (w * z + x * y), 1.0 - 2.0 * (y * y + z * z))
+    return torch.cat([roll, pitch, yaw], dim=-1)
+
+
+def rp_to_quat(rp: torch.Tensor) -> torch.Tensor:
+    """Rodrigues parameters (..., 3) -> unit quaternion (x, y, z, w):
+    [rp, 1] / sqrt(1 + |rp|^2)."""
+    n = torch.sqrt(1.0 + torch.sum(rp * rp, dim=-1, keepdim=True))
+    return torch.cat([rp, torch.ones_like(rp[..., :1])], dim=-1) / n
+
+
+def quat_to_rp(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion (x, y, z, w) -> Rodrigues parameters q_xyz / q_w;
+    singular at q_w = 0 (180-degree rotations), as the reference."""
+    return q[..., 0:3] / q[..., 3:4]
+
+
 def yaw_from_quat(q: torch.Tensor) -> torch.Tensor:
     """Yaw only — the piece the tracking reward needs; shape (...)."""
     x, y, z, w = _xyzw(q)

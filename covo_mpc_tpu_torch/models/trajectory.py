@@ -1,23 +1,44 @@
 """Reference-trajectory generators, split into a draw part and a pure part.
 
-Counterpart of :mod:`covo_mpc_tpu.models.trajectory`. Only the zigzag
-generator is ported. Its random numbers come from :func:`draw_zigzag`
-(a ``torch.Generator``); :func:`zigzag_from_draws` turns them into the
-tables, so tests can hand it the numbers JAX drew.
+Counterpart of :mod:`covo_mpc_tpu.models.trajectory`: the Lissajous
+(``tracking``), slow Lissajous (``tracking_slow``), zigzag
+(``tracking_zigzag``) and fixed (``hovering``) generators. Each one's random
+numbers come from its draw function (a ``torch.Generator``); its pure
+function turns them into the ``(pos_traj, vel_traj, acc_traj)`` tables, so
+tests can hand it the numbers JAX drew.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
+from typing import Union
 
 import torch
 
 POINT_PER_SEG = 40
+LISSAJOUS_PAD = 50  # table steps past the episode end, for horizons that overrun it
 
 
 def num_segments(max_steps: int) -> int:
     return max_steps // POINT_PER_SEG + 1
+
+
+@dataclasses.dataclass
+class FixedDraws:
+    """The fixed generator draws nothing; this names only the tables' device."""
+
+    device: torch.device
+
+
+@dataclasses.dataclass
+class LissajousDraws:
+    """The uniforms of one Lissajous trajectory: ``amp`` (3, 2) in [-1, 1)
+    and ``phase`` (3, 2) in [-pi, pi), per axis and harmonic."""
+
+    amp: torch.Tensor
+    phase: torch.Tensor
 
 
 @dataclasses.dataclass
@@ -33,6 +54,47 @@ class ZigzagDraws:
 
     start: torch.Tensor
     segs: torch.Tensor
+
+
+TrajDraws = Union[FixedDraws, LissajousDraws, ZigzagDraws]
+
+
+def draw_fixed(gen: torch.Generator, max_steps: int, device) -> FixedDraws:
+    return FixedDraws(device=torch.device(device))
+
+
+def fixed_from_draws(max_steps: int, dt: float, draws: FixedDraws):
+    """The all-zeros hover target: three (max_steps, 3) tables."""
+    zeros = torch.zeros(max_steps, 3, device=draws.device)
+    return zeros, zeros, zeros
+
+
+def draw_lissajous(gen: torch.Generator, max_steps: int, device) -> LissajousDraws:
+    amp = torch.rand(3, 2, generator=gen, device=device) * 2.0 - 1.0
+    phase = torch.rand(3, 2, generator=gen, device=device) * (2.0 * math.pi) - math.pi
+    return LissajousDraws(amp=amp, phase=phase)
+
+
+def lissajous_from_draws(max_steps: int, dt: float, draws: LissajousDraws,
+                         f1: float, f2: float):
+    """Two-harmonic Lissajous tables at ``f1`` and ``f2`` Hz, each
+    (max_steps + 50, 3), in fp32 with JAX's order of operations: the times
+    are fp32 ``arange * dt`` (the sine arguments reach ~18 rad, where a
+    float64 clock would drift from JAX's tables), and only the positions
+    are shifted to start at the origin."""
+    amp, phase = draws.amp, draws.phase
+    ts = torch.arange(max_steps + LISSAJOUS_PAD, dtype=torch.float32,
+                      device=amp.device) * dt
+    w1 = 2.0 * math.pi * f1
+    w2 = 2.0 * math.pi * f2
+    arg1 = w1 * ts[:, None] + phase[None, :, 0]
+    arg2 = w2 * ts[:, None] + phase[None, :, 1]
+    a1, a2 = amp[None, :, 0], amp[None, :, 1]
+    pos = torch.sin(arg1) * a1 + torch.sin(arg2) * a2
+    pos = pos - pos[0]
+    vel = torch.cos(arg1) * a1 * w1 + torch.cos(arg2) * a2 * w2
+    acc = -torch.sin(arg1) * a1 * w1**2 - torch.sin(arg2) * a2 * w2**2
+    return pos, vel, acc
 
 
 def draw_zigzag(gen: torch.Generator, max_steps: int, device) -> ZigzagDraws:
@@ -74,13 +136,18 @@ def zigzag_from_draws(max_steps: int, dt: float, draws: ZigzagDraws):
     return pos, vel, torch.zeros_like(pos)
 
 
-_GENERATORS = {"tracking_zigzag": (draw_zigzag, zigzag_from_draws)}
+_GENERATORS = {
+    "tracking": (draw_lissajous,
+                 functools.partial(lissajous_from_draws, f1=0.2, f2=0.4)),
+    "tracking_slow": (draw_lissajous,
+                      functools.partial(lissajous_from_draws, f1=0.1, f2=0.1)),
+    "tracking_zigzag": (draw_zigzag, zigzag_from_draws),
+    "hovering": (draw_fixed, fixed_from_draws),
+}
 
 
 def get_generator(task: str):
-    """Task -> (draw fn, pure fn). Only the zigzag task is ported yet."""
+    """Task -> (draw fn, pure fn) (JAX: trajectory.get_generator)."""
     if task not in _GENERATORS:
-        raise NotImplementedError(
-            f"trajectory for task {task!r} is not ported yet"
-        )
+        raise ValueError(f"unknown task {task!r}")
     return _GENERATORS[task]

@@ -37,13 +37,13 @@ import torch
 from torch.func import grad, jacfwd, vmap
 from torch.func import hessian as func_hessian
 
-from covo_mpc_tpu_torch.models import dynamics, rewards
+from covo_mpc_tpu_torch.models import dynamics
 from covo_mpc_tpu_torch.models.quad_env import QuadEnv
 from covo_mpc_tpu_torch.models.structs import vmap_scenarios
 from covo_mpc_tpu_torch.ops.hessian_cuda import make_tail_pullback, pullback, sens_chain_plain
 from covo_mpc_tpu_torch.ops.rollout import (
-    check_penyaw_reward,
     disturb_table,
+    make_reward,
     sin_table,
     step_times,
     target_window,
@@ -114,8 +114,9 @@ def primal16(env: QuadEnv, x0, a_seq, aux, params) -> torch.Tensor:
 def _local_fns(env: QuadEnv, params):
     """The step f(z, aux) on the sensitivity state (13-dim with the force
     table's row as ``aux``; 16-dim under drag / mixed with the aux table's
-    row) and the penyaw reward r(s, pos_tar, vel_tar) that the local
-    derivatives differentiate."""
+    row) and the env's reward r(s, pos_tar, vel_tar) (penyaw or realworld;
+    s[0:3], s[3:7] and s[7:10] are pos, quat and vel at either width) that
+    the local derivatives differentiate."""
     if env.config.disturb_type in dynamics.VEL_COUPLED:
         mixed = env.config.disturb_type == "mixed"
 
@@ -125,10 +126,7 @@ def _local_fns(env: QuadEnv, params):
         def step_z(z, fd):
             return dynamics.core_step(z[:_SD], z[_SD:], fd, params, env._dt)
 
-    def reward(s, pt, vt):
-        return rewards.tracking_penyaw_reward(s[0:3], s[7:10], s[3:7], pt, vt)
-
-    return step_z, reward
+    return step_z, make_reward(env)
 
 
 def _last_step_mask(H: int, like: torch.Tensor) -> torch.Tensor:
@@ -213,7 +211,6 @@ def make_hessian_adjoint(env: QuadEnv, H: int, primal: str = "torch",
     for name, mode in (("primal", primal), ("tail", tail)):
         if mode not in ("torch", "cuda"):
             raise ValueError(f"unknown {name} mode {mode!r}")
-    check_penyaw_reward(env)
     dA = env.action_dim
     vel = env.config.disturb_type in dynamics.VEL_COUPLED
     sd = _SDV if vel else _SD

@@ -37,14 +37,14 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 _P, _I, _U64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64, ctypes.c_float
 # C signatures of the entry points (csrc/*.cu); every one returns cudaError_t
 _SIGNATURES = {
-    "joint_sample_rollout": [*[_P] * 9, _U64, _P, _P, *[_I] * 5, _P],
+    "joint_sample_rollout": [*[_P] * 9, _U64, _P, _P, *[_I] * 6, _P],
     "primal": [_P, _P, _P, _P, _P, _I, _P],
     "sens_chain": [_P, _P, _I, _I, _I, _P],
-    "rollout_costs": [*[_P] * 8, *[_I] * 5, _P],
-    "sample_rollout": [*[_P] * 9, _U64, _U64, _I, _P, _P, _P, *[_I] * 5, _P],
-    "rollout_costs_batched": [*[_P] * 8, *[_I] * 6, _P],
-    "sample_rollout_batched": [*[_P] * 9, _U64, _P, _P, *[_I] * 6, _P],
-    "joint_sample_rollout_batched": [*[_P] * 9, _U64, _P, _P, *[_I] * 6, _P],
+    "rollout_costs": [*[_P] * 8, *[_I] * 6, _P],
+    "sample_rollout": [*[_P] * 9, _U64, _U64, _I, _P, _P, _P, *[_I] * 6, _P],
+    "rollout_costs_batched": [*[_P] * 8, *[_I] * 7, _P],
+    "sample_rollout_batched": [*[_P] * 9, _U64, _P, _P, *[_I] * 7, _P],
+    "joint_sample_rollout_batched": [*[_P] * 9, _U64, _P, _P, *[_I] * 7, _P],
     "sigma_ns": [_P, _P, _P, _P, _I, _F, _F, _F, _F, _I, _I, _I, _I, _I, _P],
 }
 

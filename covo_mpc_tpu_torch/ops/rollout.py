@@ -29,13 +29,18 @@ from covo_mpc_tpu_torch.models.quad_env import QuadEnv
 from covo_mpc_tpu_torch.models.structs import FDIST, OMEGA, POS, QUAT, VEL, vmap_scenarios
 
 
-def check_penyaw_reward(env: QuadEnv) -> None:
-    """The rollouts and the Hessian run the penyaw cost model only (the
-    realworld reward of "tracking_slow" is not ported to them yet)."""
-    if env.reward_name != "penyaw":
-        raise NotImplementedError(
-            f"the rollouts run the penyaw reward only, not {env.reward_name!r}"
-        )
+def make_reward(env: QuadEnv):
+    """``reward(x, pos_tar, vel_tar)`` on a packed state (..., 13 or 16):
+    the env's cost model by ``env.reward_name``, penyaw or realworld (which
+    reads no velocity target). JAX: ops/rollout._make_reward."""
+    if env.reward_name == "realworld":
+        def reward(x, pos_tar, vel_tar):
+            return rewards.tracking_realworld_reward(x[..., POS], x[..., QUAT], pos_tar)
+    else:
+        def reward(x, pos_tar, vel_tar):
+            return rewards.tracking_penyaw_reward(x[..., POS], x[..., VEL],
+                                                  x[..., QUAT], pos_tar, vel_tar)
+    return reward
 
 
 def _make_done(env: QuadEnv):
@@ -132,10 +137,11 @@ def make_rollout(env: QuadEnv):
 
     ``actions`` is (N, H, 4) for ``layout="nhd"``, or (H, 4, N) / (H*4, N)
     for ``layout="hdn"`` (the samplers' sample-last layout). Cost is the
-    negated discounted reward sum. ``draw`` (3,) is the disturbance model's
-    draw shared by the rollout (:meth:`QuadEnv.draw_disturb`).
+    negated discounted sum of the env's reward (:func:`make_reward`).
+    ``draw`` (3,) is the disturbance model's draw shared by the rollout
+    (:meth:`QuadEnv.draw_disturb`).
     """
-    check_penyaw_reward(env)
+    reward = make_reward(env)
     done_fn = _make_done(env)
     dt = env._dt
 
@@ -162,8 +168,7 @@ def make_rollout(env: QuadEnv):
         d_prev = torch.zeros(N, dtype=torch.bool, device=x0.device)
         rews = []
         for h in range(H):
-            r = rewards.tracking_penyaw_reward(x[..., POS], x[..., VEL],
-                                               x[..., QUAT], ptar[h], vtar[h])
+            r = reward(x, ptar[h], vtar[h])
             d = done_fn(x, t0 + h, params.max_steps_in_episode)
             r = torch.where(d_prev, r_prev, r)
             d = d | d_prev

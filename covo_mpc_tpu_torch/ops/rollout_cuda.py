@@ -21,7 +21,9 @@ force of each step read from the (3H) ``dist`` operand), "drag" and "mixed"
 (the force carried per sample and updated in-kernel from the pre-step
 velocity; "mixed" reads the sin values from ``dist`` and its periodic draw
 from the scalar pack). K5 alone also draws the shared gaussian force itself
-("krng").
+("krng"). The reward is a second launch argument, the env's ``reward_name``
+(:data:`REWARDS`): penyaw (the zigzag, Lissajous and hover tasks) or
+realworld (``tracking_slow``).
 """
 
 from __future__ import annotations
@@ -77,6 +79,8 @@ NINT = 3  # [t0, max_steps, disturb_period]
 # the disturbance modes' launch argument (quad::Mode in csrc/quad_core.cuh);
 # "krng" is the shared mode with K5's in-kernel draw
 MODES = {"shared": 0, "krng": 0, "table": 1, "drag": 2, "mixed": 3}
+# the rewards' launch argument (quad::Reward in csrc/quad_core.cuh)
+REWARDS = {"penyaw": 0, "realworld": 1}
 
 
 def _full(value, device) -> torch.Tensor:
@@ -203,17 +207,18 @@ def _launch_operands(env: QuadEnv, x0, t0, pos_traj, vel_traj, params, draw,
 
 
 class _RolloutKernelWrapper:
-    """What the rollout kernels' wrappers share: the disturbance mode's
-    launch argument, the block size, the plain rollout (over B scenarios
-    for the batched wrappers) and the rollover flag."""
+    """What the rollout kernels' wrappers share: the disturbance mode's and
+    the reward's launch arguments, the block size, the plain rollout (over B
+    scenarios for the batched wrappers, with the same reward) and the
+    rollover flag."""
 
     batched = False
 
     def __init__(self, env: QuadEnv, block: int = 128):
         self.env = env
         self.mode = MODES[disturb_mode(env)]
+        self.reward = REWARDS[env.reward_name]
         self.block = block
-        # checks the reward
         self._rollout = (make_rollout_batched if self.batched else make_rollout)(env)
         self._check_rollover = int(not env.config.disable_rollover_terminate)
 
@@ -268,7 +273,7 @@ class JointSampleRollout(_RolloutKernelWrapper):
             *(t.data_ptr() for t in ops), mean.data_ptr(), factor.data_ptr(),
             None if z is None else z.data_ptr(), seed % (1 << 64),
             costs.data_ptr(), a_t.data_ptr(), N, H, self._check_rollover,
-            self.mode, self.block,
+            self.mode, self.reward, self.block,
         )
         return costs, a_t
 
@@ -318,7 +323,7 @@ class RolloutCosts(_RolloutKernelWrapper):
         costs = torch.empty(N, device=dev)
         ROLLOUT_KERNEL.launch(
             *(t.data_ptr() for t in ops), acts.data_ptr(), costs.data_ptr(),
-            N, H, self._check_rollover, self.mode, self.block,
+            N, H, self._check_rollover, self.mode, self.reward, self.block,
         )
         return costs
 
@@ -403,7 +408,7 @@ class SampleRollout(_RolloutKernelWrapper):
             (disturb_seed or 0) % (1 << 64), int(krng),
             None if draw_out is None else draw_out.data_ptr(),
             costs.data_ptr(), a_t.data_ptr(), N, H, self._check_rollover,
-            self.mode, self.block,
+            self.mode, self.reward, self.block,
         )
         return costs, a_t
 
@@ -462,7 +467,7 @@ class RolloutCostsBatched(_RolloutKernelWrapper):
         costs = torch.empty(B, N, device=dev)
         ROLLOUT_BATCHED_KERNEL.launch(
             *(t.data_ptr() for t in ops), acts.data_ptr(), costs.data_ptr(),
-            B, N, H, self._check_rollover, self.mode, self.block,
+            B, N, H, self._check_rollover, self.mode, self.reward, self.block,
         )
         return costs
 
@@ -527,7 +532,7 @@ class SampleRolloutBatched(_RolloutKernelWrapper):
             *(t.data_ptr() for t in ops), mean.data_ptr(), chols.data_ptr(),
             None if z is None else z.data_ptr(), seed % (1 << 64),
             costs.data_ptr(), a_t.data_ptr(), B, N, H, self._check_rollover,
-            self.mode, self.block,
+            self.mode, self.reward, self.block,
         )
         return costs, a_t
 
@@ -586,7 +591,7 @@ class JointSampleRolloutBatched(_RolloutKernelWrapper):
             *(t.data_ptr() for t in ops), mean.data_ptr(), factors.data_ptr(),
             None if z is None else z.data_ptr(), seed % (1 << 64),
             costs.data_ptr(), a_t.data_ptr(), B, N, H, self._check_rollover,
-            self.mode, self.block,
+            self.mode, self.reward, self.block,
         )
         return costs, a_t
 

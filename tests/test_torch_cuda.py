@@ -11,9 +11,11 @@ exact-adjoint Hessian through K2 and K3, and the scenario-batched K6 and
 K7 at a ragged N, at B=1 against K4, K5 and K1, with in-kernel draws that
 do not depend on the scenario count, and K7 joint's per-scenario moments;
 the Sigma-designer K8 at D = 32 and 64 on a near-singular and on a badly
-scaled R; and every disturbance mode (table, drag, mixed) of K1, K4-K7 at a
+scaled R; every disturbance mode (table, drag, mixed) of K1, K4-K7 at a
 ragged N, K6/K7 at B=1 against B=16, and the Hessian through K2 (on a force
-table) and K3 (at sd=16) in each mode. Tolerances are the ones ``chip_smoke.py`` states (the JAX kernel tests'
+table) and K3 (at sd=16) in each mode; and the realworld reward of
+tracking_slow in K1, K4-K7 the same way, in every disturbance mode.
+Tolerances are the ones ``chip_smoke.py`` states (the JAX kernel tests'
 own).
 """
 
@@ -413,11 +415,11 @@ KINDS = ["periodic", "sin", "drag", "mixed"]
 T0 = 47  # a redraw (t % 50 == 0) inside the horizon
 
 
-def _mode_env(dev, kind, randomize=False):
-    """An env under ``kind`` with non-zero disturb_params (the wind and the
-    sinusoid), its params, and a noisy reset state moved to T0 with a
-    non-zero start force."""
-    env = QuadEnv(EnvConfig(task="tracking_zigzag", enable_randomizer=randomize,
+def _mode_env(dev, kind, randomize=False, task="tracking_zigzag"):
+    """An env on ``task`` under ``kind`` with non-zero disturb_params (the
+    wind and the sinusoid), its params, and a noisy reset state moved to T0
+    with a non-zero start force."""
+    env = QuadEnv(EnvConfig(task=task, enable_randomizer=randomize,
                             disturb_type=kind, disable_rollover_terminate=True,
                             generate_noisy_state=True), device=dev)
     g = torch.Generator(dev).manual_seed(9)
@@ -434,7 +436,11 @@ def _mode_env(dev, kind, randomize=False):
 def test_rollout_kernels_in_each_mode_match_plain(dev, kind):
     """K1, K4 and K5 in the table / drag / mixed modes at a ragged N,
     against their plain versions on the same normals and uniform draw."""
-    env, p, st = _mode_env(dev, kind)
+    _single_kernels_match_plain(dev, kind, "tracking_zigzag")
+
+
+def _single_kernels_match_plain(dev, kind, task):
+    env, p, st = _mode_env(dev, kind, task=task)
     g = torch.Generator(dev).manual_seed(10)
     draw = env.draw_disturb(g)
     roll = (pack_state(st), st.time, st.pos_traj, st.vel_traj)
@@ -462,11 +468,12 @@ def test_rollout_kernels_in_each_mode_match_plain(dev, kind):
     torch.testing.assert_close(c_k, c_p, atol=2e-4, rtol=1e-5)
     # the mode changes the costs (the force matters)
     if kind != "sin":
-        gauss = QuadEnv(EnvConfig(task="tracking_zigzag", enable_randomizer=False,
+        gauss = QuadEnv(EnvConfig(task=task, enable_randomizer=False,
                                   disturb_type="none", disable_rollover_terminate=True,
                                   generate_noisy_state=True), device=dev)
         c_none = rollout_cuda.make_rollout_costs(gauss)(*roll, acts, p, layout="hdn")
         assert not torch.allclose(c_none, k4(*roll, acts, p, draw, layout="hdn"))
+    return env
 
 
 @pytest.mark.parametrize("kind", KINDS)
@@ -474,7 +481,11 @@ def test_batched_kernels_in_each_mode_scenario_count_invariant(dev, kind):
     """K6, K7 per-step and K7 joint in each mode at B=16 against their plain
     versions (ragged N), and scenario 0 of the B=16 launch equal to the B=1
     launch of the same scenario: per-scenario dist tables and draws."""
-    env, p, st = _mode_env(dev, kind, randomize=True)
+    _batched_kernels_match_plain(dev, kind, "tracking_zigzag")
+
+
+def _batched_kernels_match_plain(dev, kind, task):
+    env, _, _ = _mode_env(dev, kind, randomize=True, task=task)
     gen = torch.Generator(dev).manual_seed(11)
     Bm = 16
     params = [env.sample_params(gen) for _ in range(Bm)]
@@ -530,3 +541,34 @@ def test_hessian_in_each_mode_through_kernels(dev, kind, second_order):
     vel = kind in ("drag", "mixed")
     assert rollout_cuda.PRIMAL_KERNEL.launches == before[0] + (0 if vel else 1)
     assert hessian_cuda.CHAIN_KERNEL.launches == before[1] + 1
+
+
+# --- the realworld reward (tracking_slow) ----------------------------------
+
+
+@pytest.mark.parametrize("kind", ["gaussian"] + KINDS)
+def test_realworld_rollout_kernels_match_plain(dev, kind):
+    """The realworld branch of K1, K4 and K5 on tracking_slow in every
+    disturbance mode at a ragged N, against their plain versions; under the
+    gaussian model also K5's in-kernel draw ("krng") fed back to the plain
+    rollout."""
+    env = _single_kernels_match_plain(dev, kind, "tracking_slow")
+    assert rollout_cuda.make_rollout_costs(env).reward == rollout_cuda.REWARDS["realworld"]
+    if kind == "gaussian":
+        _, p, st = _mode_env(dev, kind, task="tracking_slow")
+        _, a_mean, chol = _per_step_inputs(dev)
+        k5 = rollout_cuda.make_rollout_sampling(env)
+        roll = (pack_state(st), st.time, st.pos_traj, st.vel_traj)
+        draw_out = torch.zeros(3, device=dev)
+        c_k, a_k = k5(*roll, a_mean, chol, p, 21, N, discount=0.98, disturb_seed=22,
+                      draw_out=draw_out)
+        ref = k5._rollout(*roll, a_k, p, draw_out.clone(), discount=0.98, layout="hdn")
+        torch.testing.assert_close(c_k, ref, atol=2e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["gaussian"] + KINDS)
+def test_realworld_batched_kernels_scenario_count_invariant(dev, kind):
+    """The realworld branch of K6, K7 per-step and K7 joint on tracking_slow
+    at B=16 against their plain versions (ragged N), and scenario 0 of the
+    B=16 launch bit-equal to the B=1 launch of the same scenario."""
+    _batched_kernels_match_plain(dev, kind, "tracking_slow")
