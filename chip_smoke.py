@@ -38,7 +38,9 @@ source, at first use), then:
 6. the fused Sigma-designer K8 (``sigma_mode="ns_pallas"``) and the other
    CoVO modes on the main path's env: (a) K8 against the plain designer on
    the gn Hessian of a reset state and on the JAX kernel test's R at scales
-   1 and 100, timed alone, through its wrapper and as plain ops; (b) one
+   1 and 100, two launches on the gn Hessian bit-identical, its cluster
+   size and shared memory per CTA, timed alone, through its wrapper and as
+   plain ops; (b) one
    full-width online solve with ``"ns_pallas"``, ``engine="cuda"`` (K8)
    against ``engine="torch"`` on the same normals (2e-4, no host sync); (c)
    the speculative ``act`` + ``prepare`` the same way, and ``act()`` and
@@ -1214,11 +1216,19 @@ def phase_sigma_kernel(env, dev, records):
             check(abs_c <= 2e-4, f"K8 ({what}): a_cov within 2e-4")
             err = max(err, abs_c)
     R = sources["gn Hessian of a reset state"]
-    ws = torch.empty(7, D, D, device=dev)
+    first = covariance_cuda.optimize_sigma_ns_cuda(R, 0.5, D)
+    again = covariance_cuda.optimize_sigma_ns_cuda(R, 0.5, D)
+    check(all(torch.equal(x, y) for x, y in zip(first, again)),
+          "K8 (gn Hessian): two launches give bit-identical a_cov and factor")
+    info = covariance_cuda.kernel_info()
+    say(f"  K8 launch: one cluster of {info['cluster']} CTAs x {info['threads']} threads; "
+        f"shared memory per CTA {info['dynamic_smem']} B dynamic + "
+        f"{info['static_smem']} B static; {info['registers']} registers, "
+        f"{info['local_bytes']} B local memory per thread")
     a_cov, factor = torch.empty(D, D, device=dev), torch.empty(D, D, device=dev)
     ms_bare = bare_launch_ms(
         covariance_cuda.SIGMA_KERNEL, R.data_ptr(), a_cov.data_ptr(), factor.data_ptr(),
-        ws.data_ptr(), D, 0.5, covariance._LIFT_A, covariance._LIFT_B,
+        D, 0.5, covariance._LIFT_A, covariance._LIFT_B,
         covariance._LIFT_C, 14, 3, 4, 8, 5, reps=20)
     ms = time_ms(lambda: covariance_cuda.optimize_sigma_ns_cuda(R, 0.5, D), 20)
     ms_p = time_ms(lambda: covariance.optimize_sigma_ns(R, 0.5, D), 20)

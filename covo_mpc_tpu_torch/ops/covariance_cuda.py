@@ -4,14 +4,17 @@ Counterpart of :mod:`covo_mpc_tpu.ops.covariance_pallas`: the whole
 designer of :func:`covo_mpc_tpu_torch.ops.covariance.optimize_sigma_ns`
 (power squaring, the refined lambda_min, both coupled Newton–Schulz roots,
 one Cholesky with its log det) in one launch of ``csrc/sigma_ns.cu``, on one
-(D, D) matrix, as the JAX kernel takes it. CUDA tensors launch the kernel or
-raise; CPU tensors take the plain version, which is ``optimize_sigma_ns``
-itself. The iteration counts and the quintic-lift coefficients are the plain
-version's own, passed to the kernel by value.
+(D, D) matrix, as the JAX kernel takes it. The launch is one thread-block
+cluster whose CTAs hold every working matrix in their shared memory, so it
+needs no workspace. CUDA tensors launch the kernel or raise (a cluster the
+card refuses raises too); CPU tensors take the plain version, which is
+``optimize_sigma_ns`` itself. The iteration counts and the quintic-lift
+coefficients are the plain version's own, passed to the kernel by value.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import torch
@@ -22,8 +25,7 @@ SIGMA_KERNEL = kernels.Kernel(
     "sigma_ns", "covo_mpc_tpu_torch/csrc/sigma_ns.cu",
     replaces="covo_mpc_tpu/ops/covariance_pallas.py:173",
 )
-MAX_D = 128  # one block's tile grid (csrc/sigma_ns.cu kMaxD)
-_WORKSPACE = 7  # (D, D) buffers the kernel works in (kNumBuf)
+MAX_D = 128  # the cluster's slabs hold D <= 128 (csrc/sigma_ns.cu kMaxD)
 
 
 def optimize_sigma_ns_cuda(
@@ -51,10 +53,21 @@ def optimize_sigma_ns_cuda(
     kernels.check_cuda("R", R, (D, D))
     a_cov = torch.empty(D, D, device=R.device)
     factor = torch.empty(D, D, device=R.device)
-    ws = torch.empty(_WORKSPACE, D, D, device=R.device)
     SIGMA_KERNEL.launch(
-        R.data_ptr(), a_cov.data_ptr(), factor.data_ptr(), ws.data_ptr(), D,
+        R.data_ptr(), a_cov.data_ptr(), factor.data_ptr(), D,
         float(sample_sigma), covariance._LIFT_A, covariance._LIFT_B,
         covariance._LIFT_C, squarings, *ns_rough, *ns_main,
     )
     return a_cov, factor
+
+
+def kernel_info() -> dict:
+    """The kernel's launch geometry and resources, read from the built
+    library: CTAs of its cluster, threads, dynamic and static shared memory
+    (bytes) of a CTA, registers and local memory (bytes) of a thread."""
+    out = (ctypes.c_int * 6)()
+    err = kernels.library().sigma_ns_info(out)
+    if err != 0:
+        raise RuntimeError(f"sigma_ns_info: cudaError {err}")
+    return dict(zip(("cluster", "threads", "dynamic_smem", "static_smem",
+                     "registers", "local_bytes"), out))

@@ -1,21 +1,29 @@
 """Variants of the Sigma-designer kernel (``csrc/sigma_ns.cu``, K8), side by
 side on one card: register use and spills, agreement with the plain
-designer, and time.
+designer and with the committed kernel, repeatability, and time.
 
-Each variant is the kernel's source with a few lines replaced: the
-1024-thread 4x4-tile layout, an inlined ``matmul``, and ablations that skip
-the Cholesky, the operand staging or the products' FMA loops (their results
-are wrong; only their times mean anything, as the cost of the part they
-skip). Each is built with ``nvcc -Xptxas -v`` into its own library under
-``build/sigma_ns_variants/`` and launched through ctypes on the JAX kernel
-test's R at D=128 (numpy seed 0). Times: CUDA events around 20 launches
-after 3. Run on a machine with an NVIDIA GPU, from the root of a checkout::
+Each variant is the kernel's source with a few lines replaced: clusters of
+4, 8 (as committed) and 16 CTAs, and ablations of the cluster-8 kernel that
+skip the Cholesky, the copies of B's rows over distributed shared memory,
+the products' FMA loops, or the cluster barriers inside the chain (their
+results are wrong; only their times mean anything, as the cost of the part
+they skip). The barrier ablation keeps one cluster barrier at the start and
+the one before the CTAs exit, so that no CTA reads the shared memory of a
+CTA that has not started or has exited. Other K8 sources with the same C
+entry point, given on the command line, join the comparison under their
+file names (an A/B of designs). Every variant is built with ``nvcc -Xptxas
+-v`` into its own library under ``build/sigma_ns_variants/`` (all builds at
+once) and launched through ctypes on the JAX kernel test's R at D=128 (numpy
+seed 0). Times: CUDA events around 20 launches after 3, in four rounds
+whose order alternates, all printed. Run on a machine with an NVIDIA GPU,
+from the root of a checkout::
 
-    python -m covo_mpc_tpu_torch.tools.sigma_ns_variants
+    python -m covo_mpc_tpu_torch.tools.sigma_ns_variants [other.cu ...]
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import subprocess
 from pathlib import Path
@@ -26,98 +34,132 @@ import torch
 from covo_mpc_tpu_torch.ops import covariance, kernels
 
 D = 128
+ROUNDS = 4
 OUT = kernels.BUILD_DIR.parent / "sigma_ns_variants"
-_MATMUL = "__device__ __noinline__ void matmul("
-_STAGE_A = "      if (e < D * kn) {"
-_STAGE_B = "      if (e < kn * D) {"
-_FMA = "    if (active) {\n      for (int kk = 0; kk < kn; ++kk) {"
-_CHOLESKY = "  for (int j = 0; j < D; ++j) {\n    const float piv"
-_T1024 = [
-    ("constexpr int kThreads = 512;", "constexpr int kThreads = 1024;"),
-    ("constexpr int kRows = 8, kCols = 4;", "constexpr int kRows = 4, kCols = 4;"),
-    ("        const float4 a1 = *reinterpret_cast<const float4*>"
-     "(c.As + kk * kAStride + row + 4);\n", ""),
-    ("{a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w}", "{a0.x, a0.y, a0.z, a0.w}"),
-]
-_INLINE = [(_MATMUL, "__device__ void matmul(")]
-_NO_STAGING = [(_STAGE_A, "      if (e < 0) {"), (_STAGE_B, "      if (e < 0) {")]
-_NO_FMA = [(_FMA, _FMA.replace("kk < kn", "kk < 0"))]
+COMMITTED = "as committed (cluster of 8)"
+_CLUSTER = "constexpr int kCluster = 8;"
+_BARRIER = "void cluster_barrier() { cg::this_cluster().sync(); }"
+_START = "  const int rank = static_cast<int>(cluster.block_rank());"
+_CHOLESKY = "for (int j = 0; j < D; ++j) {\n    const float* cur"
+_FETCH = "      if (f < n4) st[n][s] = src[f];"
+_PUT = "      if (f < n4) dst[f] = st[n][s];"
+_FMA = "for (int kk = 0; kk < D; kk += 4) {"
+
+
+def _cluster(n: int):
+    return [(_CLUSTER, f"constexpr int kCluster = {n};")]
+
+
 VARIANTS = {
-    "as committed (512 threads, 8x4 tiles)": [],
-    "matmul inlined": _INLINE,
-    "1024 threads, 4x4 tiles": _T1024,
-    "1024 threads, 4x4 tiles, matmul inlined": _T1024 + _INLINE,
+    COMMITTED: [],
+    "cluster of 4": _cluster(4),
+    "cluster of 16": _cluster(16),
     "without the Cholesky": [(_CHOLESKY, _CHOLESKY.replace("j < D", "j < 0"))],
-    "without operand staging": _NO_STAGING,
-    "without the FMA loops": _NO_FMA,
-    "without staging and FMA loops": _NO_STAGING + _NO_FMA,
+    "without the DSMEM copies": [(_FETCH, _FETCH.replace("f < n4", "f < 0")),
+                                 (_PUT, _PUT.replace("f < n4", "f < 0"))],
+    "without the FMA loops": [(_FMA, _FMA.replace("kk < D", "kk < 0"))],
+    "without the cluster barriers": [
+        (_BARRIER, "void cluster_barrier() { __syncthreads(); }"),
+        (_START, "  cluster.sync();\n" + _START)],
 }
-_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_float] * 4 + \
+_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_float] * 4 + \
     [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
-def build(name: str, source: str):
-    """Compile one variant into its own library; returns (ptxas lines, the
-    library)."""
-    OUT.mkdir(parents=True, exist_ok=True)
-    stem = "".join(ch if ch.isalnum() else "_" for ch in name)
-    src, lib = OUT / f"{stem}.cu", OUT / f"{stem}.so"
-    src.write_text(source)
-    proc = subprocess.run(
-        [kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-Xptxas", "-v",
-         "-o", str(lib), str(src)], capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name!r}:\n{proc.stdout}{proc.stderr}")
-    info = [line.strip() for line in (proc.stdout + proc.stderr).splitlines()
-            if "registers" in line or "spill" in line]
-    fn = ctypes.CDLL(str(lib)).sigma_ns
-    fn.argtypes, fn.restype = _ARGS, ctypes.c_int
-    return info, fn
-
-
-def main() -> None:
-    dev = torch.device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    A = np.random.default_rng(0).standard_normal((D, D))
-    R = torch.from_numpy((A @ A.T / D - 0.3 * np.eye(D)).astype(np.float32)).to(dev)
-    c_ref, _ = covariance.optimize_sigma_ns(R, 0.5, D)
-    a_cov, factor = torch.empty(D, D, device=dev), torch.empty(D, D, device=dev)
-    ws = torch.empty(7, D, D, device=dev)
+def sources(others) -> dict:
+    """Name -> source text: the variants of the committed kernel, then the
+    given files."""
     source = (Path(kernels.CSRC) / "sigma_ns.cu").read_text()
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip(), flush=True)
+    out = {}
     for name, edits in VARIANTS.items():
         text = source
         for old, new in edits:
             if old not in text:
                 raise ValueError(f"{name!r}: the source no longer holds {old!r}")
             text = text.replace(old, new)
-        info, fn = build(name, text)
-        stream = torch.cuda.current_stream().cuda_stream
+        out[name] = text
+    for path in others:
+        out[Path(path).name] = Path(path).read_text()
+    return out
 
-        def launch():
-            err = fn(R.data_ptr(), a_cov.data_ptr(), factor.data_ptr(), ws.data_ptr(),
-                     D, 0.5, covariance._LIFT_A, covariance._LIFT_B,
-                     covariance._LIFT_C, 14, 3, 4, 8, 5, stream)
+
+def build_all(texts: dict) -> dict:
+    """Compile every source into its own library, all nvcc runs at once;
+    returns name -> (ptxas lines, the library's sigma_ns)."""
+    OUT.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for i, (name, text) in enumerate(texts.items()):
+        src, lib = OUT / f"v{i}.cu", OUT / f"v{i}.so"
+        src.write_text(text)
+        jobs[name] = (lib, subprocess.Popen(
+            [kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-Xptxas", "-v",
+             "-o", str(lib), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    built = {}
+    for name, (lib, proc) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name!r}:\n{log}")
+        info = [line.split("ptxas info    : ", 1)[-1].strip()
+                for line in log.splitlines() if "registers" in line or "spill" in line]
+        fn = ctypes.CDLL(str(lib)).sigma_ns
+        fn.argtypes, fn.restype = _ARGS, ctypes.c_int
+        built[name] = (info, fn)
+    return built
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("others", nargs="*", help="other K8 sources to compare")
+    args = ap.parse_args(argv)
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    A = np.random.default_rng(0).standard_normal((D, D))
+    R = torch.from_numpy((A @ A.T / D - 0.3 * np.eye(D)).astype(np.float32)).to(dev)
+    c_ref, _ = covariance.optimize_sigma_ns(R, 0.5, D)
+    a_cov, factor = torch.empty(D, D, device=dev), torch.empty(D, D, device=dev)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+    launchers, committed = {}, None
+    for name, (info, fn) in build_all(sources(args.others)).items():
+
+        def launch(fn=fn, name=name):
+            err = fn(R.data_ptr(), a_cov.data_ptr(), factor.data_ptr(), D, 0.5,
+                     covariance._LIFT_A, covariance._LIFT_B, covariance._LIFT_C,
+                     14, 3, 4, 8, 5, torch.cuda.current_stream().cuda_stream)
             if err != 0:
                 raise RuntimeError(f"{name!r}: CUDA launch failed, cudaError {err}")
 
         launch()
         torch.cuda.synchronize()
-        rel = float(torch.linalg.norm((a_cov - c_ref).double())
+        first = (a_cov.clone(), factor.clone())
+        committed = committed or first
+        rel = float(torch.linalg.norm((first[0] - c_ref).double())
                     / torch.linalg.norm(c_ref.double()))
-        for _ in range(3):
-            launch()
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        for _ in range(20):
-            launch()
-        e1.record()
+        launch()
         torch.cuda.synchronize()
-        print(f"{name}: {e0.elapsed_time(e1) / 20:.4f} ms, a_cov relative error "
-              f"{rel:.3e}; ptxas: {' | '.join(info)}", flush=True)
+        same = all(torch.equal(x, y) for x, y in zip(first, committed))
+        print(f"{name}: a_cov relative error {rel:.3e}, second launch "
+              f"{'bit-identical' if torch.equal(first[0], a_cov) else 'differs'}, "
+              f"{'equal' if same else 'not equal'} to the committed kernel's bits; "
+              f"ptxas: {' | '.join(info)}", flush=True)
+        launchers[name] = launch
+    times = {name: [] for name in launchers}
+    for rnd in range(ROUNDS):
+        for name in list(launchers)[::-1 if rnd % 2 else 1]:
+            for _ in range(3):
+                launchers[name]()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            for _ in range(20):
+                launchers[name]()
+            e1.record()
+            torch.cuda.synchronize()
+            times[name].append(e0.elapsed_time(e1) / 20)
+    for name, ms in times.items():
+        print(f"{name}: {' / '.join(f'{t:.4f}' for t in ms)} ms", flush=True)
 
 
 if __name__ == "__main__":

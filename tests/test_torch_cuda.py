@@ -10,8 +10,9 @@ the moments of its Philox draws, the 16-dim sensitivity state of K3, the
 exact-adjoint Hessian through K2 and K3, and the scenario-batched K6 and
 K7 at a ragged N, at B=1 against K4, K5 and K1, with in-kernel draws that
 do not depend on the scenario count, and K7 joint's per-scenario moments;
-the Sigma-designer K8 at D = 32 and 64 on a near-singular and on a badly
-scaled R; every disturbance mode (table, drag, mixed) of K1, K4-K7 at a
+the Sigma-designer K8 at D = 32, 64, 100 (ragged cluster slabs) and 128
+on a near-singular and on a badly scaled R, and its repeatability; every
+disturbance mode (table, drag, mixed) of K1, K4-K7 at a
 ragged N, K6/K7 at B=1 against B=16, and the Hessian through K2 (on a force
 table) and K3 (at sd=16) in each mode; and the realworld reward of
 tracking_slow in K1, K4-K7 the same way, in every disturbance mode.
@@ -357,7 +358,12 @@ def _badly_scaled(D, seed, scale=1e3):
     return ((A @ A.T / D - 0.3 * torch.eye(D, dtype=torch.float64)) * scale).float()
 
 
-@pytest.mark.parametrize("D", [32, 64])
+# 128 is the main path's width; 100 leaves the cluster's last CTAs ragged rows
+# or none (slabs of 16 rows: six full, one of 4, one empty)
+SIGMA_DS = [32, 64, 100, 128]
+
+
+@pytest.mark.parametrize("D", SIGMA_DS)
 def test_sigma_ns_matches_plain_near_singular(dev, D):
     """K8 against its plain version on a near-singular R (smallest
     eigenvalue 1e-6): relative Frobenius 1e-3 on a_cov and the factor (the
@@ -374,7 +380,7 @@ def test_sigma_ns_matches_plain_near_singular(dev, D):
     torch.testing.assert_close(f_k @ f_k.T, c_k, atol=2e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("D", SIGMA_DS)
 def test_sigma_ns_matches_plain_badly_scaled(dev, D):
     """K8 on R scaled by 1e3: both designers shift the spectrum's floor to
     an absolute 1e-2, so one fp32 ulp of lambda_min (~1e-4 at this scale)
@@ -392,6 +398,20 @@ def test_sigma_ns_matches_plain_badly_scaled(dev, D):
     torch.testing.assert_close(f_k @ f_k.T, c_k, atol=2e-5, rtol=1e-5)
     logdet = float(torch.linalg.slogdet(c_k.double()).logabsdet)
     assert abs(logdet - 2 * D * math.log(0.5)) <= 1e-3
+
+
+@pytest.mark.parametrize("D", [100, 128])
+def test_sigma_ns_repeats_bit_for_bit(dev, D):
+    """20 launches on one R give bit-identical a_cov and factor: every
+    cluster reduction adds its partials in one order, and a missing cluster
+    barrier would let a CTA read a peer's rows before or after they change."""
+    from covo_mpc_tpu_torch.ops import covariance_cuda
+
+    R = _badly_scaled(D, 3, scale=1.0).to(dev)
+    c0, f0 = covariance_cuda.optimize_sigma_ns_cuda(R, 0.5, D)
+    for _ in range(19):
+        c, f = covariance_cuda.optimize_sigma_ns_cuda(R, 0.5, D)
+        assert torch.equal(c, c0) and torch.equal(f, f0)
 
 
 def test_sigma_ns_counts_and_rejects(dev):

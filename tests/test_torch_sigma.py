@@ -30,7 +30,7 @@ def _rel(a, b) -> float:
 
 
 @pytest.mark.parametrize("scale", [1.0, 100.0])
-@pytest.mark.parametrize("D", [32, 128])
+@pytest.mark.parametrize("D", [32, 100, 128])  # 100: the card test's ragged width
 def test_plain_designer_matches_pallas_kernel(D, scale):
     R = _R(D, scale)
     c_ref, f_ref = optimize_sigma_ns_pallas(jnp.asarray(R), 0.5, D, interpret=True)
