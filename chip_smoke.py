@@ -8,7 +8,9 @@ source, at first use), then:
 1. holds each kernel (K1-K5) against its plain PyTorch version on the
    card, at the main paths' shapes (N=8192, H=32, D=128), on inputs made
    from a numpy seed, and times both with CUDA events; checks the moments
-   of K1's in-kernel Philox draw;
+   of K1's in-kernel Philox draw; prints K1's launch geometry (samples
+   and threads a block, shared memory, blocks an SM) and times its
+   correlate alone as one ``torch.matmul`` (a yardstick, TF32 off);
 2. runs one full-width CoVO solve with ``engine="cuda"`` (K1, and K4 under
    ``rng_mode="fast"``) and with ``engine="torch"``, and one MPPI solve
    with ``engine="cuda"`` (K5, and K4 under ``rng_mode="fast"``) and with
@@ -27,7 +29,8 @@ source, at first use), then:
    domain-randomized env, B=16 scenarios at N=8192, H=32: (a) K6, K7
    per-step and K7 joint against their plain versions, at B=1 against
    K4, K5 and K1, and the in-kernel draws of one scenario at B=4 and
-   B=16, timed with CUDA events; (b) one batched CoVO solve and one
+   B=16, timed with CUDA events, K7 joint's correlate alone as one
+   ``torch.bmm`` (a yardstick); (b) one batched CoVO solve and one
    batched MPPI solve per rng, ``engine="cuda"`` against
    ``engine="torch"`` on the same normals (2e-4, no host sync); (c) the
    batched closed loops on the main path's env, B=4 scenarios reset from
@@ -88,9 +91,11 @@ its bound, the least time the card could take
 for the same work at the timed shapes (the larger of its fp32 operations
 over the fp32 peak and its bytes over the memory rate), and the time of
 one PyTorch call computing the same function (none exists for K1-K8:
-null). Any failed check raises, so the script exits non-zero; without a
-CUDA device it exits at once. The line before the last is the kernels'
-JSON record, the last ``{"ok": true, "device": {...}}``.
+null); K1's and K7 joint's also hold ``correlate_library_ms``, the
+library product of their correlate part alone. Any failed check raises,
+so the script exits non-zero; without a CUDA device it exits at once. The
+line before the last is the kernels' JSON record, the last ``{"ok": true,
+"device": {...}}``.
 ``--total-steps 12000`` runs the 40-episode protocols in phase 3.
 """
 
@@ -269,6 +274,18 @@ def bare_launch_ms(kernel, *args, reps: int = 50) -> float:
     return time_ms(launch, reps)
 
 
+def say_joint_geometry(block: int) -> None:
+    """Print K1 / K7 joint's launch geometry at ``block`` samples a block and
+    the main path's H (read from the built library)."""
+    from covo_mpc_tpu_torch.ops import rollout_cuda
+
+    g = rollout_cuda.joint_info(block, H)
+    say(f"  K1 / K7 joint geometry: S={g['samples']} samples a block, T={g['threads']} "
+        f"threads, {g['dynamic_smem']} B of dynamic shared memory a block; blocks an SM, "
+        f"registers, local bytes: penyaw {tuple(g['penyaw'].values())}, realworld "
+        f"{tuple(g['realworld'].values())}")
+
+
 def phase_kernels(env, dev, records):
     from covo_mpc_tpu_torch.models import pack_state
     from covo_mpc_tpu_torch.ops import hessian_cuda, rollout_cuda
@@ -299,9 +316,10 @@ def phase_kernels(env, dev, records):
     check(err_a <= 1e-5, "K1 actions within atol 1e-5")
     check(bool(((c_k - c_p).abs() <= 2e-4 + 1e-5 * c_p.abs()).all()),
           "K1 costs within atol 2e-4, rtol 1e-5")
-    c_64, a_64 = rollout_cuda.make_rollout_joint_sampling(env, block=64)(
+    other = 128 if k1.block == 64 else 64
+    c_o, a_o = rollout_cuda.make_rollout_joint_sampling(env, block=other)(
         *args, 0, N, z=z, **kw)
-    check(torch.equal(c_64, c_k) and torch.equal(a_64, a_k),
+    check(torch.equal(c_o, c_k) and torch.equal(a_o, a_k),
           "K1 results independent of the block size (64 vs 128)")
     # a stochastic gaussian rollout (own generator: later inputs stay put)
     draw = cuda(np.random.default_rng(1).standard_normal(3))
@@ -331,12 +349,19 @@ def phase_kernels(env, dev, records):
           "same seed, same draws; another seed, other draws")
 
     # times at the main path's shapes: the kernel draws in-kernel, the
-    # plain version draws with torch.randn
+    # plain version draws with torch.randn; the correlate alone as one
+    # library product, a yardstick the port never calls (library_ms stays
+    # null: no PyTorch call computes the fused sample + rollout)
+    say_joint_geometry(k1.block)
     ms_k1 = time_ms(lambda: k1(*args, 7, N, **kw), 50)
     ms_k1p = time_ms(lambda: k1.plain(*args, 7, N, **kw), 10)
+    ms_mm = time_ms(lambda: torch.matmul(factor, z), 50)
     records["joint_sample_rollout"] = dict(max_abs_err=max(err_a, err_c),
-                                          ms=ms_k1, plain_ms=ms_k1p, **k1_bound(1, N, H))
-    say(f"  K1 {ms_k1:.4f} ms, plain {ms_k1p:.4f} ms")
+                                          ms=ms_k1, plain_ms=ms_k1p, **k1_bound(1, N, H),
+                                          correlate_library_ms=ms_mm)
+    say(f"  K1 {ms_k1:.4f} ms, plain {ms_k1p:.4f} ms; correlate yardstick "
+        f"torch.matmul (D, D) x (D, N) {ms_mm:.4f} ms "
+        f"(allow_tf32={torch.backends.cuda.matmul.allow_tf32})")
 
     # K2: primal
     a_seq = cuda(rng.uniform(-1.3, 1.3, size=(H, 4)))
@@ -954,6 +979,12 @@ def phase_scenario_kernels(env, dev, records):
         ms_p = time_ms(lambda: k7.plain(*kargs, 7, N, draws=draws), 5, warmup=1)
         records[name] = dict(max_abs_err=max(err_a, err_c), ms=ms, plain_ms=ms_p,
                              **(k1_bound if joint else k5_bound)(B, N, H))
+        if joint:  # the correlate alone as one library product (a yardstick)
+            say_joint_geometry(k7.block)
+            ms_mm = time_ms(lambda: torch.bmm(fac, z), 50)
+            records[name]["correlate_library_ms"] = ms_mm
+            say(f"  {label} correlate yardstick torch.bmm (B, D, D) x (B, D, N) "
+                f"{ms_mm:.4f} ms (allow_tf32={torch.backends.cuda.matmul.allow_tf32})")
         mean = a_means.reshape(B, -1).contiguous()
         a_out = torch.empty(B, D, N, device=dev)
         kern = (rollout_cuda.JOINT_BATCHED_KERNEL if joint
@@ -1479,7 +1510,7 @@ def kernels_alone(inp, case, mode: str, reward: str = "penyaw") -> dict:
     return {
         "joint_sample_rollout": (bare_launch_ms(
             rollout_cuda.JOINT_KERNEL, *ptrs, mean.data_ptr(), inp.factor.data_ptr(), None,
-            7, *out, N, H, 0, mi, ri, 128), k1_bound(1, N, H, mode, reward)),
+            7, *out, N, H, 0, mi, ri, rollout_cuda.JOINT_BLOCK), k1_bound(1, N, H, mode, reward)),
         "rollout_costs": (bare_launch_ms(
             rollout_cuda.ROLLOUT_KERNEL, *ptrs, inp.acts.data_ptr(), out[0], N, H,
             0, mi, ri, 128), k4_bound(1, N, H, mode, reward)),
@@ -1495,8 +1526,8 @@ def kernels_alone(inp, case, mode: str, reward: str = "penyaw") -> dict:
             k5_bound(B, N, H, mode, reward)),
         "joint_sample_rollout_batched": (bare_launch_ms(
             rollout_cuda.JOINT_BATCHED_KERNEL, *ptrs_b, mean_b.data_ptr(),
-            inp.factors_b.data_ptr(), None, 7, *out_b, B, N, H, 0, mi, ri, 128),
-            k1_bound(B, N, H, mode, reward)),
+            inp.factors_b.data_ptr(), None, 7, *out_b, B, N, H, 0, mi, ri,
+            rollout_cuda.JOINT_BLOCK), k1_bound(B, N, H, mode, reward)),
     }
 
 
@@ -1917,6 +1948,9 @@ def main(argv=None) -> int:
     from covo_mpc_tpu_torch.ops import covariance_cuda, hessian_cuda, kernels, rollout_cuda
 
     dev = torch.device("cuda", 0)
+    # fp32 products in full fp32 (PyTorch's default, stated: the plain
+    # versions and the correlate yardsticks run in it)
+    torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,

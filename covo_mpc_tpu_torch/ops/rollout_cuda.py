@@ -14,6 +14,16 @@ the kernel (``csrc/joint_sample_rollout.cu``, ``csrc/primal.cu``,
 ``csrc/rollout.cu``, ``csrc/sample_rollout.cu``; K6 and K7 are the batched
 entry points of the K4, K5 and K1 sources) or raises.
 
+K1 and K7 joint are one kernel (``csrc/joint_sample_rollout.cu``) in three
+phases: a block of S samples (``block``, one of :data:`JOINT_BLOCKS`, 64
+by default) draws its z with all its threads into shared memory, runs the
+correlate a = clip(mean + F z) as a register-tiled fp32 product (each
+action one FMA chain over d in order, so its bits do not depend on S), and
+then one thread a sample runs the rollout. It takes D = 4H up to
+:data:`JOINT_MAX_D`; the wrappers raise on anything else before a launch.
+``covo_mpc_tpu_torch/tools/joint_rollout_variants.py`` times its variants
+and ablations on the card.
+
 Every rollout kernel runs the four disturbance modes of JAX's
 ``_disturb_mode``, a launch argument: "shared" (gaussian / none: x0's own
 force at step 0, the one shared force after), "table" (sin / periodic: the
@@ -28,6 +38,7 @@ realworld (``tracking_slow``).
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -73,6 +84,13 @@ JOINT_BATCHED_KERNEL = kernels.Kernel(
     "covo_mpc_tpu_torch/csrc/joint_sample_rollout.cu",
     replaces="covo_mpc_tpu/ops/rollout_pallas.py:1005",
 )
+
+# samples of a block of the joint sample + rollout kernel (K1, K7 joint):
+# the sizes it takes, and the default (tools/joint_rollout_variants.py);
+# it takes D = 4H up to JOINT_MAX_D
+JOINT_BLOCKS = (64, 128)
+JOINT_BLOCK = 64
+JOINT_MAX_D = 128
 
 NSCAL = 17  # scalar pack, layout quad::Scal in csrc/quad_core.cuh
 NINT = 3  # [t0, max_steps, disturb_period]
@@ -223,7 +241,38 @@ class _RolloutKernelWrapper:
         self._check_rollover = int(not env.config.disable_rollover_terminate)
 
 
-class JointSampleRollout(_RolloutKernelWrapper):
+class _JointKernelWrapper(_RolloutKernelWrapper):
+    """The joint wrappers' block: S samples a block, one of JOINT_BLOCKS
+    (anything else raises here, before any launch)."""
+
+    def __init__(self, env: QuadEnv, block: int = JOINT_BLOCK):
+        if block not in JOINT_BLOCKS:
+            raise ValueError(f"joint sample + rollout: block {block} not in {JOINT_BLOCKS}")
+        super().__init__(env, block)
+
+
+def _check_joint_width(D: int) -> None:
+    if D > JOINT_MAX_D:
+        raise ValueError(f"joint sample + rollout: D = {D} > {JOINT_MAX_D} (H > 32)")
+
+
+def joint_info(block: int = JOINT_BLOCK, H: int = 32) -> dict:
+    """K1 / K7 joint's launch geometry at ``block`` samples a block and
+    horizon ``H``, read from the built library: threads and dynamic shared
+    memory (bytes) of a block, and for each reward's instantiation the
+    blocks an SM holds, registers and local memory (bytes) of a thread."""
+    out = (ctypes.c_int * 8)()
+    err = kernels.library().joint_sample_rollout_info(block, H, out)
+    if err != 0:
+        raise RuntimeError(f"joint_sample_rollout_info: cudaError {err}")
+    info = dict(samples=block, threads=out[0], dynamic_smem=out[1])
+    for k, reward in enumerate(REWARDS):
+        info[reward] = dict(zip(("blocks_per_sm", "registers", "local_bytes"),
+                                out[2 + 3 * k:5 + 3 * k]))
+    return info
+
+
+class JointSampleRollout(_JointKernelWrapper):
     """K1: per sample, a = clip(mean + F z) and the H-step rollout cost.
 
     ``__call__(x0, t0, pos_traj, vel_traj, a_mean (H, 4), factor (D, D),
@@ -259,6 +308,7 @@ class JointSampleRollout(_RolloutKernelWrapper):
         if dA != 4:
             raise ValueError(f"action_dim must be 4, got {dA}")
         D = H * dA
+        _check_joint_width(D)
         dev = x0.device
         ops = _launch_operands(self.env, x0, t0, pos_traj, vel_traj, params,
                                draw, deterministic, discount, H)
@@ -278,7 +328,7 @@ class JointSampleRollout(_RolloutKernelWrapper):
         return costs, a_t
 
 
-def make_rollout_joint_sampling(env: QuadEnv, block: int = 128):
+def make_rollout_joint_sampling(env: QuadEnv, block: int = JOINT_BLOCK):
     """The K1 wrapper (JAX: make_pallas_rollout_joint_sampling)."""
     return JointSampleRollout(env, block)
 
@@ -537,7 +587,7 @@ class SampleRolloutBatched(_RolloutKernelWrapper):
         return costs, a_t
 
 
-class JointSampleRolloutBatched(_RolloutKernelWrapper):
+class JointSampleRolloutBatched(_JointKernelWrapper):
     """K7, joint: K1 for B scenarios in one launch, a = clip(mean_b + F_b z)
     per scenario and sample.
 
@@ -577,6 +627,7 @@ class JointSampleRolloutBatched(_RolloutKernelWrapper):
         if dA != 4:
             raise ValueError(f"action_dim must be 4, got {dA}")
         D = H * dA
+        _check_joint_width(D)
         dev = x0s.device
         ops = _launch_operands(self.env, x0s, t0s, pos_trajs, vel_trajs,
                                params_b, draws, deterministic, discount, H)
@@ -597,10 +648,12 @@ class JointSampleRolloutBatched(_RolloutKernelWrapper):
 
 
 def make_rollout_batched_sampling(env: QuadEnv, joint: bool = False,
-                                  block: int = 128):
+                                  block: Optional[int] = None):
     """The K7 wrappers (JAX: make_pallas_rollout_batched_sampling):
-    per-step Cholesky factors (``joint=False``, MPPI) or full factors
-    (``joint=True``, CoVO)."""
+    per-step Cholesky factors (``joint=False``, MPPI; 128 samples a block by
+    default) or full factors (``joint=True``, CoVO; JOINT_BLOCK)."""
+    if block is None:
+        block = JOINT_BLOCK if joint else 128
     return (JointSampleRolloutBatched if joint else SampleRolloutBatched)(env, block)
 
 

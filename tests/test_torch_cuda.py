@@ -9,7 +9,10 @@ horizon, both action layouts of K4, K5's in-kernel disturbance draw and
 the moments of its Philox draws, the 16-dim sensitivity state of K3, the
 exact-adjoint Hessian through K2 and K3, and the scenario-batched K6 and
 K7 at a ragged N, at B=1 against K4, K5 and K1, with in-kernel draws that
-do not depend on the scenario count, and K7 joint's per-scenario moments;
+do not depend on the scenario count (also at the main path's D=128), K7
+joint's per-scenario moments and its repeatability at B=16, N=8192, H=32,
+K1 at D = 32, 36 and 128, and the joint kernel's refusal of a block or a
+width it does not take;
 the Sigma-designer K8 at D = 32, 64, 100 (ragged cluster slabs) and 128
 on a near-singular and on a badly scaled R, and its repeatability; every
 disturbance mode (table, drag, mixed) of K1, K4-K7 at a
@@ -52,12 +55,16 @@ def _env_state(dev):
     return env, env.default_params, info["noisy_state"]
 
 
-def test_joint_sample_rollout_matches_plain(dev):
+@pytest.mark.parametrize("Hs", [8, 9, 32])
+def test_joint_sample_rollout_matches_plain(dev, Hs):
+    """K1 against its plain version at D = 32, 36 (rows a correlate tile of
+    8 does not divide) and 128 (the main path's width), ragged N; blocks of
+    64 and 128 samples agree bit for bit."""
     env, p, st = _env_state(dev)
     g = torch.Generator(dev).manual_seed(1)
-    a_mean = torch.randn(H, 4, generator=g, device=dev) * 0.2
-    factor = torch.randn(D, D, generator=g, device=dev) * 0.1
-    z = torch.randn(D, N, generator=g, device=dev)
+    a_mean = torch.randn(Hs, 4, generator=g, device=dev) * 0.2
+    factor = torch.randn(4 * Hs, 4 * Hs, generator=g, device=dev) * 0.1
+    z = torch.randn(4 * Hs, N, generator=g, device=dev)
     args = (pack_state(st), st.time, st.pos_traj, st.vel_traj, a_mean, factor,
             p, 0, N)
     k1 = rollout_cuda.make_rollout_joint_sampling(env, block=128)
@@ -275,15 +282,17 @@ def test_batched_kernels_match_plain(dev, n):
             torch.testing.assert_close(c_k, c_p, atol=2e-4, rtol=1e-5)
 
 
-def test_batched_kernels_at_one_scenario_match_single(dev):
+@pytest.mark.parametrize("Hs", [8, 32])
+def test_batched_kernels_at_one_scenario_match_single(dev, Hs):
     """B=1: K6 gives K4's costs; K7 per-step and K7 joint draw exactly what
     K5 and K1 draw for the same seed, and their costs agree (2e-6: one
-    kernel body, so any difference is FMA contraction)."""
+    kernel body, so any difference is FMA contraction); at H=8 and at the
+    main path's H=32 (D=128)."""
     env, args, pb = _scenarios(dev, 1)
-    g, a_means, chols, factors, draws = _batched_inputs(dev, H)
+    g, a_means, chols, factors, draws = _batched_inputs(dev, Hs)
     single = tuple(x[0] for x in args)
     p0 = index_params(pb, 0)
-    acts = torch.randn(1, H, 4, N, generator=g, device=dev) * 0.5
+    acts = torch.randn(1, Hs, 4, N, generator=g, device=dev) * 0.5
     c6 = rollout_cuda.make_rollout_batched_costs(env)(*args, acts, pb, draws[:1])
     c4 = rollout_cuda.make_rollout_costs(env)(*single, acts[0], p0, draws[0], layout="hdn")
     torch.testing.assert_close(c6[0], c4, atol=2e-6, rtol=0)
@@ -296,16 +305,18 @@ def test_batched_kernels_at_one_scenario_match_single(dev):
         torch.testing.assert_close(c_b[0], c_s, atol=2e-6, rtol=0)
 
 
+@pytest.mark.parametrize("Hs", [8, 32])
 @pytest.mark.parametrize("joint", [False, True], ids=["per_step", "joint"])
-def test_batched_draws_scenario_count_invariant(dev, joint):
+def test_batched_draws_scenario_count_invariant(dev, joint, Hs):
     """A scenario's in-kernel draws depend on its index only: scenario 1 of
     a 2-scenario launch equals scenario 1 of a 3-scenario one, blocks of 64
-    and 128 agree, and the scenarios draw different streams."""
+    and 128 agree, and the scenarios draw different streams; at H=8 and at
+    the main path's H=32 (D=128)."""
     env, args, pb = _scenarios(dev)
-    _, _, chols, factors, _ = _batched_inputs(dev, H)
-    zero = torch.zeros(B, H, 4, device=dev)
+    _, _, chols, factors, _ = _batched_inputs(dev, Hs)
+    zero = torch.zeros(B, Hs, 4, device=dev)
     fac = factors if joint else chols
-    k7 = rollout_cuda.make_rollout_batched_sampling(env, joint=joint)
+    k7 = rollout_cuda.make_rollout_batched_sampling(env, joint=joint, block=128)
     c3, a3 = k7(*args, zero, fac, pb, 5, N, deterministic=True)
     two = stack_params([index_params(pb, b) for b in range(2)])
     c2, a2 = k7(*(x[:2] for x in args), zero[:2], fac[:2], two, 5, N, deterministic=True)
@@ -316,6 +327,53 @@ def test_batched_draws_scenario_count_invariant(dev, joint):
     same = (0.1 * torch.eye(fac.shape[-1], device=dev)).expand_as(fac).contiguous()
     _, a_same = k7(*args, zero, same, pb, 5, N, deterministic=True)
     assert not torch.equal(a_same[0], a_same[1])
+
+
+def test_joint_batched_repeats_bit_for_bit(dev):
+    """Ten launches of K7 joint at the batched path's size (B=16, N=8192,
+    H=32) give the same costs and actions bit for bit: every read of the
+    block's shared memory waits for its writes."""
+    env, args, pb = _scenarios(dev, 16)
+    Hm, Nm = 32, 8192
+    g = torch.Generator(dev).manual_seed(9)
+    a_means = torch.randn(16, Hm, 4, generator=g, device=dev) * 0.2
+    factors = torch.randn(16, 4 * Hm, 4 * Hm, generator=g, device=dev) * 0.05
+    draws = torch.randn(16, 3, generator=g, device=dev)
+    k7 = rollout_cuda.make_rollout_batched_sampling(env, joint=True)
+    first = k7(*args, a_means, factors, pb, 3, Nm, draws=draws)
+    for _ in range(9):
+        again = k7(*args, a_means, factors, pb, 3, Nm, draws=draws)
+        assert all(torch.equal(x, y) for x, y in zip(again, first))
+
+
+def test_joint_rejects_unsupported_block_and_width(dev):
+    """K1 / K7 joint take 64 or 128 samples a block and D = 4H up to 128:
+    anything else raises before a launch, in the wrappers and in the C
+    entry point (which launches nothing and returns an error)."""
+    env, p, st = _env_state(dev)
+    for block in (32, 96, 256):
+        with pytest.raises(ValueError):
+            rollout_cuda.make_rollout_joint_sampling(env, block=block)
+        with pytest.raises(ValueError):
+            rollout_cuda.make_rollout_batched_sampling(env, joint=True, block=block)
+    k1 = rollout_cuda.make_rollout_joint_sampling(env)
+    launches = rollout_cuda.JOINT_KERNEL.launches
+    Hw = 33
+    with pytest.raises(ValueError):
+        k1(pack_state(st), st.time, st.pos_traj, st.vel_traj,
+           torch.zeros(Hw, 4, device=dev), torch.zeros(4 * Hw, 4 * Hw, device=dev),
+           p, 0, N, deterministic=True)
+    ops = rollout_cuda._launch_operands(env, pack_state(st), st.time, st.pos_traj,
+                                        st.vel_traj, p, None, True, 1.0, H)
+    mean, factor = torch.zeros(D, device=dev), torch.zeros(D, D, device=dev)
+    costs, acts = torch.empty(N, device=dev), torch.empty(D, N, device=dev)
+    for block, h in ((96, H), (64, Hw)):
+        with pytest.raises(RuntimeError):
+            rollout_cuda.JOINT_KERNEL.launch(
+                *(t.data_ptr() for t in ops), mean.data_ptr(), factor.data_ptr(), None, 0,
+                costs.data_ptr(), acts.data_ptr(), N, h, 0, 0, 0, block)
+    torch.cuda.synchronize()
+    assert rollout_cuda.JOINT_KERNEL.launches == launches
 
 
 def test_joint_batched_philox_moments(dev):

@@ -86,24 +86,27 @@ def test_plain_rollout_matches_jnp_engine(env_kw, scale, deterministic):
 # --- K1: joint sample + rollout ---------------------------------------------
 
 
-def _joint_inputs(seed=7):
+def _joint_inputs(seed=7, Hs=H):
     rng = np.random.default_rng(seed)
-    a_mean = (rng.normal(size=(H, 4)) * 0.2).astype(np.float32)
-    factor = (rng.normal(size=(D, D)) * 0.1).astype(np.float32)
+    a_mean = (rng.normal(size=(Hs, 4)) * 0.2).astype(np.float32)
+    factor = (rng.normal(size=(4 * Hs, 4 * Hs)) * 0.1).astype(np.float32)
     return a_mean, factor
 
 
-def test_joint_sample_rollout_plain_matches_pallas():
+@pytest.mark.parametrize("Hs", [H, 32])
+def test_joint_sample_rollout_plain_matches_pallas(Hs):
     """K1's plain version == the Pallas kernel in interpret mode, fed the
-    same normals (z rebuilt from act_key as the JAX kernel test does)."""
+    same normals (z rebuilt from act_key as the JAX kernel test does), at
+    H=8 and at the main path's width (H=32, D=128): the yardstick the card
+    holds K1 against, anchored to JAX."""
     jenv, env, jp, noisy, p, st = _reset()
-    a_mean, factor = _joint_inputs()
+    a_mean, factor = _joint_inputs(Hs=Hs)
     step_key, act_key = jax.random.PRNGKey(3), jax.random.PRNGKey(4)
     costs_r, a_r = j_joint_sampling(jenv, interpret=True)(
         jpack(noisy), noisy.time, noisy.pos_traj, noisy.vel_traj, a_mean,
         factor, jp, step_key, act_key, N, deterministic=True, discount=0.98,
     )
-    z = jax.random.normal(act_key, (D, SUB, N // SUB)).reshape(D, N)
+    z = jax.random.normal(act_key, (4 * Hs, SUB, N // SUB)).reshape(4 * Hs, N)
     launches = rollout_cuda.JOINT_KERNEL.launches
     costs, a_t = rollout_cuda.make_rollout_joint_sampling(env)(
         pack_state(st), st.time, st.pos_traj, st.vel_traj, t(a_mean),
