@@ -8,9 +8,10 @@ source, at first use), then:
 1. holds each kernel (K1-K5) against its plain PyTorch version on the
    card, at the main paths' shapes (N=8192, H=32, D=128), on inputs made
    from a numpy seed, and times both with CUDA events; checks the moments
-   of K1's in-kernel Philox draw; prints K1's launch geometry (samples
-   and threads a block, shared memory, blocks an SM) and times its
-   correlate alone as one ``torch.matmul`` (a yardstick, TF32 off);
+   of K1's in-kernel Philox draw; prints K1's and K5's launch geometry
+   (samples and threads a block, shared memory, blocks an SM, registers)
+   and times K1's correlate alone as one ``torch.matmul`` (a yardstick,
+   TF32 off); K5's in-kernel draws at every block size it takes;
 2. runs one full-width CoVO solve with ``engine="cuda"`` (K1, and K4 under
    ``rng_mode="fast"``) and with ``engine="torch"``, and one MPPI solve
    with ``engine="cuda"`` (K5, and K4 under ``rng_mode="fast"``) and with
@@ -274,16 +275,22 @@ def bare_launch_ms(kernel, *args, reps: int = 50) -> float:
     return time_ms(launch, reps)
 
 
-def say_joint_geometry(block: int) -> None:
-    """Print K1 / K7 joint's launch geometry at ``block`` samples a block and
-    the main path's H (read from the built library)."""
-    from covo_mpc_tpu_torch.ops import rollout_cuda
-
-    g = rollout_cuda.joint_info(block, H)
-    say(f"  K1 / K7 joint geometry: S={g['samples']} samples a block, T={g['threads']} "
+def say_geometry(label: str, g: dict) -> None:
+    """Print a tiled kernel's launch geometry ``g`` (``rollout_cuda.joint_info``
+    or one of ``sample_info``'s, read from the built library)."""
+    say(f"  {label} geometry: S={g['samples']} samples a block, T={g['threads']} "
         f"threads, {g['dynamic_smem']} B of dynamic shared memory a block; blocks an SM, "
         f"registers, local bytes: penyaw {tuple(g['penyaw'].values())}, realworld "
         f"{tuple(g['realworld'].values())}")
+
+
+def say_sample_geometry() -> None:
+    """Print K5 / K7 per-step's two kernels' geometry at the wrappers'
+    default block and the main path's H."""
+    from covo_mpc_tpu_torch.ops import rollout_cuda
+
+    for name, g in rollout_cuda.sample_info(H=H).items():
+        say_geometry(f"K5 / K7 per-step ({name} kernel)", g)
 
 
 def phase_kernels(env, dev, records):
@@ -352,7 +359,7 @@ def phase_kernels(env, dev, records):
     # plain version draws with torch.randn; the correlate alone as one
     # library product, a yardstick the port never calls (library_ms stays
     # null: no PyTorch call computes the fused sample + rollout)
-    say_joint_geometry(k1.block)
+    say_geometry("K1 / K7 joint", rollout_cuda.joint_info(H=H))
     ms_k1 = time_ms(lambda: k1(*args, 7, N, **kw), 50)
     ms_k1p = time_ms(lambda: k1.plain(*args, 7, N, **kw), 10)
     ms_mm = time_ms(lambda: torch.matmul(factor, z), 50)
@@ -452,10 +459,14 @@ def phase_kernels(env, dev, records):
         f"max |costs - plain rollout| = {err_k5:.3e}")
     check(costs_close(c_k, c_p) and float(draw_out.abs().sum()) > 0,
           "K5 krng costs within atol 2e-4, rtol 1e-5 of the plain rollout fed its draw")
-    c_64, a_64 = rollout_cuda.make_rollout_sampling(env, block=64)(
-        *args5, 7, N, disturb_seed=8)
-    check(torch.equal(c_64, c_k) and torch.equal(a_64, a_k),
-          "K5 in-kernel draws independent of the block size (64 vs 128)")
+    others = [s for s in rollout_cuda.SAMPLE_BLOCKS if s != k5.block]
+    for s in others:
+        c_s, a_s = rollout_cuda.make_rollout_sampling(env, block=s)(
+            *args5, 7, N, disturb_seed=8)
+        check(torch.equal(c_s, c_k) and torch.equal(a_s, a_k),
+              f"K5 in-kernel draws and costs independent of the block size "
+              f"({k5.block} vs {s} samples)")
+    say_sample_geometry()
     # times: in-kernel draws (krng), the plain version draws with torch.randn
     ms_k5 = time_ms(lambda: k5(*args5, 7, N, disturb_seed=8), 50)
     ms_k5p = time_ms(lambda: k5.plain(*args5, 7, N, disturb_seed=8), 10)
@@ -756,7 +767,7 @@ def profile_mppi(env, dev):
 
     time_layers({
         "sample + rollout (K5)": (lambda: k5(*k5_args, disturb_seed=12),
-                                  "sample_rollout_kernel"),
+                                  "sample_rollout_"),  # the tile or step kernel
         "fast: torch sample + K4": (fast_sample_rollout, "rollout_kernel"),
         "weights + mean update": (lambda: reductions.mean_update_t(
             reductions.mppi_weights(costs, 0.01), a_t, a_mean, 1.0), ""),
@@ -980,11 +991,13 @@ def phase_scenario_kernels(env, dev, records):
         records[name] = dict(max_abs_err=max(err_a, err_c), ms=ms, plain_ms=ms_p,
                              **(k1_bound if joint else k5_bound)(B, N, H))
         if joint:  # the correlate alone as one library product (a yardstick)
-            say_joint_geometry(k7.block)
+            say_geometry("K1 / K7 joint", rollout_cuda.joint_info(H=H))
             ms_mm = time_ms(lambda: torch.bmm(fac, z), 50)
             records[name]["correlate_library_ms"] = ms_mm
             say(f"  {label} correlate yardstick torch.bmm (B, D, D) x (B, D, N) "
                 f"{ms_mm:.4f} ms (allow_tf32={torch.backends.cuda.matmul.allow_tf32})")
+        else:
+            say_sample_geometry()
         mean = a_means.reshape(B, -1).contiguous()
         a_out = torch.empty(B, D, N, device=dev)
         kern = (rollout_cuda.JOINT_BATCHED_KERNEL if joint
@@ -1193,7 +1206,7 @@ def profile_batched(env, dev):
             reductions.mppi_weights(costs, 0.01), a_t.reshape(B, H, 4, N), m, 1.0), ""),
         "CoVO: whole solve": (lambda: covo(*args, a_means, pb), ""),
         "MPPI: K7 per-step": (lambda: k7p(*args, m, chols, pb, 11, N, draws=draws),
-                              "sample_rollout_kernel"),
+                              "sample_rollout_"),  # the tile or step kernel
         "MPPI: whole solve": (lambda: mppi(*args, a_means, a_covs, pb), ""),
     }
     for name, (fn, kernel) in layers.items():
@@ -1516,14 +1529,15 @@ def kernels_alone(inp, case, mode: str, reward: str = "penyaw") -> dict:
             0, mi, ri, 128), k4_bound(1, N, H, mode, reward)),
         "sample_rollout": (bare_launch_ms(
             rollout_cuda.SAMPLE_KERNEL, *ptrs, mean.data_ptr(), inp.chol.data_ptr(), None, 7,
-            8, 0, None, *out, N, H, 0, mi, ri, 128), k5_bound(1, N, H, mode, reward)),
+            8, 0, None, *out, N, H, 0, mi, ri, rollout_cuda.SAMPLE_BLOCK),
+            k5_bound(1, N, H, mode, reward)),
         "rollout_costs_batched": (bare_launch_ms(
             rollout_cuda.ROLLOUT_BATCHED_KERNEL, *ptrs_b, inp.acts_b.data_ptr(),
             out_b[0], B, N, H, 0, mi, ri, 128), k4_bound(B, N, H, mode, reward)),
         "sample_rollout_batched": (bare_launch_ms(
             rollout_cuda.SAMPLE_BATCHED_KERNEL, *ptrs_b, mean_b.data_ptr(),
-            inp.chols_b.data_ptr(), None, 7, *out_b, B, N, H, 0, mi, ri, 128),
-            k5_bound(B, N, H, mode, reward)),
+            inp.chols_b.data_ptr(), None, 7, *out_b, B, N, H, 0, mi, ri,
+            rollout_cuda.SAMPLE_BLOCK), k5_bound(B, N, H, mode, reward)),
         "joint_sample_rollout_batched": (bare_launch_ms(
             rollout_cuda.JOINT_BATCHED_KERNEL, *ptrs_b, mean_b.data_ptr(),
             inp.factors_b.data_ptr(), None, 7, *out_b, B, N, H, 0, mi, ri,
@@ -1550,6 +1564,7 @@ def phase_mode_kernels(dev, records):
     phase(f"phase 7a: K1, K4-K7 in the table (sin, periodic), drag and mixed modes "
           f"against their plain versions (N={N}, H={H}, B={B}, t0={DISTURB_T0}), "
           "and each mode's kernels alone")
+    say_sample_geometry()
     inp = mode_kernel_inputs(dev, 71)
     rng = inp.rng  # K2 / K3's actions
     cuda = lambda x: to_dev(x, dev)  # noqa: E731
@@ -1785,6 +1800,7 @@ def phase_realworld_kernels(dev, records):
 
     phase(f"phase 8a: the realworld reward (tracking_slow) in K1, K4-K7 against their "
           f"plain versions (N={N}, H={H}, B={SCEN_B}), shared and drag modes, and alone")
+    say_sample_geometry()
     inp = mode_kernel_inputs(dev, 81)
     for kind in SLOW_KINDS:
         mode = MODE_OF[kind]

@@ -16,28 +16,63 @@
 //
 // Disturbance: the mode of quad::rollout_step; "shared" takes the force of
 // steps >= 1 from the scalar pack. "krng" (krng != 0, "shared" mode of the
-// single-scenario K5 only) draws it here: every thread
-// derives the same three standard normals from Philox keyed by
-// disturb_seed, counter (0, 0, 1, b) (word 2 set: disjoint from the action
-// stream even for equal seeds), and scales them by scal[kDraw0], the
+// single-scenario K5 only) draws it here: three standard normals from
+// Philox keyed by disturb_seed, counter (0, 0, 1, b) (word 2 set: disjoint
+// from the action stream even for equal seeds), scaled by scal[kDraw0], the
 // effective noise scale; the TPU kernel's per-solve shared draw. draw_out
-// (3,), when given, receives the normals (thread 0 of block 0): a test
+// (3,), when given, receives the normals (block 0 of scenario 0): a test
 // feeds them back to the plain version.
 //
-// What bounds it on an H100: the action write, 4 MB per scenario at
-// N=8192, H=32 (~1.3 us at 3.35 TB/s), and per sample 32 Philox calls (~10
-// integer multiply rounds each), 64 log/sqrt/sincos for Box-Muller, 10 FMAs
-// of the correlate and ~5k flops of rollout per step chain. Like K4, one
-// scenario at N=8192 is 64 blocks of 128 threads on 132 SMs, bound by the
-// latency of one thread's 32 dependent steps; B scenarios are B x 64
-// blocks.
+// What bounds it on an H100: bytes, by chip_smoke.py's k5_bound: the action
+// write, 4 MB per scenario at N = 8192, H = 32 (1.3 us at 3.35 TB/s),
+// against per sample 32 Philox calls, 64 Box-Muller pairs, 24 operations of
+// correlate and ~190 of rollout a step. Neither is in reach. At B = 1 a
+// sample's 32 dependent rollout steps are one chain of latencies on a card
+// that 64 or 128 blocks under-fill; the rollout of given actions alone (K4,
+// rollout.cu, 0.028 ms) is that floor's yardstick. At B >= 2 the SMs are
+// full and issue-bound: the rollout needs every warp an SM can hold to hide
+// its chains (K6 alone 0.073 ms at B = 16), and the draws' instructions
+// come on top.
 //
-// What the design does about it: one thread per sample, the scenario in
-// blockIdx.y, the draw counter (h, n, 0, b) keyed by the 64-bit seed, so
-// results depend neither on the block size nor on B (scenario 0 draws what
-// K5 draws); mean and L (20H floats, 2.5 KB per scenario at H=32) are
-// broadcast loads that stay in L1, so no shared memory pins the occupancy
-// (unlike K1's 128 KB).
+// The design: two kernels, the launch picks one by the grid; their results
+// are the same bit for bit, and `block` is S, the samples a block, in both.
+// - The tile kernel, when the grid has no more blocks than the card has SMs
+//   (K5 at N = 8192, S = 64: 128 blocks): a block of S samples of one
+//   scenario (blockIdx.y) on kTileThreads = 512 threads, in two phases.
+//   A. Draw with every thread. The block stages the scenario's factors and
+//      means (20H floats) in shared memory; its H x S Philox calls are
+//      spread over all 512 threads (8 a sample at S = 64), consecutive
+//      threads on consecutive samples. The counter is (h, n, 0, b), keyed by
+//      `seed`, in both kernels: the normals depend neither on S nor B, and
+//      scenario 0 draws what K5 draws. a_h = clip1(mean_h + L_h z_h) is one
+//      expression in both kernels, operand for operand, so the same fmaf
+//      chains form and every action keeps its bits. The actions go into a
+//      (4H, S) tile in shared memory; the given-z mode loads its tile of z
+//      coalesced along samples instead of drawing.
+//   B. Threads 0..S-1 each run their sample's H steps on the tile
+//      (rollout_cost, out of line, its tables copied into registers), while
+//      the other threads write the tile to `actions` in 16-byte stores
+//      (4-byte ones when N is not a multiple of 4), masked at N.
+//   So the draw leaves the sample's dependent chain, and the chain is the
+//   rollout's alone, as in K4.
+// - The step kernel, otherwise (K7 at B >= 2): one thread a sample; the
+//   block stages its scenario's factors and means in shared memory, and
+//   each step issues the next step's draw before its own rollout step, then
+//   stores its actions in coalesced 4-byte stores. On a full card the
+//   other warps hide the draws: the tile kernel loses there, its (4H, S)
+//   tile (35 KB at S = 64) holding a fraction of the rollouts an SM holds
+//   one thread a sample (tools/sample_rollout_variants.py).
+// Both compile the rollout step so that every cost equals the earlier
+// one-sample-a-thread kernel's bit for bit: inlined into the step kernel as
+// there, out of line in the tile kernel with its tables in registers (read
+// through the reference, or inlined, ptxas fuses the step's products
+// otherwise and costs move in their last bits).
+//
+// Resources (ptxas, sm_90a, CUDA 12.9): sample_rollout_info reports, for
+// each kernel at a block size, the threads, the dynamic shared memory ((4H S
+// + 20H + 4) floats in the tile kernel, 20H in the step kernel), the blocks
+// an SM holds, and the registers and local memory of a thread of each
+// reward's instantiation.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -47,8 +82,62 @@
 
 namespace {
 
+constexpr int kTileThreads = 512;  // threads a block of the tile kernel
+
+// Floats of a tile kernel block's dynamic shared memory: the (4H, kS) action
+// tile, the scenario's factors (16H) and means (4H), the krng force.
+template <int kS>
+__host__ __device__ constexpr size_t tile_smem_floats(int H) {
+  return static_cast<size_t>(4 * H) * kS + 20 * H + 4;
+}
+
+// Floats of a step kernel block's dynamic shared memory: the factors, means.
+__host__ __device__ constexpr size_t step_smem_floats(int H) {
+  return static_cast<size_t>(20) * H;
+}
+
+// The (4H, kS) tile a_s into out (scenario-offset actions), masked at N, by
+// threads i0, i0 + stride, ...
+template <int kS>
+__device__ __forceinline__ void store_tile(float* out, const float* a_s, int H,
+                                           int N, int n0, int i0, int stride) {
+  const int D = 4 * H;
+  if ((N & 3) == 0) {
+    for (int i = i0; i < D * (kS / 4); i += stride) {
+      const int d = i / (kS / 4), q = 4 * (i % (kS / 4));
+      if (n0 + q < N) {
+        *reinterpret_cast<float4*>(out + static_cast<size_t>(d) * N + n0 + q) =
+            *reinterpret_cast<const float4*>(a_s + d * kS + q);
+      }
+    }
+  } else {
+    for (int i = i0; i < D * kS; i += stride) {
+      const int n = n0 + i % kS;
+      if (n < N) out[static_cast<size_t>(i / kS) * N + n] = a_s[i];
+    }
+  }
+}
+
+// One sample's H-step rollout cost under its actions a[(4h + k) stride],
+// the step quad::rollout_step. Kept out of line, and the tables copied into
+// registers for the loop: so compiled, ptxas fuses the step's products as
+// in the step kernel, and every cost keeps its bits.
 template <int kReward>
-__global__ void sample_rollout_kernel(
+__device__ __noinline__ float rollout_cost(const quad::RolloutShared& shared,
+                                           const float* x0, const float* a,
+                                           int stride, int H) {
+  const quad::RolloutShared sh = shared;
+  quad::Carry c = quad::start(x0);
+  for (int h = 0; h < H; ++h) {
+    const float* ah = a + 4 * h * stride;
+    const float a4[4] = {ah[0], ah[stride], ah[2 * stride], ah[3 * stride]};
+    quad::rollout_step<kReward>(c, sh, h, a4);
+  }
+  return c.cost;
+}
+
+template <int kS, int kReward>
+__global__ void __launch_bounds__(kTileThreads) sample_rollout_tile_kernel(
     const float* __restrict__ x0, const float* __restrict__ scal,
     const int* __restrict__ ints, const float* __restrict__ ptar,
     const float* __restrict__ vtar, const float* __restrict__ dist,
@@ -56,9 +145,108 @@ __global__ void sample_rollout_kernel(
     const float* __restrict__ z, uint64_t seed, uint64_t disturb_seed,
     int krng, float* __restrict__ draw_out, float* __restrict__ costs,
     float* __restrict__ actions, int N, int H, int check_rollover, int mode) {
+  constexpr int kT = kTileThreads;
+  static_assert(kT % kS == 0 && kT > kS && kS % 32 == 0,
+                "whole warps of whole sample rows, and threads to store");
+  constexpr int kR = kT / kS;  // threads a sample's draws are spread over
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x;
+  const int n0 = blockIdx.x * kS;
+  const int b = blockIdx.y;
+  const size_t off = static_cast<size_t>(b) * 4 * H * N;  // scenario b of z and actions
+  float* a_s = smem;              // a_s[(4h + k) kS + s]
+  float* L_s = a_s + 4 * H * kS;  // L_h row-major at L_s[16h]
+  float* m_s = L_s + 16 * H;      // mean_h at m_s[4h]
+  float* f_s = m_s + 4 * H;       // the krng force
+
+  // phase A: the scenario's factors and means, the krng draw, then the tile
+  const float* Lb = chol + static_cast<size_t>(16) * b * H;
+  const float* mb = mean + static_cast<size_t>(4) * b * H;
+  for (int i = tid; i < 16 * H; i += kT) L_s[i] = Lb[i];
+  for (int i = tid; i < 4 * H; i += kT) m_s[i] = mb[i];
+  if (krng && tid == 0) {
+    const float4 d = rng::normals4(
+        make_uint4(0u, 0u, 1u, static_cast<uint32_t>(b)), disturb_seed);
+    const float eff = scal[quad::kNScal * b + quad::kDraw0];
+    f_s[0] = eff * d.x;
+    f_s[1] = eff * d.y;
+    f_s[2] = eff * d.z;
+    if (draw_out != nullptr && blockIdx.x == 0 && b == 0) {
+      draw_out[0] = d.x;
+      draw_out[1] = d.y;
+      draw_out[2] = d.z;
+    }
+  }
+  __syncthreads();
+
+  const int s = tid % kS;
+  const int n = n0 + s;
+  if (n < N) {
+    // this thread's steps: tid / kS, + kR, + 2 kR, ...
+    for (int h = tid / kS; h < H; h += kR) {
+      float4 zh;
+      if (z != nullptr) {
+        const float* z_h = z + off + static_cast<size_t>(4 * h) * N + n;
+        zh = make_float4(z_h[0], z_h[N], z_h[2 * static_cast<size_t>(N)],
+                         z_h[3 * static_cast<size_t>(N)]);
+      } else {
+        zh = rng::normals4(
+            make_uint4(static_cast<uint32_t>(h), static_cast<uint32_t>(n), 0u,
+                       static_cast<uint32_t>(b)),
+            seed);
+      }
+      const float* m = m_s + 4 * h;
+      const float* L = L_s + 16 * h;
+      float* a = a_s + 4 * h * kS + s;
+      a[0] = quad::clip1(m[0] + L[0] * zh.x);
+      a[kS] = quad::clip1(m[1] + L[4] * zh.x + L[5] * zh.y);
+      a[2 * kS] = quad::clip1(m[2] + L[8] * zh.x + L[9] * zh.y + L[10] * zh.z);
+      a[3 * kS] = quad::clip1(m[3] + L[12] * zh.x + L[13] * zh.y + L[14] * zh.z +
+                              L[15] * zh.w);
+    }
+  }
+  __syncthreads();
+
+  // phase B: threads 0..kS-1 roll out, the others store the tile
+  if (tid >= kS) {
+    store_tile<kS>(actions + off, a_s, H, N, n0, tid - kS, kT - kS);
+    return;
+  }
+  if (n >= N) return;
+  const quad::Tables t =
+      quad::scenario_tables(b, H, x0, scal, ints, ptar, vtar, dist);
+  quad::RolloutShared sh = quad::load_shared(t, check_rollover, mode);
+  if (krng) {
+    sh.fx = f_s[0];
+    sh.fy = f_s[1];
+    sh.fz = f_s[2];
+  }
+  costs[static_cast<size_t>(b) * N + n] =
+      rollout_cost<kReward>(sh, t.x0, a_s + tid, kS, H);
+}
+
+template <int kReward>
+__global__ void sample_rollout_step_kernel(
+    const float* __restrict__ x0, const float* __restrict__ scal,
+    const int* __restrict__ ints, const float* __restrict__ ptar,
+    const float* __restrict__ vtar, const float* __restrict__ dist,
+    const float* __restrict__ mean, const float* __restrict__ chol,
+    const float* __restrict__ z, uint64_t seed, uint64_t disturb_seed,
+    int krng, float* __restrict__ draw_out, float* __restrict__ costs,
+    float* __restrict__ actions, int N, int H, int check_rollover, int mode) {
+  extern __shared__ __align__(16) float smem[];
+  const int b = blockIdx.y;
+  float* L_s = smem;           // L_h row-major at L_s[16h]
+  float* m_s = smem + 16 * H;  // mean_h at m_s[4h]
+  {
+    const float* Lb = chol + static_cast<size_t>(16) * b * H;
+    const float* mb = mean + static_cast<size_t>(4) * b * H;
+    for (int i = threadIdx.x; i < 16 * H; i += blockDim.x) L_s[i] = Lb[i];
+    for (int i = threadIdx.x; i < 4 * H; i += blockDim.x) m_s[i] = mb[i];
+  }
+  __syncthreads();
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= N) return;
-  const int b = blockIdx.y;
   const quad::Tables t =
       quad::scenario_tables(b, H, x0, scal, ints, ptar, vtar, dist);
   const size_t off = (size_t)b * 4 * H * N;  // scenario b of z and actions
@@ -78,19 +266,23 @@ __global__ void sample_rollout_kernel(
   }
 
   quad::Carry c = quad::start(t.x0);
-  for (int h = 0; h < H; ++h) {
-    float4 zh;
+  auto draw = [&](int h) {
     if (z != nullptr) {
       const float* z_h = z + off + (size_t)(4 * h) * N + n;
-      zh = make_float4(z_h[0], z_h[N], z_h[2 * (size_t)N], z_h[3 * (size_t)N]);
-    } else {
-      zh = rng::normals4(
-          make_uint4(static_cast<uint32_t>(h), static_cast<uint32_t>(n), 0u,
-                     static_cast<uint32_t>(b)),
-          seed);
+      return make_float4(z_h[0], z_h[N], z_h[2 * (size_t)N], z_h[3 * (size_t)N]);
     }
-    const float* m = mean + 4 * (b * H + h);
-    const float* L = chol + 16 * (b * H + h);
+    return rng::normals4(
+        make_uint4(static_cast<uint32_t>(h), static_cast<uint32_t>(n), 0u,
+                   static_cast<uint32_t>(b)),
+        seed);
+  };
+  // step h + 1's draw is issued before step h's rollout, off its chain
+  float4 znext = draw(0);
+  for (int h = 0; h < H; ++h) {
+    const float4 zh = znext;
+    if (h + 1 < H) znext = draw(h + 1);
+    const float* m = m_s + 4 * h;
+    const float* L = L_s + 16 * h;
     const float a[4] = {
         quad::clip1(m[0] + L[0] * zh.x),
         quad::clip1(m[1] + L[4] * zh.x + L[5] * zh.y),
@@ -103,33 +295,121 @@ __global__ void sample_rollout_kernel(
   costs[(size_t)b * N + n] = c.cost;
 }
 
+// Launch `kernel` on `grid` x `threads` with `smem` bytes of dynamic shared
+// memory; returns cudaGetLastError(), or the error of a refused shared
+// memory size (nothing launched).
+template <typename Kernel, typename... Args>
+int launch_kernel(Kernel kernel, dim3 grid, int threads, size_t smem,
+                  cudaStream_t stream, Args... args) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // nothing launched: leave no error behind
+    return static_cast<int>(err);
+  }
+  kernel<<<grid, threads, smem, stream>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
 int launch(const float* x0, const float* scal, const int* ints,
            const float* ptar, const float* vtar, const float* dist,
            const float* mean, const float* chol, const float* z, uint64_t seed,
            uint64_t disturb_seed, int krng, float* draw_out, float* costs,
            float* actions, int B, int N, int H, int check_rollover, int mode,
            int reward, int block, cudaStream_t stream) {
-  if (B <= 0 || B > quad::kMaxScenarios || N <= 0 || H <= 0 || block <= 0 ||
-      block > 1024 || mode < quad::kShared || mode > quad::kMixed ||
-      reward < quad::kPenyaw || reward > quad::kRealworld ||
-      (krng && mode != quad::kShared)) {
+  // the tile kernel writes its tile in 16-byte stores
+  if (B <= 0 || B > quad::kMaxScenarios || N <= 0 || H <= 0 ||
+      (block != 32 && block != 64 && block != 128) || mode < quad::kShared ||
+      mode > quad::kMixed || reward < quad::kPenyaw ||
+      reward > quad::kRealworld || (krng && mode != quad::kShared) ||
+      !aligned16(actions)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const auto kernel = reward == quad::kRealworld
-                          ? sample_rollout_kernel<quad::kRealworld>
-                          : sample_rollout_kernel<quad::kPenyaw>;
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((N + block - 1) / block, B);
-  kernel<<<grid, block, 0, stream>>>(x0, scal, ints, ptar, vtar, dist, mean,
-                                     chol, z, seed, disturb_seed, krng,
-                                     draw_out, costs, actions, N, H,
-                                     check_rollover, mode);
-  return static_cast<int>(cudaGetLastError());
+  const bool rw = reward == quad::kRealworld;
+  auto run = [&](auto kernel, int threads, size_t floats) {
+    return launch_kernel(kernel, grid, threads, sizeof(float) * floats, stream,
+                         x0, scal, ints, ptar, vtar, dist, mean, chol, z, seed,
+                         disturb_seed, krng, draw_out, costs, actions, N, H,
+                         check_rollover, mode);
+  };
+  // the tile kernel when the grid has no more blocks than the card has SMs
+  if (static_cast<long long>(grid.x) * B > sms) {
+    return run(rw ? sample_rollout_step_kernel<quad::kRealworld>
+                  : sample_rollout_step_kernel<quad::kPenyaw>,
+               block, step_smem_floats(H));
+  }
+  if (block == 32) {
+    return run(rw ? sample_rollout_tile_kernel<32, quad::kRealworld>
+                  : sample_rollout_tile_kernel<32, quad::kPenyaw>,
+               kTileThreads, tile_smem_floats<32>(H));
+  }
+  if (block == 64) {
+    return run(rw ? sample_rollout_tile_kernel<64, quad::kRealworld>
+                  : sample_rollout_tile_kernel<64, quad::kPenyaw>,
+               kTileThreads, tile_smem_floats<64>(H));
+  }
+  return run(rw ? sample_rollout_tile_kernel<128, quad::kRealworld>
+                : sample_rollout_tile_kernel<128, quad::kPenyaw>,
+             kTileThreads, tile_smem_floats<128>(H));
+}
+
+// The resources of a kernel's two reward instantiations at `threads`
+// threads and `smem` bytes of dynamic shared memory a block, into out[0..7].
+template <typename Kernel>
+int resources(const Kernel (&kernels)[2], int threads, size_t smem, int* out) {
+  out[0] = threads;
+  out[1] = static_cast<int>(smem);
+  for (int k = 0; k < 2; ++k) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernels[k], cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2 + 3 * k],
+                                                        kernels[k], threads, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    cudaFuncAttributes attr;
+    err = cudaFuncGetAttributes(&attr, kernels[k]);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    out[3 + 3 * k] = attr.numRegs;
+    out[4 + 3 * k] = static_cast<int>(attr.localSizeBytes);
+  }
+  return 0;
+}
+
+template <int kS>
+int info(int H, int tile, int* out) {
+  if (tile) {
+    const decltype(&sample_rollout_tile_kernel<kS, quad::kPenyaw>) kernels[] = {
+        sample_rollout_tile_kernel<kS, quad::kPenyaw>,
+        sample_rollout_tile_kernel<kS, quad::kRealworld>};
+    return resources(kernels, kTileThreads, sizeof(float) * tile_smem_floats<kS>(H),
+                     out);
+  }
+  const decltype(&sample_rollout_step_kernel<quad::kPenyaw>) kernels[] = {
+      sample_rollout_step_kernel<quad::kPenyaw>,
+      sample_rollout_step_kernel<quad::kRealworld>};
+  return resources(kernels, kS, sizeof(float) * step_smem_floats(H), out);
 }
 
 }  // namespace
 
-// K5: one scenario. Launch on `stream`; returns cudaGetLastError(). z may
-// be null (draw in-kernel from `seed`); draw_out may be null.
+// K5: one scenario. Launch on `stream`; returns cudaGetLastError(), or an
+// error with nothing launched for a block other than 32, 64 or 128 samples,
+// an actions pointer not 16-byte aligned, or a tile larger than a block's
+// shared memory. z may be null (draw in-kernel from `seed`); draw_out may be
+// null.
 extern "C" int sample_rollout(
     const float* x0, const float* scal, const int* ints, const float* ptar,
     const float* vtar, const float* dist, const float* mean, const float* chol,
@@ -153,4 +433,17 @@ extern "C" int sample_rollout_batched(
   return launch(x0, scal, ints, ptar, vtar, dist, mean, chol, z, seed, 0, 0,
                 nullptr, costs, actions, B, N, H, check_rollover, mode, reward,
                 block, stream);
+}
+
+// The launch geometry and resources of a block of `block` samples at
+// horizon H in the tile kernel (tile != 0) or the step kernel, into
+// out[0..7]: threads, dynamic shared memory (bytes), then for the penyaw and
+// the realworld instantiation each: blocks an SM can hold, registers of a
+// thread, local memory of a thread (bytes: a stack frame or spills).
+extern "C" int sample_rollout_info(int block, int H, int tile, int* out) {
+  if (H <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (block == 32) return info<32>(H, tile, out);
+  if (block == 64) return info<64>(H, tile, out);
+  if (block == 128) return info<128>(H, tile, out);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -46,6 +46,7 @@ _SIGNATURES = {
     "sample_rollout_batched": [*[_P] * 9, _U64, _P, _P, *[_I] * 7, _P],
     "joint_sample_rollout_batched": [*[_P] * 9, _U64, _P, _P, *[_I] * 7, _P],
     "joint_sample_rollout_info": [_I, _I, _P],
+    "sample_rollout_info": [_I, _I, _I, _P],
     "sigma_ns": [_P, _P, _P, _I, _F, _F, _F, _F, _I, _I, _I, _I, _I, _P],
     "sigma_ns_info": [_P],
 }

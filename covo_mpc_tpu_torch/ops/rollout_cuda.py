@@ -24,6 +24,18 @@ then one thread a sample runs the rollout. It takes D = 4H up to
 ``covo_mpc_tpu_torch/tools/joint_rollout_variants.py`` times its variants
 and ablations on the card.
 
+K5 and K7 per-step are one source (``csrc/sample_rollout.cu``) whose launch
+picks one of two kernels by the grid, with the same results bit for bit
+and S samples a block (``block``, one of :data:`SAMPLE_BLOCKS`,
+:data:`SAMPLE_BLOCK` by default). When the grid has no more blocks than
+the card has SMs (K5 at N = 8192), the tile kernel: 512 threads a block
+draw the whole horizon's z and form a_h = clip(mean_h + L_h z_h) into an
+action tile in shared memory, then S threads roll out while the others
+store the tile. Otherwise (K7 at B >= 2) the step kernel: one thread a
+sample draws (one step ahead), stores and rolls out step by step.
+``covo_mpc_tpu_torch/tools/sample_rollout_variants.py`` times their
+variants and ablations on the card.
+
 Every rollout kernel runs the four disturbance modes of JAX's
 ``_disturb_mode``, a launch argument: "shared" (gaussian / none: x0's own
 force at step 0, the one shared force after), "table" (sin / periodic: the
@@ -91,6 +103,11 @@ JOINT_BATCHED_KERNEL = kernels.Kernel(
 JOINT_BLOCKS = (64, 128)
 JOINT_BLOCK = 64
 JOINT_MAX_D = 128
+# samples of a block of the per-step sample + rollout kernel (K5, K7
+# per-step): the sizes it takes, and the default
+# (tools/sample_rollout_variants.py)
+SAMPLE_BLOCKS = (32, 64, 128)
+SAMPLE_BLOCK = 64
 
 NSCAL = 17  # scalar pack, layout quad::Scal in csrc/quad_core.cuh
 NINT = 3  # [t0, max_steps, disturb_period]
@@ -226,13 +243,17 @@ def _launch_operands(env: QuadEnv, x0, t0, pos_traj, vel_traj, params, draw,
 
 class _RolloutKernelWrapper:
     """What the rollout kernels' wrappers share: the disturbance mode's and
-    the reward's launch arguments, the block size, the plain rollout (over B
-    scenarios for the batched wrappers, with the same reward) and the
-    rollover flag."""
+    the reward's launch arguments, the block size (one of ``blocks`` where
+    the kernel takes only those: anything else raises here, before any
+    launch), the plain rollout (over B scenarios for the batched wrappers,
+    with the same reward) and the rollover flag."""
 
     batched = False
+    blocks: Optional[tuple] = None
 
     def __init__(self, env: QuadEnv, block: int = 128):
+        if self.blocks is not None and block not in self.blocks:
+            raise ValueError(f"{type(self).__name__}: block {block} not in {self.blocks}")
         self.env = env
         self.mode = MODES[disturb_mode(env)]
         self.reward = REWARDS[env.reward_name]
@@ -241,30 +262,22 @@ class _RolloutKernelWrapper:
         self._check_rollover = int(not env.config.disable_rollover_terminate)
 
 
-class _JointKernelWrapper(_RolloutKernelWrapper):
-    """The joint wrappers' block: S samples a block, one of JOINT_BLOCKS
-    (anything else raises here, before any launch)."""
-
-    def __init__(self, env: QuadEnv, block: int = JOINT_BLOCK):
-        if block not in JOINT_BLOCKS:
-            raise ValueError(f"joint sample + rollout: block {block} not in {JOINT_BLOCKS}")
-        super().__init__(env, block)
-
-
 def _check_joint_width(D: int) -> None:
     if D > JOINT_MAX_D:
         raise ValueError(f"joint sample + rollout: D = {D} > {JOINT_MAX_D} (H > 32)")
 
 
-def joint_info(block: int = JOINT_BLOCK, H: int = 32) -> dict:
-    """K1 / K7 joint's launch geometry at ``block`` samples a block and
-    horizon ``H``, read from the built library: threads and dynamic shared
-    memory (bytes) of a block, and for each reward's instantiation the
-    blocks an SM holds, registers and local memory (bytes) of a thread."""
+def _geometry(symbol: str, block: int, H: int, *args) -> dict:
+    """A tiled kernel's launch geometry at ``block`` samples a block and
+    horizon ``H`` (and the info entry point's further ``args``), read from
+    the built library through its info entry point ``symbol``: threads and
+    dynamic shared memory (bytes) of a block, and for each reward's
+    instantiation the blocks an SM holds, registers and local memory (bytes)
+    of a thread."""
     out = (ctypes.c_int * 8)()
-    err = kernels.library().joint_sample_rollout_info(block, H, out)
+    err = getattr(kernels.library(), symbol)(block, H, *args, out)
     if err != 0:
-        raise RuntimeError(f"joint_sample_rollout_info: cudaError {err}")
+        raise RuntimeError(f"{symbol}: cudaError {err}")
     info = dict(samples=block, threads=out[0], dynamic_smem=out[1])
     for k, reward in enumerate(REWARDS):
         info[reward] = dict(zip(("blocks_per_sm", "registers", "local_bytes"),
@@ -272,7 +285,20 @@ def joint_info(block: int = JOINT_BLOCK, H: int = 32) -> dict:
     return info
 
 
-class JointSampleRollout(_JointKernelWrapper):
+def joint_info(block: int = JOINT_BLOCK, H: int = 32) -> dict:
+    """K1 / K7 joint's launch geometry (:func:`_geometry`)."""
+    return _geometry("joint_sample_rollout_info", block, H)
+
+
+def sample_info(block: int = SAMPLE_BLOCK, H: int = 32) -> dict:
+    """K5 / K7 per-step's two kernels' launch geometry (:func:`_geometry`
+    each): "tile" (launched when the grid has no more blocks than the card
+    has SMs) and "step" (otherwise)."""
+    return {name: _geometry("sample_rollout_info", block, H, tile)
+            for name, tile in (("tile", 1), ("step", 0))}
+
+
+class JointSampleRollout(_RolloutKernelWrapper):
     """K1: per sample, a = clip(mean + F z) and the H-step rollout cost.
 
     ``__call__(x0, t0, pos_traj, vel_traj, a_mean (H, 4), factor (D, D),
@@ -283,6 +309,8 @@ class JointSampleRollout(_JointKernelWrapper):
     with it. ``draw`` (3,) is the disturbance model's draw the rollout
     shares (``QuadEnv.draw_disturb``).
     """
+
+    blocks = JOINT_BLOCKS
 
     def plain(self, x0, t0, pos_traj, vel_traj, a_mean, factor, params,
               seed: int, N: int, deterministic: bool = False, discount=1.0,
@@ -393,13 +421,15 @@ class SampleRollout(_RolloutKernelWrapper):
     ``chol`` holds each step's lower Cholesky factor, row-major. ``z``
     (H, 4, N) feeds given normals (the "input_z" mode); without it the
     kernel draws Philox normals keyed by ``seed`` (an int) and the plain
-    version draws from a generator seeded with it. ``draw`` (3,) is the
-    disturbance model's draw the rollout shares; without one a stochastic
-    gaussian rollout draws its normals from ``disturb_seed`` ("krng":
-    in-kernel Philox; the plain version a seeded generator, both gaussian
-    only, as JAX's kernel_draw), and ``draw_out`` (3,), when given,
-    receives them.
+    version draws from a generator seeded with it. The kernel's results do
+    not depend on ``block``. ``draw`` (3,) is the disturbance model's draw
+    the rollout shares; without one a stochastic gaussian rollout draws its
+    normals from ``disturb_seed`` ("krng": in-kernel Philox; the plain
+    version a seeded generator, both gaussian only, as JAX's kernel_draw),
+    and ``draw_out`` (3,), when given, receives them.
     """
+
+    blocks = SAMPLE_BLOCKS
 
     def plain(self, x0, t0, pos_traj, vel_traj, a_mean, chol, params,
               seed: int, N: int, deterministic: bool = False, discount=1.0,
@@ -463,7 +493,7 @@ class SampleRollout(_RolloutKernelWrapper):
         return costs, a_t
 
 
-def make_rollout_sampling(env: QuadEnv, block: int = 128):
+def make_rollout_sampling(env: QuadEnv, block: int = SAMPLE_BLOCK):
     """The K5 wrapper (JAX: make_pallas_rollout_sampling)."""
     return SampleRollout(env, block)
 
@@ -540,6 +570,7 @@ class SampleRolloutBatched(_RolloutKernelWrapper):
     draws), and the plain version draws from a generator seeded with it.
     """
 
+    blocks = SAMPLE_BLOCKS
     batched = True
 
     def plain(self, x0s, t0s, pos_trajs, vel_trajs, a_means, chols, params_b,
@@ -587,7 +618,7 @@ class SampleRolloutBatched(_RolloutKernelWrapper):
         return costs, a_t
 
 
-class JointSampleRolloutBatched(_JointKernelWrapper):
+class JointSampleRolloutBatched(_RolloutKernelWrapper):
     """K7, joint: K1 for B scenarios in one launch, a = clip(mean_b + F_b z)
     per scenario and sample.
 
@@ -599,6 +630,7 @@ class JointSampleRolloutBatched(_JointKernelWrapper):
     draws), and the plain version draws from a generator seeded with it.
     """
 
+    blocks = JOINT_BLOCKS
     batched = True
 
     def plain(self, x0s, t0s, pos_trajs, vel_trajs, a_means, factors,
@@ -650,10 +682,10 @@ class JointSampleRolloutBatched(_JointKernelWrapper):
 def make_rollout_batched_sampling(env: QuadEnv, joint: bool = False,
                                   block: Optional[int] = None):
     """The K7 wrappers (JAX: make_pallas_rollout_batched_sampling):
-    per-step Cholesky factors (``joint=False``, MPPI; 128 samples a block by
-    default) or full factors (``joint=True``, CoVO; JOINT_BLOCK)."""
+    per-step Cholesky factors (``joint=False``, MPPI; SAMPLE_BLOCK samples
+    a block by default) or full factors (``joint=True``, CoVO; JOINT_BLOCK)."""
     if block is None:
-        block = JOINT_BLOCK if joint else 128
+        block = JOINT_BLOCK if joint else SAMPLE_BLOCK
     return (JointSampleRolloutBatched if joint else SampleRolloutBatched)(env, block)
 
 

@@ -101,19 +101,22 @@ ABLATIONS = {
 
 def edited(source: str, name: str, edits) -> str:
     for old, new in edits:
-        if old not in source:
-            raise ValueError(f"{name!r}: the source no longer holds {old!r}")
+        if old not in source or old == new:
+            raise ValueError(f"{name!r}: the source no longer holds {old!r}, or the "
+                             "edit changes nothing")
         source = source.replace(old, new)
     return source
 
 
-def build_all(texts: dict) -> dict:
-    """Compile every distinct source into its own library, all nvcc runs
-    at once; returns text -> (ptxas lines, the loaded library)."""
-    OUT.mkdir(parents=True, exist_ok=True)
+def build_all(texts: dict, out: Path = OUT,
+              entries=("joint_sample_rollout", "joint_sample_rollout_batched")) -> dict:
+    """Compile every distinct source into its own library under ``out``,
+    all nvcc runs at once, and bind those of its C ``entries`` it has;
+    returns text -> (ptxas lines, the loaded library)."""
+    out.mkdir(parents=True, exist_ok=True)
     jobs = {}
     for i, text in enumerate(dict.fromkeys(texts.values())):
-        src, lib = OUT / f"v{i}.cu", OUT / f"v{i}.so"
+        src, lib = out / f"v{i}.cu", out / f"v{i}.so"
         src.write_text(text)
         jobs[text] = (lib, subprocess.Popen(
             [kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-Xptxas", "-v",
@@ -132,7 +135,9 @@ def build_all(texts: dict) -> dict:
             elif "registers" in line or "spill" in line:
                 info.append(f"{entry} {line.split('ptxas info    : ', 1)[-1].strip()}")
         cdll = ctypes.CDLL(str(lib))
-        for name in ("joint_sample_rollout", "joint_sample_rollout_batched"):
+        for name in entries:
+            if not hasattr(cdll, name):
+                continue
             fn = getattr(cdll, name)
             fn.argtypes, fn.restype = kernels._SIGNATURES[name], ctypes.c_int
         built[text] = (info, cdll)
@@ -153,10 +158,11 @@ def occupancy(cdll, block: int) -> str:
             f"{out[3]} / {out[6]} registers (penyaw / realworld)")
 
 
-def operands(kind: str, task: str, B: int, dev):
+def operands(kind: str, task: str, B: int, dev, kernel_draw: bool = False):
     """Packed rollout operands of B domain-randomized scenarios of ``task``
     under the disturbance ``kind`` (reset states from seed 21, at t0 = 47
-    with a start force, stochastic draws), with the mode and reward."""
+    with a start force, stochastic draws; with ``kernel_draw`` none, packed
+    for K5's in-kernel draw, "krng"), with the mode and reward."""
     env = QuadEnv(EnvConfig(task=task, enable_randomizer=True, disturb_type=kind,
                             disable_rollover_terminate=True,
                             generate_noisy_state=True), device=dev)
@@ -169,7 +175,7 @@ def operands(kind: str, task: str, B: int, dev):
     ops = rollout_cuda._launch_operands(
         env, x0, t0, torch.stack([s.pos_traj for s in sts]),
         torch.stack([s.vel_traj for s in sts]), stack_params(params),
-        env.draw_disturb(gen, B), False, 1.0, H)
+        None if kernel_draw else env.draw_disturb(gen, B), False, 1.0, H, kernel_draw)
     return ops, rollout_cuda.MODES[rollout_cuda.disturb_mode(env)], \
         rollout_cuda.REWARDS[env.reward_name]
 

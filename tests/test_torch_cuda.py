@@ -12,7 +12,10 @@ K7 at a ragged N, at B=1 against K4, K5 and K1, with in-kernel draws that
 do not depend on the scenario count (also at the main path's D=128), K7
 joint's per-scenario moments and its repeatability at B=16, N=8192, H=32,
 K1 at D = 32, 36 and 128, and the joint kernel's refusal of a block or a
-width it does not take;
+width it does not take; K5 / K7 per-step bit for bit at every block size
+it takes, in every mode and with its in-kernel disturbance draw, its
+repeatability at B=16, N=8192, H=32, and its refusal of a block or an
+actions pointer it does not take;
 the Sigma-designer K8 at D = 32, 64, 100 (ragged cluster slabs) and 128
 on a near-singular and on a badly scaled R, and its repeatability; every
 disturbance mode (table, drag, mixed) of K1, K4-K7 at a
@@ -376,6 +379,49 @@ def test_joint_rejects_unsupported_block_and_width(dev):
     assert rollout_cuda.JOINT_KERNEL.launches == launches
 
 
+def test_sample_rollout_repeats_bit_for_bit(dev):
+    """Ten launches of K7 per-step at the batched path's size (B=16,
+    N=8192, H=32) give the same costs and actions bit for bit: every read of
+    the block's action tile waits for its writes."""
+    env, args, pb = _scenarios(dev, 16)
+    Hm, Nm = 32, 8192
+    g = torch.Generator(dev).manual_seed(9)
+    a_means = torch.randn(16, Hm, 4, generator=g, device=dev) * 0.2
+    A = torch.randn(16, Hm, 4, 4, generator=g, device=dev) * 0.2
+    chols = torch.linalg.cholesky(A @ A.mT + 0.05 * torch.eye(4, device=dev)).contiguous()
+    draws = torch.randn(16, 3, generator=g, device=dev)
+    k7 = rollout_cuda.make_rollout_batched_sampling(env)
+    first = k7(*args, a_means, chols, pb, 3, Nm, draws=draws)
+    for _ in range(9):
+        again = k7(*args, a_means, chols, pb, 3, Nm, draws=draws)
+        assert all(torch.equal(x, y) for x, y in zip(again, first))
+
+
+def test_sample_rollout_rejects_unsupported_block(dev):
+    """K5 / K7 per-step take 32, 64 or 128 samples a block and write their
+    action tile in 16-byte stores: another block raises in the wrappers, and
+    the C entry point launches nothing and returns an error for another
+    block or an actions pointer that is not 16-byte aligned."""
+    env, p, st = _env_state(dev)
+    for block in (16, 96, 256):
+        with pytest.raises(ValueError):
+            rollout_cuda.make_rollout_sampling(env, block=block)
+        with pytest.raises(ValueError):
+            rollout_cuda.make_rollout_batched_sampling(env, block=block)
+    ops = rollout_cuda._launch_operands(env, pack_state(st), st.time, st.pos_traj,
+                                        st.vel_traj, p, None, True, 1.0, H)
+    _, a_mean, chol = _per_step_inputs(dev)
+    costs, acts = torch.empty(N, device=dev), torch.empty(D * N + 4, device=dev)
+    launches = rollout_cuda.SAMPLE_KERNEL.launches
+    for block, out in ((96, acts.data_ptr()), (128, acts.data_ptr() + 4)):
+        with pytest.raises(RuntimeError):
+            rollout_cuda.SAMPLE_KERNEL.launch(
+                *(t.data_ptr() for t in ops), a_mean.data_ptr(), chol.data_ptr(), None, 0,
+                0, 0, None, costs.data_ptr(), out, N, H, 0, 0, 0, block)
+    torch.cuda.synchronize()
+    assert rollout_cuda.SAMPLE_KERNEL.launches == launches
+
+
 def test_joint_batched_philox_moments(dev):
     """K7 joint's per-scenario draws at the main path's size (N=8192, H=32):
     mean 0, F = 0.1 I, so each action dimension of every scenario is
@@ -597,6 +643,55 @@ def _batched_kernels_match_plain(dev, kind, task):
         c1, a1 = k7(*one, a_means[:1], fac[:1], pb1, 0, N, deterministic=joint,
                     discount=0.98, draws=d1, z=z[:1])
         assert torch.equal(a1[0], a_k[0]) and torch.equal(c1[0], c_k[0])
+
+
+@pytest.mark.parametrize("kind", ["gaussian"] + KINDS)
+def test_sample_rollout_bits_equal_across_blocks(dev, kind):
+    """K5 (B=1) and K7 per-step (B=16 domain-randomized scenarios) give the
+    same costs and actions bit for bit at every block size they take, at a
+    ragged N, with in-kernel draws and given normals, in each disturbance
+    mode; under the gaussian model also K5's in-kernel disturbance draw
+    ("krng") and its draw_out."""
+    Bm = 16
+    env, p, st = _mode_env(dev, kind)
+    env_b, _, _ = _mode_env(dev, kind, randomize=True)
+    g = torch.Generator(dev).manual_seed(13)
+    params = [env_b.sample_params(g) for _ in range(Bm)]
+    sts = [env_b.reset(g, q)[1]["noisy_state"] for q in params]
+    args = (torch.stack([pack_state(s) for s in sts]),
+            torch.tensor([T0 + b % 4 for b in range(Bm)], dtype=torch.int32, device=dev),
+            torch.stack([s.pos_traj for s in sts]), torch.stack([s.vel_traj for s in sts]))
+    pb = stack_params(params)
+    draw = env.draw_disturb(g)
+    draws = env_b.draw_disturb(g, Bm)
+    roll = (pack_state(st), st.time, st.pos_traj, st.vel_traj)
+    _, a_mean, chol = _per_step_inputs(dev)
+    a_means = torch.randn(Bm, H, 4, generator=g, device=dev) * 0.2
+    A = torch.randn(Bm, H, 4, 4, generator=g, device=dev) * 0.2
+    chols = torch.linalg.cholesky(A @ A.mT + 0.05 * torch.eye(4, device=dev)).contiguous()
+    z = torch.randn(H, 4, N, generator=g, device=dev)
+    zb = torch.randn(Bm, H, 4, N, generator=g, device=dev)
+    calls = [lambda k5, k7: k5(*roll, a_mean, chol, p, 11, N, draw=draw),
+             lambda k5, k7: k5(*roll, a_mean, chol, p, 0, N, draw=draw, z=z),
+             lambda k5, k7: k7(*args, a_means, chols, pb, 11, N, draws=draws),
+             lambda k5, k7: k7(*args, a_means, chols, pb, 0, N, draws=draws, z=zb)]
+    if kind == "gaussian":
+        draw_out = torch.zeros(3, device=dev)
+
+        def krng(k5, k7):
+            draw_out.zero_()
+            return (*k5(*roll, a_mean, chol, p, 11, N, disturb_seed=12,
+                        draw_out=draw_out), draw_out.clone())
+        calls.append(krng)
+    ref = None
+    for block in rollout_cuda.SAMPLE_BLOCKS:
+        k5 = rollout_cuda.make_rollout_sampling(env, block=block)
+        k7 = rollout_cuda.make_rollout_batched_sampling(env_b, block=block)
+        got = [call(k5, k7) for call in calls]
+        if ref is None:
+            ref = got
+        for x, y in zip(got, ref):
+            assert all(torch.equal(u, v) for u, v in zip(x, y))
 
 
 @pytest.mark.parametrize("second_order", [False, True], ids=["gn", "adjoint"])

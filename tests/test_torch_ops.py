@@ -183,28 +183,29 @@ def test_rollout_costs_plain_matches_pallas(layout, deterministic):
 # --- K5: per-step sample + rollout ------------------------------------------------
 
 
-def _per_step_inputs(seed=9):
+def _per_step_inputs(seed=9, Hs=H):
     """A mean and per-step lower Cholesky factors of SPD covariances."""
     rng = np.random.default_rng(seed)
-    a_mean = (rng.normal(size=(H, 4)) * 0.2).astype(np.float32)
-    A = rng.normal(size=(H, 4, 4)) * 0.2
+    a_mean = (rng.normal(size=(Hs, 4)) * 0.2).astype(np.float32)
+    A = rng.normal(size=(Hs, 4, 4)) * 0.2
     cov = A @ A.transpose(0, 2, 1) + 0.05 * np.eye(4)
     return a_mean, np.linalg.cholesky(cov).astype(np.float32), cov.astype(np.float32)
 
 
+@pytest.mark.parametrize("Hs", [H, 32])
 @pytest.mark.parametrize("deterministic", [True, False])
-def test_sample_rollout_plain_matches_pallas(deterministic):
+def test_sample_rollout_plain_matches_pallas(deterministic, Hs):
     """K5's plain route == the Pallas kernel in interpret mode, fed the
     normals its interpret path draws from act_key and the shared draw from
-    step_key."""
+    step_key, at H=8 and at the main path's H=32."""
     jenv, env, jp, noisy, p, st = _reset()
-    a_mean, chol, _ = _per_step_inputs()
+    a_mean, chol, _ = _per_step_inputs(Hs=Hs)
     step_key, act_key = jax.random.PRNGKey(3), jax.random.PRNGKey(4)
     costs_r, a_r = j_rollout_sampling(jenv, interpret=True, fast_keys=True)(
         jpack(noisy), noisy.time, noisy.pos_traj, noisy.vel_traj, a_mean, chol,
         jp, step_key, act_key, N, deterministic=deterministic, discount=0.98,
     )
-    z = jax.random.normal(act_key, (H, 4, SUB, N // SUB)).reshape(H, 4, N)
+    z = jax.random.normal(act_key, (Hs, 4, SUB, N // SUB)).reshape(Hs, 4, N)
     draw = t(jax.random.normal(jdyn.derive_dynamics_keys(step_key, fast=True), (3,)))
     launches = rollout_cuda.SAMPLE_KERNEL.launches
     costs, a_t = rollout_cuda.make_rollout_sampling(env)(
