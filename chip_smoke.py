@@ -12,6 +12,13 @@ source, at first use), then:
    (samples and threads a block, shared memory, blocks an SM, registers)
    and times K1's correlate alone as one ``torch.matmul`` (a yardstick,
    TF32 off); K5's in-kernel draws at every block size it takes;
+   (1b) times K2 and K3 alone (bare launches) beside their earlier
+   designs (``covo_mpc_tpu_torch/tools/earlier``, built in the same run),
+   holds their results against the earlier ones bit for bit (on one input
+   and through one episode of the main path's closed loop), and counts
+   each step loop's critical path from its SASS (``tools/sass_chain.py``:
+   ``chain_ms``, the least time of the H dependent steps on one SM, with
+   instruction latencies measured on the card by ``tools/latency_probe.cu``);
 2. runs one full-width CoVO solve with ``engine="cuda"`` (K1, and K4 under
    ``rng_mode="fast"``) and with ``engine="torch"``, and one MPPI solve
    with ``engine="cuda"`` (K5, and K4 under ``rng_mode="fast"``) and with
@@ -93,7 +100,13 @@ for the same work at the timed shapes (the larger of its fp32 operations
 over the fp32 peak and its bytes over the memory rate), and the time of
 one PyTorch call computing the same function (none exists for K1-K8:
 null); K1's and K7 joint's also hold ``correlate_library_ms``, the
-library product of their correlate part alone. Any failed check raises,
+library product of their correlate part alone; K2's and K3's hold
+``alone_ms``, ``graph_ms`` (launches replayed in a CUDA graph),
+``chain_ms`` (and its cycles a step), ``issue_ms`` (the step loop's stall
+counts over H steps: what one warp needs to issue it), and their earlier
+designs' ``earlier_alone_ms``, ``earlier_graph_ms``, ``earlier_chain_ms``,
+the max abs difference from them and how many launches of one closed-loop
+episode differ from them (phase 1b). Any failed check raises,
 so the script exits non-zero; without a CUDA device it exits at once. The
 line before the last is the kernels' JSON record, the last ``{"ok": true,
 "device": {...}}``.
@@ -103,6 +116,7 @@ line before the last is the kernels' JSON record, the last ``{"ok": true,
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import json
 import os
 import subprocess
@@ -473,6 +487,80 @@ def phase_kernels(env, dev, records):
     records["sample_rollout"] = dict(max_abs_err=max(err_a5, err_c5, err_k5),
                                      ms=ms_k5, plain_ms=ms_k5p, **k5_bound(1, N, H))
     say(f"  K5 {ms_k5:.4f} ms, plain {ms_k5p:.4f} ms")
+
+
+def phase_chain_kernels(dev, records, earlier, probe, clock_mhz):
+    """1b: K2 and K3 alone beside their earlier designs (``tools/earlier``)
+    in this run, from the host (bare launches, as every kernel's "alone")
+    and replayed in a CUDA graph (the host out of the way), with an empty
+    kernel's times as the launch floor; the new results against the earlier
+    ones bit for bit, on one input and on every input of one episode of the
+    main path's closed loop; and each step loop's critical path from its SASS
+    (``chain_ms``: H steps at the SM clock ``clocks.max.sm``, with the
+    latencies the probe measures on this card)."""
+    from covo_mpc_tpu_torch.ops import hessian_cuda, kernels, rollout_cuda
+    from covo_mpc_tpu_torch.tools import sass_chain
+    from covo_mpc_tpu_torch.tools.primal_chain_variants import (
+        chain_j,
+        chain_of,
+        empty_launcher,
+        events_ms,
+        graph_ms,
+        launcher,
+        loop_bits,
+        primal_operands,
+    )
+
+    phase("phase 1b: K2 and K3 alone beside their earlier designs; their chains")
+    lat = sass_chain.measure_latencies(probe)
+    say("  latencies (cycles, probe): " + ", ".join(f"{k} {v:.2f}" for k, v in lat.items()))
+    empty = empty_launcher(probe)
+    say(f"  an empty one-warp kernel: {events_ms(empty(), 200):.4f} ms a launch from the "
+        f"host, {graph_ms(empty):.4f} ms in a graph")
+    lib = kernels.library()
+    _, _, x0, scal, a, dist = primal_operands(H, dev, "zero")
+    k2_ops = (x0, scal, a.reshape(-1).contiguous(), dist.reshape(-1).contiguous())
+    J = chain_j(13, H, dev)
+    for name, kernel, ops, out, sd in (
+            ("primal", rollout_cuda.PRIMAL_KERNEL, k2_ops, torch.empty(H, 13, device=dev), 13),
+            ("sens_chain", hessian_cuda.CHAIN_KERNEL, (J,), torch.empty(H, 17, D, device=dev),
+             13)):
+        old_out = torch.empty_like(out)
+        launcher(earlier[name][1], name, ops, old_out, H, sd)()
+        launcher(lib, name, ops, out, H, sd)()
+        torch.cuda.synchronize()
+        same = torch.equal(out, old_out)
+        diff = max_err(out, old_out)
+        args = (*[t.data_ptr() for t in ops], out.data_ptr(), H) + (
+            (sd, 4) if name == "sens_chain" else ())
+        ms = bare_launch_ms(kernel, *args, reps=200)
+        times = {}
+        for which, cdll, dst in (("new", lib, out), ("earlier", earlier[name][1], old_out),
+                                 ("new again", lib, out)):
+            make = lambda cdll=cdll, dst=dst: launcher(cdll, name, ops, dst, H, sd)  # noqa: E731
+            times[which] = (events_ms(make(), 200), graph_ms(make))
+        loop = chain_of(lib, name, sd, lat)
+        loop_old = chain_of(earlier[name][1], name, sd, lat)
+        chain = sass_chain.chain_ms(H, loop["cycles"], clock_mhz)
+        chain_old = sass_chain.chain_ms(H, loop_old["cycles"], clock_mhz)
+        records[name].update(alone_ms=ms, graph_ms=times["new"][1], chain_ms=chain,
+                             chain_cycles=loop["cycles"],
+                             issue_ms=sass_chain.chain_ms(H, loop["issue"], clock_mhz),
+                             earlier_alone_ms=times["earlier"][0],
+                             earlier_graph_ms=times["earlier"][1], earlier_chain_ms=chain_old,
+                             earlier_max_abs_diff=diff)
+        say(f"  {kernel.symbol}: alone {ms:.4f} ms; equal to the earlier design bit for bit: "
+            f"{same} (max |diff| {diff:.3e}); from the host / in a graph, in turns: " + ", ".join(
+                f"{k} {v[0]:.4f} / {v[1]:.4f}" for k, v in times.items()) + " ms")
+        say(f"  {kernel.symbol} chain {chain:.4f} ms at {clock_mhz:.0f} MHz: "
+            f"{sass_chain.describe(loop)}")
+        say(f"  {kernel.symbol} earlier design's chain {chain_old:.4f} ms: "
+            f"{sass_chain.describe(loop_old)}")
+    # every K2 / K3 input of one episode of the main path's closed loop
+    for name, (n, bad, diff) in loop_bits(earlier, dev, 300).items():
+        records[name]["earlier_loop_launches_differing"] = f"{bad} of {n}"
+        say(f"  {name} in one 300-step episode of the main path's closed loop: {bad} of {n} "
+            f"launches differ from the earlier design, max |diff| {diff:.3e}")
 
 
 def make_solver(env, engine, seed=0, rng_mode=None, name="covo_online",
@@ -1962,6 +2050,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from covo_mpc_tpu_torch.models import EnvConfig, QuadEnv
     from covo_mpc_tpu_torch.ops import covariance_cuda, hessian_cuda, kernels, rollout_cuda
+    from covo_mpc_tpu_torch.tools import primal_chain_variants, sass_chain
 
     dev = torch.device("cuda", 0)
     # fp32 products in full fp32 (PyTorch's default, stated: the plain
@@ -1985,8 +2074,15 @@ def main(argv=None) -> int:
     say(f"fp32 peak {PEAK['fp32'] / 1e12:.2f} TFLOP/s ({sms} SMs at {clock_mhz:.0f} MHz), "
         f"memory {HBM_BYTES_PER_S / 1e12:.2f} TB/s")
     t0 = time.perf_counter()
-    lib = kernels.library()
-    say(f"kernel build: nvcc {lib.build_seconds:.2f} s, load {time.perf_counter() - t0:.2f} s")
+    # the earlier K2 / K3 and the latency probe build beside the library
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        earlier_f = pool.submit(primal_chain_variants.build_earlier)
+        probe_f = pool.submit(sass_chain.build_probe, primal_chain_variants.OUT)
+        lib = kernels.library()
+        earlier, probe = earlier_f.result(), probe_f.result()
+    say(f"kernel build: nvcc {lib.build_seconds:.2f} s, load and the earlier K2 / K3 and "
+        f"the latency probe {time.perf_counter() - t0:.2f} s in all")
+    probe = sass_chain.load_probe(probe)
 
     env = QuadEnv(EnvConfig(**ENV_KW))
     covo_kernels = [rollout_cuda.JOINT_KERNEL, rollout_cuda.PRIMAL_KERNEL,
@@ -1999,6 +2095,7 @@ def main(argv=None) -> int:
                                     covariance_cuda.SIGMA_KERNEL]
     records = {}
     phase_kernels(env, dev, records)
+    phase_chain_kernels(dev, records, earlier, probe, clock_mhz)
     phase_solve(env, dev, single_kernels)
     launches = phase_closed_loops(env, dev, args.total_steps, covo_kernels,
                                   single_kernels)

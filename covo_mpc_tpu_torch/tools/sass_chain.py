@@ -1,0 +1,321 @@
+"""The critical path of a kernel's step loop, from its SASS: ``chain_ms``.
+
+A dependent chain (the sensitivity chain K3, the primal K2) cannot come
+near its roofline bound, so beside it stands the least time its H
+dependent steps take on one SM. It is computed from the machine code:
+
+1. ``function_sass`` dumps one kernel's SASS from a built library with
+   ``cuobjdump -sass``.
+2. ``parse`` reads its instructions: address, guard predicate, opcode, the
+   registers and predicates it writes and those it reads.
+3. ``step_loop`` finds the innermost loops (a backward branch and the
+   instructions from its target to it) and walks each body once along the
+   fast path: a forward branch whose target lies inside the body is taken
+   when it has no guard or when the code it skips calls a subroutine (the
+   IEEE division and square root branch around their slow-path calls),
+   else it falls through; one that leaves the body is not taken (the loop
+   goes on), and ``BRA.DIV`` never is.
+4. ``critical_path`` weights each instruction by the latency of its class
+   and takes the longest path through the body's register and predicate
+   dependences; the loop with the longest path is the step loop. Beside it
+   stands the sum of the body's stall counts, read from each instruction's
+   control bits: what one warp needs to issue a step, whatever the
+   dependences.
+
+``chain_ms = steps * cycles / SM clock``. The latencies are measured on the
+card by ``latency_probe.cu`` (dependent chains of FFMA, IMAD, MUFU.RSQ,
+MUFU.RCP, LDS, SHFL and L2-hit loads between reads of the cycle counter),
+see ``measure_latencies``; ``LATENCY`` holds the values used where none is
+measured. The count ignores issue slots, bank conflicts and the waits on
+copies, so it is a floor: a step can take longer, never shorter.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import re
+import subprocess
+from dataclasses import dataclass, field
+from pathlib import Path
+
+# cycles of a dependent issue by class, used where ``measure_latencies``
+# gives none (the probe's classes: fp32, int, mufu, lds, shfl, ldg)
+LATENCY = {"fp32": 4.0, "int": 4.0, "mufu": 18.0, "lds": 30.0, "shfl": 24.0,
+           "ldg": 260.0}
+_CLASS = {
+    **dict.fromkeys(("FFMA", "FMUL", "FADD", "FMNMX", "FSEL", "FSET", "FSETP", "FCHK",
+                     "FSWZADD", "FRND", "HFMA2", "HADD2", "HMUL2"), "fp32"),
+    **dict.fromkeys(("IMAD", "IADD3", "LOP3", "SHF", "LEA", "SEL", "ISETP", "MOV",
+                     "PRMT", "IABS", "IMNMX", "VIADD", "IADD", "PLOP3", "P2R", "R2P",
+                     "BMSK", "SGXT", "FLO", "POPC", "BREV", "CS2R", "IDP", "I2F",
+                     "F2I", "F2F", "I2FP", "F2IP"), "int"),
+    "MUFU": "mufu",
+    **dict.fromkeys(("LDS", "LDSM", "LDC", "S2R", "S2UR", "ULDC"), "lds"),
+    **dict.fromkeys(("SHFL", "VOTE", "MATCH", "REDUX"), "shfl"),
+    **dict.fromkeys(("LDG", "LD", "LDL"), "ldg"),
+}
+# write no register (the first operands are read or are addresses)
+_NO_DEST = {"ST", "STS", "STG", "STL", "RED", "BRA", "BRX", "JMP", "JMX", "CALL", "RET",
+            "EXIT", "BAR", "WARPSYNC", "BSSY", "BSYNC", "NOP", "DEPBAR", "LDGDEPBAR",
+            "MEMBAR", "YIELD", "ERRBAR", "CCTL", "LDGSTS", "FENCE", "BPT", "KILL",
+            "SYNCS", "UTMALDG", "UTMASTG", "ARRIVES"}
+# write predicates only
+_PRED_ONLY = {"ISETP", "FSETP", "DSETP", "HSETP2", "PLOP3", "FCHK", "PSETP", "UISETP",
+              "UPLOP3", "R2P"}
+_LINE = re.compile(r"^\s*/\*([0-9a-f]+)\*/\s+(.*?)\s*;")
+_WORD = re.compile(r"/\* (0x[0-9a-f]{16}) \*/\s*$")
+_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
+_REG = re.compile(r"\b(U?R\d+|U?P\d+)(\.64|\.128)?\b")
+_PRED = re.compile(r"^U?P(\d+|T)$")
+
+
+@dataclass
+class Instr:
+    addr: int
+    opcode: str  # with its modifiers, e.g. "FFMA" or "LDS.128"
+    text: str
+    dests: list = field(default_factory=list)
+    srcs: list = field(default_factory=list)
+    target: object = None  # a branch's label or address
+    stall: int = 0  # cycles before the warp's next issue (the control bits)
+    guarded: bool = False  # under a predicate (@P0 ...)
+
+    @property
+    def base(self) -> str:
+        return self.opcode.split(".")[0]
+
+
+def _regs(token: str) -> list:
+    """Registers and predicates named by one operand (a .64 pair: both)."""
+    out = []
+    for name, width in _REG.findall(token):
+        n = {"": 1, ".64": 2, ".128": 4}[width]
+        kind, idx = re.match(r"(U?[RP])(\d+)", name).groups()
+        out += [f"{kind}{int(idx) + i}" for i in range(n)]
+    return out
+
+
+def _dest_width(opcode: str) -> int:
+    mods = opcode.split(".")[1:]
+    if "128" in mods:
+        return 4
+    if "64" in mods or "WIDE" in mods or opcode.split(".")[0].startswith("D"):
+        return 2
+    return 1
+
+
+def parse(sass: str) -> list:
+    """The instructions of one function's SASS, labels resolved to addresses."""
+    instrs, labels, pending = [], {}, []
+    lines = sass.splitlines()
+    for n, line in enumerate(lines):
+        lab = _LABEL.match(line)
+        if lab:
+            pending.append(lab.group(1))
+            continue
+        m = _LINE.match(line)
+        if not m:
+            continue
+        addr, text = int(m.group(1), 16), m.group(2).strip()
+        for name in pending:
+            labels[name] = addr
+        pending = []
+        guard = None
+        if text.startswith("@"):
+            guard, text = text.split(None, 1)
+        parts = text.split(None, 1)
+        opcode, rest = parts[0], (parts[1] if len(parts) > 1 else "")
+        ins = Instr(addr, opcode, text, guarded=guard is not None)
+        # the second 64-bit word, on the next line, holds the control bits:
+        # the stall count is its bits 41-44 (bits 105-108 of the 128)
+        word = _WORD.search(lines[n + 1]) if n + 1 < len(lines) else None
+        if word and _WORD.search(line):
+            ins.stall = (int(word.group(1), 16) >> 41) & 0xF
+        target = re.search(r"`\(([^)]*)\)|\b0x([0-9a-f]+)\b\s*$", rest)
+        if ins.base in ("BRA", "CALL", "JMP") and target:
+            ins.target = target.group(1) or int(target.group(2), 16)
+        ops = [o.strip() for o in rest.split(",")] if rest else []
+        i = 0
+        if ins.base not in _NO_DEST:
+            while i < len(ops) and _PRED.match(ops[i]):  # leading predicates: written
+                ins.dests += [] if ops[i].endswith("PT") else [ops[i]]
+                i += 1
+            if ins.base not in _PRED_ONLY and i < len(ops) and re.match(r"^U?R(\d+|Z)", ops[i]):
+                reg = re.match(r"^(U?R)(\d+|Z)", ops[i]).groups()
+                if reg[1] != "Z":
+                    ins.dests += [f"{reg[0]}{int(reg[1]) + k}"
+                                  for k in range(_dest_width(opcode))]
+                i += 1
+        for tok in ops[i:]:
+            ins.srcs += _regs(tok)
+        if guard:
+            ins.srcs += _regs(guard)
+        instrs.append(ins)
+    for ins in instrs:
+        if isinstance(ins.target, str):
+            ins.target = labels.get(ins.target)
+    return instrs
+
+
+def latency(ins: Instr, lat: dict) -> float:
+    """Cycles from ``ins``'s issue to its result, by its class (0 for an
+    instruction whose result nothing waits on: stores, branches, barriers)."""
+    if ins.base in _NO_DEST:
+        return 0.0
+    base = ins.base
+    if base not in _CLASS and base.startswith("U") and base[1:] in _CLASS:
+        base = base[1:]  # a uniform-datapath twin
+    cls = _CLASS.get(base, "fp32")
+    op = f"mufu.{ins.opcode.split('.')[-1].lower()}"
+    if cls == "mufu" and op in lat:
+        return lat[op]
+    return lat.get(cls, LATENCY[cls])
+
+
+def loops(instrs: list) -> list:
+    """(first, last) indices of the innermost loops: a backward branch
+    and its target, with no other backward branch between them."""
+    index = {ins.addr: k for k, ins in enumerate(instrs)}
+    back = [(index[ins.target], k) for k, ins in enumerate(instrs)
+            if ins.base == "BRA" and isinstance(ins.target, int) and ins.target <= ins.addr
+            and ins.target in index]
+    return [(a, b) for a, b in back
+            if not any(a <= a2 and b2 <= b and (a2, b2) != (a, b) for a2, b2 in back)]
+
+
+def fast_path(instrs: list, first: int, last: int) -> list:
+    """The body's instructions along the fast path (module docstring)."""
+    index = {ins.addr: k for k, ins in enumerate(instrs)}
+    path, k = [], first
+    while k < last:
+        ins = instrs[k]
+        path.append(ins)
+        tgt = ins.target
+        inside = (ins.opcode in ("BRA", "BRA.U") and isinstance(tgt, int)
+                  and ins.addr < tgt <= instrs[last].addr)
+        # a forward branch inside the body is taken when it jumps (no guard)
+        # or when the code it skips calls a slow path
+        if inside and (not ins.guarded
+                       or any(i.base == "CALL" for i in instrs[k + 1:index[tgt]])):
+            k = index[tgt]
+        else:
+            k += 1
+    return path
+
+
+def critical_path(path: list, lat: dict) -> tuple:
+    """(cycles, the instructions on the longest dependence path) of one
+    walk of a loop body, every value read from outside it ready at 0."""
+    ready, via, best, end = {}, {}, 0.0, None
+    for ins in path:
+        start, prev = 0.0, None
+        for s in ins.srcs:
+            if s in ready and ready[s][0] > start:
+                start, prev = ready[s]
+        done = start + latency(ins, lat)
+        via[id(ins)] = (ins, prev)
+        for d in ins.dests:
+            ready[d] = (done, ins)
+        if done > best:
+            best, end = done, ins
+    chain = []
+    while end is not None:
+        chain.append(end)
+        end = via[id(end)][1]
+    return best, chain[::-1]
+
+
+def step_loop(sass: str, lat: dict) -> dict:
+    """The loop with the longest critical path: its cycles a walk, the
+    instructions on that path and in the body, the sum of the body's stall
+    counts (``issue``: the cycles one warp takes to issue a walk, waits on
+    loads and barriers not counted), and its address range."""
+    instrs = parse(sass)
+    best = None
+    for first, last in loops(instrs):
+        path = fast_path(instrs, first, last)
+        cycles, chain = critical_path(path, lat)
+        if best is None or cycles > best["cycles"]:
+            best = dict(cycles=cycles, chain=chain, body=len(path),
+                        issue=sum(ins.stall for ins in path) + instrs[last].stall,
+                        range=(instrs[first].addr, instrs[last].addr))
+    if best is None:
+        raise ValueError("no loop in this SASS")
+    return best
+
+
+def cuobjdump() -> str:
+    from covo_mpc_tpu_torch.ops import kernels
+
+    return str(Path(kernels._nvcc()).with_name("cuobjdump"))
+
+
+def function_sass(lib: Path, name: str) -> str:
+    """The SASS of the one function in ``lib`` whose mangled name holds
+    ``name`` (e.g. "sens_chain_kernelILi13E", "primal_kernel")."""
+    out = subprocess.run([cuobjdump(), "-sass", str(lib)], capture_output=True, text=True,
+                         check=True).stdout
+    parts = re.split(r"\n\s*Function : (\S+)\n", out)
+    found = [(fn, body) for fn, body in zip(parts[1::2], parts[2::2]) if name in fn]
+    if len(found) != 1:
+        raise ValueError(f"{len(found)} functions match {name!r} in {lib}")
+    return found[0][1]
+
+
+def build_probe(out_dir: Path) -> Path:
+    """Compile ``latency_probe.cu`` into a library under ``out_dir``."""
+    from covo_mpc_tpu_torch.ops import kernels
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    lib = out_dir / "latency_probe.so"
+    proc = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-o", str(lib),
+                           str(Path(__file__).with_name("latency_probe.cu"))],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on latency_probe.cu:\n{proc.stdout}{proc.stderr}")
+    return lib
+
+
+def load_probe(lib: Path) -> ctypes.CDLL:
+    """The built probe library, its entry points bound."""
+    cdll = ctypes.CDLL(str(lib))
+    cdll.latency_probe.argtypes = [ctypes.c_void_p] * 4
+    cdll.latency_probe.restype = ctypes.c_int
+    cdll.empty_launch.argtypes = [ctypes.c_void_p]
+    cdll.empty_launch.restype = ctypes.c_int
+    return cdll
+
+
+def measure_latencies(probe: ctypes.CDLL) -> dict:
+    """Run the latency probe (``load_probe``) on the current card: cycles of
+    a dependent issue by class, and the SM clock the probe ran at
+    ("sm_mhz": its cycles over the global timer's ns)."""
+    import torch
+
+    ring = torch.empty(16 * 64, dtype=torch.int64, device="cuda")
+    sink = torch.empty(32, device="cuda")
+    out = torch.zeros(8, dtype=torch.float64, device="cuda")
+    err = probe.latency_probe(ring.data_ptr(), sink.data_ptr(), out.data_ptr(),
+                              torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"latency_probe: CUDA launch failed, cudaError {err}")
+    ffma, imad, rsq, rcp, lds, shfl, ldg, mhz = out.tolist()
+    return {"fp32": ffma, "int": imad, "mufu": max(rsq, rcp), "mufu.rsq": rsq,
+            "mufu.rcp": rcp, "lds": lds, "shfl": shfl, "ldg": ldg, "sm_mhz": mhz}
+
+
+def chain_ms(steps: int, cycles: float, clock_mhz: float) -> float:
+    """The least time of ``steps`` dependent steps of ``cycles`` each at an
+    SM clock of ``clock_mhz``."""
+    return steps * cycles / (clock_mhz * 1e3)
+
+
+def describe(loop: dict) -> str:
+    """One line: cycles a step, the path's length and its opcodes."""
+    ops = {}
+    for ins in loop["chain"]:
+        ops[ins.opcode] = ops.get(ins.opcode, 0) + 1
+    return (f"{loop['cycles']:.1f} cycles a step over {len(loop['chain'])} dependent "
+            f"instructions of {loop['body']} (issue {loop['issue']} cycles) in the loop at "
+            f"{loop['range'][0]:#x}-"
+            f"{loop['range'][1]:#x} ({', '.join(f'{k} {v}' for k, v in ops.items())})")

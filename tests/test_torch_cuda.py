@@ -21,7 +21,11 @@ on a near-singular and on a badly scaled R, and its repeatability; every
 disturbance mode (table, drag, mixed) of K1, K4-K7 at a
 ragged N, K6/K7 at B=1 against B=16, and the Hessian through K2 (on a force
 table) and K3 (at sd=16) in each mode; and the realworld reward of
-tracking_slow in K1, K4-K7 the same way, in every disturbance mode.
+tracking_slow in K1, K4-K7 the same way, in every disturbance mode; K3
+at H = 8, 13 (a ragged last block) and 32, its repeatability and its exact
+zero prefix, K2 on a sin table at H = 8, 13 and 32, and both bit for bit
+against the designs they replaced (``covo_mpc_tpu_torch/tools/earlier``),
+also on every input of one closed-loop episode of the main path.
 Tolerances are the ones ``chip_smoke.py`` states (the JAX kernel tests'
 own).
 """
@@ -33,8 +37,15 @@ import torch
 
 from covo_mpc_tpu_torch.models import EnvConfig, QuadEnv, pack_state
 from covo_mpc_tpu_torch.models.structs import index_params, stack_params
-from covo_mpc_tpu_torch.ops import hessian_cuda, rollout_cuda
+from covo_mpc_tpu_torch.ops import hessian_cuda, kernels, rollout_cuda
 from covo_mpc_tpu_torch.ops.hessian import make_hessian_adjoint
+from covo_mpc_tpu_torch.tools.primal_chain_variants import (
+    build_earlier,
+    chain_j,
+    launcher,
+    loop_bits,
+    primal_operands,
+)
 
 N, H = 1000, 8  # N ragged for blocks of 64 and 128
 D = 4 * H
@@ -215,6 +226,79 @@ def test_sens_chain_matches_plain(dev, sd):
     T_p = hessian_cuda.sens_chain_plain(J, 4)
     assert _rel(T_k, T_p) < 1e-5
     assert _rel(hessian_cuda.pullback(T_k, M), hessian_cuda.pullback(T_p, M)) < 1e-5
+
+
+@pytest.mark.parametrize("sd", [13, 16])
+@pytest.mark.parametrize("Hs", [8, 13, 32])
+def test_sens_chain_matches_plain_at_horizons(dev, sd, Hs):
+    """K3's blocks of 8 columns over D = 4H: H = 13 leaves a ragged last
+    block; T and the pullback within the relative 1e-5 of the plain chain."""
+    J = chain_j(sd, Hs, dev)
+    M = torch.randn(Hs, sd + 4, sd + 4, generator=torch.Generator(dev).manual_seed(4),
+                    device=dev)
+    M = (M + M.transpose(1, 2)) / 2
+    T_k = hessian_cuda.sens_chain(J, 4)
+    T_p = hessian_cuda.sens_chain_plain(J, 4)
+    assert _rel(T_k, T_p) < 1e-5
+    assert _rel(hessian_cuda.pullback(T_k, M), hessian_cuda.pullback(T_p, M)) < 1e-5
+
+
+@pytest.mark.parametrize("sd", [13, 16])
+def test_sens_chain_repeats_bit_for_bit(dev, sd):
+    J = chain_j(sd, 32, dev)
+    T0 = hessian_cuda.sens_chain(J, 4)
+    for _ in range(10):
+        assert torch.equal(hessian_cuda.sens_chain(J, 4), T0)
+
+
+@pytest.mark.parametrize("Hs", [13, 32])
+def test_sens_chain_zero_prefix_is_exact(dev, Hs):
+    """Column x of T is exactly 0 in its S1 rows at h <= x // 4 (the steps
+    K3's blocks skip) and its E rows are exactly the identity pattern."""
+    sd = 13
+    T = hessian_cuda.sens_chain(chain_j(sd, Hs, dev), 4)
+    h = torch.arange(Hs, device=dev)[:, None]
+    x = torch.arange(4 * Hs, device=dev)[None, :]
+    prefix = h <= x // 4  # (H, D)
+    assert bool((T[:, :sd, :].abs().amax(1)[prefix] == 0).all())
+    assert bool((T[:, :sd, :].abs().amax(1)[~prefix] > 0).all())
+    E = (x[None] == 4 * h[:, :, None] + torch.arange(4, device=dev)[None, :, None]).float()
+    assert torch.equal(T[:, sd:, :], E)
+
+
+@pytest.mark.parametrize("Hs", [8, 13, 32])
+def test_primal_matches_plain_on_a_sin_table(dev, Hs):
+    env, p, x0, _, a, dist = primal_operands(Hs, dev, "sin")
+    k2 = rollout_cuda.make_primal(env, Hs)
+    torch.testing.assert_close(k2(x0, a, dist, p), k2.plain(x0, a, dist, p),
+                               atol=1e-5, rtol=0)
+
+
+def test_chain_kernels_equal_earlier_designs_bit_for_bit(dev):
+    """K3 (sd 13 and 16) and K2 (zero and sin tables) at H = 32 against the
+    designs they replaced (``tools/earlier``), built here."""
+    earlier = build_earlier()
+    lib = kernels.library()
+    cases = [("sens_chain", (chain_j(sd, 32, dev),), torch.empty(32, sd + 4, 128, device=dev),
+              sd) for sd in (13, 16)]
+    for table in ("zero", "sin"):
+        _, _, x0, scal, a, dist = primal_operands(32, dev, table)
+        cases.append(("primal", (x0, scal, a.reshape(-1).contiguous(),
+                                 dist.reshape(-1).contiguous()),
+                      torch.empty(32, 13, device=dev), 13))
+    for name, ops, out, sd in cases:
+        old = torch.empty_like(out)
+        launcher(earlier[name][1], name, ops, old, 32, sd)()
+        launcher(lib, name, ops, out, 32, sd)()
+        torch.cuda.synchronize()
+        assert torch.equal(out, old), (name, sd, float((out - old).abs().max()))
+
+
+def test_chain_kernels_equal_earlier_designs_in_the_closed_loop(dev):
+    """K2 and K3 on every input of one episode of the main path's closed loop
+    (CoVO online, gn, kernel rng, zigzag) against the earlier designs."""
+    for name, (n, bad, diff) in loop_bits(build_earlier(), dev, 300).items():
+        assert n == 300 and bad == 0, (name, bad, diff)
 
 
 @pytest.mark.parametrize("second_order", [False, True], ids=["gn", "adjoint"])

@@ -8,8 +8,11 @@ JAX kernel tests' own. A CUDA kernel has no CPU mode:
 its plain version on the card.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
+from jax.experimental import pallas as pl
 import numpy as np
 import pytest
 import torch
@@ -19,6 +22,7 @@ from covo_mpc_tpu.models import pack_state as jpack
 from covo_mpc_tpu.ops import covariance as jcov
 from covo_mpc_tpu.ops import reductions as jred
 from covo_mpc_tpu.ops.hessian import make_hessian_adjoint as j_hessian_adjoint
+from covo_mpc_tpu.ops import hessian_pallas as jhp
 from covo_mpc_tpu.ops.hessian_pallas import make_tail_pullback as j_tail_pullback
 from covo_mpc_tpu.ops.rollout import make_rollout as j_make_rollout
 from covo_mpc_tpu.ops.rollout_pallas import SUB
@@ -258,14 +262,15 @@ def test_build_kernel_disturb_modes(env_kw, deterministic, expect):
 # --- K2: primal ---------------------------------------------------------------
 
 
-def test_primal_plain_matches_pallas():
+@pytest.mark.parametrize("Hs", [8, 32])
+def test_primal_plain_matches_pallas(Hs):
     jenv, env, jp, noisy, p, st = _reset()
     rng = np.random.default_rng(2)
-    a_seq = rng.uniform(-1.3, 1.3, size=(H, 4)).astype(np.float32)  # raw
-    dist = (rng.normal(size=(H, 3)) * 0.05).astype(np.float32)
-    ref = j_primal(jenv, H, interpret=True)(jpack(noisy), a_seq, dist, jp)
+    a_seq = rng.uniform(-1.3, 1.3, size=(Hs, 4)).astype(np.float32)  # raw
+    dist = (rng.normal(size=(Hs, 3)) * 0.05).astype(np.float32)
+    ref = j_primal(jenv, Hs, interpret=True)(jpack(noisy), a_seq, dist, jp)
     launches = rollout_cuda.PRIMAL_KERNEL.launches
-    got = rollout_cuda.make_primal(env, H)(pack_state(st), t(a_seq), t(dist), p)
+    got = rollout_cuda.make_primal(env, Hs)(pack_state(st), t(a_seq), t(dist), p)
     assert rollout_cuda.PRIMAL_KERNEL.launches == launches
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5)
     # z_h keeps the raw, unclipped actions
@@ -275,9 +280,10 @@ def test_primal_plain_matches_pallas():
 # --- K3: sensitivity chain + pullback -----------------------------------------
 
 
+@pytest.mark.parametrize("Hh", [4, 13])
 @pytest.mark.parametrize("sd", [13, 16])
-def test_tail_pullback_plain_matches_pallas(sd):
-    Hh, dA = 4, 4
+def test_tail_pullback_plain_matches_pallas(sd, Hh):
+    dA = 4
     rng = np.random.default_rng(3)
     J = (rng.normal(size=(Hh, sd, sd + dA)) * 0.5).astype(np.float32)
     A = rng.normal(size=(Hh, sd + dA, sd + dA)).astype(np.float32)
@@ -287,6 +293,37 @@ def test_tail_pullback_plain_matches_pallas(sd):
     got = hessian_cuda.make_tail_pullback(Hh, dA, sd)(t(J), t(M))
     assert hessian_cuda.CHAIN_KERNEL.launches == launches
     assert _rel(got.numpy(), ref) < 1e-6
+
+
+def _pallas_chain_T(J, H, dA, sd):
+    """T (H, sd + dA, D) from JAX's chain kernel in interpret mode, un-banked
+    as ``make_tail_pullback`` does before its pullback."""
+    D, L = H * dA, -(-H * dA // 128) * 128
+    J_bank = jnp.pad(jhp._to_bank_cols(jnp.asarray(J), sd), [(0, 0), (0, jhp._AB - sd), (0, 0)])
+    T_bank = pl.pallas_call(
+        functools.partial(jhp._chain_kernel, H=H, dA=dA),
+        out_shape=jax.ShapeDtypeStruct((H * jhp._ZB, L), jnp.float32), interpret=True,
+    )(J_bank.reshape(H * jhp._AB, jhp._ZB).astype(jnp.float32)).reshape(H, jhp._ZB, L)
+    return np.asarray(jnp.concatenate(
+        [T_bank[:, :sd, :D], T_bank[:, jhp._AB:jhp._AB + dA, :D]], axis=1))
+
+
+@pytest.mark.parametrize("sd", [13, 16])
+def test_sens_chain_zero_prefix_matches_pallas(sd):
+    """Column x of T is exactly zero in its S1 rows at h <= x // dA (the
+    action of step x // dA moves no state before step x // dA + 1), in the
+    plain chain and in JAX's kernel alike: the steps K3 does not run."""
+    Hh, dA = 13, 4
+    rng = np.random.default_rng(5)
+    J = (rng.normal(size=(Hh, sd, sd + dA)) * 0.5).astype(np.float32)
+    got = hessian_cuda.sens_chain_plain(t(J), dA).numpy()
+    ref = _pallas_chain_T(J, Hh, dA, sd)
+    prefix = np.arange(Hh)[:, None] <= np.arange(Hh * dA)[None, :] // dA  # (H, D)
+    for T in (got, ref):
+        s1 = np.abs(T[:, :sd, :]).max(axis=1)
+        assert (s1[prefix] == 0).all() and (s1[~prefix] > 0).all()
+        assert (T[:, sd:, :] == np.eye(Hh * dA).reshape(Hh, dA, Hh * dA)).all()
+    assert _rel(got, ref) < 1e-6
 
 
 # --- the Hessian: Gauss–Newton (the main path) and the exact adjoint -----------
