@@ -19,6 +19,13 @@ source, at first use), then:
    each step loop's critical path from its SASS (``tools/sass_chain.py``:
    ``chain_ms``, the least time of the H dependent steps on one SM, with
    instruction latencies measured on the card by ``tools/latency_probe.cu``);
+   (1c) times K4 (B=1) and K6 (B=16) alone beside their earlier design
+   (``tools/earlier/rollout.cu``, built in the same run), holds their costs
+   against it bit for bit (on one input and on every K4 input of one
+   episode of MPPI with fast rng), and reads from their SASS K4's
+   ``chain_ms`` (its attitude warp's longest recurrence over H steps) and K6's
+   ``issue_ms`` (its step loop's instructions over the grid's warps, at one
+   instruction a cycle on each of an SM's four schedulers);
 2. runs one full-width CoVO solve with ``engine="cuda"`` (K1, and K4 under
    ``rng_mode="fast"``) and with ``engine="torch"``, and one MPPI solve
    with ``engine="cuda"`` (K5, and K4 under ``rng_mode="fast"``) and with
@@ -106,7 +113,10 @@ library product of their correlate part alone; K2's and K3's hold
 counts over H steps: what one warp needs to issue it), and their earlier
 designs' ``earlier_alone_ms``, ``earlier_graph_ms``, ``earlier_chain_ms``,
 the max abs difference from them and how many launches of one closed-loop
-episode differ from them (phase 1b). Any failed check raises,
+episode differ from them (phase 1b); K4's and K6's hold ``alone_ms``,
+``earlier_alone_ms``, ``earlier_max_abs_diff``, K4's ``chain_ms`` and
+``earlier_loop_launches_differing``, K6's ``issue_ms`` and
+``step_instructions`` (phase 1c). Any failed check raises,
 so the script exits non-zero; without a CUDA device it exits at once. The
 line before the last is the kernels' JSON record, the last ``{"ok": true,
 "device": {...}}``.
@@ -123,6 +133,7 @@ import subprocess
 import sys
 import time
 import types
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -291,9 +302,10 @@ def bare_launch_ms(kernel, *args, reps: int = 50) -> float:
 
 def say_geometry(label: str, g: dict) -> None:
     """Print a tiled kernel's launch geometry ``g`` (``rollout_cuda.joint_info``
-    or one of ``sample_info``'s, read from the built library)."""
+    or one of ``sample_info``'s or ``rollout_info``'s, read from the built
+    library)."""
     say(f"  {label} geometry: S={g['samples']} samples a block, T={g['threads']} "
-        f"threads, {g['dynamic_smem']} B of dynamic shared memory a block; blocks an SM, "
+        f"threads, {g['smem']} B of shared memory a block; blocks an SM, "
         f"registers, local bytes: penyaw {tuple(g['penyaw'].values())}, realworld "
         f"{tuple(g['realworld'].values())}")
 
@@ -436,14 +448,17 @@ def phase_kernels(env, dev, records):
             check(costs_close(c_k, c_p),
                   f"K4 costs ({layout}, {what}) within atol 2e-4, rtol 1e-5")
     say(f"  K4 max |costs - plain| = {err4:.3e}")
-    c_64 = rollout_cuda.make_rollout_costs(env, block=64)(
+    other = 128 if k4.block == 64 else 64
+    c_o = rollout_cuda.make_rollout_costs(env, block=other)(
         *roll, acts, p, draw=draw, layout="hdn")
-    check(torch.equal(c_64, k4(*roll, acts, p, draw=draw, layout="hdn")),
+    check(torch.equal(c_o, k4(*roll, acts, p, draw=draw, layout="hdn")),
           "K4 results independent of the block size (64 vs 128)")
     ms_k4 = time_ms(lambda: k4(*roll, acts, p, draw=draw, layout="hdn"), 50)
     ms_k4p = time_ms(lambda: k4.plain(*roll, acts, p, draw=draw, layout="hdn"), 10)
     records["rollout_costs"] = dict(max_abs_err=err4, ms=ms_k4, plain_ms=ms_k4p,
                                     **k4_bound(1, N, H))
+    say_geometry("K4 / K6 (split kernel)", rollout_cuda.rollout_info()["split"])
+    say_geometry("K4 / K6 (step kernel)", rollout_cuda.rollout_info()["step"])
     say(f"  K4 {ms_k4:.4f} ms, plain {ms_k4p:.4f} ms")
 
     # K5: per-step sample + rollout, z given ("input_z"), then its own draws
@@ -561,6 +576,74 @@ def phase_chain_kernels(dev, records, earlier, probe, clock_mhz):
         records[name]["earlier_loop_launches_differing"] = f"{bad} of {n}"
         say(f"  {name} in one 300-step episode of the main path's closed loop: {bad} of {n} "
             f"launches differ from the earlier design, max |diff| {diff:.3e}")
+
+
+def phase_rollout_kernels(dev, records, earlier, probe, clock_mhz):
+    """1c: K4 (B=1) and K6 (B=SCEN_B) alone (bare launches, in turns)
+    beside the kernel they replaced (``tools/earlier/rollout.cu``, built in
+    this run), their costs against its bit for bit, and on every K4 input
+    of one episode of MPPI with fast rng; K4's ``chain_ms`` (the split
+    kernel's attitude loop: its longest recurrence from its SASS over H
+    steps at the SM clock ``clocks.max.sm``) and K6's ``issue_ms`` (the step kernel's
+    loop: its instructions over H steps and the grid's warps, at one
+    instruction a cycle on each of four schedulers an SM)."""
+    from covo_mpc_tpu_torch.ops import kernels, rollout_cuda
+    from covo_mpc_tpu_torch.tools import rollout_variants, sass_chain
+
+    phase("phase 1c: K4 and K6 alone beside their earlier design; chain and issue floors")
+    lat = sass_chain.measure_latencies(probe)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lib = kernels.library()
+    B, block = SCEN_B, rollout_cuda.ROLLOUT_BLOCK
+    ops16, mode, reward = rollout_variants.operands("gaussian", "tracking_zigzag", B, H, dev)
+    acts16 = torch.from_numpy((0.8 * np.random.default_rng(0).standard_normal(
+        (B, H, 4, N))).astype(np.float32)).to(dev)
+    loops = rollout_variants.kernel_loops(Path(lib._name), rollout_variants.OUT / "sass", lat,
+                                          {k: v for k, v in rollout_variants.SASS_KERNELS.items()
+                                           if "split" in v or "step" in v})
+    for name, kernel, b in (("rollout_costs", rollout_cuda.ROLLOUT_KERNEL, 1),
+                            ("rollout_costs_batched", rollout_cuda.ROLLOUT_BATCHED_KERNEL, B)):
+        ops = [t[:b].contiguous() for t in ops16]
+        acts = acts16[:b].contiguous()
+        new, old = torch.empty(b, N, device=dev), torch.empty(b, N, device=dev)
+        launches = {which: rollout_variants.launcher(cdll, ops, acts, out, b, N, H, 0, mode,
+                                                     reward, blk)
+                    for which, cdll, out, blk in (("new", lib, new, block),
+                                                  ("earlier", earlier, old, 128))}
+        for launch in launches.values():
+            launch()
+        torch.cuda.synchronize()
+        same, diff = torch.equal(new, old), max_err(new, old)
+        times = {key: time_ms(launches[which], 200)  # in turns
+                 for key, which in (("new", "new"), ("earlier", "earlier"),
+                                    ("new again", "new"))}
+        rec = records.setdefault(name, {})
+        rec.update(alone_ms=times["new"], earlier_alone_ms=times["earlier"],
+                   earlier_max_abs_diff=diff)
+        if b == 1:
+            loop = loops["split kernel, attitude"]
+            rec.update(chain_ms=sass_chain.chain_ms(H, loop["recurrence"], clock_mhz),
+                       chain_cycles=loop["recurrence"])
+            floor = (f"chain {rec['chain_ms']:.4f} ms ({loop['recurrence']:.1f} cycles a "
+                     f"step, the attitude recurrence)")
+        else:
+            loop = loops["step kernel"]
+            rec.update(issue_ms=sass_chain.issue_ms(loop["count"], H, b * -(-N // 32), sms,
+                                                    clock_mhz),
+                       step_instructions=loop["count"])
+            floor = f"issue {rec['issue_ms']:.4f} ms ({loop['count']} instructions a step)"
+        say(f"  {kernel.symbol} (B={b}): alone {times['new']:.4f} ms, earlier design "
+            f"{times['earlier']:.4f} ms, again {times['new again']:.4f} ms; equal to the earlier "
+            f"design bit for bit: {same} (max |diff| {diff:.3e}); {floor} at "
+            f"{clock_mhz:.0f} MHz")
+        check(same, f"{kernel.symbol}: costs equal to the earlier design's bit for bit")
+    for label, loop in loops.items():
+        say(f"  {label} loop: {sass_chain.describe(loop)}; its longest recurrence "
+            f"{loop['recurrence']:.1f} cycles")
+    n, bad, diff = rollout_variants.loop_bits(earlier, dev, 300)
+    records["rollout_costs"]["earlier_loop_launches_differing"] = f"{bad} of {n}"
+    say(f"  rollout_costs in one 300-step MPPI fast episode: {bad} of {n} launches differ "
+        f"from the earlier design, max |diff| {diff:.3e}")
 
 
 def make_solver(env, engine, seed=0, rng_mode=None, name="covo_online",
@@ -856,7 +939,7 @@ def profile_mppi(env, dev):
     time_layers({
         "sample + rollout (K5)": (lambda: k5(*k5_args, disturb_seed=12),
                                   "sample_rollout_"),  # the tile or step kernel
-        "fast: torch sample + K4": (fast_sample_rollout, "rollout_kernel"),
+        "fast: torch sample + K4": (fast_sample_rollout, "rollout_split_kernel"),
         "weights + mean update": (lambda: reductions.mean_update_t(
             reductions.mppi_weights(costs, 0.01), a_t, a_mean, 1.0), ""),
         "cov update (gamma_sigma=0)": (lambda: reductions.cov_factor_update_t(
@@ -1025,8 +1108,8 @@ def phase_scenario_kernels(env, dev, records):
     check(max_err(c1[0], c4) <= 2e-6, "K6 at B=1: costs within 2e-6 of K4's")
     ms6 = time_ms(lambda: k6(*args, acts, pb, draws=draws), 50)
     ms6p = time_ms(lambda: k6.plain(*args, acts, pb, draws=draws), 5, warmup=1)
-    records["rollout_costs_batched"] = dict(max_abs_err=err6, ms=ms6, plain_ms=ms6p,
-                                            **k4_bound(B, N, H))
+    records.setdefault("rollout_costs_batched", {}).update(
+        max_abs_err=err6, ms=ms6, plain_ms=ms6p, **k4_bound(B, N, H))
     # the bare launches, on operands the wrapper's own packing made
     ops = rollout_cuda._launch_operands(env, *args, pb, draws, False, 1.0, H)
     ptrs = [t.data_ptr() for t in ops]
@@ -1614,14 +1697,15 @@ def kernels_alone(inp, case, mode: str, reward: str = "penyaw") -> dict:
             7, *out, N, H, 0, mi, ri, rollout_cuda.JOINT_BLOCK), k1_bound(1, N, H, mode, reward)),
         "rollout_costs": (bare_launch_ms(
             rollout_cuda.ROLLOUT_KERNEL, *ptrs, inp.acts.data_ptr(), out[0], N, H,
-            0, mi, ri, 128), k4_bound(1, N, H, mode, reward)),
+            0, mi, ri, rollout_cuda.ROLLOUT_BLOCK), k4_bound(1, N, H, mode, reward)),
         "sample_rollout": (bare_launch_ms(
             rollout_cuda.SAMPLE_KERNEL, *ptrs, mean.data_ptr(), inp.chol.data_ptr(), None, 7,
             8, 0, None, *out, N, H, 0, mi, ri, rollout_cuda.SAMPLE_BLOCK),
             k5_bound(1, N, H, mode, reward)),
         "rollout_costs_batched": (bare_launch_ms(
             rollout_cuda.ROLLOUT_BATCHED_KERNEL, *ptrs_b, inp.acts_b.data_ptr(),
-            out_b[0], B, N, H, 0, mi, ri, 128), k4_bound(B, N, H, mode, reward)),
+            out_b[0], B, N, H, 0, mi, ri, rollout_cuda.ROLLOUT_BLOCK),
+            k4_bound(B, N, H, mode, reward)),
         "sample_rollout_batched": (bare_launch_ms(
             rollout_cuda.SAMPLE_BATCHED_KERNEL, *ptrs_b, mean_b.data_ptr(),
             inp.chols_b.data_ptr(), None, 7, *out_b, B, N, H, 0, mi, ri,
@@ -2050,7 +2134,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from covo_mpc_tpu_torch.models import EnvConfig, QuadEnv
     from covo_mpc_tpu_torch.ops import covariance_cuda, hessian_cuda, kernels, rollout_cuda
-    from covo_mpc_tpu_torch.tools import primal_chain_variants, sass_chain
+    from covo_mpc_tpu_torch.tools import primal_chain_variants, rollout_variants, sass_chain
 
     dev = torch.device("cuda", 0)
     # fp32 products in full fp32 (PyTorch's default, stated: the plain
@@ -2074,14 +2158,17 @@ def main(argv=None) -> int:
     say(f"fp32 peak {PEAK['fp32'] / 1e12:.2f} TFLOP/s ({sms} SMs at {clock_mhz:.0f} MHz), "
         f"memory {HBM_BYTES_PER_S / 1e12:.2f} TB/s")
     t0 = time.perf_counter()
-    # the earlier K2 / K3 and the latency probe build beside the library
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+    # the earlier K2 / K3 and K4 / K6 and the latency probe build beside the
+    # library
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
         earlier_f = pool.submit(primal_chain_variants.build_earlier)
+        earlier_rollout_f = pool.submit(rollout_variants.build_earlier)
         probe_f = pool.submit(sass_chain.build_probe, primal_chain_variants.OUT)
         lib = kernels.library()
         earlier, probe = earlier_f.result(), probe_f.result()
-    say(f"kernel build: nvcc {lib.build_seconds:.2f} s, load and the earlier K2 / K3 and "
-        f"the latency probe {time.perf_counter() - t0:.2f} s in all")
+        earlier_rollout = earlier_rollout_f.result()[1]
+    say(f"kernel build: nvcc {lib.build_seconds:.2f} s, load and the earlier K2 / K3 / K4 "
+        f"and the latency probe {time.perf_counter() - t0:.2f} s in all")
     probe = sass_chain.load_probe(probe)
 
     env = QuadEnv(EnvConfig(**ENV_KW))
@@ -2096,6 +2183,7 @@ def main(argv=None) -> int:
     records = {}
     phase_kernels(env, dev, records)
     phase_chain_kernels(dev, records, earlier, probe, clock_mhz)
+    phase_rollout_kernels(dev, records, earlier_rollout, probe, clock_mhz)
     phase_solve(env, dev, single_kernels)
     launches = phase_closed_loops(env, dev, args.total_steps, covo_kernels,
                                   single_kernels)

@@ -32,7 +32,9 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+# -lineinfo: the SASS keeps its source lines (tools/sass_chain.py reads them);
+# it does not change the code
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-lineinfo", "-Xcompiler", "-fPIC"]
 
 _P, _I, _U64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64, ctypes.c_float
 # C signatures of the entry points (csrc/*.cu); every one returns cudaError_t
@@ -47,6 +49,7 @@ _SIGNATURES = {
     "joint_sample_rollout_batched": [*[_P] * 9, _U64, _P, _P, *[_I] * 7, _P],
     "joint_sample_rollout_info": [_I, _I, _P],
     "sample_rollout_info": [_I, _I, _I, _P],
+    "rollout_costs_info": [_I, _I, _I, _P],
     "sigma_ns": [_P, _P, _P, _I, _F, _F, _F, _F, _I, _I, _I, _I, _I, _P],
     "sigma_ns_info": [_P],
 }

@@ -36,6 +36,18 @@ sample draws (one step ahead), stores and rolls out step by step.
 ``covo_mpc_tpu_torch/tools/sample_rollout_variants.py`` times their
 variants and ablations on the card.
 
+K4 and K6 are one source (``csrc/rollout.cu``) whose launch picks one of
+two kernels by the grid, with the same results bit for bit and S samples a
+block (``block``, one of :data:`ROLLOUT_BLOCKS`, :data:`ROLLOUT_BLOCK` by
+default). When the grid has no more blocks than the card has SMs (K4 at
+N = 8192), the split kernel: each 32 samples' step is spread over four
+warps (attitude, translation, two for the reward and the cost) that pass
+the states through a ring in shared memory. Otherwise (K6 at B >= 2) the
+step kernel: one thread a sample. Both pin every operation of the step to
+the one-thread kernel they replaced, so its costs are kept bit for bit.
+``covo_mpc_tpu_torch/tools/rollout_variants.py`` times their variants and
+ablations on the card beside that kernel (``tools/earlier/rollout.cu``).
+
 Every rollout kernel runs the four disturbance modes of JAX's
 ``_disturb_mode``, a launch argument: "shared" (gaussian / none: x0's own
 force at step 0, the one shared force after), "table" (sin / periodic: the
@@ -108,6 +120,10 @@ JOINT_MAX_D = 128
 # (tools/sample_rollout_variants.py)
 SAMPLE_BLOCKS = (32, 64, 128)
 SAMPLE_BLOCK = 64
+# samples of a block of the rollout-costs kernels (K4, K6): the sizes they
+# take, and the default (tools/rollout_variants.py)
+ROLLOUT_BLOCKS = (32, 64, 128)
+ROLLOUT_BLOCK = 64
 
 NSCAL = 17  # scalar pack, layout quad::Scal in csrc/quad_core.cuh
 NINT = 3  # [t0, max_steps, disturb_period]
@@ -271,14 +287,14 @@ def _geometry(symbol: str, block: int, H: int, *args) -> dict:
     """A tiled kernel's launch geometry at ``block`` samples a block and
     horizon ``H`` (and the info entry point's further ``args``), read from
     the built library through its info entry point ``symbol``: threads and
-    dynamic shared memory (bytes) of a block, and for each reward's
+    shared memory (bytes) of a block, and for each reward's
     instantiation the blocks an SM holds, registers and local memory (bytes)
     of a thread."""
     out = (ctypes.c_int * 8)()
     err = getattr(kernels.library(), symbol)(block, H, *args, out)
     if err != 0:
         raise RuntimeError(f"{symbol}: cudaError {err}")
-    info = dict(samples=block, threads=out[0], dynamic_smem=out[1])
+    info = dict(samples=block, threads=out[0], smem=out[1])
     for k, reward in enumerate(REWARDS):
         info[reward] = dict(zip(("blocks_per_sm", "registers", "local_bytes"),
                                 out[2 + 3 * k:5 + 3 * k]))
@@ -288,6 +304,14 @@ def _geometry(symbol: str, block: int, H: int, *args) -> dict:
 def joint_info(block: int = JOINT_BLOCK, H: int = 32) -> dict:
     """K1 / K7 joint's launch geometry (:func:`_geometry`)."""
     return _geometry("joint_sample_rollout_info", block, H)
+
+
+def rollout_info(block: int = ROLLOUT_BLOCK, H: int = 32) -> dict:
+    """K4 / K6's two kernels' launch geometry (:func:`_geometry`; shared
+    memory static and dynamic in one): "split" (launched when the grid has
+    no more blocks than the card has SMs) and "step" (otherwise)."""
+    return {name: _geometry("rollout_costs_info", block, H, split)
+            for name, split in (("split", 1), ("step", 0))}
 
 
 def sample_info(block: int = SAMPLE_BLOCK, H: int = 32) -> dict:
@@ -368,10 +392,13 @@ class RolloutCosts(_RolloutKernelWrapper):
     deterministic=False, discount=1.0, layout="nhd") -> costs (N,)``, the
     contract of :func:`covo_mpc_tpu_torch.ops.rollout.make_rollout` (its
     plain version): ``actions`` (N, H, 4) for ``layout="nhd"``, (H, 4, N)
-    or (H*4, N) for ``"hdn"``.
+    or (H*4, N) for ``"hdn"``. The kernel's results do not depend on
+    ``block`` (samples a block, one of :data:`ROLLOUT_BLOCKS`).
     """
 
-    def __init__(self, env: QuadEnv, block: int = 128):
+    blocks = ROLLOUT_BLOCKS
+
+    def __init__(self, env: QuadEnv, block: int = ROLLOUT_BLOCK):
         super().__init__(env, block)
         self.plain = self._rollout
 
@@ -406,7 +433,7 @@ class RolloutCosts(_RolloutKernelWrapper):
         return costs
 
 
-def make_rollout_costs(env: QuadEnv, block: int = 128):
+def make_rollout_costs(env: QuadEnv, block: int = ROLLOUT_BLOCK):
     """The K4 wrapper (JAX: make_pallas_rollout)."""
     return RolloutCosts(env, block)
 
@@ -515,12 +542,14 @@ class RolloutCostsBatched(_RolloutKernelWrapper):
     draws=None, deterministic=False, discount=1.0, layout="hdn") -> costs
     (B, N)``, the contract of :func:`~covo_mpc_tpu_torch.ops.rollout.
     make_rollout_batched` (its plain version): ``actions`` (B, N, H, 4) for
-    ``layout="nhd"``, (B, H, 4, N) or (B, H*4, N) for ``"hdn"``.
+    ``layout="nhd"``, (B, H, 4, N) or (B, H*4, N) for ``"hdn"``; ``block``
+    as :class:`RolloutCosts`'.
     """
 
     batched = True
+    blocks = ROLLOUT_BLOCKS
 
-    def __init__(self, env: QuadEnv, block: int = 128):
+    def __init__(self, env: QuadEnv, block: int = ROLLOUT_BLOCK):
         super().__init__(env, block)
         self.plain = self._rollout
 
@@ -552,7 +581,7 @@ class RolloutCostsBatched(_RolloutKernelWrapper):
         return costs
 
 
-def make_rollout_batched_costs(env: QuadEnv, block: int = 128):
+def make_rollout_batched_costs(env: QuadEnv, block: int = ROLLOUT_BLOCK):
     """The K6 wrapper (JAX: make_pallas_rollout_batched)."""
     return RolloutCostsBatched(env, block)
 

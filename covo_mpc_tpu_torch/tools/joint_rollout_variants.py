@@ -129,9 +129,10 @@ def build_all(texts: dict, out: Path = OUT,
             raise RuntimeError(f"nvcc failed for {lib.stem}:\n{log}")
         info, entry = [], ""
         for line in log.splitlines():
-            m = re.search(r"Compiling entry function '\S*?kernelI((?:Li\d+E)+)", line)
+            m = re.search(r"Compiling entry function '\S*?\d([a-z_]*kernel)I((?:Li\d+E)+)",
+                          line)
             if m:
-                entry = "<" + ",".join(re.findall(r"Li(\d+)E", m.group(1))) + ">"
+                entry = m.group(1) + "<" + ",".join(re.findall(r"Li(\d+)E", m.group(2))) + ">"
             elif "registers" in line or "spill" in line:
                 info.append(f"{entry} {line.split('ptxas info    : ', 1)[-1].strip()}")
         cdll = ctypes.CDLL(str(lib))

@@ -309,9 +309,9 @@ def cases(kernel: str, dev):
 
 
 def build_earlier(out: Path = OUT) -> dict:
-    """The earlier K2 and K3 (``tools/earlier/*.cu``) built, each into its
-    own library: kernel -> (ptxas lines, library)."""
-    texts = {kernel_of(p.read_text()): p.read_text() for p in sorted(EARLIER.glob("*.cu"))}
+    """The earlier K2 and K3 (``tools/earlier/{primal,sens_chain}.cu``)
+    built, each into its own library: kernel -> (ptxas lines, library)."""
+    texts = {k: (EARLIER / f"{k}.cu").read_text() for k in ENTRIES}
     built = build_all(texts, out / "earlier", ENTRIES)
     return {kernel: built[text] for kernel, text in texts.items()}
 

@@ -22,6 +22,12 @@ dependent steps take on one SM. It is computed from the machine code:
    control bits: what one warp needs to issue a step, whatever the
    dependences.
 
+5. ``count`` is the number of instructions along that walk: on a card whose
+   schedulers each hold several warps, a step costs about its instructions
+   in issue slots (``issue_ms``, one instruction a cycle a scheduler).
+   ``census`` splits the walk by the source line each instruction came
+   from (``nvdisasm -g`` output, which ``parse`` reads into ``Instr.line``).
+
 ``chain_ms = steps * cycles / SM clock``. The latencies are measured on the
 card by ``latency_probe.cu`` (dependent chains of FFMA, IMAD, MUFU.RSQ,
 MUFU.RCP, LDS, SHFL and L2-hit loads between reads of the cycle counter),
@@ -65,6 +71,7 @@ _PRED_ONLY = {"ISETP", "FSETP", "DSETP", "HSETP2", "PLOP3", "FCHK", "PSETP", "UI
 _LINE = re.compile(r"^\s*/\*([0-9a-f]+)\*/\s+(.*?)\s*;")
 _WORD = re.compile(r"/\* (0x[0-9a-f]{16}) \*/\s*$")
 _LABEL = re.compile(r"^\s*(\.L_x_\d+):")
+_SOURCE = re.compile(r'^\s*//## File "(?:[^"]*/)?([^"/]+)", line (\d+)')
 _REG = re.compile(r"\b(U?R\d+|U?P\d+)(\.64|\.128)?\b")
 _PRED = re.compile(r"^U?P(\d+|T)$")
 
@@ -79,6 +86,7 @@ class Instr:
     target: object = None  # a branch's label or address
     stall: int = 0  # cycles before the warp's next issue (the control bits)
     guarded: bool = False  # under a predicate (@P0 ...)
+    line: object = None  # (file name, line) of its source, where the SASS has line info
 
     @property
     def base(self) -> str:
@@ -106,9 +114,14 @@ def _dest_width(opcode: str) -> int:
 
 def parse(sass: str) -> list:
     """The instructions of one function's SASS, labels resolved to addresses."""
-    instrs, labels, pending = [], {}, []
+    instrs, labels, pending, source = [], {}, [], None
     lines = sass.splitlines()
     for n, line in enumerate(lines):
+        src = _SOURCE.match(line)
+        if src:  # the first (innermost) of a group of line-info comments
+            if not (n and _SOURCE.match(lines[n - 1])):
+                source = (src.group(1), int(src.group(2)))
+            continue
         lab = _LABEL.match(line)
         if lab:
             pending.append(lab.group(1))
@@ -125,7 +138,7 @@ def parse(sass: str) -> list:
             guard, text = text.split(None, 1)
         parts = text.split(None, 1)
         opcode, rest = parts[0], (parts[1] if len(parts) > 1 else "")
-        ins = Instr(addr, opcode, text, guarded=guard is not None)
+        ins = Instr(addr, opcode, text, guarded=guard is not None, line=source)
         # the second 64-bit word, on the next line, holds the control bits:
         # the stall count is its bits 41-44 (bits 105-108 of the 128)
         word = _WORD.search(lines[n + 1]) if n + 1 < len(lines) else None
@@ -172,15 +185,34 @@ def latency(ins: Instr, lat: dict) -> float:
     return lat.get(cls, LATENCY[cls])
 
 
+def _back_edges(instrs: list, is_back=None) -> list:
+    """(target, branch) index pairs of the backward branches (those
+    ``is_back(Instr)`` picks, where given)."""
+    index = {ins.addr: k for k, ins in enumerate(instrs)}
+    return [(index[ins.target], k) for k, ins in enumerate(instrs)
+            if ins.base == "BRA" and isinstance(ins.target, int) and ins.target <= ins.addr
+            and ins.target in index and (is_back is None or is_back(ins))]
+
+
 def loops(instrs: list) -> list:
     """(first, last) indices of the innermost loops: a backward branch
     and its target, with no other backward branch between them."""
-    index = {ins.addr: k for k, ins in enumerate(instrs)}
-    back = [(index[ins.target], k) for k, ins in enumerate(instrs)
-            if ins.base == "BRA" and isinstance(ins.target, int) and ins.target <= ins.addr
-            and ins.target in index]
+    back = _back_edges(instrs)
     return [(a, b) for a, b in back
             if not any(a <= a2 and b2 <= b and (a2, b2) != (a, b) for a2, b2 in back)]
+
+
+def outer_loops(instrs: list, is_back=None) -> list:
+    """(first, last) indices of the outermost loops: a backward branch and
+    its target, inside no other such range; ``is_back(Instr)`` picks the
+    backward branches that count (all by default). A loop of steps that
+    waits on a barrier in a spin loop is one of these; its walk
+    (``fast_path``) runs the inner loop once. The compiler may put such a
+    spin loop after the kernel's code and branch back into the step loop
+    from there: pick the step loops' own branches by their source line."""
+    back = _back_edges(instrs, is_back)
+    return [(a, b) for a, b in back
+            if not any(a2 <= a and b <= b2 and (a2, b2) != (a, b) for a2, b2 in back)]
 
 
 def fast_path(instrs: list, first: int, last: int) -> list:
@@ -225,23 +257,90 @@ def critical_path(path: list, lat: dict) -> tuple:
     return best, chain[::-1]
 
 
+def recurrence(path: list, lat: dict) -> float:
+    """The cycles of the loop's longest recurrence in one walk: over every
+    loop-carried register (read in the walk before it is written there, and
+    written later in it), the longest dependence path from its read to its
+    last write. Unlike ``critical_path`` it leaves out what a walk starts
+    for a later one and does not wait for (a load issued a step ahead)."""
+    first_read, last_write = {}, {}
+    for k, ins in enumerate(path):
+        for r in ins.srcs:
+            if r not in last_write:
+                first_read.setdefault(r, k)
+        for d in ins.dests:
+            last_write[d] = k
+    best = 0.0
+    for reg in (r for r in first_read if r in last_write):
+        ready = {reg: 0.0}  # the values that depend on reg's carried value
+        for k, ins in enumerate(path):
+            starts = [ready[r] for r in ins.srcs if r in ready]
+            for d in ins.dests:
+                if starts:
+                    ready[d] = max(starts) + latency(ins, lat)
+                else:
+                    ready.pop(d, None)
+            if k == last_write[reg] and reg in ready:
+                best = max(best, ready[reg])
+    return best
+
+
+def walk(instrs: list, first: int, last: int, lat: dict) -> dict:
+    """One loop's walk (``fast_path``): its critical path in cycles, the
+    instructions on that path, its longest recurrence (``recurrence``, in
+    cycles), the walk's length before the branch back
+    (``body``) and with it (``count``, the instructions a walk issues), the
+    sum of their stall counts (``issue``: the cycles one warp takes to issue
+    a walk, waits on loads and barriers not counted), the walk with its
+    branch back (``path``) and its address range."""
+    path = fast_path(instrs, first, last)
+    cycles, chain = critical_path(path, lat)
+    return dict(cycles=cycles, chain=chain, recurrence=recurrence(path, lat),
+                body=len(path), count=len(path) + 1,
+                issue=sum(ins.stall for ins in path) + instrs[last].stall,
+                path=path + [instrs[last]], range=(instrs[first].addr, instrs[last].addr))
+
+
 def step_loop(sass: str, lat: dict) -> dict:
-    """The loop with the longest critical path: its cycles a walk, the
-    instructions on that path and in the body, the sum of the body's stall
-    counts (``issue``: the cycles one warp takes to issue a walk, waits on
-    loads and barriers not counted), and its address range."""
+    """The innermost loop with the longest critical path (``walk``)."""
     instrs = parse(sass)
     best = None
     for first, last in loops(instrs):
-        path = fast_path(instrs, first, last)
-        cycles, chain = critical_path(path, lat)
-        if best is None or cycles > best["cycles"]:
-            best = dict(cycles=cycles, chain=chain, body=len(path),
-                        issue=sum(ins.stall for ins in path) + instrs[last].stall,
-                        range=(instrs[first].addr, instrs[last].addr))
+        loop = walk(instrs, first, last, lat)
+        if best is None or loop["cycles"] > best["cycles"]:
+            best = loop
     if best is None:
         raise ValueError("no loop in this SASS")
     return best
+
+
+def step_loops(sass: str, lat: dict, is_back=None) -> list:
+    """``walk`` of each outermost loop (``outer_loops``), in address order
+    (a kernel whose warps split a step between them has a loop of steps for
+    each)."""
+    instrs = parse(sass)
+    found = [walk(instrs, first, last, lat) for first, last in outer_loops(instrs, is_back)]
+    if not found:
+        raise ValueError("no loop in this SASS")
+    return found
+
+
+def census(path: list, part_of) -> dict:
+    """Instructions of a walk by part: ``part_of(Instr) -> str`` names the
+    part an instruction belongs to (by its source line, say)."""
+    out = {}
+    for ins in path:
+        part = part_of(ins)
+        out[part] = out.get(part, 0) + 1
+    return out
+
+
+def issue_ms(count: float, steps: int, warps: int, sms: int, clock_mhz: float,
+             schedulers: int = 4) -> float:
+    """The least time ``warps`` warps take to issue ``steps`` walks of
+    ``count`` instructions each, spread over ``sms`` SMs of ``schedulers``
+    schedulers that each issue one instruction a cycle."""
+    return count * steps * warps / (schedulers * sms * clock_mhz * 1e3)
 
 
 def cuobjdump() -> str:
@@ -260,6 +359,29 @@ def function_sass(lib: Path, name: str) -> str:
     if len(found) != 1:
         raise ValueError(f"{len(found)} functions match {name!r} in {lib}")
     return found[0][1]
+
+
+def lined_sass(lib: Path, out_dir: Path) -> dict:
+    """Every function of ``lib`` (built with ``-lineinfo``) as ``nvdisasm -g
+    -hex`` prints it: the innermost source line before each group of
+    instructions, and each instruction's encoding (so its stall count).
+    The cubin is extracted into ``out_dir``, and the whole listing kept
+    there as ``<lib name>.sass``. Returns mangled name -> SASS."""
+    import tempfile
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        subprocess.run([cuobjdump(), "-xelf", "all", str(Path(lib).resolve())], cwd=tmp,
+                       capture_output=True, text=True, check=True)
+        cubins = sorted(Path(tmp).glob("*.cubin"))
+        if not cubins:
+            raise ValueError(f"no cubin in {lib}")
+        text = "".join(subprocess.run(
+            [str(Path(cuobjdump()).with_name("nvdisasm")), "-g", "-hex", "-c", str(c)],
+            capture_output=True, text=True, check=True).stdout for c in cubins)
+    (out_dir / f"{Path(lib).stem}.sass").write_text(text)
+    parts = re.split(r"\n//-+ \.text\.(\S+) -+\n", text)
+    return dict(zip(parts[1::2], parts[2::2]))
 
 
 def build_probe(out_dir: Path) -> Path:

@@ -25,7 +25,11 @@ tracking_slow in K1, K4-K7 the same way, in every disturbance mode; K3
 at H = 8, 13 (a ragged last block) and 32, its repeatability and its exact
 zero prefix, K2 on a sin table at H = 8, 13 and 32, and both bit for bit
 against the designs they replaced (``covo_mpc_tpu_torch/tools/earlier``),
-also on every input of one closed-loop episode of the main path.
+also on every input of one closed-loop episode of the main path; K4 and K6
+repeatable over 10 launches and bit for bit equal to the kernel they
+replaced in every mode and reward (K6 at B=1 also to K4), and K4 against
+its plain version with rollover termination on, where samples terminate
+mid-horizon.
 Tolerances are the ones ``chip_smoke.py`` states (the JAX kernel tests'
 own).
 """
@@ -39,6 +43,8 @@ from covo_mpc_tpu_torch.models import EnvConfig, QuadEnv, pack_state
 from covo_mpc_tpu_torch.models.structs import index_params, stack_params
 from covo_mpc_tpu_torch.ops import hessian_cuda, kernels, rollout_cuda
 from covo_mpc_tpu_torch.ops.hessian import make_hessian_adjoint
+from covo_mpc_tpu_torch.tools import rollout_variants
+from covo_mpc_tpu_torch.tools.joint_rollout_variants import CASES
 from covo_mpc_tpu_torch.tools.primal_chain_variants import (
     build_earlier,
     chain_j,
@@ -829,3 +835,119 @@ def test_realworld_batched_kernels_scenario_count_invariant(dev, kind):
     at B=16 against their plain versions (ragged N), and scenario 0 of the
     B=16 launch bit-equal to the B=1 launch of the same scenario."""
     _batched_kernels_match_plain(dev, kind, "tracking_slow")
+
+
+# --- K4 / K6 beside the kernel they replaced (tools/earlier/rollout.cu) -----
+
+
+@pytest.fixture(scope="module")
+def earlier_rollout():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: a CUDA kernel has no CPU mode")
+    return rollout_variants.build_earlier()[1]
+
+
+def _rollout_inputs(dev, kind, task, Hs=32, n=8192, seed=3):
+    """rollout_variants' operands of 16 scenarios (the even ones leave |p| < 3
+    mid-horizon) and 0.8 N(0, 1) actions (16, Hs, 4, n)."""
+    ops16, mode, reward = rollout_variants.operands(kind, task, 16, Hs, dev)
+    g = torch.Generator(dev).manual_seed(seed)
+    acts = 0.8 * torch.randn(16, Hs, 4, n, generator=g, device=dev)
+    return ops16, acts, mode, reward
+
+
+def _launch(cdll, ops16, acts, B, rollover, mode, reward, block=rollout_cuda.ROLLOUT_BLOCK,
+            entry_b=None):
+    """Costs (B, n) of scenarios 0 .. B-1 through ``cdll``'s K4 (B=1) or K6
+    entry point (``entry_b``: the batched one at B=1 too)."""
+    ops = [t[:B].contiguous() for t in ops16]
+    a = acts[:B].contiguous()
+    _, Hs, _, n = a.shape
+    out = torch.full((B, n), float("nan"), device=a.device)
+    if entry_b:
+        ptrs = [t.data_ptr() for t in ops]
+        err = cdll.rollout_costs_batched(*ptrs, a.data_ptr(), out.data_ptr(), B, n, Hs,
+                                         rollover, mode, reward, block,
+                                         torch.cuda.current_stream().cuda_stream)
+        assert err == 0
+    else:
+        rollout_variants.launcher(cdll, ops, a, out, B, n, Hs, rollover, mode, reward,
+                                  block)()
+    torch.cuda.synchronize()
+    return out
+
+
+def test_rollout_costs_repeat_bit_for_bit(dev):
+    """K4 (B=1) and K6 (B=16) at N=8192, H=32: 10 launches, the same bits."""
+    ops16, acts, mode, reward = _rollout_inputs(dev, "gaussian", "tracking_zigzag")
+    for B in (1, 16):
+        first = _launch(kernels.library(), ops16, acts, B, 1, mode, reward)
+        for _ in range(9):
+            assert torch.equal(_launch(kernels.library(), ops16, acts, B, 1, mode, reward),
+                               first)
+
+
+@pytest.mark.parametrize("case", list(CASES), ids=["-".join(c) for c in CASES])
+def test_rollout_costs_equal_earlier_kernel(dev, earlier_rollout, case):
+    """K4 against the kernel it replaced, bit for bit, in every disturbance
+    mode and reward, at N=1000 (ragged) and 8192, rollover check on and off."""
+    for n in (1000, 8192):
+        ops16, acts, mode, reward = _rollout_inputs(dev, *CASES[case], n=n)
+        for rollover in (0, 1):
+            got = _launch(kernels.library(), ops16, acts, 1, rollover, mode, reward)
+            ref = _launch(earlier_rollout, ops16, acts, 1, rollover, mode, reward, block=128)
+            assert torch.equal(got, ref), f"N={n} rollover={rollover}"
+
+
+@pytest.mark.parametrize("case", list(CASES), ids=["-".join(c) for c in CASES])
+def test_rollout_costs_batched_equal_earlier_kernel(dev, earlier_rollout, case):
+    """K6 at B=1 and B=16 against the kernel it replaced, bit for bit, in
+    every mode and reward (ragged N, rollover on); K6 at B=1 equals K4."""
+    ops16, acts, mode, reward = _rollout_inputs(dev, *CASES[case], n=1000)
+    lib = kernels.library()
+    for B in (1, 16):
+        got = _launch(lib, ops16, acts, B, 1, mode, reward, entry_b=True)
+        ref = _launch(earlier_rollout, ops16, acts, B, 1, mode, reward, block=128,
+                      entry_b=True)
+        assert torch.equal(got, ref), f"B={B}"
+    assert torch.equal(_launch(lib, ops16, acts, 1, 1, mode, reward, entry_b=True),
+                       _launch(lib, ops16, acts, 1, 1, mode, reward))
+
+
+def test_rollout_costs_with_terminations_match_plain(dev):
+    """K4 with rollover termination on, from a state near |p| = 3 moving out,
+    where some samples terminate mid-horizon (|p| > 3 or rollover) and some
+    do not: the freeze, computed apart from the state chain, against the
+    plain version."""
+    from covo_mpc_tpu_torch.models import dynamics
+    from covo_mpc_tpu_torch.models.structs import FDIST, VEL
+    from covo_mpc_tpu_torch.ops import rollout as rollout_ops
+
+    env = QuadEnv(EnvConfig(task="tracking_zigzag", enable_randomizer=False,
+                            disturb_type="gaussian", disable_rollover_terminate=False,
+                            generate_noisy_state=True), device=dev)
+    _, info, _ = env.reset(torch.Generator(dev).manual_seed(0))
+    st, p = info["noisy_state"], env.default_params
+    x0 = pack_state(st).clone()
+    x0[0], x0[7] = 2.9, 0.6
+    g = torch.Generator(dev).manual_seed(4)
+    n, Hs = 8192, 32
+    acts = 0.8 * torch.randn(Hs, 4, n, generator=g, device=dev)
+    draw = torch.randn(3, generator=g, device=dev)
+    roll = (x0, st.time, st.pos_traj, st.vel_traj, acts, p, draw)
+    k4 = rollout_cuda.make_rollout_costs(env)
+    got = k4(*roll, discount=0.98, layout="hdn")
+    ref = k4.plain(*roll, discount=0.98, layout="hdn")
+    torch.testing.assert_close(got, ref, atol=2e-4, rtol=1e-5)
+    # which samples terminate, and when: the plain states step by step
+    done_fn = rollout_ops._make_done(env)
+    x = x0[:16].expand(n, 16)
+    first = torch.full((n,), Hs, device=dev)
+    for h in range(Hs):
+        d = done_fn(x, st.time + h, p.max_steps_in_episode)
+        first = torch.where(d & (first == Hs), torch.full_like(first, h), first)
+        s_new = dynamics.core_step(x[:, :13], acts[h].T, x[:, 13:16], p, env._dt)
+        f_new = env.disturb_fn(p, draw, st.time + h, x[..., VEL], x[..., FDIST])
+        x = torch.cat([s_new, f_new.expand(n, 3)], dim=-1)
+    mid = int(((first > 0) & (first < Hs)).sum())
+    assert 0 < mid < n, f"{mid} of {n} samples terminate mid-horizon"

@@ -158,15 +158,16 @@ def test_pack_kernel_inputs_layout():
 # --- K4: rollout costs of given actions ---------------------------------------
 
 
+@pytest.mark.parametrize("Hs", [H, 32])
 @pytest.mark.parametrize("deterministic", [True, False])
 @pytest.mark.parametrize("layout", ["nhd", "hdn"])
-def test_rollout_costs_plain_matches_pallas(layout, deterministic):
+def test_rollout_costs_plain_matches_pallas(layout, deterministic, Hs):
     """K4's plain route == the Pallas kernel in interpret mode, fed the same
     actions and the normals of JAX's shared draw (fast keys: the draw hashes
-    the step key itself)."""
+    the step key itself), at H=8 and at the main path's H=32."""
     jenv, env, jp, noisy, p, st = _reset()
     rng = np.random.default_rng(8)
-    actions = (rng.normal(size=(N, H, 4)) * 0.5).astype(np.float32)
+    actions = (rng.normal(size=(N, Hs, 4)) * 0.5).astype(np.float32)
     if layout == "hdn":
         actions = np.ascontiguousarray(actions.transpose(1, 2, 0))
     step_key = jax.random.PRNGKey(3)
@@ -181,6 +182,74 @@ def test_rollout_costs_plain_matches_pallas(layout, deterministic):
         deterministic=deterministic, discount=0.98, layout=layout,
     )
     assert rollout_cuda.ROLLOUT_KERNEL.launches == launches  # CPU: plain version
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=2e-4, rtol=1e-5)
+
+
+def _two_pass_costs(env, x0, t0, pos_traj, vel_traj, actions, params, draw,
+                    deterministic, discount):
+    """K4's costs the way the split kernel computes them: the H + 1 states
+    alone first (the force carried from each pre-step velocity), then the
+    rewards, the freeze and the discounted cost from those states; built
+    from the functions ``make_rollout`` uses. ``actions`` (N, H, 4). Returns
+    the costs and each sample's first terminated step (H: none)."""
+    from covo_mpc_tpu_torch.models import dynamics
+    from covo_mpc_tpu_torch.models.structs import FDIST, VEL
+    from covo_mpc_tpu_torch.ops import rollout as rollout_ops
+
+    reward, done_fn = rollout_ops.make_reward(env), rollout_ops._make_done(env)
+    acts = actions.permute(1, 0, 2)
+    Hs, n, _ = acts.shape
+    ptar, vtar = rollout_ops.target_window(t0, pos_traj, vel_traj, Hs)
+    if deterministic:
+        params = params.replace(dyn_noise_scale=params.dyn_noise_scale * 0.0)
+    draw = x0.new_zeros(3) if draw is None else draw
+    xs = [x0[:16].expand(n, 16)]
+    for h in range(Hs):  # pass 1: the state chain
+        x = xs[-1]
+        s_new = dynamics.core_step(x[:, :13], acts[h], x[:, 13:16], params, env._dt)
+        f_new = env.disturb_fn(params, draw, t0 + h, x[..., VEL], x[..., FDIST])
+        xs.append(torch.cat([s_new, f_new.expand(n, 3)], dim=-1))
+    r_prev = torch.zeros(n)
+    d_prev = torch.zeros(n, dtype=torch.bool)
+    first = torch.full((n,), Hs)
+    rews = []
+    for h in range(Hs):  # pass 2: rewards, freeze, cost
+        r = torch.where(d_prev, r_prev, reward(xs[h], ptar[h], vtar[h]))
+        d = done_fn(xs[h], t0 + h, params.max_steps_in_episode) | d_prev
+        first = torch.where(d & ~d_prev, torch.full_like(first, h), first)
+        r_prev, d_prev = r, d
+        rews.append(r)
+    disc = torch.pow(discount, torch.arange(Hs, dtype=torch.float32))
+    return -torch.einsum("h,hn->n", disc, torch.stack(rews)), first
+
+
+@pytest.mark.parametrize("kind", ["gaussian", "drag"])
+def test_rollout_costs_from_states_then_rewards(kind):
+    """The decomposition K4's split kernel relies on: the states rolled out
+    alone, then the rewards, freeze and cost from them, give the one-pass
+    plain rollout's costs bit for bit, and the Pallas kernel's (interpret
+    mode) within its tolerance; in the shared (gaussian) and drag modes,
+    rollover termination on, with samples that terminate mid-horizon."""
+    jenv, env = make_envs(disturb_type=kind, disable_rollover_terminate=False)
+    jp = jenv.default_params
+    if kind == "drag":  # a wind, and a start force the drag carries
+        jp = jp.replace(disturb_params=jnp.asarray(
+            np.random.default_rng(0).uniform(-1.0, 1.0, 6).astype(np.float32)))
+    _, info, _ = jenv.reset_env(jax.random.PRNGKey(0), jp)
+    noisy = info["noisy_state"].replace(f_disturb=jnp.asarray([0.02, -0.01, 0.015]))
+    p, st = to_torch_params(jp), to_torch_state(noisy)
+    actions = (np.random.default_rng(8).normal(size=(256, 32, 4)) * 3.0).astype(np.float32)
+    step_key = jax.random.PRNGKey(3)
+    ref, _ = j_pallas_rollout(jenv, interpret=True, fast_keys=True)(
+        jpack(noisy), noisy.time, noisy.pos_traj, noisy.vel_traj, actions, jp, step_key,
+        deterministic=False, discount=0.98)
+    draw = (t(jax.random.normal(jdyn.derive_dynamics_keys(step_key, fast=True), (3,)))
+            if kind == "gaussian" else None)
+    roll = (pack_state(st), st.time, st.pos_traj, st.vel_traj, t(actions), p, draw)
+    got, first = _two_pass_costs(env, *roll, deterministic=False, discount=0.98)
+    one_pass = make_rollout(env)(*roll, deterministic=False, discount=0.98)
+    assert 0 < int((first < 32).sum()) < 256 and int(first[first < 32].min()) > 0
+    assert torch.equal(got, one_pass)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=2e-4, rtol=1e-5)
 
 
