@@ -30,13 +30,25 @@ source, at first use), then:
    ``rng_mode="fast"``) and with ``engine="torch"``, and one MPPI solve
    with ``engine="cuda"`` (K5, and K4 under ``rng_mode="fast"``) and with
    ``engine="torch"``, each pair on the same normals (per-solve contract
-   2e-4), and checks that no solve syncs with the host;
-3. runs the closed loops, ``evaluate(env, solver, total_steps=1200,
-   seed=1)``: CoVO with ``engine="cuda"``, ``rng_mode="kernel"`` (err_pos
-   finite and below 5.0 cm); MPPI with ``engine="cuda"``,
-   ``rng_mode="kernel"`` (finite, below 8.0 cm and above CoVO's on the same
-   trajectories) and with ``rng_mode="fast"`` (finite, below 8.0 cm); and
-   times the solves of both engines;
+   2e-4), and checks that no solve syncs with the host; (2c) captures
+   each solve the JAX package jits as a CUDA graph (``runtime/graphs.py``:
+   CoVO online on the main path and with ``ns_pallas``, speculative
+   ``act()`` and ``prepare()``, offline, MPPI kernel and fast rng, PID,
+   random) and holds 20 chained replays against 20 chained eager solves
+   from the same seed and params (2e-4 on every output), checks that two
+   replays on the same inputs draw afresh and that the replays launch what
+   the eager solves launch, prints p50 / p99 (``time_blocking``) and ms per
+   solve of a chain (``time_chained``) eager and captured, and the
+   device's busy share inside the replays; the captured main-path solve's
+   p50 must be under 20 ms, the 50 Hz budget;
+3. runs the closed loops, ``evaluate(env, solver, total_steps, seed=1)``,
+   every one through the captured runner (one CUDA graph a control step):
+   CoVO with ``engine="cuda"``, ``rng_mode="kernel"`` at the 40-episode
+   protocol, 12000 steps (err_pos finite and below 5.0 cm); MPPI with
+   ``engine="cuda"``, ``rng_mode="kernel"`` at 12000 steps (finite, below
+   8.0 cm and above CoVO's on the same trajectories) and with
+   ``rng_mode="fast"`` at 1200 (finite, below 8.0 cm); and times the
+   eager solves of both engines;
 4. breaks one cuda-engine CoVO solve and one MPPI solve down by layer
    (CUDA events and torch.profiler device time) and reads the device's
    busy share;
@@ -63,8 +75,9 @@ source, at first use), then:
    against ``engine="torch"`` on the same normals (2e-4, no host sync); (c)
    the speculative ``act`` + ``prepare`` the same way, and ``act()`` and
    ``prepare()`` timed alone; (d) the closed loops of covo_speculative
-   (K8, kernel rng) and covo_offline (kernel rng), below 5.0 cm, PID (below
-   40 cm and above both CoVO modes') and one episode of random actions;
+   (K8, kernel rng; the 40-episode protocol, 12000 steps) and covo_offline
+   (kernel rng; 1200 steps), below 5.0 cm, PID (below 40 cm and above both
+   CoVO modes') and one episode of random actions;
 7. the disturbance modes of the rollout kernels ("table" for sin and
    periodic, "drag", "mixed"): (a) K1, K4, K5 and, at B=16, K6 and K7
    against their plain versions in each mode on given normals and draws,
@@ -91,7 +104,7 @@ source, at first use), then:
    rng, both finite, CoVO below MPPI, and the CoVO solve's median events ms.
 
 Each kernel's launch count in the JSON record is read from the closed loop
-that runs it: K1-K3 from CoVO's, K5 from MPPI's kernel-rng loop, K4 from
+that runs it (a replayed graph adds its kernels' launches at each replay): K1-K3 from CoVO's, K5 from MPPI's kernel-rng loop, K4 from
 MPPI's fast loop, K7 joint from the batched CoVO loop, K7 per-step from
 the batched MPPI kernel-rng loop, K6 from the batched MPPI fast loop, K8
 from the speculative loop (counts set to 0 just before each loop). A
@@ -120,7 +133,8 @@ episode differ from them (phase 1b); K4's and K6's hold ``alone_ms``,
 so the script exits non-zero; without a CUDA device it exits at once. The
 line before the last is the kernels' JSON record, the last ``{"ok": true,
 "device": {...}}``.
-``--total-steps 12000`` runs the 40-episode protocols in phase 3.
+``--total-steps`` sets the loops that do not run the 40-episode protocol
+(1200 by default; 7c runs half of it).
 """
 
 from __future__ import annotations
@@ -144,6 +158,9 @@ ENV_KW = dict(task="tracking_zigzag", enable_randomizer=False,
               disturb_type="gaussian", disable_rollover_terminate=True,
               generate_noisy_state=True)
 ERR_POS_LIMIT_CM = 5.0
+# the 40-episode protocol (RESULTS.md): CoVO online, MPPI kernel rng and
+# speculative run it; the other loops run --total-steps
+PROTOCOL_STEPS = 12000
 MPPI_ERR_POS_LIMIT_CM = 8.0
 SCEN_B = 16  # the checks' scenario count (RESULTS.md's "64 chips at B=16")
 SCEN_TIMING_B = (1, 16, 64)
@@ -281,6 +298,18 @@ def err_by_scenario(label: str, got: torch.Tensor, ref: torch.Tensor) -> None:
 
     say(f"  {label} per scenario: max abs err {row(d.gather(1, at))}, |plain| there "
         f"{row(r.gather(1, at))}, max rel err {row((d / r).amax(1))}")
+
+
+_SEED_WORDS = {}
+
+
+def seed_ptr(value: int) -> int:
+    """The device address of a 0-d int64 word holding ``value``: the
+    Philox key operand of the sampling kernels' C entry points (K1, K5, K7),
+    made once a value and kept alive."""
+    if value not in _SEED_WORDS:
+        _SEED_WORDS[value] = torch.full((), value, dtype=torch.int64, device="cuda")
+    return _SEED_WORDS[value].data_ptr()
 
 
 def bare_launch_ms(kernel, *args, reps: int = 50) -> float:
@@ -751,6 +780,195 @@ def phase_solve(env, dev, kernel_list):
               "solve outputs finite")
 
 
+# --- phase 2c: the captured solves (CUDA graphs) ----------------------------
+
+CAPTURE_CHAIN = 20  # eager solves and replays held against each other
+SCHEDULE_FIELDS = ("a_cov_offline", "a_factor_offline")  # offline's, read only
+
+
+def solve_outputs(method: str, out) -> dict:
+    """The tensors one solve gives, by name: the action and the solver
+    params' tensors (offline's schedule aside: a solve reads it only)."""
+    action, cp = (None, out) if method == "prepare" else out[:2]
+    named = {} if action is None else {"action": action}
+    if cp is not None:
+        named.update({f: getattr(cp, f) for f in cp.__dataclass_fields__
+                      if isinstance(getattr(cp, f), torch.Tensor)
+                      and f not in SCHEDULE_FIELDS})
+    return named
+
+
+def captured_cases(env):
+    """(label, solver, its first params, method, draws): every solve JAX
+    jits, on the main path's env; speculative and offline params after
+    their reset at the reset state of phase 2."""
+    from covo_mpc_tpu_torch.solvers import get_solver
+
+    p = env.default_params
+    _, _, state = env.reset(torch.Generator(env.device).manual_seed(5), p)
+    spec, spec_cp = make_solver(env, "cuda", name="covo_speculative", sigma_mode="ns_pallas")
+    spec_cp = spec.reset(state, p, spec_cp)
+    off, off_cp = make_solver(env, "cuda", name="covo_offline")
+    off_cp = off.reset(state, p, off_cp)
+    return [
+        ("covo_online (gn, ns, kernel rng: the main path)", *make_solver(env, "cuda"),
+         "call", True),
+        ("covo_online (gn, ns_pallas, kernel rng)",
+         *make_solver(env, "cuda", sigma_mode="ns_pallas"), "call", True),
+        ("covo_speculative act() (ns_pallas, kernel rng)", spec, spec_cp, "act", True),
+        # a deterministic model step and Hessian under the gaussian model
+        ("covo_speculative prepare() (ns_pallas)", spec, spec_cp, "prepare", False),
+        ("covo_offline (kernel rng)", off, off_cp, "call", True),
+        ("mppi (kernel rng: K5)", *make_mppi(env, "cuda"), "call", True),
+        ("mppi (fast rng: torch normals + K4)", *make_mppi(env, "cuda", rng_mode="fast"),
+         "call", True),
+        ("pid", *get_solver(env, "pid"), "call", False),
+        ("random", *get_solver(env, "random"), "call", True),
+    ]
+
+
+def graph_nodes(cap) -> int:
+    """The nodes of a captured call's CUDA graph (kernels, copies, fills:
+    the device ops one replay runs), read with libcuda's
+    cuGraphGetNodes."""
+    import ctypes
+
+    count = ctypes.c_size_t(0)
+    err = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(cap.graph.raw_cuda_graph()), None, ctypes.byref(count))
+    if err != 0:
+        raise RuntimeError(f"cuGraphGetNodes: CUresult {err}")
+    return count.value
+
+
+def graph_profile(replay, nodes: int, reps: int = 10, sessions: int = 3):
+    """Profiler sessions of ``reps`` replays of a captured solve whose graph
+    holds ``nodes`` device ops: the device ms a replay, from the sessions
+    that lost no event (each recorded reps x nodes device ops, and one more
+    for each host call that enqueued device work around the replays, the
+    generators' offsets). Returns (device ms a replay or None, "k of n"
+    sessions complete, the device ops each session recorded)."""
+    replay()
+    torch.cuda.synchronize()
+    full, seen = [], []
+    for _ in range(sessions):
+        device, host_ops, _ = profiled(replay, reps)
+        seen.append(len(device))
+        if len(device) == reps * nodes + host_ops:
+            full.append(sum(e.self_device_time_total for e in device) / 1e3 / reps)
+    return (float(np.median(full)) if full else None), f"{len(full)} of {sessions}", seen
+
+
+def solve_calls(solver, method, obs, state, p, info):
+    """(the solve, ``call(f, cp)`` that runs f on the case's arguments,
+    ``carry(out)`` the params the next solve of a chain takes)."""
+    if method == "prepare":
+        return (solver.prepare, lambda f, cp: f(state, p, cp, info), lambda out: out)
+    return (solver.act if method == "act" else solver,
+            lambda f, cp: f(obs, state, p, cp, info), lambda out: out[1])
+
+
+def phase_captured(env, dev, kernel_list):
+    """Phase 2c: each solve JAX jits, captured as a CUDA graph
+    (runtime/graphs.py) and held against its eager twin. First every case
+    is captured and its replays profiled (the graph's nodes, the device ms
+    a replay from sessions that lost no event; profiled first, as sessions
+    late in a long process lose events); then, per case, CAPTURE_CHAIN
+    chained eager solves and as many replays from the same seed and params
+    (2e-4 on every output), fresh draws at each replay, the replays' launch
+    counts equal to the eager ones, p50 / p99 by time_blocking and ms per
+    solve by time_chained for both, and the device's busy share inside the
+    replays (device ms a replay over the chained ms a replay). Returns a
+    summary by case."""
+    from covo_mpc_tpu_torch.runtime import graphs, profiling
+
+    p = env.default_params
+    obs, info, state = env.reset(torch.Generator(dev).manual_seed(5), p)
+    phase("phase 2c: captured solves (CUDA graphs), each captured and its replays profiled")
+    cases = []
+    for label, solver, cp0, method, draws in captured_cases(env):
+        fn, call, carry = solve_calls(solver, method, obs, state, p, info)
+        t0 = time.perf_counter()
+        cap = call(lambda *a: graphs.capture_solver(fn, solver, *a), cp0)
+        capture_s = time.perf_counter() - t0
+        nodes = graph_nodes(cap)
+        dev_ms, complete, seen = graph_profile(cap.replay, nodes)
+        say(f"  {label}: captured in {capture_s:.2f} s, {nodes} graph nodes; device "
+            f"{fmt_ms(dev_ms)} a replay ({complete} sessions of 10 replays complete; "
+            f"device ops recorded: {seen})")
+        cases.append((label, solver, cp0, method, draws, fn, call, carry, cap,
+                      dict(capture_s=capture_s, graph_nodes=nodes, device_ms=dev_ms)))
+    summary = {}
+    for label, solver, cp0, method, draws, fn, call, carry, cap, rec in cases:
+        phase(f"phase 2c: captured solves, {label}")
+        slow = "covo" in label
+        # the eager chain and the replayed one from the same seed and
+        # params (seed() after the capture: the graph reads the new keys),
+        # launch counts from 0 for each
+        chains, counts = {}, {}
+        for kind, f in (("eager", fn), ("captured", cap)):
+            solver.seed(3)
+            for k in kernel_list:
+                k.launches = 0
+            chains[kind], cp = [], cp0
+            for _ in range(CAPTURE_CHAIN):
+                out = call(f, cp)
+                chains[kind].append(solve_outputs(method, out))
+                cp = carry(out)
+            counts[kind] = {k.symbol: k.launches for k in kernel_list}
+        torch.cuda.synchronize()
+        errs = {}
+        for eager, replayed in zip(chains["eager"], chains["captured"]):
+            for name in eager:
+                errs[name] = max(errs.get(name, 0.0), max_err(replayed[name], eager[name]))
+        say(f"  max |replay - eager| over {CAPTURE_CHAIN} chained solves: {errs}")
+        check(all(v <= 2e-4 for v in errs.values()),
+              f"{label}: {CAPTURE_CHAIN} replays match {CAPTURE_CHAIN} eager solves "
+              "within 2e-4 on every output")
+        say(f"  launches, eager / replayed: { {k: v for k, v in counts['eager'].items() if v} }"
+            f" / { {k: v for k, v in counts['captured'].items() if v} }")
+        check(counts["captured"] == counts["eager"], f"{label}: the replays' launch counts "
+              "equal the eager solves'")
+        if draws:
+            first = solve_outputs(method, call(cap, cp0))
+            second = solve_outputs(method, call(cap, cp0))
+            same = [n for n in first if torch.equal(first[n], second[n])]
+            say(f"  two replays on the same inputs: outputs equal bit for bit: {same or 'none'}")
+            check(not torch.equal(first["action"], second["action"]),
+                  f"{label}: consecutive replays draw different samples")
+        # latency: host wall per call, then device ms per call of a chain
+        iters = 20 if slow else 60
+        blocking = {"eager": profiling.time_blocking(lambda: call(fn, cp0), iters, 2),
+                    "captured": profiling.time_blocking(lambda: call(cap, cp0), 60, 2)}
+        chained = {
+            "eager": profiling.time_chained(lambda c: carry(call(fn, c)), cp0,
+                                            iters=4 if slow else 8, k=8 if slow else 16),
+            "captured": profiling.time_chained(lambda c: carry(call(cap, c)), cp0,
+                                               iters=8, k=16)}
+        for kind in ("eager", "captured"):
+            b, c = blocking[kind], chained[kind]
+            say(f"  {kind:8s} time_blocking p50 {b['p50'] * 1e3:9.4f} ms, p99 "
+                f"{b['p99'] * 1e3:9.4f} ms ({b['iters']} calls); time_chained "
+                f"{c['p50'] * 1e3:9.4f} ms per solve (median of {c['iters']} chains of "
+                f"{c['k']})")
+        replay_ms = chained["captured"]["p50"] * 1e3
+        busy = None if rec["device_ms"] is None else rec["device_ms"] / replay_ms
+        say(f"  inside the replays: device busy "
+            f"{'not measured' if busy is None else f'{100 * busy:.2f}%'} (device "
+            f"{fmt_ms(rec['device_ms'])} a replay over {replay_ms:.4f} ms a chained replay)")
+        summary[label] = {
+            "max_abs_diff": errs, **rec, "busy": busy,
+            **{f"{kind}_{q}_ms": blocking[kind][q] * 1e3 for kind in blocking
+               for q in ("p50", "p99")},
+            **{f"{kind}_chained_ms": chained[kind]["p50"] * 1e3 for kind in chained}}
+    del cases
+    say("captured summary: " + json.dumps(summary))
+    main_path = summary["covo_online (gn, ns, kernel rng: the main path)"]
+    check(main_path["captured_p50_ms"] < 20.0,
+          "the captured main-path solve's p50 (time_blocking) under 20 ms, the 50 Hz budget")
+    return summary
+
+
 def solve_times(env, dev, make=make_solver, reps=60, warmup=5):
     """Median device ms per solve for each engine, from CUDA events around
     each solve of a chain of solves; engines in turns torch, cuda, cuda,
@@ -967,12 +1185,15 @@ def closed_loop(env, solver, total_steps, kernel_list):
 
 
 def phase_closed_loops(env, dev, total_steps, covo_kernels, kernel_list):
-    """Phase 3: the single-scenario closed loops and solve times; returns
-    each kernel's launch count from the loop that runs it."""
-    phase(f"phase 3: closed loop, evaluate(total_steps={total_steps}, seed=1), "
+    """Phase 3: the single-scenario closed loops (captured: each control
+    step one CUDA graph), CoVO online and MPPI kernel rng at the 40-episode
+    protocol (PROTOCOL_STEPS), MPPI fast rng at ``total_steps``, and the
+    eager solve times; returns each kernel's launch count from the loop that
+    runs it."""
+    phase(f"phase 3: closed loop, evaluate(total_steps={PROTOCOL_STEPS}, seed=1), "
         "engine='cuda', rng_mode='kernel'")
     solver, _ = make_solver(env, "cuda")
-    result, launches = closed_loop(env, solver, total_steps, kernel_list)
+    result, launches = closed_loop(env, solver, PROTOCOL_STEPS, kernel_list)
     check(all(launches[k.symbol] > 0 for k in covo_kernels),
           "every kernel of the CoVO path launched by the main path")
     check(np.isfinite(result.mean) and result.mean * 100 < ERR_POS_LIMIT_CM,
@@ -981,10 +1202,10 @@ def phase_closed_loops(env, dev, total_steps, covo_kernels, kernel_list):
     say(f"  median device ms per solve: cuda {med['cuda']:.4f} ({counts['cuda']} solves), "
         f"torch {med['torch']:.4f} ({counts['torch']} solves)")
 
-    phase(f"phase 3b: MPPI closed loop, evaluate(total_steps={total_steps}, "
+    phase(f"phase 3b: MPPI closed loop, evaluate(total_steps={PROTOCOL_STEPS}, "
         "seed=1), engine='cuda', rng_mode='kernel'")
     solver, _ = make_mppi(env, "cuda")
-    mppi, mppi_launches = closed_loop(env, solver, total_steps, kernel_list)
+    mppi, mppi_launches = closed_loop(env, solver, PROTOCOL_STEPS, kernel_list)
     launches["sample_rollout"] = mppi_launches["sample_rollout"]
     check(launches["sample_rollout"] > 0, "sample_rollout launched by the MPPI loop")
     check(np.isfinite(mppi.mean) and mppi.mean * 100 < MPPI_ERR_POS_LIMIT_CM,
@@ -1173,7 +1394,7 @@ def phase_scenario_kernels(env, dev, records):
         a_out = torch.empty(B, D, N, device=dev)
         kern = (rollout_cuda.JOINT_BATCHED_KERNEL if joint
                 else rollout_cuda.SAMPLE_BATCHED_KERNEL)
-        ms_k = bare_launch_ms(kern, *ptrs, mean.data_ptr(), fac.data_ptr(), None, 7,
+        ms_k = bare_launch_ms(kern, *ptrs, mean.data_ptr(), fac.data_ptr(), None, seed_ptr(7),
                               costs.data_ptr(), a_out.data_ptr(), B, N, H,
                               k7._check_rollover, k7.mode, k7.reward, k7.block)
         say(f"  {label} {ms:.4f} ms, plain {ms_p:.4f} ms, kernel alone {ms_k:.4f} ms")
@@ -1511,21 +1732,23 @@ def phase_sigma_solves(env, dev, kernel_list):
 
 
 def phase_mode_loops(env, total_steps, kernel_list, covo_kernels):
-    """6d: the closed loops of the speculative and offline CoVO modes, PID
-    and random; returns K8's launch count from the speculative loop."""
+    """6d: the closed loops (captured) of the speculative CoVO mode at the
+    40-episode protocol (PROTOCOL_STEPS), of the offline mode and PID at
+    ``total_steps``, and one episode of random actions; returns K8's launch
+    count from the speculative loop."""
     from covo_mpc_tpu_torch.ops import covariance_cuda
     from covo_mpc_tpu_torch.solvers import get_solver
 
-    phase(f"phase 6d: closed loops, evaluate(total_steps={total_steps}, seed=1): "
+    phase(f"phase 6d: closed loops, evaluate(total_steps={PROTOCOL_STEPS}, seed=1): "
           "covo_speculative (ns_pallas, kernel rng)")
     solver, _ = make_solver(env, "cuda", name="covo_speculative", sigma_mode="ns_pallas")
-    spec, launches = closed_loop(env, solver, total_steps, kernel_list)
+    spec, launches = closed_loop(env, solver, PROTOCOL_STEPS, kernel_list)
     k8 = launches[covariance_cuda.SIGMA_KERNEL.symbol]
     check(k8 > 0 and all(launches[k.symbol] > 0 for k in covo_kernels),
           "sigma_ns and every kernel of the CoVO path launched by the speculative loop")
     check(np.isfinite(spec.mean) and spec.mean * 100 < ERR_POS_LIMIT_CM,
           f"speculative err_pos finite and below {ERR_POS_LIMIT_CM} cm")
-    phase("  covo_offline (kernel rng)")
+    phase(f"  covo_offline (kernel rng), evaluate(total_steps={total_steps}, seed=1)")
     solver, _ = make_solver(env, "cuda", name="covo_offline")
     off, _ = closed_loop(env, solver, total_steps, kernel_list)
     check(np.isfinite(off.mean) and off.mean * 100 < ERR_POS_LIMIT_CM,
@@ -1694,13 +1917,14 @@ def kernels_alone(inp, case, mode: str, reward: str = "penyaw") -> dict:
     return {
         "joint_sample_rollout": (bare_launch_ms(
             rollout_cuda.JOINT_KERNEL, *ptrs, mean.data_ptr(), inp.factor.data_ptr(), None,
-            7, *out, N, H, 0, mi, ri, rollout_cuda.JOINT_BLOCK), k1_bound(1, N, H, mode, reward)),
+            seed_ptr(7), *out, N, H, 0, mi, ri, rollout_cuda.JOINT_BLOCK),
+            k1_bound(1, N, H, mode, reward)),
         "rollout_costs": (bare_launch_ms(
             rollout_cuda.ROLLOUT_KERNEL, *ptrs, inp.acts.data_ptr(), out[0], N, H,
             0, mi, ri, rollout_cuda.ROLLOUT_BLOCK), k4_bound(1, N, H, mode, reward)),
         "sample_rollout": (bare_launch_ms(
-            rollout_cuda.SAMPLE_KERNEL, *ptrs, mean.data_ptr(), inp.chol.data_ptr(), None, 7,
-            8, 0, None, *out, N, H, 0, mi, ri, rollout_cuda.SAMPLE_BLOCK),
+            rollout_cuda.SAMPLE_KERNEL, *ptrs, mean.data_ptr(), inp.chol.data_ptr(), None,
+            seed_ptr(7), None, 0, None, *out, N, H, 0, mi, ri, rollout_cuda.SAMPLE_BLOCK),
             k5_bound(1, N, H, mode, reward)),
         "rollout_costs_batched": (bare_launch_ms(
             rollout_cuda.ROLLOUT_BATCHED_KERNEL, *ptrs_b, inp.acts_b.data_ptr(),
@@ -1708,11 +1932,11 @@ def kernels_alone(inp, case, mode: str, reward: str = "penyaw") -> dict:
             k4_bound(B, N, H, mode, reward)),
         "sample_rollout_batched": (bare_launch_ms(
             rollout_cuda.SAMPLE_BATCHED_KERNEL, *ptrs_b, mean_b.data_ptr(),
-            inp.chols_b.data_ptr(), None, 7, *out_b, B, N, H, 0, mi, ri,
+            inp.chols_b.data_ptr(), None, seed_ptr(7), *out_b, B, N, H, 0, mi, ri,
             rollout_cuda.SAMPLE_BLOCK), k5_bound(B, N, H, mode, reward)),
         "joint_sample_rollout_batched": (bare_launch_ms(
             rollout_cuda.JOINT_BATCHED_KERNEL, *ptrs_b, mean_b.data_ptr(),
-            inp.factors_b.data_ptr(), None, 7, *out_b, B, N, H, 0, mi, ri,
+            inp.factors_b.data_ptr(), None, seed_ptr(7), *out_b, B, N, H, 0, mi, ri,
             rollout_cuda.JOINT_BLOCK), k1_bound(B, N, H, mode, reward)),
     }
 
@@ -2124,7 +2348,9 @@ def phase_realworld_loops(dev, total_steps, kernel_list, records):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--total-steps", type=int, default=1200,
-                    help="closed-loop length (12000: the 40-episode protocols)")
+                    help="length of the closed loops that do not run the "
+                         "40-episode protocol (CoVO online, MPPI kernel rng and "
+                         "speculative run PROTOCOL_STEPS)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -2185,6 +2411,7 @@ def main(argv=None) -> int:
     phase_chain_kernels(dev, records, earlier, probe, clock_mhz)
     phase_rollout_kernels(dev, records, earlier_rollout, probe, clock_mhz)
     phase_solve(env, dev, single_kernels)
+    phase_captured(env, dev, kernel_list)
     launches = phase_closed_loops(env, dev, args.total_steps, covo_kernels,
                                   single_kernels)
     profile_solves(env, dev)

@@ -29,6 +29,11 @@
 //    b): one Philox4x32-10 call (philox.cuh) gives 4 uniforms -> 2
 //    Box-Muller pairs -> z rows 4j..4j+3 of sample n of scenario b, so the
 //    draws do not depend on S, T or B, and scenario 0 draws what K1 draws.
+//    The key is the 64-bit device word `seed` points to, read by the
+//    threads that draw: a CUDA graph that replays the launch reads the word
+//    each solve writes (ops/sampling.py's seed stream), so every replay
+//    draws afresh, and one key value gives the same normals however the
+//    word was written.
 //    The given-z mode loads the (D, S) tile coalesced along samples. Past N
 //    the tile holds zeros.
 // B. The correlate A = F Z_tile, (D x D) (D x S), as a register-tiled SGEMM:
@@ -178,8 +183,9 @@ __global__ void __launch_bounds__(kT) joint_sample_rollout_kernel(
     const int* __restrict__ ints, const float* __restrict__ ptar,
     const float* __restrict__ vtar, const float* __restrict__ dist,
     const float* __restrict__ mean, const float* __restrict__ factor,
-    const float* __restrict__ z, uint64_t seed, float* __restrict__ costs,
-    float* __restrict__ actions, int N, int H, int check_rollover, int mode) {
+    const float* __restrict__ z, const uint64_t* __restrict__ seed_p,
+    float* __restrict__ costs, float* __restrict__ actions, int N, int H,
+    int check_rollover, int mode) {
   using G = Geometry<kS, kT>;
   constexpr int kSG = G::kSG, kTR = G::kTR;
   extern __shared__ __align__(16) float smem[];
@@ -207,6 +213,7 @@ __global__ void __launch_bounds__(kT) joint_sample_rollout_kernel(
       z_s[i] = n < N ? z[off + static_cast<size_t>(i / kS) * N + n] : 0.0f;
     }
   } else {
+    const uint64_t seed = *seed_p;
     for (int i = tid; i < (D / 4) * kS; i += kT) {
       const int j = i / kS, s = i % kS;
       float4 r = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
@@ -307,8 +314,8 @@ template <int kS, int kT>
 int launch_tile(const float* x0, const float* scal, const int* ints,
                 const float* ptar, const float* vtar, const float* dist,
                 const float* mean, const float* factor, const float* z,
-                uint64_t seed, float* costs, float* actions, int B, int N,
-                int H, int check_rollover, int mode, int reward,
+                const uint64_t* seed, float* costs, float* actions, int B,
+                int N, int H, int check_rollover, int mode, int reward,
                 cudaStream_t stream) {
   const size_t smem = sizeof(float) * Geometry<kS, kT>::smem_floats(4 * H);
   const auto kernel = reward == quad::kRealworld
@@ -332,15 +339,16 @@ bool aligned16(const void* p) {
 int launch(const float* x0, const float* scal, const int* ints,
            const float* ptar, const float* vtar, const float* dist,
            const float* mean, const float* factor, const float* z,
-           uint64_t seed, float* costs, float* actions, int B, int N, int H,
-           int check_rollover, int mode, int reward, int block,
+           const uint64_t* seed, float* costs, float* actions, int B, int N,
+           int H, int check_rollover, int mode, int reward, int block,
            cudaStream_t stream) {
   // F's stages are 16-byte copies and the action tile 16-byte stores
   if (B <= 0 || B > quad::kMaxScenarios || N <= 0 || H <= 0 ||
       4 * H > kMaxD || (block != 64 && block != 128) ||
       mode < quad::kShared || mode > quad::kMixed ||
       reward < quad::kPenyaw || reward > quad::kRealworld ||
-      !aligned16(factor) || !aligned16(actions)) {
+      !aligned16(factor) || !aligned16(actions) ||
+      (z == nullptr && seed == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto run = block == 64 ? launch_tile<64, kThreads64>
@@ -378,12 +386,13 @@ int info(int H, int* out) {
 
 // K1: one scenario. Launch on `stream`; returns cudaGetLastError(), or
 // cudaErrorInvalidValue (nothing launched) for a block other than 64 or
-// 128, H > 32, or a factor or actions pointer not 16-byte aligned. z may be
-// null (draw in-kernel from `seed`).
+// 128, H > 32, a factor or actions pointer not 16-byte aligned, or neither
+// z nor seed given. z may be null: the kernel then draws in-kernel, keyed by
+// the device word `seed` points to (null when z is given).
 extern "C" int joint_sample_rollout(
     const float* x0, const float* scal, const int* ints, const float* ptar,
     const float* vtar, const float* dist, const float* mean,
-    const float* factor, const float* z, uint64_t seed, float* costs,
+    const float* factor, const float* z, const uint64_t* seed, float* costs,
     float* actions, int N, int H, int check_rollover, int mode, int reward,
     int block, cudaStream_t stream) {
   return launch(x0, scal, ints, ptar, vtar, dist, mean, factor, z, seed,
@@ -396,7 +405,7 @@ extern "C" int joint_sample_rollout(
 extern "C" int joint_sample_rollout_batched(
     const float* x0, const float* scal, const int* ints, const float* ptar,
     const float* vtar, const float* dist, const float* mean,
-    const float* factor, const float* z, uint64_t seed, float* costs,
+    const float* factor, const float* z, const uint64_t* seed, float* costs,
     float* actions, int B, int N, int H, int check_rollover, int mode, int reward,
     int block, cudaStream_t stream) {
   return launch(x0, scal, ints, ptar, vtar, dist, mean, factor, z, seed,

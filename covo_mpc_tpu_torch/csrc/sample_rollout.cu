@@ -17,8 +17,9 @@
 // Disturbance: the mode of quad::rollout_step; "shared" takes the force of
 // steps >= 1 from the scalar pack. "krng" (krng != 0, "shared" mode of the
 // single-scenario K5 only) draws it here: three standard normals from
-// Philox keyed by disturb_seed, counter (0, 0, 1, b) (word 2 set: disjoint
-// from the action stream even for equal seeds), scaled by scal[kDraw0], the
+// Philox keyed by the device word disturb_seed points to, counter (0, 0, 1,
+// b) (word 2 set: disjoint from the action stream even for equal seeds),
+// scaled by scal[kDraw0], the
 // effective noise scale; the TPU kernel's per-solve shared draw. draw_out
 // (3,), when given, receives the normals (block 0 of scenario 0): a test
 // feeds them back to the plain version.
@@ -43,8 +44,11 @@
 //      means (20H floats) in shared memory; its H x S Philox calls are
 //      spread over all 512 threads (8 a sample at S = 64), consecutive
 //      threads on consecutive samples. The counter is (h, n, 0, b), keyed by
-//      `seed`, in both kernels: the normals depend neither on S nor B, and
-//      scenario 0 draws what K5 draws. a_h = clip1(mean_h + L_h z_h) is one
+//      the device word `seed` points to, in both kernels: the normals depend
+//      neither on S nor B, and scenario 0 draws what K5 draws. Both keys
+//      are read on the device, so a CUDA graph that replays the launch
+//      reads the words each solve writes (ops/sampling.py's seed stream).
+//      a_h = clip1(mean_h + L_h z_h) is one
 //      expression in both kernels, operand for operand, so the same fmaf
 //      chains form and every action keeps its bits. The actions go into a
 //      (4H, S) tile in shared memory; the given-z mode loads its tile of z
@@ -142,8 +146,9 @@ __global__ void __launch_bounds__(kTileThreads) sample_rollout_tile_kernel(
     const int* __restrict__ ints, const float* __restrict__ ptar,
     const float* __restrict__ vtar, const float* __restrict__ dist,
     const float* __restrict__ mean, const float* __restrict__ chol,
-    const float* __restrict__ z, uint64_t seed, uint64_t disturb_seed,
-    int krng, float* __restrict__ draw_out, float* __restrict__ costs,
+    const float* __restrict__ z, const uint64_t* __restrict__ seed_p,
+    const uint64_t* __restrict__ disturb_seed_p, int krng,
+    float* __restrict__ draw_out, float* __restrict__ costs,
     float* __restrict__ actions, int N, int H, int check_rollover, int mode) {
   constexpr int kT = kTileThreads;
   static_assert(kT % kS == 0 && kT > kS && kS % 32 == 0,
@@ -166,7 +171,7 @@ __global__ void __launch_bounds__(kTileThreads) sample_rollout_tile_kernel(
   for (int i = tid; i < 4 * H; i += kT) m_s[i] = mb[i];
   if (krng && tid == 0) {
     const float4 d = rng::normals4(
-        make_uint4(0u, 0u, 1u, static_cast<uint32_t>(b)), disturb_seed);
+        make_uint4(0u, 0u, 1u, static_cast<uint32_t>(b)), *disturb_seed_p);
     const float eff = scal[quad::kNScal * b + quad::kDraw0];
     f_s[0] = eff * d.x;
     f_s[1] = eff * d.y;
@@ -182,6 +187,7 @@ __global__ void __launch_bounds__(kTileThreads) sample_rollout_tile_kernel(
   const int s = tid % kS;
   const int n = n0 + s;
   if (n < N) {
+    const uint64_t seed = z != nullptr ? 0 : *seed_p;
     // this thread's steps: tid / kS, + kR, + 2 kR, ...
     for (int h = tid / kS; h < H; h += kR) {
       float4 zh;
@@ -231,8 +237,9 @@ __global__ void sample_rollout_step_kernel(
     const int* __restrict__ ints, const float* __restrict__ ptar,
     const float* __restrict__ vtar, const float* __restrict__ dist,
     const float* __restrict__ mean, const float* __restrict__ chol,
-    const float* __restrict__ z, uint64_t seed, uint64_t disturb_seed,
-    int krng, float* __restrict__ draw_out, float* __restrict__ costs,
+    const float* __restrict__ z, const uint64_t* __restrict__ seed_p,
+    const uint64_t* __restrict__ disturb_seed_p, int krng,
+    float* __restrict__ draw_out, float* __restrict__ costs,
     float* __restrict__ actions, int N, int H, int check_rollover, int mode) {
   extern __shared__ __align__(16) float smem[];
   const int b = blockIdx.y;
@@ -253,7 +260,7 @@ __global__ void sample_rollout_step_kernel(
   quad::RolloutShared sh = quad::load_shared(t, check_rollover, mode);
   if (krng) {
     const float4 d = rng::normals4(
-        make_uint4(0u, 0u, 1u, static_cast<uint32_t>(b)), disturb_seed);
+        make_uint4(0u, 0u, 1u, static_cast<uint32_t>(b)), *disturb_seed_p);
     const float eff = t.scal[quad::kDraw0];
     sh.fx = eff * d.x;
     sh.fy = eff * d.y;
@@ -266,6 +273,7 @@ __global__ void sample_rollout_step_kernel(
   }
 
   quad::Carry c = quad::start(t.x0);
+  const uint64_t seed = z != nullptr ? 0 : *seed_p;
   auto draw = [&](int h) {
     if (z != nullptr) {
       const float* z_h = z + off + (size_t)(4 * h) * N + n;
@@ -318,8 +326,9 @@ bool aligned16(const void* p) {
 
 int launch(const float* x0, const float* scal, const int* ints,
            const float* ptar, const float* vtar, const float* dist,
-           const float* mean, const float* chol, const float* z, uint64_t seed,
-           uint64_t disturb_seed, int krng, float* draw_out, float* costs,
+           const float* mean, const float* chol, const float* z,
+           const uint64_t* seed, const uint64_t* disturb_seed, int krng,
+           float* draw_out, float* costs,
            float* actions, int B, int N, int H, int check_rollover, int mode,
            int reward, int block, cudaStream_t stream) {
   // the tile kernel writes its tile in 16-byte stores
@@ -327,7 +336,8 @@ int launch(const float* x0, const float* scal, const int* ints,
       (block != 32 && block != 64 && block != 128) || mode < quad::kShared ||
       mode > quad::kMixed || reward < quad::kPenyaw ||
       reward > quad::kRealworld || (krng && mode != quad::kShared) ||
-      !aligned16(actions)) {
+      !aligned16(actions) || (z == nullptr && seed == nullptr) ||
+      (krng && disturb_seed == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   int device = 0, sms = 0;
@@ -408,13 +418,15 @@ int info(int H, int tile, int* out) {
 // K5: one scenario. Launch on `stream`; returns cudaGetLastError(), or an
 // error with nothing launched for a block other than 32, 64 or 128 samples,
 // an actions pointer not 16-byte aligned, or a tile larger than a block's
-// shared memory. z may be null (draw in-kernel from `seed`); draw_out may be
-// null.
+// shared memory, or a key missing. z may be null: the kernel then draws
+// in-kernel, keyed by the device word `seed` points to (null when z is
+// given); disturb_seed points to the krng draw's key (null without krng);
+// draw_out may be null.
 extern "C" int sample_rollout(
     const float* x0, const float* scal, const int* ints, const float* ptar,
     const float* vtar, const float* dist, const float* mean, const float* chol,
-    const float* z, uint64_t seed, uint64_t disturb_seed, int krng,
-    float* draw_out, float* costs, float* actions, int N, int H,
+    const float* z, const uint64_t* seed, const uint64_t* disturb_seed,
+    int krng, float* draw_out, float* costs, float* actions, int N, int H,
     int check_rollover, int mode, int reward, int block, cudaStream_t stream) {
   return launch(x0, scal, ints, ptar, vtar, dist, mean, chol, z, seed,
                 disturb_seed, krng, draw_out, costs, actions, 1, N, H,
@@ -427,11 +439,11 @@ extern "C" int sample_rollout(
 extern "C" int sample_rollout_batched(
     const float* x0, const float* scal, const int* ints, const float* ptar,
     const float* vtar, const float* dist, const float* mean, const float* chol,
-    const float* z, uint64_t seed, float* costs, float* actions, int B, int N,
-    int H, int check_rollover, int mode, int reward, int block,
+    const float* z, const uint64_t* seed, float* costs, float* actions, int B,
+    int N, int H, int check_rollover, int mode, int reward, int block,
     cudaStream_t stream) {
-  return launch(x0, scal, ints, ptar, vtar, dist, mean, chol, z, seed, 0, 0,
-                nullptr, costs, actions, B, N, H, check_rollover, mode, reward,
+  return launch(x0, scal, ints, ptar, vtar, dist, mean, chol, z, seed, nullptr,
+                0, nullptr, costs, actions, B, N, H, check_rollover, mode, reward,
                 block, stream);
 }
 

@@ -196,7 +196,9 @@ class QuadEnv:
         zeros3 = torch.zeros(3, device=self.device)
         hist = self._adapt_horizon + 2
         quat = torch.zeros(4, device=self.device)
-        quat[3] = 1.0
+        # a fill kernel: item assignment would copy a host scalar to the
+        # device, which syncs (and cannot be captured)
+        quat[3:].fill_(1.0)
         return EnvState3D(
             pos=zeros3, vel=zeros3, omega=zeros3, omega_tar=zeros3, quat=quat,
             pos_tar=pos_traj[0], vel_tar=vel_traj[0], acc_tar=acc_traj[0],

@@ -13,10 +13,20 @@ stream) and returns ``cudaGetLastError()``; :meth:`Kernel.launch` raises if
 that is not 0 and counts the launch. A build or launch failure raises.
 Nothing falls back to the plain PyTorch versions: those are taken only for
 tensors that lie on the CPU, by the wrappers in the ops modules.
+
+Every operand is a device pointer or a value fixed for the solver's life,
+so a launch can be captured into a CUDA graph (``runtime/graphs.py``): the
+sampling kernels' Philox keys too are device words (``seed`` pointers,
+written by :class:`~covo_mpc_tpu_torch.ops.sampling.SeedStream`). A launch
+made while the stream captures is recorded, not run: it goes to the
+capture's tally (:func:`recording`), and the graph adds it to the count at
+each replay.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -36,17 +46,17 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # it does not change the code
 NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-lineinfo", "-Xcompiler", "-fPIC"]
 
-_P, _I, _U64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64, ctypes.c_float
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of the entry points (csrc/*.cu); every one returns cudaError_t
 _SIGNATURES = {
-    "joint_sample_rollout": [*[_P] * 9, _U64, _P, _P, *[_I] * 6, _P],
+    "joint_sample_rollout": [*[_P] * 12, *[_I] * 6, _P],
     "primal": [_P, _P, _P, _P, _P, _I, _P],
     "sens_chain": [_P, _P, _I, _I, _I, _P],
     "rollout_costs": [*[_P] * 8, *[_I] * 6, _P],
-    "sample_rollout": [*[_P] * 9, _U64, _U64, _I, _P, _P, _P, *[_I] * 6, _P],
+    "sample_rollout": [*[_P] * 11, _I, _P, _P, _P, *[_I] * 6, _P],
     "rollout_costs_batched": [*[_P] * 8, *[_I] * 7, _P],
-    "sample_rollout_batched": [*[_P] * 9, _U64, _P, _P, *[_I] * 7, _P],
-    "joint_sample_rollout_batched": [*[_P] * 9, _U64, _P, _P, *[_I] * 7, _P],
+    "sample_rollout_batched": [*[_P] * 12, *[_I] * 7, _P],
+    "joint_sample_rollout_batched": [*[_P] * 12, *[_I] * 7, _P],
     "joint_sample_rollout_info": [_I, _I, _P],
     "sample_rollout_info": [_I, _I, _I, _P],
     "rollout_costs_info": [_I, _I, _I, _P],
@@ -125,9 +135,28 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+# the launches recorded by the capture under way (None outside one)
+_tally: "collections.Counter | None" = None
+
+
+@contextlib.contextmanager
+def recording():
+    """Collect the launches recorded while a CUDA graph captures: yields a
+    Counter of Kernel -> launches the graph holds."""
+    global _tally
+    if _tally is not None:
+        raise RuntimeError("a capture is already recording launches")
+    _tally = collections.Counter()
+    try:
+        yield _tally
+    finally:
+        _tally = None
+
+
 class Kernel:
     """One C entry point of the library, with its launch count (counted
-    only where the kernel is launched)."""
+    only where the kernel is launched: a launch recorded into a CUDA graph
+    counts at each replay of the graph)."""
 
     def __init__(self, symbol: str, source: str, replaces: str):
         self.symbol = symbol
@@ -141,7 +170,13 @@ class Kernel:
         err = fn(*args, stream)
         if err != 0:
             raise RuntimeError(f"{self.symbol}: CUDA launch failed, cudaError {err}")
-        self.launches += 1
+        if torch.cuda.is_current_stream_capturing():
+            if _tally is None:
+                raise RuntimeError(f"{self.symbol}: captured outside "
+                                   "runtime.graphs, its launches would go uncounted")
+            _tally[self] += 1
+        else:
+            self.launches += 1
 
 
 def check_cuda(name: str, t: torch.Tensor, shape, dtype=torch.float32,

@@ -63,13 +63,13 @@ realworld (``tracking_slow``).
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
 from covo_mpc_tpu_torch.models import dynamics
 from covo_mpc_tpu_torch.models.quad_env import QuadEnv
-from covo_mpc_tpu_torch.ops import kernels
+from covo_mpc_tpu_torch.ops import kernels, sampling
 from covo_mpc_tpu_torch.ops.rollout import (
     check_draw,
     disturb_table,
@@ -137,6 +137,29 @@ REWARDS = {"penyaw": 0, "realworld": 1}
 def _full(value, device) -> torch.Tensor:
     # a fill kernel, not a host-to-device copy (which would sync)
     return torch.full((), value, dtype=torch.float32, device=device)
+
+
+Seed = Union[int, torch.Tensor]
+
+
+def seed_word(seed: Seed, device) -> torch.Tensor:
+    """The Philox key a sampling kernel reads, as a 0-d int64 device word:
+    a solver's word (:class:`~covo_mpc_tpu_torch.ops.sampling.SeedStream`)
+    as it is, an int by a fill kernel (no host-to-device copy)."""
+    if isinstance(seed, torch.Tensor):
+        kernels.check_cuda("seed", seed, (), torch.int64, device=device)
+        return seed
+    return torch.full((), sampling.as_int64(seed), dtype=torch.int64, device=device)
+
+
+def seed_value(seed: Seed) -> int:
+    """The key as the uint64 that seeds a plain version's generator (a CPU
+    word is read on the host)."""
+    return int(seed) & ((1 << 64) - 1)
+
+
+def _seed_generator(seed: Seed, device) -> torch.Generator:
+    return torch.Generator(device=device).manual_seed(seed_value(seed))
 
 
 def _dyn_scalars(env: QuadEnv, params, device):
@@ -329,28 +352,30 @@ class JointSampleRollout(_RolloutKernelWrapper):
     params, seed, N, deterministic=False, discount=1.0, draw=None, z=None)
     -> (costs (N,), a_t (D, N))``. ``z`` (D, N) feeds given normals (the
     "input_z" mode); without it the kernel draws Philox normals keyed by
-    ``seed`` (an int) and the plain version draws from a generator seeded
-    with it. ``draw`` (3,) is the disturbance model's draw the rollout
-    shares (``QuadEnv.draw_disturb``).
+    ``seed``, an int or a 0-d int64 word on the tensors' device (a solver's
+    :class:`~covo_mpc_tpu_torch.ops.sampling.SeedStream` word, which the
+    kernel reads on the device), and the plain version draws from a
+    generator seeded with its value. ``draw`` (3,) is the disturbance
+    model's draw the rollout shares (``QuadEnv.draw_disturb``).
     """
 
     blocks = JOINT_BLOCKS
 
     def plain(self, x0, t0, pos_traj, vel_traj, a_mean, factor, params,
-              seed: int, N: int, deterministic: bool = False, discount=1.0,
+              seed: Seed, N: int, deterministic: bool = False, discount=1.0,
               draw: Optional[torch.Tensor] = None,
               z: Optional[torch.Tensor] = None):
         D = a_mean.numel()
         if z is None:
-            g = torch.Generator(device=x0.device).manual_seed(seed)
-            z = torch.randn(D, N, generator=g, device=x0.device)
+            z = torch.randn(D, N, generator=_seed_generator(seed, x0.device),
+                            device=x0.device)
         a_t = torch.clamp(a_mean.reshape(D, 1) + factor @ z, -1.0, 1.0)
         costs = self._rollout(x0, t0, pos_traj, vel_traj, a_t, params, draw,
                               deterministic, discount, layout="hdn")
         return costs, a_t
 
     def __call__(self, x0, t0, pos_traj, vel_traj, a_mean, factor, params,
-                 seed: int, N: int, deterministic: bool = False, discount=1.0,
+                 seed: Seed, N: int, deterministic: bool = False, discount=1.0,
                  draw: Optional[torch.Tensor] = None,
                  z: Optional[torch.Tensor] = None):
         if kernels.route(x0, a_mean, factor) == "plain":
@@ -369,11 +394,13 @@ class JointSampleRollout(_RolloutKernelWrapper):
         kernels.check_cuda("factor", factor, (D, D), device=dev)
         if z is not None:
             kernels.check_cuda("z", z, (D, N), device=dev)
+        key = None if z is not None else seed_word(seed, dev)
         costs = torch.empty(N, device=dev)
         a_t = torch.empty(D, N, device=dev)
         JOINT_KERNEL.launch(
             *(t.data_ptr() for t in ops), mean.data_ptr(), factor.data_ptr(),
-            None if z is None else z.data_ptr(), seed % (1 << 64),
+            None if z is None else z.data_ptr(),
+            None if key is None else key.data_ptr(),
             costs.data_ptr(), a_t.data_ptr(), N, H, self._check_rollover,
             self.mode, self.reward, self.block,
         )
@@ -447,31 +474,31 @@ class SampleRollout(_RolloutKernelWrapper):
     disturb_seed=None, draw_out=None) -> (costs (N,), a_t (4H, N))``.
     ``chol`` holds each step's lower Cholesky factor, row-major. ``z``
     (H, 4, N) feeds given normals (the "input_z" mode); without it the
-    kernel draws Philox normals keyed by ``seed`` (an int) and the plain
-    version draws from a generator seeded with it. The kernel's results do
+    kernel draws Philox normals keyed by ``seed`` (an int or a 0-d int64
+    device word, as :class:`JointSampleRollout`'s) and the plain version
+    draws from a generator seeded with its value. The kernel's results do
     not depend on ``block``. ``draw`` (3,) is the disturbance model's draw
     the rollout shares; without one a stochastic gaussian rollout draws its
-    normals from ``disturb_seed`` ("krng": in-kernel Philox; the plain
-    version a seeded generator, both gaussian only, as JAX's kernel_draw),
-    and ``draw_out`` (3,), when given, receives them.
+    normals from ``disturb_seed`` (the same kinds; "krng": in-kernel
+    Philox; the plain version a seeded generator, both gaussian only, as
+    JAX's kernel_draw), and ``draw_out`` (3,), when given, receives them.
     """
 
     blocks = SAMPLE_BLOCKS
 
     def plain(self, x0, t0, pos_traj, vel_traj, a_mean, chol, params,
-              seed: int, N: int, deterministic: bool = False, discount=1.0,
+              seed: Seed, N: int, deterministic: bool = False, discount=1.0,
               draw: Optional[torch.Tensor] = None,
               z: Optional[torch.Tensor] = None,
-              disturb_seed: Optional[int] = None,
+              disturb_seed: Optional[Seed] = None,
               draw_out: Optional[torch.Tensor] = None):
         dev = x0.device
         H = a_mean.shape[0]
         if z is None:
-            g = torch.Generator(device=dev).manual_seed(seed)
-            z = torch.randn(H, 4, N, generator=g, device=dev)
+            z = torch.randn(H, 4, N, generator=_seed_generator(seed, dev), device=dev)
         if _kernel_draws(self.env, draw, deterministic):
-            g = torch.Generator(device=dev).manual_seed(disturb_seed)
-            draw = torch.randn(3, generator=g, device=dev)
+            draw = torch.randn(3, generator=_seed_generator(disturb_seed, dev),
+                               device=dev)
             if draw_out is not None:
                 draw_out.copy_(draw)
         a_t = torch.clamp(a_mean[..., None] + torch.einsum("hij,hjn->hin", chol, z),
@@ -481,10 +508,10 @@ class SampleRollout(_RolloutKernelWrapper):
         return costs, a_t
 
     def __call__(self, x0, t0, pos_traj, vel_traj, a_mean, chol, params,
-                 seed: int, N: int, deterministic: bool = False, discount=1.0,
+                 seed: Seed, N: int, deterministic: bool = False, discount=1.0,
                  draw: Optional[torch.Tensor] = None,
                  z: Optional[torch.Tensor] = None,
-                 disturb_seed: Optional[int] = None,
+                 disturb_seed: Optional[Seed] = None,
                  draw_out: Optional[torch.Tensor] = None):
         krng = _kernel_draws(self.env, draw, deterministic)
         if krng and disturb_seed is None:
@@ -507,12 +534,15 @@ class SampleRollout(_RolloutKernelWrapper):
             kernels.check_cuda("z", z, (H, 4, N), device=dev)
         if draw_out is not None:
             kernels.check_cuda("draw_out", draw_out, (3,), device=dev)
+        key = None if z is not None else seed_word(seed, dev)
+        dkey = seed_word(disturb_seed, dev) if krng else None
         costs = torch.empty(N, device=dev)
         a_t = torch.empty(4 * H, N, device=dev)
         SAMPLE_KERNEL.launch(
             *(t.data_ptr() for t in ops), mean.data_ptr(), chol.data_ptr(),
-            None if z is None else z.data_ptr(), seed % (1 << 64),
-            (disturb_seed or 0) % (1 << 64), int(krng),
+            None if z is None else z.data_ptr(),
+            None if key is None else key.data_ptr(),
+            None if dkey is None else dkey.data_ptr(), int(krng),
             None if draw_out is None else draw_out.data_ptr(),
             costs.data_ptr(), a_t.data_ptr(), N, H, self._check_rollover,
             self.mode, self.reward, self.block,
@@ -595,21 +625,22 @@ class SampleRolloutBatched(_RolloutKernelWrapper):
     draws=None, z=None) -> (costs (B, N), a_t (B, 4H, N))``. ``chols`` are
     the per-step lower Cholesky factors, row-major. ``z`` (B, H, 4, N) feeds
     given normals; without it the kernel draws Philox normals keyed by
-    ``seed`` with the scenario in the counter (scenario 0 draws what K5
-    draws), and the plain version draws from a generator seeded with it.
+    ``seed`` (an int or a 0-d int64 device word) with the scenario in the
+    counter (scenario 0 draws what K5 draws), and the plain version draws
+    from a generator seeded with its value.
     """
 
     blocks = SAMPLE_BLOCKS
     batched = True
 
     def plain(self, x0s, t0s, pos_trajs, vel_trajs, a_means, chols, params_b,
-              seed: int, N: int, deterministic: bool = False, discount=1.0,
+              seed: Seed, N: int, deterministic: bool = False, discount=1.0,
               draws: Optional[torch.Tensor] = None,
               z: Optional[torch.Tensor] = None):
         B, H, dA = a_means.shape
         if z is None:
-            g = torch.Generator(device=x0s.device).manual_seed(seed)
-            z = torch.randn(B, H, dA, N, generator=g, device=x0s.device)
+            z = torch.randn(B, H, dA, N, generator=_seed_generator(seed, x0s.device),
+                            device=x0s.device)
         a_t = torch.clamp(
             a_means[..., None] + torch.einsum("bhij,bhjn->bhin", chols, z),
             -1.0, 1.0).reshape(B, H * dA, N)
@@ -618,7 +649,7 @@ class SampleRolloutBatched(_RolloutKernelWrapper):
         return costs, a_t
 
     def __call__(self, x0s, t0s, pos_trajs, vel_trajs, a_means, chols,
-                 params_b, seed: int, N: int, deterministic: bool = False,
+                 params_b, seed: Seed, N: int, deterministic: bool = False,
                  discount=1.0, draws: Optional[torch.Tensor] = None,
                  z: Optional[torch.Tensor] = None):
         if kernels.route(x0s, a_means, chols) == "plain":
@@ -636,11 +667,13 @@ class SampleRolloutBatched(_RolloutKernelWrapper):
         kernels.check_cuda("chols", chols, (B, H, 4, 4), device=dev)
         if z is not None:
             kernels.check_cuda("z", z, (B, H, 4, N), device=dev)
+        key = None if z is not None else seed_word(seed, dev)
         costs = torch.empty(B, N, device=dev)
         a_t = torch.empty(B, 4 * H, N, device=dev)
         SAMPLE_BATCHED_KERNEL.launch(
             *(t.data_ptr() for t in ops), mean.data_ptr(), chols.data_ptr(),
-            None if z is None else z.data_ptr(), seed % (1 << 64),
+            None if z is None else z.data_ptr(),
+            None if key is None else key.data_ptr(),
             costs.data_ptr(), a_t.data_ptr(), B, N, H, self._check_rollover,
             self.mode, self.reward, self.block,
         )
@@ -655,29 +688,30 @@ class JointSampleRolloutBatched(_RolloutKernelWrapper):
     (B, D, D), params_b, seed, N, deterministic=False, discount=1.0,
     draws=None, z=None) -> (costs (B, N), a_t (B, D, N))``. ``z`` (B, D, N)
     feeds given normals; without it the kernel draws Philox normals keyed by
-    ``seed`` with the scenario in the counter (scenario 0 draws what K1
-    draws), and the plain version draws from a generator seeded with it.
+    ``seed`` (an int or a 0-d int64 device word) with the scenario in the
+    counter (scenario 0 draws what K1 draws), and the plain version draws
+    from a generator seeded with its value.
     """
 
     blocks = JOINT_BLOCKS
     batched = True
 
     def plain(self, x0s, t0s, pos_trajs, vel_trajs, a_means, factors,
-              params_b, seed: int, N: int, deterministic: bool = False,
+              params_b, seed: Seed, N: int, deterministic: bool = False,
               discount=1.0, draws: Optional[torch.Tensor] = None,
               z: Optional[torch.Tensor] = None):
         B = a_means.shape[0]
         D = a_means[0].numel()
         if z is None:
-            g = torch.Generator(device=x0s.device).manual_seed(seed)
-            z = torch.randn(B, D, N, generator=g, device=x0s.device)
+            z = torch.randn(B, D, N, generator=_seed_generator(seed, x0s.device),
+                            device=x0s.device)
         a_t = torch.clamp(a_means.reshape(B, D, 1) + factors @ z, -1.0, 1.0)
         costs = self._rollout(x0s, t0s, pos_trajs, vel_trajs, a_t, params_b,
                                 draws, deterministic, discount, layout="hdn")
         return costs, a_t
 
     def __call__(self, x0s, t0s, pos_trajs, vel_trajs, a_means, factors,
-                 params_b, seed: int, N: int, deterministic: bool = False,
+                 params_b, seed: Seed, N: int, deterministic: bool = False,
                  discount=1.0, draws: Optional[torch.Tensor] = None,
                  z: Optional[torch.Tensor] = None):
         if kernels.route(x0s, a_means, factors) == "plain":
@@ -697,11 +731,13 @@ class JointSampleRolloutBatched(_RolloutKernelWrapper):
         kernels.check_cuda("factors", factors, (B, D, D), device=dev)
         if z is not None:
             kernels.check_cuda("z", z, (B, D, N), device=dev)
+        key = None if z is not None else seed_word(seed, dev)
         costs = torch.empty(B, N, device=dev)
         a_t = torch.empty(B, D, N, device=dev)
         JOINT_BATCHED_KERNEL.launch(
             *(t.data_ptr() for t in ops), mean.data_ptr(), factors.data_ptr(),
-            None if z is None else z.data_ptr(), seed % (1 << 64),
+            None if z is None else z.data_ptr(),
+            None if key is None else key.data_ptr(),
             costs.data_ptr(), a_t.data_ptr(), B, N, H, self._check_rollover,
             self.mode, self.reward, self.block,
         )

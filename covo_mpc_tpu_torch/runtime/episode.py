@@ -1,8 +1,17 @@
-"""Episode runner: a Python loop of controller solve + auto-resetting env step.
+"""Episode runner: controller solve + auto-resetting env step, T times.
 
-Counterpart of :func:`covo_mpc_tpu.runtime.episode.make_episode_runner`.
-Nothing in the loop reads a device value on the host, so on a GPU the host
-runs ahead and queues the whole episode.
+Counterpart of :func:`covo_mpc_tpu.runtime.episode.make_episode_runner`,
+which jits the episode as one ``lax.scan`` over the control step. For an env
+on the card, the runner captures that control step (the solve, ``env.step``
+with its auto-reset select, and the write-back of obs, state, solver params
+and info into the carried buffers, with ``err_pos[t]`` and ``done[t]`` into
+(T,) device buffers) as one CUDA graph (``runtime/graphs.py``) and replays
+it T times; the solver's random streams and the step generator advance at
+each replay. The reset at an episode's start (and the solver's ``reset``:
+the speculative cold start, offline's schedule) runs eagerly, then loads the
+graph's buffers. For an env the caller put on the CPU, the runner is the
+eager loop (:func:`eager_episode`). Nothing reads a device value on the
+host inside an episode.
 """
 
 from __future__ import annotations
@@ -11,29 +20,101 @@ from typing import Optional
 
 import torch
 
+from covo_mpc_tpu_torch.runtime import graphs
+
+
+def _start(env, controller, reset_gen, env_params):
+    obs, info, env_state = env.reset(reset_gen, env_params)
+    control_params = controller.reset(env_state, env_params,
+                                      controller.init_control_params)
+    return obs, env_state, control_params, info
+
+
+def eager_episode(env, controller, steps: int, reset_gen: torch.Generator,
+                  gen: torch.Generator, env_params=None):
+    """One episode as a Python loop of eager solves and env steps: returns
+    (err_pos (T,), dones (T,))."""
+    if env_params is None:
+        env_params = env.default_params
+    obs, env_state, control_params, info = _start(env, controller, reset_gen,
+                                                  env_params)
+    err_pos, dones = [], []
+    for _ in range(steps):
+        action, control_params, _ = controller(
+            obs, env_state, env_params, control_params, info
+        )
+        obs, env_state, _, done, info = env.step(gen, env_state, action,
+                                                 env_params)
+        err_pos.append(info["err_pos"])
+        dones.append(done)
+    return torch.stack(err_pos), torch.stack(dones)
+
+
+class CapturedEpisode:
+    """``run_one_ep`` for an env on the card: one captured control step,
+    replayed T times (see the module docstring). The step is captured at the
+    first episode of a step generator and replayed for every later one."""
+
+    def __init__(self, env, controller, steps: int):
+        self.env, self.controller, self.steps = env, controller, steps
+        self._step: Optional[graphs.CapturedCall] = None
+        self._gen: Optional[torch.Generator] = None
+
+    def _capture(self, gen, env_params, carry):
+        env, controller, T = self.env, self.controller, self.steps
+
+        def step(carry, env_params, t, err_pos, dones):
+            obs, env_state, control_params, info = carry
+            action, control_params, _ = controller(obs, env_state, env_params,
+                                                   control_params, info)
+            obs, env_state, _, done, info = env.step(gen, env_state, action,
+                                                     env_params)
+            idx = torch.clamp(t, max=T - 1)  # the warm-up calls stay in bounds
+            err_pos.index_copy_(0, idx, info["err_pos"].reshape(1))
+            dones.index_copy_(0, idx, done.reshape(1))
+            t.add_(1)
+            graphs.copy_into(carry, (obs, env_state, control_params, info))
+
+        dev = env.device
+        t = torch.zeros(1, dtype=torch.int64, device=dev)
+        err_pos = torch.zeros(T, device=dev)
+        dones = torch.zeros(T, dtype=torch.bool, device=dev)
+        streams = [*controller.random_streams(), gen]
+        self._step = graphs.capture(step, carry, env_params, t, err_pos, dones,
+                                    streams=streams)
+        self._gen = gen
+
+    def __call__(self, reset_gen: torch.Generator, gen: torch.Generator,
+                 env_params=None):
+        if env_params is None:
+            env_params = self.env.default_params
+        carry = _start(self.env, self.controller, reset_gen, env_params)
+        if self._step is None:
+            self._capture(gen, env_params, carry)
+        elif gen is not self._gen:
+            raise ValueError("captured episode: the step generator is part of the "
+                             "capture; make a runner for another one")
+        buf_carry, buf_params, t, err_pos, dones = self._step.args
+        graphs.copy_into(buf_carry, carry)
+        graphs.copy_into(buf_params, env_params)
+        t.zero_()
+        for _ in range(self.steps):
+            self._step.replay()
+        return err_pos.clone(), dones.clone()
+
 
 def make_episode_runner(env, controller, steps: Optional[int] = None):
     """Build ``run_one_ep(reset_gen, gen, env_params=None) -> (err_pos (T,),
     dones (T,))``. ``err_pos[t]`` is the tracking error of the PRE-step
-    state at step t; ``reset_gen`` draws the reset, ``gen`` the steps."""
+    state at step t; ``reset_gen`` draws the reset, ``gen`` the steps. On
+    the card, the control step is a captured CUDA graph
+    (:class:`CapturedEpisode`); on the CPU, the eager loop."""
     T = steps or env.default_params.max_steps_in_episode
+    if torch.device(env.device).type == "cuda":
+        return CapturedEpisode(env, controller, T)
 
     def run_one_ep(reset_gen: torch.Generator, gen: torch.Generator,
                    env_params=None):
-        if env_params is None:
-            env_params = env.default_params
-        obs, info, env_state = env.reset(reset_gen, env_params)
-        control_params = controller.reset(env_state, env_params,
-                                          controller.init_control_params)
-        err_pos, dones = [], []
-        for _ in range(T):
-            action, control_params, _ = controller(
-                obs, env_state, env_params, control_params, info
-            )
-            obs, env_state, _, done, info = env.step(gen, env_state, action,
-                                                     env_params)
-            err_pos.append(info["err_pos"])
-            dones.append(done)
-        return torch.stack(err_pos), torch.stack(dones)
+        return eager_episode(env, controller, T, reset_gen, gen, env_params)
 
     return run_one_ep

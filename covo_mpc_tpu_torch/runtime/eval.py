@@ -4,7 +4,10 @@ Counterpart of :func:`covo_mpc_tpu.runtime.eval.evaluate`: ``num_trajs``
 reset trajectories, each run ``reps`` times in a row, with one step
 generator threaded through all episodes. The draws come from torch
 generators seeded from ``seed``, so the trajectories are not the JAX
-package's (its threefry keys are not ported); the protocol is the same.
+package's (its threefry keys are not ported); the protocol is the same. The
+episodes go through :func:`make_episode_runner`: on the card each control
+step is one replayed CUDA graph, as JAX scans its jitted step; on the CPU
+the eager loop.
 """
 
 from __future__ import annotations

@@ -1,0 +1,214 @@
+"""CUDA graphs of the port's solves and control step: the units the JAX
+package compiles with ``jax.jit``.
+
+JAX traces each solve (``CoVOSolver.__call__``, ``act``, ``prepare``,
+``MPPISolver.__call__``, ``PIDSolver.__call__``, ``RandomSolver.__call__``)
+and the episode's control step into one XLA program each, with the solve's
+key ``rng_act`` passed in as traced data. PyTorch runs eagerly, one launch a
+device op; :func:`capture` records a callable's launches into one
+``torch.cuda.CUDAGraph`` over static input buffers and replays it:
+
+- the callable runs twice on a side stream first (cuBLAS / cuSOLVER
+  handles, the kernel library, workspaces), then once under capture; the
+  random streams it draws from (:meth:`BaseSolver.random_streams`, the
+  env's step generator) are left as they were found, so the first replay
+  draws what the first eager call would have drawn;
+- every device generator among them is registered with the graph, so each
+  replay advances it as an eager call would, and each seed stream's counter
+  is a device tensor that the graph itself advances: every replay draws
+  afresh, as JAX's traced keys do;
+- a call copies the caller's tensors into the static buffers (a tensor
+  passed again unchanged since the last call is not copied again), replays,
+  and returns fresh copies of the outputs: a later call never overwrites an
+  earlier result, as a jitted function returns fresh arrays;
+- each captured kernel (``ops/kernels.py``) adds its launches to its count
+  at every replay.
+
+Non-tensor leaves (the solver params' floats, the env's int constants) are
+part of the capture, as static arguments are part of a JAX trace: a call
+with other values raises. Only CUDA tensors are taken: CPU tensors raise,
+and so does any failure to capture. Nothing runs eagerly in its place.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import weakref
+from typing import Any, Callable, Sequence
+
+import torch
+
+from covo_mpc_tpu_torch.ops import kernels
+
+WARMUP = 2  # eager calls on a side stream before the capture
+
+
+# --- pytrees of tensors: dataclasses, dicts, lists and tuples ----------------
+
+def flatten(tree) -> tuple:
+    """``(tensor leaves, spec)``: the spec holds the structure, every
+    non-tensor leaf, and each tensor's shape and dtype, and compares equal
+    for trees that one captured graph can take."""
+    leaves: list = []
+
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            leaves.append(x)
+            return ("tensor", tuple(x.shape), x.dtype)
+        if dataclasses.is_dataclass(x) and not isinstance(x, type):
+            names = tuple(f.name for f in dataclasses.fields(x))
+            return ("dataclass", type(x), names,
+                    tuple(walk(getattr(x, n)) for n in names))
+        if isinstance(x, dict):
+            keys = tuple(x)
+            return ("dict", keys, tuple(walk(x[k]) for k in keys))
+        if isinstance(x, (list, tuple)):
+            return (type(x), tuple(walk(v) for v in x))
+        return ("const", x)
+
+    spec = walk(tree)
+    return leaves, spec
+
+
+def unflatten(spec, leaves) -> Any:
+    """The tree of ``spec`` with its tensors taken in turn from ``leaves``."""
+    it = iter(leaves)
+
+    def build(s):
+        kind = s[0]
+        if kind == "tensor":
+            return next(it)
+        if kind == "dataclass":
+            return s[1](**{n: build(c) for n, c in zip(s[2], s[3])})
+        if kind == "dict":
+            return {k: build(c) for k, c in zip(s[1], s[2])}
+        if kind == "const":
+            return s[1]
+        return kind(build(c) for c in s[1])
+
+    return build(spec)
+
+
+def copy_into(dst, src) -> None:
+    """Copy every tensor of ``src`` into the tensor at its place in ``dst``
+    (two trees of one spec), in place. A source that shares memory with
+    another destination is cloned first, so the order of the copies does
+    not matter; a source that is its destination is skipped."""
+    d_leaves, d_spec = flatten(dst)
+    s_leaves, s_spec = flatten(src)
+    if d_spec != s_spec:
+        raise ValueError("copy_into: the trees differ in structure, a constant, "
+                         "a shape or a dtype")
+    storages = {d.untyped_storage().data_ptr() for d in d_leaves}
+    pairs = []
+    for d, s in zip(d_leaves, s_leaves):
+        if s.data_ptr() == d.data_ptr():
+            continue
+        if s.untyped_storage().data_ptr() in storages:
+            s = s.clone()
+        pairs.append((d, s))
+    for d, s in pairs:
+        d.copy_(s)
+
+
+def _check_cuda(leaves: Sequence[torch.Tensor]) -> torch.device:
+    devices = {t.device for t in leaves}
+    if any(d.type != "cuda" for d in devices):
+        raise ValueError("runtime.graphs captures CUDA tensors only, got "
+                         f"{sorted(map(str, devices))} (a CPU caller runs eagerly)")
+    if not torch.cuda.is_available():
+        raise RuntimeError("runtime.graphs: no CUDA device")
+    if len(devices) > 1:
+        raise ValueError(f"runtime.graphs: tensors on several devices {sorted(map(str, devices))}")
+    return devices.pop() if devices else torch.device("cuda", torch.cuda.current_device())
+
+
+class CapturedCall:
+    """``fn(*args)`` captured once as a CUDA graph (see the module
+    docstring). ``args`` is the static input tree (the graph's buffers;
+    ``fn`` may write into them, as the episode step writes its carry back),
+    ``launches`` the kernel launches one replay makes."""
+
+    def __init__(self, fn: Callable, args: tuple, streams: Sequence = ()):
+        leaves, self._spec = flatten(args)
+        device = _check_cuda(leaves)
+        self.args = unflatten(self._spec, [t.clone() for t in leaves])
+        self._leaves = flatten(self.args)[0]
+        self._last: list = [None] * len(self._leaves)
+        # the captured cudaGraph_t is kept beside its executable graph, so
+        # its nodes can be read (``graph.raw_cuda_graph()``)
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+        register = getattr(self.graph, "register_generator_state", None)
+        generators = [s for s in streams if isinstance(s, torch.Generator)]
+        if generators and register is None:
+            raise RuntimeError("this torch has no CUDAGraph.register_generator_state: "
+                               "a graph could not advance the solver's generators")
+        if any(g.device.type != "cuda" for g in generators):
+            raise ValueError("runtime.graphs: a generator that is not on the card")
+        saved = [s.get_state() for s in streams]
+        versions = [t._version for t in self._leaves]
+        current = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            for _ in range(WARMUP):
+                fn(*self.args)
+        current.wait_stream(side)
+        for s, state in zip(streams, saved):
+            s.set_state(state)
+        for g in generators:
+            register(g)
+        with kernels.recording() as tally:
+            with torch.cuda.graph(self.graph):
+                out = fn(*self.args)
+        self.graph.instantiate()
+        for s, state in zip(streams, saved):
+            s.set_state(state)
+        self.launches = dict(tally)
+        self._out_leaves, self._out_spec = flatten(out)
+        # buffers fn writes into: a caller's unchanged tensor is copied
+        # into them again at every call
+        self._written = [t._version != v for t, v in zip(self._leaves, versions)]
+
+    def replay(self) -> None:
+        """Replay the graph on the static buffers as they stand."""
+        self.graph.replay()
+        for kernel, n in self.launches.items():
+            kernel.launches += n
+
+    def load(self, *args) -> None:
+        """Copy ``args`` (a tree of the captured spec) into the static
+        buffers, skipping a tensor passed again unchanged (the same object,
+        memory and version) since it was last copied into a buffer the
+        graph does not write."""
+        leaves, spec = flatten(args)
+        if spec != self._spec:
+            raise ValueError("captured call: arguments differ from the captured ones "
+                             "in structure, a constant, a shape or a dtype")
+        _check_cuda(leaves)
+        for i, (dst, src) in enumerate(zip(self._leaves, leaves)):
+            last = self._last[i]
+            if (last is not None and not self._written[i] and last[0]() is src
+                    and last[1] == src._version and last[2] == src.data_ptr()):
+                continue
+            dst.copy_(src)
+            self._last[i] = (weakref.ref(src), src._version, src.data_ptr())
+
+    def __call__(self, *args):
+        self.load(*args)
+        self.replay()
+        return unflatten(self._out_spec, [t.clone() for t in self._out_leaves])
+
+
+def capture(fn: Callable, *args, streams: Sequence = ()) -> CapturedCall:
+    """Capture ``fn(*args)`` as a CUDA graph (:class:`CapturedCall`);
+    ``streams`` are the device generators and seed streams it draws from."""
+    return CapturedCall(fn, args, streams)
+
+
+def capture_solver(method: Callable, solver, *args) -> CapturedCall:
+    """Capture one of ``solver``'s solves (``solver`` itself, ``solver.act``
+    or ``solver.prepare``) on example arguments, with every random stream
+    the solver draws from (one left out would not advance, or the capture's
+    warm-up would move it)."""
+    return capture(method, *args, streams=solver.random_streams())

@@ -2,7 +2,9 @@
 
 ``action, control_params, info = solver(obs, state, env_params,
 control_params, env_info)`` — the JAX call signature without the
-``rng_act`` key: a solver owns its generators (seeded by :meth:`seed`).
+``rng_act`` key: a solver owns its random streams (seeded by :meth:`seed`,
+listed by :meth:`random_streams`: device generators and seed streams,
+which a captured solve advances at each replay).
 """
 
 from __future__ import annotations
@@ -37,6 +39,11 @@ class BaseSolver:
     def seed(self, seed: int) -> None:
         """Seed the solver's generators (none here)."""
 
+    def random_streams(self) -> list:
+        """The device generators and seed streams a solve draws from (none
+        here)."""
+        return []
+
     def reset(self, env_state=None, env_params=None, control_params=None):
         """Return fresh solver params."""
         return self.init_control_params
@@ -65,6 +72,9 @@ class RandomSolver(BaseSolver):
 
     def seed(self, seed: int) -> None:
         self.generator.manual_seed(seed)
+
+    def random_streams(self) -> list:
+        return [self.generator]
 
     def __call__(self, obs, state, env_params, control_params, env_info=None):
         action = torch.randn(self.env.action_dim, generator=self.generator,

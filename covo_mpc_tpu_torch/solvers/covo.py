@@ -25,14 +25,22 @@ designs the whole episode's Sigma schedule at ``reset`` (a PID expansion
 episode, then the Hessians and designers of all its states at once) and a
 solve reads step t's. Offline always runs the plain designer, as JAX does.
 
-A solve never syncs with the host: the per-solve Philox seed comes from a
-CPU generator the solver owns. Under "periodic" and "mixed" a solve also
-draws its disturbance uniforms from the solver's device generator (the
-rollout's shared draw, the Hessian's per-step draws, the speculative model
-step's draw): CoVO's rollouts are deterministic, which zeroes the gaussian
-scale only. Every other model draws nothing there. ``engine="cuda"`` runs K1 or K4, K2, K3
-and, under ``"ns_pallas"``, K8 (their wrappers take the plain versions for
-CPU tensors); ``engine="torch"`` is the plain path; ``engine="auto"`` picks
+A solve reads no value on the host, and every input it reads is a device
+tensor, so a solve (online, speculative ``act`` and ``prepare``, offline's
+per-step solve) can be captured as a CUDA graph and replayed
+(``runtime/graphs.py``), as JAX jits it. K1's per-solve Philox key is a
+device word of the solver's seed stream (:class:`~covo_mpc_tpu_torch.ops.
+sampling.SeedStream`), which each solve advances on the device, as JAX
+threads a fresh ``rng_act`` key into each jitted solve; the fast sampler's
+normals come from the solver's device generator, which a graph advances at
+each replay. Under "periodic" and "mixed" a solve also draws its
+disturbance uniforms from that generator (the rollout's shared draw, the
+Hessian's per-step draws, the speculative model step's draw): CoVO's
+rollouts are deterministic, which zeroes the gaussian scale only. Every
+other model draws nothing there. Offline's ``reset`` (the schedule) runs
+eagerly, once an episode, as JAX jits it apart. ``engine="cuda"`` runs K1
+or K4, K2, K3 and, under ``"ns_pallas"``, K8 (their wrappers take the plain
+versions for CPU tensors); ``engine="torch"`` is the plain path; ``engine="auto"`` picks
 ``"cuda"`` for an env on a CUDA device and ``"torch"`` for one on the CPU.
 The other Hessian estimators are not ported yet.
 """
@@ -177,16 +185,18 @@ class CoVOSolver(BaseSolver):
                                                  second_order=second_order)
         self.rollout_sampling = (make_rollout_joint_sampling(env)
                                  if rng_mode == sampling.KERNEL else None)
-        # CPU generator for the kernel's Philox seeds (no device read per
-        # solve), device generator for the fast sampler's normals and the
-        # offline expansion episode's disturbance draws
-        self.generator = torch.Generator()
+        # K1's Philox keys, device words; the device generator for the fast
+        # sampler's normals and the disturbance draws
+        self.seeds = sampling.SeedStream(env.device)
         self.device_generator = torch.Generator(device=env.device)
         self.seed(seed)
 
     def seed(self, seed: int) -> None:
-        self.generator.manual_seed(seed)
+        self.seeds.seed(seed)
         self.device_generator.manual_seed(seed)
+
+    def random_streams(self) -> list:
+        return [self.seeds, self.device_generator]
 
     # -- the disturbance draws ---------------------------------------------------
     def _draw(self, *batch: int) -> Optional[torch.Tensor]:
@@ -389,9 +399,8 @@ class CoVOSolver(BaseSolver):
         if draw is None:
             draw = self._draw()
         if self.rollout_sampling is not None:
-            seed = int(torch.randint(0, 2**63 - 1, (), generator=self.generator))
             costs, a_t = self.rollout_sampling(
-                *args, a_mean, factor, env_params, seed, self.N,
+                *args, a_mean, factor, env_params, self.seeds.next()[0], self.N,
                 deterministic=True, discount=control_params.discount, draw=draw,
                 z=None if z is None else z.T.contiguous(),
             )

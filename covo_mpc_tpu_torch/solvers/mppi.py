@@ -16,8 +16,13 @@ sample-last fast path). One solve, in order:
 4. softmax weights, the mean update, and the covariance update (which
    leaves covariance and factor untouched at ``gamma_sigma == 0``).
 
-A solve never syncs with the host: the per-solve Philox seeds come from a
-CPU generator the solver owns.
+A solve reads no value on the host and only device tensors, so it can be
+captured as a CUDA graph and replayed (``runtime/graphs.py``), as JAX jits
+it: K5's two Philox keys (the actions', the krng draw's) are device words
+of the solver's seed stream (:class:`~covo_mpc_tpu_torch.ops.sampling.
+SeedStream`), advanced on the device each solve, and the fast sampler's
+normals and the draws come from the solver's device generator, which a
+graph advances at each replay.
 """
 
 from __future__ import annotations
@@ -87,15 +92,18 @@ class MPPISolver(BaseSolver):
         self.action_dim = env.action_dim
         self.rollout_sampling = (make_rollout_sampling(env)
                                  if rng_mode == sampling.KERNEL else None)
-        # CPU generator for the kernel's Philox seeds (no device read per
-        # solve), device generator for the fast sampler's normals and draw
-        self.generator = torch.Generator()
+        # K5's Philox keys, device words; the device generator for the fast
+        # sampler's normals and the draw
+        self.seeds = sampling.SeedStream(env.device)
         self.device_generator = torch.Generator(device=env.device)
         self.seed(seed)
 
     def seed(self, seed: int) -> None:
-        self.generator.manual_seed(seed)
+        self.seeds.seed(seed)
         self.device_generator.manual_seed(seed)
+
+    def random_streams(self) -> list:
+        return [self.seeds, self.device_generator]
 
     def __call__(self, obs, env_state, env_params, control_params: MPPIParams,
                  info: Optional[dict] = None, z: Optional[torch.Tensor] = None,
@@ -114,8 +122,7 @@ class MPPISolver(BaseSolver):
         x0 = pack_state(env_state)
         args = (x0, env_state.time, env_state.pos_traj, env_state.vel_traj)
         if self.rollout_sampling is not None:
-            seed, disturb_seed = torch.randint(0, 2**63 - 1, (2,),
-                                               generator=self.generator).tolist()
+            seed, disturb_seed = self.seeds.next(2)
             if draw is None and self.env.config.disturb_type != "gaussian":
                 # K5 draws the gaussian force itself, no other model's
                 draw = self.env.draw_disturb(self.device_generator)

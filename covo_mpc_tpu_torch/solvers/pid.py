@@ -49,7 +49,7 @@ class PIDParams:
 
 def _e_z(like: torch.Tensor) -> torch.Tensor:
     e_z = torch.zeros_like(like)
-    e_z[..., 2] = 1.0
+    e_z[..., 2:3].fill_(1.0)  # a fill kernel, not a host-to-device copy
     return e_z
 
 

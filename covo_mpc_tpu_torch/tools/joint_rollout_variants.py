@@ -145,6 +145,16 @@ def build_all(texts: dict, out: Path = OUT,
     return built
 
 
+def seed_operand(text: str, word: torch.Tensor) -> int:
+    """The Philox key operand for a source's C entry point: the address of
+    the device word ``word`` where the source reads its key from device
+    memory, the word's value where an earlier source takes it by value (the
+    ctypes pointer type carries either as one 64-bit argument)."""
+    if "const uint64_t* seed" in text:
+        return word.data_ptr()
+    return int(word.cpu())
+
+
 def occupancy(cdll, block: int) -> str:
     """Threads, shared memory and blocks an SM of the penyaw
     instantiation, from the source's info entry point where it has one."""
@@ -213,6 +223,10 @@ def main(argv=None) -> None:
     out = {b: (torch.empty(b, N, device=dev), torch.empty(b, D, N, device=dev))
            for b in BATCHES}
     stream = torch.cuda.current_stream().cuda_stream
+    word = torch.full((), 7, dtype=torch.int64, device=dev)
+
+    def key(text):
+        return seed_operand(text, word)
 
     def launcher(name, ops, mode, reward, b, given_z=False):
         text, block, _ = runs[name]
@@ -226,7 +240,8 @@ def main(argv=None) -> None:
             fn, shape = cdll.joint_sample_rollout_batched, (b,)
 
         def launch():
-            err = fn(*ptrs, means.data_ptr(), factors.data_ptr(), zp, 7, costs.data_ptr(),
+            err = fn(*ptrs, means.data_ptr(), factors.data_ptr(), zp, key(text),
+                     costs.data_ptr(),
                      acts.data_ptr(), *shape, N, H, 0, mode, reward, block, stream)
             if err != 0:
                 raise RuntimeError(f"{name!r}: CUDA launch failed, cudaError {err}")

@@ -324,12 +324,13 @@ def chain_of(cdll, kernel: str, sd: int, lat: dict) -> dict:
 
 def loop_bits(earlier: dict, dev, steps: int = 300, dump: str = "") -> dict:
     """K2 and K3 on every input the main path's closed loop gives them (CoVO
-    online, gn, kernel rng, tracking_zigzag, ``steps`` steps from seed 1),
+    online, gn, kernel rng, tracking_zigzag, one eager episode of ``steps``
+    steps from seed 1),
     each launch also run through the earlier kernels (``build_earlier``) on
     the same operands: name -> (launches, launches that differ, max abs
     difference). With ``dump``, the first launch of each that differs goes
     there as JSON: its operands and both results."""
-    from covo_mpc_tpu_torch.runtime import evaluate
+    from covo_mpc_tpu_torch.runtime.episode import eager_episode
     from covo_mpc_tpu_torch.solvers import get_solver
 
     env = QuadEnv(EnvConfig(**ENV_KW), device=dev)
@@ -370,7 +371,10 @@ def loop_bits(earlier: dict, dev, steps: int = 300, dump: str = "") -> dict:
 
     rollout_cuda.Primal.__call__, hessian_cuda.sens_chain = primal_twice, chain_twice
     try:
-        evaluate(env, solver, total_steps=steps, seed=1)
+        # eager: each launch is compared on the host as it runs
+        solver.seed(1)
+        eager_episode(env, solver, steps, torch.Generator(dev).manual_seed(1),
+                      torch.Generator(dev).manual_seed(2))
     finally:
         rollout_cuda.Primal.__call__, hessian_cuda.sens_chain = primal_call, chain
     if dump:

@@ -258,12 +258,12 @@ def build_earlier(out: Path = OUT) -> tuple:
 
 
 def loop_bits(earlier, dev, steps: int = 300) -> tuple:
-    """K4 on every input one episode of MPPI with fast rng gives it (the
-    main path's env, ``steps`` steps from seed 1), each launch also run
+    """K4 on every input one eager episode of MPPI with fast rng gives it
+    (the main path's env, ``steps`` steps from seed 1), each launch also run
     through the earlier kernel (``build_earlier``'s library, its default
     block of 128) on the same operands: (launches, launches that differ,
     max abs difference)."""
-    from covo_mpc_tpu_torch.runtime import evaluate
+    from covo_mpc_tpu_torch.runtime.episode import eager_episode
     from covo_mpc_tpu_torch.solvers import get_solver
 
     env = QuadEnv(EnvConfig(**ENV_KW), device=dev)
@@ -291,7 +291,10 @@ def loop_bits(earlier, dev, steps: int = 300) -> tuple:
 
     rollout_cuda.RolloutCosts.__call__ = twice
     try:
-        evaluate(env, solver, total_steps=steps, seed=1)
+        # eager: each launch is compared on the host as it runs
+        solver.seed(1)
+        eager_episode(env, solver, steps, torch.Generator(dev).manual_seed(1),
+                      torch.Generator(dev).manual_seed(2))
     finally:
         rollout_cuda.RolloutCosts.__call__ = call
     return tuple(stats)

@@ -54,6 +54,7 @@ from covo_mpc_tpu_torch.tools.joint_rollout_variants import (
     build_all,
     edited,
     operands,
+    seed_operand,
 )
 
 N, H = 8192, 32
@@ -198,6 +199,7 @@ def main(argv=None) -> None:
            for b in TIMED}
     draw_out = torch.zeros(3, device=dev)
     stream = torch.cuda.current_stream().cuda_stream
+    words = [torch.full((), v, dtype=torch.int64, device=dev) for v in (7, 8)]
 
     def launcher(name, ops, mode, reward, b, given_z=False, krng=False):
         text, block, _ = runs[name]
@@ -205,16 +207,17 @@ def main(argv=None) -> None:
         ptrs = [t.data_ptr() for t in ops]
         costs, acts = out[b]
         zp = z.data_ptr() if given_z else None
+        seed, disturb_seed = (seed_operand(text, w) for w in words)
         if b == 1:
             fn = cdll.sample_rollout
-            rest = (8, int(krng), draw_out.data_ptr() if krng else None,
+            rest = (disturb_seed, int(krng), draw_out.data_ptr() if krng else None,
                     costs.data_ptr(), acts.data_ptr(), N)
         else:
             fn = cdll.sample_rollout_batched
             rest = (costs.data_ptr(), acts.data_ptr(), b, N)
 
         def launch():
-            err = fn(*ptrs, means.data_ptr(), chols.data_ptr(), zp, 7, *rest, H, 0, mode,
+            err = fn(*ptrs, means.data_ptr(), chols.data_ptr(), zp, seed, *rest, H, 0, mode,
                      reward, block, stream)
             if err != 0:
                 raise RuntimeError(f"{name!r}: CUDA launch failed, cudaError {err}")

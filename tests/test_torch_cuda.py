@@ -460,11 +460,12 @@ def test_joint_rejects_unsupported_block_and_width(dev):
                                         st.vel_traj, p, None, True, 1.0, H)
     mean, factor = torch.zeros(D, device=dev), torch.zeros(D, D, device=dev)
     costs, acts = torch.empty(N, device=dev), torch.empty(D, N, device=dev)
+    seed = rollout_cuda.seed_word(0, dev)
     for block, h in ((96, H), (64, Hw)):
         with pytest.raises(RuntimeError):
             rollout_cuda.JOINT_KERNEL.launch(
-                *(t.data_ptr() for t in ops), mean.data_ptr(), factor.data_ptr(), None, 0,
-                costs.data_ptr(), acts.data_ptr(), N, h, 0, 0, 0, block)
+                *(t.data_ptr() for t in ops), mean.data_ptr(), factor.data_ptr(), None,
+                seed.data_ptr(), costs.data_ptr(), acts.data_ptr(), N, h, 0, 0, 0, block)
     torch.cuda.synchronize()
     assert rollout_cuda.JOINT_KERNEL.launches == launches
 
@@ -503,11 +504,12 @@ def test_sample_rollout_rejects_unsupported_block(dev):
     _, a_mean, chol = _per_step_inputs(dev)
     costs, acts = torch.empty(N, device=dev), torch.empty(D * N + 4, device=dev)
     launches = rollout_cuda.SAMPLE_KERNEL.launches
+    seed = rollout_cuda.seed_word(0, dev)
     for block, out in ((96, acts.data_ptr()), (128, acts.data_ptr() + 4)):
         with pytest.raises(RuntimeError):
             rollout_cuda.SAMPLE_KERNEL.launch(
-                *(t.data_ptr() for t in ops), a_mean.data_ptr(), chol.data_ptr(), None, 0,
-                0, 0, None, costs.data_ptr(), out, N, H, 0, 0, 0, block)
+                *(t.data_ptr() for t in ops), a_mean.data_ptr(), chol.data_ptr(), None,
+                seed.data_ptr(), None, 0, None, costs.data_ptr(), out, N, H, 0, 0, 0, block)
     torch.cuda.synchronize()
     assert rollout_cuda.SAMPLE_KERNEL.launches == launches
 

@@ -1,0 +1,529 @@
+"""The port's captured solves and episode (``runtime/graphs.py``,
+``runtime/episode.py``), the solvers' device seed stream
+(``ops/sampling.py::SeedStream``) and the latency helpers
+(``runtime/profiling.py``).
+
+On the CPU: the seed stream against a numpy ``uint64`` splitmix64, the
+solvers' per-solve keys (each solve its own; ``seed(s)`` replays the chain
+bit for bit), the plain K1 and K5 fed a key as a tensor against their int
+form, the pytree helpers the graphs stand on, the graphs' refusal of CPU
+tensors, ``time_blocking``'s keys and percentiles on a stubbed clock, and the
+CPU episode runner (the eager loop). On the card (marker ``cuda``, skipped
+without one): captured solves against eager ones from the same seed (2e-4,
+BASELINE.md's per-solve contract), fresh draws at each replay, replayed
+launch counts, the first 10 steps of a captured episode against the eager
+loop (2e-4; later steps diverge by chaos, BASELINE.md), the kernels' device
+keys against a numpy Philox4x32-10 + Box-Muller, and a capture that fails
+raising. ``python -m pytest tests/test_torch_graphs.py -q`` runs either set
+where it can.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from covo_mpc_tpu_torch.models import EnvConfig, QuadEnv, pack_state
+from covo_mpc_tpu_torch.ops import rollout_cuda, sampling
+from covo_mpc_tpu_torch.runtime import graphs, profiling
+from covo_mpc_tpu_torch.runtime.episode import (
+    CapturedEpisode,
+    eager_episode,
+    make_episode_runner,
+)
+from covo_mpc_tpu_torch.solvers import get_solver
+from covo_mpc_tpu_torch.solvers.covo import CoVOParams
+
+ENV_KW = dict(task="tracking_zigzag", enable_randomizer=False,
+              disturb_type="gaussian", disable_rollover_terminate=True,
+              generate_noisy_state=True)
+PSTR = "N64_H4_lam0.01"
+M64 = np.uint64(0xFFFFFFFFFFFFFFFF)
+
+
+def splitmix64_np(x: np.ndarray) -> np.ndarray:
+    """splitmix64's finalizer in numpy uint64 (products wrap mod 2^64)."""
+    with np.errstate(over="ignore"):
+        x = (x ^ (x >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+        x = (x ^ (x >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+        return x ^ (x >> np.uint64(31))
+
+
+def stream_np(seed: int, counters: np.ndarray, n: int) -> np.ndarray:
+    """The words ``SeedStream.next(n)`` gives at each counter, (C, n)."""
+    j = np.arange(n, dtype=np.uint64)
+    with np.errstate(over="ignore"):
+        state = (np.uint64(seed) + np.uint64(0x9E3779B97F4A7C15)
+                 * (counters.astype(np.uint64)[:, None] * np.uint64(n) + j))
+    return splitmix64_np(state)
+
+
+def cpu_env():
+    return QuadEnv(EnvConfig(**ENV_KW), device="cpu")
+
+
+# --- the seed stream ---------------------------------------------------------
+
+
+@pytest.mark.parametrize("seed,n", [(0, 1), (1, 2), (2**64 - 3, 2), (123456789, 3)])
+def test_seed_stream_matches_numpy_uint64(seed, n):
+    """300 solves' words equal a numpy uint64 splitmix64 of seed + GOLDEN
+    (n c + j), bit for bit; none repeats."""
+    stream = sampling.SeedStream("cpu", seed)
+    got = np.stack([stream.next(n).numpy().view(np.uint64) for _ in range(300)])
+    ref = stream_np(seed, np.arange(1, 301), n)
+    assert np.array_equal(got, ref)
+    assert len(np.unique(got)) == got.size
+    assert int(stream.counter) == 300
+
+
+def test_splitmix64_is_the_reference_finalizer():
+    """Known splitmix64 outputs: the first words of the generator seeded 0
+    (Vigna's reference C code: state += GOLDEN, then the finalizer)."""
+    x = torch.tensor([sampling.as_int64(0x9E3779B97F4A7C15 * k) for k in (1, 2, 3)])
+    words = [int(w) & int(M64) for w in sampling.splitmix64(x)]
+    assert words == [0xE220A8397B1DCDAF, 0x6E789E6AA1B965F4, 0x06C45D188009454F]
+
+
+def _spy_keys(solver):
+    """Record the Philox keys each solve hands the sampling kernel."""
+    seen = []
+    inner = solver.rollout_sampling
+
+    def spy(*args, **kw):
+        seen.append((rollout_cuda.seed_value(args[7]),
+                     None if kw.get("disturb_seed") is None
+                     else rollout_cuda.seed_value(kw["disturb_seed"])))
+        return inner(*args, **kw)
+
+    solver.rollout_sampling = spy
+    return seen
+
+
+@pytest.mark.parametrize("name", ["covo_online", "mppi"])
+def test_consecutive_solves_take_different_seeds(name):
+    """A CPU solver with kernel rng (the plain K1 / K5) keys each solve
+    afresh from its stream: five solves, ten distinct words for MPPI (the
+    actions' and the krng draw's); the words are the stream's."""
+    env = cpu_env()
+    solver, cp = get_solver(env, name, PSTR, rng_mode="kernel", engine="cuda", seed=4)
+    seen = _spy_keys(solver)
+    obs, info, state = env.reset(torch.Generator().manual_seed(0))
+    for _ in range(5):
+        _, cp, _ = solver(obs, state, env.default_params, cp, info)
+    n = 2 if name == "mppi" else 1
+    words = [w for pair in seen for w in pair[:n]]
+    assert len(set(words)) == 5 * n
+    assert np.array_equal(np.array(words, dtype=np.uint64).reshape(5, n),
+                          stream_np(4, np.arange(1, 6), n))
+
+
+@pytest.mark.parametrize("name,rng_mode", [("covo_online", "kernel"), ("mppi", "kernel"),
+                                           ("mppi", "fast"), ("covo_speculative", "kernel")])
+def test_seed_replays_the_chain_of_solves(name, rng_mode):
+    """``seed(s)`` twice gives the same chain of three solves bit for bit;
+    another seed gives other actions."""
+    env = cpu_env()
+    solver, cp0 = get_solver(env, name, PSTR, rng_mode=rng_mode, engine="cuda")
+    obs, info, state = env.reset(torch.Generator().manual_seed(1))
+    p = env.default_params
+    cp0 = solver.reset(state, p, cp0)
+
+    def chain(s):
+        solver.seed(s)
+        cp, out = cp0, []
+        for _ in range(3):
+            a, cp, _ = solver(obs, state, p, cp, info)
+            out.append(torch.cat([a, cp.a_mean.flatten()]))
+        return torch.stack(out)
+
+    first, again, other = chain(7), chain(7), chain(8)
+    assert torch.equal(first, again)
+    assert not torch.equal(first, other)
+
+
+def _rollout_args(env, seed=2):
+    _, info, _ = env.reset(torch.Generator().manual_seed(seed))
+    st = info["noisy_state"]
+    return (pack_state(st), st.time, st.pos_traj, st.vel_traj)
+
+
+def test_plain_k1_and_k5_take_a_seed_tensor():
+    """The plain K1 and K5 (the wrappers on CPU tensors) keyed by a 0-d
+    int64 word equal their int form, also for a key past 2^63 (a word's
+    negative int64), and K5's krng draw likewise."""
+    env = cpu_env()
+    p = env.default_params
+    roll = _rollout_args(env)
+    g = torch.Generator().manual_seed(3)
+    H, N = 4, 64
+    a_mean = torch.randn(H, 4, generator=g) * 0.2
+    factor = torch.randn(4 * H, 4 * H, generator=g) * 0.1
+    k1 = rollout_cuda.make_rollout_joint_sampling(env)
+    for key in (11, 2**64 - 5):
+        word = torch.tensor(sampling.as_int64(key))
+        c_i, a_i = k1(*roll, a_mean, factor, p, key, N, deterministic=True)
+        c_t, a_t = k1(*roll, a_mean, factor, p, word, N, deterministic=True)
+        assert torch.equal(c_i, c_t) and torch.equal(a_i, a_t)
+    chol = torch.linalg.cholesky(0.1 * torch.eye(4).expand(H, 4, 4)).contiguous()
+    k5 = rollout_cuda.make_rollout_sampling(env)
+    out_i = k5(*roll, a_mean, chol, p, 21, N, disturb_seed=22)
+    out_t = k5(*roll, a_mean, chol, p, torch.tensor(21), N,
+               disturb_seed=torch.tensor(22))
+    assert all(torch.equal(x, y) for x, y in zip(out_i, out_t))
+    other = k5(*roll, a_mean, chol, p, torch.tensor(21), N, disturb_seed=torch.tensor(23))
+    assert torch.equal(other[1], out_t[1]) and not torch.equal(other[0], out_t[0])
+
+
+# --- the pytree helpers and the graphs' guards -----------------------------------
+
+
+def _params():
+    return CoVOParams(gamma_mean=1.0, gamma_sigma=0.0, discount=1.0, sample_sigma=0.5,
+                      a_mean=torch.zeros(4, 4), a_cov=torch.eye(16))
+
+
+def test_flatten_roundtrip_and_spec():
+    """flatten / unflatten round-trip dataclasses, dicts, tuples, None and
+    floats; the spec tells trees apart by a constant, a shape or a dtype."""
+    env = cpu_env()
+    obs, info, state = env.reset(torch.Generator().manual_seed(0))
+    tree = (obs, state, _params(), info, None, 3)
+    leaves, spec = graphs.flatten(tree)
+    back = graphs.unflatten(spec, leaves)
+    leaves2, spec2 = graphs.flatten(back)
+    assert spec2 == spec and all(a is b for a, b in zip(leaves, leaves2))
+    assert isinstance(back[1], type(state)) and back[3].keys() == info.keys()
+    assert back[4] is None and back[5] == 3
+    for changed in (_params().replace(gamma_mean=0.5),
+                    _params().replace(a_mean=torch.zeros(5, 4)),
+                    _params().replace(a_cov=torch.eye(16, dtype=torch.float64))):
+        assert graphs.flatten(changed)[1] != graphs.flatten(_params())[1]
+
+
+def test_copy_into_copies_in_place_and_guards_aliasing():
+    """copy_into writes each source into its destination in place; a source
+    that is another destination's memory is read before it is overwritten;
+    trees of another spec raise."""
+    a, b = torch.zeros(3), torch.ones(3)
+    dst = {"x": a, "y": b}
+    graphs.copy_into(dst, {"x": b, "y": a + 5})  # x <- old y, y <- 5
+    assert dst["x"] is a and torch.equal(a, torch.ones(3))
+    assert torch.equal(b, torch.full((3,), 5.0))
+    swap = {"x": a, "y": b}
+    graphs.copy_into(swap, {"x": b, "y": a})  # a swap through the clones
+    assert torch.equal(a, torch.full((3,), 5.0)) and torch.equal(b, torch.ones(3))
+    with pytest.raises(ValueError):
+        graphs.copy_into({"x": a}, {"x": torch.zeros(4)})
+
+
+def test_graphs_refuse_cpu_tensors():
+    """A capture of CPU tensors raises before anything runs: the CPU path
+    is the eager one, asked for by the caller."""
+    calls = []
+
+    def fn(x):
+        calls.append(1)
+        return x * 2
+
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        graphs.capture(fn, torch.ones(3))
+    env = cpu_env()
+    solver, cp = get_solver(env, "mppi", PSTR, rng_mode="fast")
+    obs, info, state = env.reset(torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        graphs.capture_solver(solver, solver, obs, state, env.default_params, cp, info)
+    assert calls == []
+
+
+# --- the latency helpers -----------------------------------------------------------
+
+
+def test_time_blocking_keys_and_percentiles(monkeypatch):
+    """JAX's keys (p50, p90, p99, mean, iters), each equal to numpy's over
+    the stubbed clock's intervals; the warm-up calls are not timed."""
+    durations = [0.003, 0.001, 0.010, 0.002, 0.004, 0.007, 0.005]
+    ticks, now = [], 100.0
+    for d in durations:
+        ticks += [now, now + d]
+        now += 1.0
+    clock = iter(ticks)
+    monkeypatch.setattr(profiling, "_clock", lambda: next(clock))
+    calls = []
+
+    def fn():
+        calls.append(1)
+        return {"action": torch.ones(4)}
+
+    stats = profiling.time_blocking(fn, len(durations), 2)
+    assert set(stats) == {"p50", "p90", "p99", "mean", "iters"}
+    assert stats["iters"] == len(durations) and len(calls) == len(durations) + 2
+    for q in (50, 90, 99):
+        assert stats[f"p{q}"] == pytest.approx(np.percentile(durations, q), rel=1e-12)
+    assert stats["mean"] == pytest.approx(np.mean(durations), rel=1e-12)
+
+
+def test_trace_is_a_no_op_without_a_directory(tmp_path):
+    with profiling.trace(None) as prof:
+        torch.ones(3).sum()
+    assert prof is None
+    with profiling.trace(str(tmp_path)) as prof:
+        torch.ones(3).sum()
+    assert prof is not None and list(tmp_path.glob("trace_*.json"))
+
+
+def test_time_chained_needs_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: time_chained measures there")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        profiling.time_chained(lambda c: c, torch.ones(1))
+
+
+# --- the CPU episode runner --------------------------------------------------------
+
+
+def test_cpu_runner_is_the_eager_loop():
+    """On a CPU env the runner is the eager loop: the same err_pos as
+    eager_episode on the same generators and seed, bit for bit."""
+    env = cpu_env()
+    solver, _ = get_solver(env, "mppi", PSTR, rng_mode="kernel", engine="cuda")
+    run = make_episode_runner(env, solver, steps=12)
+    assert not isinstance(run, CapturedEpisode)
+    solver.seed(2)
+    err, done = run(torch.Generator().manual_seed(0), torch.Generator().manual_seed(1))
+    solver.seed(2)
+    err2, done2 = eager_episode(env, solver, 12, torch.Generator().manual_seed(0),
+                                torch.Generator().manual_seed(1))
+    assert torch.equal(err, err2) and torch.equal(done, done2)
+    assert err.shape == (12,) and bool(torch.isfinite(err).all())
+
+
+# --- on the card --------------------------------------------------------------------
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: a CUDA graph and a CUDA kernel have no CPU mode")
+    return torch.device("cuda")
+
+
+Nc, Hc = 1024, 8
+CARD_CASES = [("covo_online", "kernel", "call"), ("covo_online", "fast", "call"),
+              ("covo_speculative", "kernel", "act"), ("covo_speculative", "kernel", "prepare"),
+              ("covo_offline", "kernel", "call"), ("mppi", "kernel", "call"),
+              ("mppi", "fast", "call"), ("pid", "fast", "call"), ("random", "fast", "call")]
+
+
+def _card_env(dev):
+    return QuadEnv(EnvConfig(**ENV_KW), device=dev)
+
+
+def _tensors(method, out):
+    action, cp = (None, out) if method == "prepare" else out[:2]
+    named = {} if action is None else {"action": action}
+    if cp is not None:
+        named.update({f.name: getattr(cp, f.name) for f in dataclasses.fields(cp)
+                      if isinstance(getattr(cp, f.name), torch.Tensor)})
+    return named
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,rng_mode,method", CARD_CASES)
+def test_captured_solve_matches_eager(dev, name, rng_mode, method):
+    """Five chained replays equal five chained eager solves from the same
+    seed and params within 2e-4 on every output; two replays on the same
+    inputs draw afresh (all but PID and prepare, which draw nothing under
+    the gaussian model); the replays launch what the eager solves launch."""
+    from covo_mpc_tpu_torch.ops import covariance_cuda, hessian_cuda
+
+    env = _card_env(dev)
+    p = env.default_params
+    obs, info, state = env.reset(torch.Generator(dev).manual_seed(5), p)
+    solver, cp0 = get_solver(env, name, f"N{Nc}_H{Hc}_lam0.01", rng_mode=rng_mode,
+                             sigma_mode="ns_pallas" if "spec" in name else "ns")
+    cp0 = solver.reset(state, p, cp0)
+    if method == "prepare":
+        fn, args = solver.prepare, lambda cp: (state, p, cp, info)
+    else:
+        fn = solver.act if method == "act" else solver
+        args = lambda cp: (obs, state, p, cp, info)  # noqa: E731
+
+    def carry(out):
+        return out if method == "prepare" else out[1]
+
+    kernel_list = [rollout_cuda.JOINT_KERNEL, rollout_cuda.PRIMAL_KERNEL,
+                   rollout_cuda.ROLLOUT_KERNEL, rollout_cuda.SAMPLE_KERNEL,
+                   hessian_cuda.CHAIN_KERNEL, covariance_cuda.SIGMA_KERNEL]
+
+    def chain(f):
+        solver.seed(3)
+        for k in kernel_list:
+            k.launches = 0
+        cp, outs = cp0, []
+        for _ in range(5):
+            out = f(*args(cp))
+            outs.append(_tensors(method, out))
+            cp = carry(out)
+        return outs, [k.launches for k in kernel_list]
+
+    eager, eager_counts = chain(fn)
+    solver.seed(3)
+    cap = graphs.capture_solver(fn, solver, *args(cp0))
+    replayed, replay_counts = chain(cap)
+    for e, r in zip(eager, replayed):
+        for key in e:
+            torch.testing.assert_close(r[key], e[key], atol=2e-4, rtol=0)
+    assert replay_counts == eager_counts
+    first, second = _tensors(method, cap(*args(cp0))), _tensors(method, cap(*args(cp0)))
+    key = next(iter(first))  # the action (a_mean for prepare)
+    if name == "pid" or method == "prepare":
+        assert torch.equal(first[key], second[key])
+    else:
+        assert not torch.equal(first[key], second[key])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,rng_mode", [("covo_online", "kernel"), ("mppi", "kernel"),
+                                           ("covo_speculative", "kernel")])
+def test_captured_episode_matches_eager_first_steps(dev, name, rng_mode):
+    """The captured runner's first 10 steps of err_pos equal the eager
+    loop's on the same generators and seed within 2e-4 (later steps part by
+    chaos, BASELINE.md); the whole captured episode stays finite."""
+    env = _card_env(dev)
+    solver, _ = get_solver(env, name, f"N{Nc}_H{Hc}_lam0.01", rng_mode=rng_mode,
+                           sigma_mode="ns_pallas" if "spec" in name else "ns")
+    T = 30
+    solver.seed(1)
+    ref, _ = eager_episode(env, solver, T, torch.Generator(dev).manual_seed(0),
+                           torch.Generator(dev).manual_seed(1))
+    run = make_episode_runner(env, solver, steps=T)
+    assert isinstance(run, CapturedEpisode)
+    solver.seed(1)
+    err, dones = run(torch.Generator(dev).manual_seed(0), torch.Generator(dev).manual_seed(1))
+    torch.testing.assert_close(err[:10], ref[:10], atol=2e-4, rtol=0)
+    assert bool(torch.isfinite(err).all()) and dones.shape == (T,)
+
+
+def philox_normals_np(key: int, counters: np.ndarray) -> np.ndarray:
+    """Four normals per counter (C, 4) uint32: Philox4x32-10 keyed by
+    ``key`` (csrc/philox.cuh), then Box-Muller on its words, in float64."""
+    M0, M1 = np.uint64(0xD2511F53), np.uint64(0xCD9E8D57)
+    W0, W1 = np.uint32(0x9E3779B9), np.uint32(0xBB67AE85)
+    c = [counters[:, i].astype(np.uint32) for i in range(4)]
+    k0, k1 = np.uint32(key & 0xFFFFFFFF), np.uint32(key >> 32)
+    with np.errstate(over="ignore"):
+        for r in range(10):
+            if r:
+                k0, k1 = k0 + W0, k1 + W1
+            p0 = M0 * c[0].astype(np.uint64)
+            p1 = M1 * c[2].astype(np.uint64)
+            hi0, lo0 = (p0 >> np.uint64(32)).astype(np.uint32), p0.astype(np.uint32)
+            hi1, lo1 = (p1 >> np.uint64(32)).astype(np.uint32), p1.astype(np.uint32)
+            c = [hi1 ^ c[1] ^ k0, lo1, hi0 ^ c[3] ^ k1, lo0]
+
+    def box_muller(a, b):
+        u1 = ((a >> 8).astype(np.float64) + 1.0) / 16777216.0
+        u2 = (b >> 8).astype(np.float64) / 16777216.0
+        r = np.sqrt(-2.0 * np.log(u1))
+        return r * np.cos(2 * np.pi * u2), r * np.sin(2 * np.pi * u2)
+
+    (x, y), (z, w) = box_muller(c[0], c[1]), box_muller(c[2], c[3])
+    return np.stack([x, y, z, w], axis=1)
+
+
+@pytest.mark.cuda
+def test_kernels_draw_philox_keyed_by_the_device_word(dev):
+    """K1 and K5 with zero mean and identity factors write clip(z): their
+    draws keyed by a seed stream's device word equal a numpy Philox4x32-10
+    keyed by that word's value (4e-5, the card's logf / sincosf), at a key
+    past 2^63 too; K5's krng draw likewise."""
+    env = _card_env(dev)
+    p = env.default_params
+    _, info, _ = env.reset(torch.Generator(dev).manual_seed(2), p)
+    st = info["noisy_state"]
+    roll = (pack_state(st), st.time, st.pos_traj, st.vel_traj)
+    Hs, Ns = 8, 256
+    stream = sampling.SeedStream(dev, 2**64 - 9)
+    key_dev = stream.next(2)
+    k1_key, k5_key = (rollout_cuda.seed_value(k) for k in key_dev.cpu())
+    _, a1 = rollout_cuda.make_rollout_joint_sampling(env)(
+        *roll, torch.zeros(Hs, 4, device=dev), torch.eye(4 * Hs, device=dev), p,
+        key_dev[0], Ns, deterministic=True)
+    j, n = np.meshgrid(np.arange(Hs), np.arange(Ns), indexing="ij")
+    ctr = np.stack([j.ravel(), n.ravel(), 0 * j.ravel(), 0 * j.ravel()], axis=1)
+    ref = philox_normals_np(k1_key, ctr).reshape(Hs, Ns, 4).transpose(0, 2, 1)
+    np.testing.assert_allclose(a1.cpu().numpy().reshape(Hs, 4, Ns), np.clip(ref, -1, 1),
+                               atol=4e-5, rtol=0)
+    chol = torch.eye(4, device=dev).expand(Hs, 4, 4).contiguous()
+    draw_out = torch.zeros(3, device=dev)
+    _, a5 = rollout_cuda.make_rollout_sampling(env)(
+        *roll, torch.zeros(Hs, 4, device=dev), chol, p, key_dev[1], Ns,
+        disturb_seed=key_dev[0], draw_out=draw_out)
+    ref5 = philox_normals_np(k5_key, ctr).reshape(Hs, Ns, 4).transpose(0, 2, 1)
+    np.testing.assert_allclose(a5.cpu().numpy().reshape(Hs, 4, Ns), np.clip(ref5, -1, 1),
+                               atol=4e-5, rtol=0)
+    krng = philox_normals_np(k1_key, np.array([[0, 0, 1, 0]]))[0, :3]
+    np.testing.assert_allclose(draw_out.cpu().numpy(), krng, atol=4e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_captured_call_inputs_and_outputs(dev):
+    """A call copies in what changed (an input modified in place, any input
+    of a buffer the graph writes, even the same unchanged tensor) and skips
+    nothing else; its outputs are fresh (a later call leaves them as they
+    were); other shapes raise."""
+    x = torch.ones(4, device=dev)
+    acc = torch.zeros(4, device=dev)
+
+    def fn(x, acc):
+        acc.add_(x)  # the graph writes this buffer
+        return x * 2, acc.clone()
+
+    cap = graphs.capture(fn, x, acc)
+    z = torch.zeros(4, device=dev)
+    y1, a1 = cap(x, z)
+    _, a2 = cap(x, z)  # z unchanged, but its buffer was written: copied again
+    assert torch.equal(y1, 2 * x) and torch.equal(a1, x) and torch.equal(a2, x)
+    x.mul_(3)  # changed in place: copied again
+    y3, _ = cap(x, z)
+    assert torch.equal(y3, torch.full((4,), 6.0, device=dev))
+    assert torch.equal(y1, torch.full((4,), 2.0, device=dev))  # fresh outputs
+    with pytest.raises(ValueError):
+        cap(torch.ones(5, device=dev), z)
+
+
+@pytest.mark.cuda
+def test_env_step_and_pid_never_sync(dev):
+    """The auto-resetting env step (its reset's unit quaternion) and the
+    PID solve (its e_z) make their constants with device fills: with host
+    syncs turned into errors, both run (an item assignment of a host scalar
+    synced, and could not be captured)."""
+    env = _card_env(dev)
+    p = env.default_params
+    obs, info, state = env.reset(torch.Generator(dev).manual_seed(0), p)
+    solver, cp = get_solver(env, "pid")
+    gen = torch.Generator(dev).manual_seed(1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        action, cp, _ = solver(obs, state, p, cp, info)
+        env.step(gen, state, action, p)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.cuda
+def test_a_capture_that_fails_raises(dev):
+    """A callable that reads a device value on the host cannot be captured:
+    the capture raises, and nothing is left capturing."""
+    x = torch.ones(4, device=dev)
+
+    def reads_host(t):
+        return t * float(t.sum())
+
+    with pytest.raises(RuntimeError):
+        graphs.capture(reads_host, x)
+    assert not torch.cuda.is_current_stream_capturing()
+    assert float((x * 2).sum()) == 8.0
