@@ -101,13 +101,26 @@ source, at first use), then:
    B=16 (K7 joint), and one main-path CoVO solve on ``tracking`` (the
    Lissajous tables, penyaw); (c) the tracking_slow closed loops (1200
    steps): CoVO online with the main path's settings and MPPI with kernel
-   rng, both finite, CoVO below MPPI, and the CoVO solve's median events ms.
+   rng, both finite, CoVO below MPPI, and the CoVO solve's median events ms;
+9. the command line, ``covo_mpc_tpu_torch.cli.main`` in-process into a
+   temporary results directory: (a) eval on the main path (gn, ns, kernel
+   rng, cuda) at 1200 steps with ``--metrics``: err_pos below 5.0 cm, 1200
+   finite JSONL records with 1 <= ess <= N and sigma_cond >= 1, K1-K3
+   launched at least once a step; (b) render, MPPI kernel rng: a 300-row
+   trace with err_pos aligned to |pos - pos_tar| on every row that is not
+   done (a done row holds the auto-reset's), K5 launched; (c) bench
+   with ``ns_pallas``: K8 launched, the captured p50 under 20 ms, the JSON
+   line echoed; (d) eval ``--supervised --chunk-episodes 2`` with MPPI
+   equal to the unsupervised eval bit for bit, and a supervised run crashed
+   after its first chunk, then resumed, equal to both.
 
 Each kernel's launch count in the JSON record is read from the closed loop
 that runs it (a replayed graph adds its kernels' launches at each replay): K1-K3 from CoVO's, K5 from MPPI's kernel-rng loop, K4 from
 MPPI's fast loop, K7 joint from the batched CoVO loop, K7 per-step from
 the batched MPPI kernel-rng loop, K6 from the batched MPPI fast loop, K8
-from the speculative loop (counts set to 0 just before each loop). A
+from the speculative loop (counts set to 0 just before each loop); the
+records of K1-K3, K5 and K8 also hold ``cli_launches``, their launches in
+the command line's run that drives them (phase 9). A
 record's ``modes`` holds, for each disturbance mode it was checked in (and
 "sd13" / "sd16" for K3), the kernel's max abs error, the environments that
 ran it, its time alone, its bound counting the mode's extra operations and
@@ -185,6 +198,8 @@ REWARD_FLOPS = {"penyaw": 0, "realworld": 16 - 57}
 DYN_FLOPS = 124
 BOX_MULLER_FLOPS = 5  # per normal: log, sqrt, sin/cos and scaling per pair
 K8_MATMULS = 104  # optimize_sigma_ns: 2 x 16 (power squaring) + 24 + 1 + 47 (NS)
+# the command line's eval runs (phase 9)
+CLI_STEPS = 1200
 T0 = time.perf_counter()
 PEAK = {}  # "fp32": FLOP/s outside the tensor cores, set in main()
 
@@ -2345,6 +2360,156 @@ def phase_realworld_loops(dev, total_steps, kernel_list, records):
         f"({counts['torch']} solves)")
 
 
+# --- phase 9: the command line ----------------------------------------------
+
+
+def cli_run(argv, kernel_list):
+    """``cli.main(argv)`` in-process with every launch counter at 0 just
+    before it; returns its standard output (echoed) and the counts just
+    after."""
+    import contextlib
+    import io
+
+    from covo_mpc_tpu_torch import cli
+
+    for k in kernel_list:
+        k.launches = 0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    counts = {k.symbol: k.launches for k in kernel_list}
+    out = buf.getvalue()
+    for line in out.splitlines():
+        say(f"  | {line}")
+    check(rc == 0, f"cli.main({' '.join(argv[:6])} ...) returned 0")
+    return out, counts
+
+
+def phase_cli(kernel_list, records):
+    """Phase 9: ``python -m covo_mpc_tpu_torch.cli``'s three modes through
+    ``cli.main``, in-process, into a temporary results directory: (a) eval
+    on the main path at --total-steps with --metrics (err_pos, the JSONL,
+    K1-K3 once a step); (b) render with MPPI's kernel rng (a 300-row trace
+    with aligned err_pos, K5); (c) bench with ``ns_pallas`` (K8, the
+    captured p50 under the 50 Hz budget); (d) eval --supervised
+    --chunk-episodes 2 with MPPI equal to the unsupervised eval bit for
+    bit, and a run crashed after its first chunk and resumed equal to both.
+    Returns each kernel's launches in its CLI run (also its record's
+    ``cli_launches``)."""
+    import shutil
+    import tempfile
+
+    from covo_mpc_tpu_torch.models import EnvConfig, QuadEnv
+    from covo_mpc_tpu_torch.runtime.supervisor import run_supervised
+    from covo_mpc_tpu_torch.solvers import get_solver
+
+    steps = CLI_STEPS
+    d = tempfile.mkdtemp(prefix="covo_cli_")
+    base = ["--task", "tracking_zigzag", "--controller-params", f"N{N}_H{H}_lam0.01",
+            "--noDR", "--engine", "cuda", "--rng-mode", "kernel", "--results-dir", d]
+    launches = {}
+    try:
+        phase(f"phase 9a: cli eval, the main path (covo_online gn ns kernel rng cuda), "
+              f"--total-steps {steps} --metrics")
+        t0 = time.perf_counter()
+        _, counts = cli_run([*base, "--controller", "covo_online", "--mode", "eval",
+                             "--hessian-mode", "gn", "--sigma-mode", "ns",
+                             "--total-steps", str(steps), "--metrics", "--name", "main"],
+                            kernel_list)
+        wall = time.perf_counter() - t0
+        with np.load(f"{d}/eval_main.npz") as data:
+            err = data["err_pos_ep"] * 100
+            mean = float(data["mean"]) * 100
+        say(f"  eval: {len(err)} episodes, err_pos {mean:.4f} cm, per episode "
+            f"{[round(float(e), 4) for e in err]} ({wall:.1f} s); launches {counts}")
+        check(np.isfinite(mean) and mean < ERR_POS_LIMIT_CM,
+              f"cli eval err_pos finite and below {ERR_POS_LIMIT_CM} cm")
+        with open(f"{d}/metrics_main.jsonl") as fh:
+            recs = [json.loads(line) for line in fh]
+        keys = ("cost_min", "cost_mean", "cost_p90", "ess", "sigma_cond", "sigma_logdet")
+        check(len(recs) == steps and all(np.isfinite(r[k]) for r in recs for k in keys),
+              f"{steps} finite metrics records")
+        ess = np.array([r["ess"] for r in recs])
+        cond = np.array([r["sigma_cond"] for r in recs])
+        check(bool(((ess >= 1.0 - 1e-4) & (ess <= N + 1e-2)).all()) and bool((cond >= 1.0).all()),
+              f"1 <= ess <= {N} and sigma_cond >= 1 in every record")
+        say(f"  metrics: ess median {np.median(ess):.2f} (min {ess.min():.2f}, max "
+            f"{ess.max():.2f}); sigma_cond median {np.median(cond):.4e}")
+        for sym in ("joint_sample_rollout", "primal", "sens_chain"):
+            check(counts[sym] >= steps, f"{sym} launched at least once a step by the cli eval")
+            launches[sym] = counts[sym]
+
+        phase("phase 9b: cli render, mppi kernel rng (K5)")
+        _, counts = cli_run([*base, "--controller", "mppi", "--mode", "render",
+                             "--name", "mppi"], kernel_list)
+        with np.load(f"{d}/trace_mppi.npz") as data:
+            trace = {k: data[k] for k in data.files}
+        T = 300
+        check(all(v.shape[0] == T for v in trace.values()) and trace["action"].shape == (T, 4),
+              f"a {T}-row trace, every channel")
+        # a done row's step-returned info is the auto-reset's (JAX's too)
+        live = ~trace["done"]
+        align = float(np.abs(trace["err_pos"] - np.linalg.norm(
+            trace["pos"] - trace["pos_tar"], axis=-1))[live].max())
+        say(f"  trace channels {sorted(trace)}; {int(trace['done'].sum())} done rows; max "
+            f"|err_pos - |pos - pos_tar|| over the others {align:.3e}; launches {counts}")
+        check(align <= 1e-5, "the trace's err_pos aligned with |pos - pos_tar| (1e-5) on "
+              "every row that is not done")
+        check(counts["sample_rollout"] >= T, "sample_rollout launched by the cli render")
+        launches["sample_rollout"] = counts["sample_rollout"]
+
+        phase("phase 9c: cli bench, covo_online gn, sigma_mode ns_pallas (K8), captured")
+        out, counts = cli_run([*base, "--controller", "covo_online", "--mode", "bench",
+                               "--hessian-mode", "gn", "--sigma-mode", "ns_pallas"],
+                              kernel_list)
+        line = json.loads([x for x in out.splitlines() if x.startswith("{")][-1])
+        p50 = line["per_dispatch"]["p50"]
+        check(counts["sigma_ns"] > 0, "sigma_ns launched by the cli bench")
+        check(p50 < 0.020, f"the captured bench p50 {p50 * 1e3:.4f} ms under the 20 ms budget")
+        check(line["amortized_per_solve"]["method"] == "cuda_events",
+              "the bench's chained time by CUDA events")
+        launches["sigma_ns"] = counts["sigma_ns"]
+
+        phase("phase 9d: cli eval --supervised --chunk-episodes 2, mppi kernel rng, "
+              "against the unsupervised eval and a crashed-and-resumed run")
+        mppi = [*base, "--controller", "mppi", "--mode", "eval", "--total-steps", str(steps)]
+        cli_run([*mppi, "--name", "mppi_plain"], kernel_list)
+        cli_run([*mppi, "--name", "mppi_sup", "--supervised", "--chunk-episodes", "2"],
+                kernel_list)
+        with np.load(f"{d}/eval_mppi_plain.npz") as a, np.load(f"{d}/eval_mppi_sup.npz") as b:
+            plain, sup = a["err_pos_ep"], b["err_pos_ep"].astype(np.float32)
+        check(np.array_equal(plain, sup), "the supervised eval equals the unsupervised "
+              "one bit for bit")
+        env = QuadEnv(EnvConfig(**ENV_KW))
+        make = lambda: get_solver(env, "mppi", f"N{N}_H{H}_lam0.01", rng_mode="kernel",
+                                  engine="cuda")[0]
+
+        def crash(chunk, attempt):
+            if chunk == 1:
+                raise RuntimeError("injected outage after the first chunk")
+
+        ckpt = f"{d}/ckpt_resume"
+        try:
+            run_supervised(env, make(), total_steps=steps, seed=1, checkpoint_dir=ckpt,
+                           chunk_episodes=2, max_retries=0, _fault_hook=crash)
+            check(False, "the injected outage raised")
+        except RuntimeError as e:
+            check("re-run the same command" in str(e), "the crashed run checkpointed")
+        resumed = run_supervised(env, make(), total_steps=steps, seed=1,
+                                 checkpoint_dir=ckpt, chunk_episodes=2)
+        say(f"  plain {[round(100 * float(e), 4) for e in plain]} cm; resumed at chunk "
+            f"{resumed.resumed_at_chunk}")
+        check(resumed.resumed_at_chunk == 1 and np.array_equal(
+            resumed.err_pos_ep.numpy().astype(np.float32), plain),
+              "the resumed run equals the uninterrupted one bit for bit")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    for sym, n in launches.items():
+        records[sym]["cli_launches"] = n
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--total-steps", type=int, default=1200,
@@ -2431,6 +2596,7 @@ def main(argv=None) -> int:
     phase_realworld_kernels(dev, records)
     phase_realworld_solves(dev, kernel_list)
     phase_realworld_loops(dev, args.total_steps, kernel_list, records)
+    phase_cli(kernel_list, records)
     phase("done")
 
     say(json.dumps({"kernels": [

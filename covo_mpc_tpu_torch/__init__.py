@@ -13,7 +13,12 @@ that mirrors its layout and public names:
   solvers/  CoVO (online, speculative, offline), MPPI, PID, Random and the
             factory
   parallel/ the scenario-batched CoVO and MPPI solves (B scenarios per call)
-  runtime/  the episode runner and the evaluation protocol
+  runtime/  the captured solves and episode (CUDA graphs), the eval,
+            render and supervised protocols, the run config, solve
+            metrics, checkpoints, debug mode and the latency helpers
+  utils/    episode plotting (matplotlib, imported when drawing)
+  cli.py    the command line: ``python -m covo_mpc_tpu_torch.cli``
+            (eval, render, bench)
   csrc/     the CUDA C++ kernels (compiled by nvcc at first use)
   tools/    chip-only measurement tools (not imported here)
 

@@ -20,9 +20,10 @@ The per-solve Philox seed comes from a CPU generator the solve owns, the
 fast sampler's normals and the per-scenario disturbance draws (MPPI's
 stochastic ones; under "periodic" / "mixed" CoVO's rollout and Hessian
 uniforms too) from a device generator, so a solve never syncs with the
-host. The multichip
-steps (``make_multichip_control_step``, ``make_multichip_covo_step``) and
-``collect_metrics`` are not ported.
+host. ``collect_metrics`` appends each scenario's solve metrics (and, for
+CoVO, its Sigma's; ``runtime/metrics.py``) to the outputs, as JAX does. The
+multichip steps (``make_multichip_control_step``,
+``make_multichip_covo_step``) are not ported.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ from covo_mpc_tpu_torch.ops.rollout_cuda import (
     make_rollout_batched_costs,
     make_rollout_batched_sampling,
 )
+from covo_mpc_tpu_torch.runtime import metrics
 from covo_mpc_tpu_torch.solvers.base import resolve_engine
 
 _RNGS = (sampling.FAST, sampling.KERNEL)
@@ -49,15 +51,13 @@ def _shift(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([x[:, 1:], x[:, -1:]], dim=1)
 
 
-def _check(rng: str, engine: str, collect_metrics: bool) -> None:
+def _check(rng: str, engine: str) -> None:
     if rng not in _RNGS:
         raise ValueError(f"batched solve supports rng='fast'/'kernel', got {rng!r}")
     if engine not in ("torch", "cuda"):
         raise ValueError(f"unknown engine {engine!r}")
     if engine == "torch" and rng == sampling.KERNEL:
         raise ValueError("rng='kernel' requires engine='cuda'")
-    if collect_metrics:
-        raise NotImplementedError("collect_metrics: runtime/metrics is not ported yet")
 
 
 class _BatchedSolve:
@@ -65,8 +65,9 @@ class _BatchedSolve:
     generators."""
 
     def __init__(self, env, N: int, H: int, lam: float, rng: str, engine: str,
-                 seed: int):
+                 seed: int, collect_metrics: bool = False):
         self.env = env
+        self.collect_metrics = collect_metrics
         self.N, self.H, self.lam = N, H, lam
         self.dA = env.action_dim
         self.rng, self.engine = rng, engine
@@ -94,24 +95,27 @@ class BatchedCoVOSolve(_BatchedSolve):
     """``solve(x0s (B, 16), t0s (B,), pos_trajs (B, T, 3), vel_trajs,
     a_means (B, H, dA), params_b, gamma_mean=1.0, discount=1.0, z=None,
     draws=None, hess_draws=None) -> (a_means_new (B, H, dA), min_costs
-    (B,))``: per scenario, the mean shift, the Hessian, the NS designer, the
+    (B,)[, metrics])``: per scenario, the mean shift, the Hessian, the NS designer, the
     joint sample + deterministic rollout, the weights and the γ-blended mean
     update (CoVO re-designs Σ every solve, so no covariance is carried).
     ``z`` (B, N, D) feeds given standard normals (tests hand in JAX's); K7
     then runs its input-z mode. ``draws`` (B, 3) and ``hess_draws`` (B, H,
     3) are the rollouts' and the Hessians' disturbance uniforms ("periodic"
-    / "mixed"; drawn here when not given).
+    / "mixed"; drawn here when not given). Under ``collect_metrics`` a
+    third output holds (B,) each of the cost min / mean / max, the ESS and
+    Sigma's conditioning and log-determinant (from the factors, as JAX).
     """
 
     def __init__(self, env, N: int, H: int, lam: float, sample_sigma: float,
-                 rng: str, hessian_mode: str, engine: str, seed: int):
+                 rng: str, hessian_mode: str, engine: str, seed: int,
+                 collect_metrics: bool = False):
         if hessian_mode not in ("adjoint", "gn"):
             raise ValueError(f"batched covo supports 'adjoint'/'gn', got "
                              f"{hessian_mode!r}")
         # TF32 would truncate the designer's fp32 matmuls (see solvers/covo.py)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        super().__init__(env, N, H, lam, rng, engine, seed)
+        super().__init__(env, N, H, lam, rng, engine, seed, collect_metrics)
         self.sample_sigma = sample_sigma
         self.D = H * self.dA
         self._hessian = make_hessian_batched(
@@ -152,25 +156,33 @@ class BatchedCoVOSolve(_BatchedSolve):
         weights = reductions.mppi_weights(costs, self.lam)
         a_means_new = reductions.mean_update_t(
             weights, a_t.reshape(B, self.H, self.dA, N), a_means, gamma_mean)
+        if self.collect_metrics:
+            return a_means_new, torch.amin(costs, dim=-1), {
+                **metrics.solve_metrics_sharded(costs, weights, None, N),
+                **metrics.sigma_metrics(factors @ factors.transpose(-1, -2)),
+            }
         return a_means_new, torch.amin(costs, dim=-1)
 
 
 class BatchedMPPISolve(_BatchedSolve):
     """``solve(x0s, t0s, pos_trajs, vel_trajs, a_means (B, H, dA), a_covs
     (B, H, dA, dA), params_b, gamma_mean=1.0, gamma_sigma=0.0, discount=1.0,
-    z=None, draws=None) -> (a_means_new, a_covs_new, min_costs (B,))``: per
+    z=None, draws=None) -> (a_means_new, a_covs_new, min_costs (B,)[,
+    metrics])``: per
     scenario, the shift of mean AND covariance, the per-step sample (factors
     by ``cholesky_ex`` of the shifted covariances, as JAX factors them every
     solve) + stochastic rollout under one shared disturbance draw, the
     weights, and the γ-blended mean and covariance updates (the covariance
     untouched at γ_σ = 0). ``z`` (B, N, H, dA) and ``draws`` (B, 3) feed
     given standard normals to the sampler and to each scenario's shared
-    disturbance; by default they come from the solve's generators.
+    disturbance; by default they come from the solve's generators. Under
+    ``collect_metrics`` a fourth output holds (B,) each of the cost min /
+    mean / max and the ESS.
     """
 
     def __init__(self, env, N: int, H: int, lam: float, rng: str,
-                 engine: str, seed: int):
-        super().__init__(env, N, H, lam, rng, engine, seed)
+                 engine: str, seed: int, collect_metrics: bool = False):
+        super().__init__(env, N, H, lam, rng, engine, seed, collect_metrics)
         self._sampler = (make_rollout_batched_sampling(env, joint=False)
                          if rng == sampling.KERNEL else None)
 
@@ -204,6 +216,9 @@ class BatchedMPPISolve(_BatchedSolve):
         a_means_new = reductions.mean_update_t(weights, a_t, a_means, gamma_mean)
         a_covs_new = reductions.cov_update_t(weights, a_t, a_means_new, a_covs,
                                              gamma_sigma)
+        if self.collect_metrics:
+            return (a_means_new, a_covs_new, torch.amin(costs, dim=-1),
+                    metrics.solve_metrics_sharded(costs, weights, None, N))
         return a_means_new, a_covs_new, torch.amin(costs, dim=-1)
 
 
@@ -220,9 +235,9 @@ def make_batched_covo_solve(env, N: int, H: int, lam: float,
     K6 (``engine="cuda"``) or the plain rollout (``engine="torch"``, which
     takes ``rng="fast"`` only)."""
     engine = resolve_engine(env, engine)
-    _check(rng, engine, collect_metrics)
+    _check(rng, engine)
     return BatchedCoVOSolve(env, N, H, lam, sample_sigma, rng, hessian_mode,
-                            engine, seed)
+                            engine, seed, collect_metrics)
 
 
 def make_batched_mppi_solve(env, N: int, H: int, lam: float,
@@ -233,5 +248,5 @@ def make_batched_mppi_solve(env, N: int, H: int, lam: float,
     make_batched_mppi_solve). ``rng="kernel"`` runs K7 (per-step), ``"fast"``
     draws with torch and runs K6 or the plain rollout, as for CoVO."""
     engine = resolve_engine(env, engine)
-    _check(rng, engine, collect_metrics)
-    return BatchedMPPISolve(env, N, H, lam, rng, engine, seed)
+    _check(rng, engine)
+    return BatchedMPPISolve(env, N, H, lam, rng, engine, seed, collect_metrics)

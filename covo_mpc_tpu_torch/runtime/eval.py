@@ -7,16 +7,19 @@ generators seeded from ``seed``, so the trajectories are not the JAX
 package's (its threefry keys are not ported); the protocol is the same. The
 episodes go through :func:`make_episode_runner`: on the card each control
 step is one replayed CUDA graph, as JAX scans its jitted step; on the CPU
-the eager loop.
+the eager loop. ``evaluate_batched`` is not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
+import numpy as np
 import torch
 
 from covo_mpc_tpu_torch.runtime.episode import make_episode_runner
+from covo_mpc_tpu_torch.runtime.metrics import MetricsLogger
 
 
 @dataclasses.dataclass
@@ -24,15 +27,18 @@ class EvalResult:
     err_pos_ep: torch.Tensor  # (num_eps,) per-episode mean tracking error [m]
     mean: float
     std: float
+    # per-solve health metrics, dict of (num_eps, T) tensors, when the
+    # controller was built with collect_metrics=True
+    metrics: Optional[dict] = None
 
     def summary(self) -> str:
         return f"err_pos: {self.mean*100:.2f} +/- {self.std*100:.2f} cm"
 
 
-def evaluate(env, controller, total_steps: int = 12000, num_trajs: int = 4,
-             seed: int = 1) -> EvalResult:
-    """Run ``total_steps // max_steps`` episodes: episode i resets onto
-    trajectory ``i // reps``. Reads the device once, at the end."""
+def protocol(env, total_steps: int, num_trajs: int, seed: int):
+    """The protocol's plan from ``seed``: ``(num_eps, reps, reset_seeds,
+    step_seed)``. Episode i resets from ``reset_seeds[i // reps]``; one
+    step generator seeded with ``step_seed`` runs through all episodes."""
     max_steps = env.default_params.max_steps_in_episode
     num_eps = int(total_steps // max_steps)
     if num_eps < 1:
@@ -40,27 +46,66 @@ def evaluate(env, controller, total_steps: int = 12000, num_trajs: int = 4,
             f"total_steps={total_steps} is less than one episode "
             f"({max_steps} steps)"
         )
+    # fewer episodes than reset trajectories: the first num_eps once each
     num_trajs = min(num_trajs, num_eps)
     reps = num_eps // num_trajs
-    run_one_ep = make_episode_runner(env, controller)
-
     meta = torch.Generator().manual_seed(seed)
     reset_seeds = torch.randint(0, 2**62, (num_trajs,), generator=meta).tolist()
-    gen = torch.Generator(device=env.device).manual_seed(
-        int(torch.randint(0, 2**62, (), generator=meta))
-    )
+    step_seed = int(torch.randint(0, 2**62, (), generator=meta))
+    return num_trajs * reps, reps, reset_seeds, step_seed
+
+
+def run_episode(env, run_one_ep, reset_seed: int, gen: torch.Generator):
+    """One protocol episode: ``(mean err_pos (device scalar), metrics)``."""
+    reset_gen = torch.Generator(device=env.device).manual_seed(reset_seed)
+    err_pos, _, metrics = run_one_ep(reset_gen, gen)
+    return err_pos.mean(), metrics
+
+
+def write_metrics_jsonl(metrics: dict, err_pos, path: str) -> MetricsLogger:
+    """Dump per-solve metrics (dict of (num_eps, T) arrays) as JSONL, one
+    record per (episode, step) with the episode's tracking error."""
+    arrs = {k: np.asarray(torch.as_tensor(v).cpu()) for k, v in metrics.items()}
+    err = np.asarray(torch.as_tensor(err_pos).cpu())
+    logger = MetricsLogger(path)
+    num_eps, T = next(iter(arrs.values())).shape
+    for ep in range(num_eps):
+        for t in range(T):
+            logger.log(
+                step=ep * T + t, episode=ep,
+                err_pos=err[ep] if err.ndim == 1 else err[ep, t],
+                **{k: v[ep, t] for k, v in arrs.items()},
+            )
+    logger.close()
+    return logger
+
+
+def evaluate(env, controller, total_steps: int = 12000, num_trajs: int = 4,
+             seed: int = 1, metrics_path: Optional[str] = None) -> EvalResult:
+    """Run ``total_steps // max_steps`` episodes: episode i resets onto
+    trajectory ``i // reps``. Reads the device once, at the end (and once
+    an episode for the Sigma metrics of a solver that collects them).
+    ``metrics_path``: when the controller collects solve metrics, also
+    write them as JSONL, one record per (episode, step)."""
+    num_eps, reps, reset_seeds, step_seed = protocol(env, total_steps, num_trajs, seed)
+    run_one_ep = make_episode_runner(env, controller)
+    gen = torch.Generator(device=env.device).manual_seed(step_seed)
     controller.seed(seed)
 
-    errs = []
-    for i in range(num_trajs * reps):
-        reset_gen = torch.Generator(device=env.device).manual_seed(
-            reset_seeds[i // reps]
-        )
-        err_pos, _ = run_one_ep(reset_gen, gen)
-        errs.append(err_pos.mean())
+    errs, per_ep = [], []
+    for i in range(num_eps):
+        err, metrics = run_episode(env, run_one_ep, reset_seeds[i // reps], gen)
+        errs.append(err)
+        per_ep.append(metrics)
     err_pos_ep = torch.stack(errs).cpu()
-    return EvalResult(
+    metrics = ({k: torch.stack([m[k] for m in per_ep]).cpu() for k in per_ep[0]}
+               if per_ep[0] else None)
+    result = EvalResult(
         err_pos_ep=err_pos_ep,
         mean=float(err_pos_ep.mean()),
         std=float(err_pos_ep.std(correction=0)),
+        metrics=metrics,
     )
+    if metrics_path and metrics:
+        write_metrics_jsonl(metrics, err_pos_ep, metrics_path)
+    return result

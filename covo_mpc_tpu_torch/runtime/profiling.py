@@ -3,9 +3,10 @@
 Counterpart of the latency half of :mod:`covo_mpc_tpu.runtime.profiling`:
 :func:`time_blocking` (host wall per call, synced on one result leaf, the
 same keys as JAX's), :func:`time_chained` (CUDA events over k dependent
-calls, in the place of JAX's chained ``lax.scan``) and :func:`trace` (a
-``torch.profiler`` session, a no-op without a directory). JAX's XLA-trace
-readers are not ported (ROADMAP.md queue 1).
+calls, in the place of JAX's chained ``lax.scan``), :func:`trace` (a
+``torch.profiler`` session, a no-op without a directory) and
+:func:`device_info` (the card's name and power limit beside a number).
+JAX's XLA-trace readers are not ported (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -103,3 +104,21 @@ def trace(log_dir: Optional[str]):
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(str(Path(log_dir) / f"trace_{int(time.time() * 1e3)}.json"))
+
+
+def device_info(device) -> dict:
+    """The card's name and power limit as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` gives them, for a device on the
+    card; ``{"name": "cpu", "power_limit": None}`` for the CPU."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return {"name": "cpu", "power_limit": None}
+    import subprocess
+
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()
+    index = torch.cuda.current_device() if device.index is None else device.index
+    name, power = (x.strip() for x in out[index].rsplit(",", 1))
+    return {"name": name, "power_limit": power}

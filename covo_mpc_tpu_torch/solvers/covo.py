@@ -42,7 +42,9 @@ eagerly, once an episode, as JAX jits it apart. ``engine="cuda"`` runs K1
 or K4, K2, K3 and, under ``"ns_pallas"``, K8 (their wrappers take the plain
 versions for CPU tensors); ``engine="torch"`` is the plain path; ``engine="auto"`` picks
 ``"cuda"`` for an env on a CUDA device and ``"torch"`` for one on the CPU.
-The other Hessian estimators are not ported yet.
+The other Hessian estimators are not ported yet. ``collect_metrics`` puts
+the solve's health in ``info["metrics"]`` (``runtime/metrics.py``: the cost
+statistics, the ESS and the conditioning of the step's Sigma).
 """
 
 from __future__ import annotations
@@ -66,6 +68,7 @@ from covo_mpc_tpu_torch.models.structs import (
 from covo_mpc_tpu_torch.ops import covariance, covariance_cuda, reductions, sampling
 from covo_mpc_tpu_torch.ops.hessian import make_hessian_adjoint, make_hessian_batched
 from covo_mpc_tpu_torch.ops.rollout_cuda import make_rollout_joint_sampling
+from covo_mpc_tpu_torch.runtime import metrics
 from covo_mpc_tpu_torch.solvers.base import BaseSolver, make_cost_rollout, resolve_engine
 from covo_mpc_tpu_torch.solvers.pid import PIDParams, PIDSolver
 
@@ -132,6 +135,7 @@ class CoVOSolver(BaseSolver):
         engine: str = "auto",
         sigma_mode: str = "ns",
         seed: int = 0,
+        collect_metrics: bool = False,
     ) -> None:
         super().__init__(env, control_params)
         # TF32 truncates fp32 matmuls the way the TPU's bf16 default did,
@@ -165,6 +169,7 @@ class CoVOSolver(BaseSolver):
         self.rollout = make_cost_rollout(env, engine, rng_mode)
 
         self.N, self.H, self.lam = N, H, lam
+        self.collect_metrics = collect_metrics
         self.mode = mode
         self.rng_mode = rng_mode
         self.engine = engine
@@ -265,10 +270,11 @@ class CoVOSolver(BaseSolver):
         if self.mode != "speculative":
             raise ValueError("act() requires mode='speculative'")
         env_state = self._observed(env_state, info)
-        new_mean = self._sample_rollout_update(
+        new_mean, costs, weight = self._sample_rollout_update(
             env_state, env_params, control_params, _shift(control_params.a_mean),
             control_params.a_factor, z, draw)
-        return new_mean[0], control_params.replace(a_mean=new_mean), {}
+        return (new_mean[0], control_params.replace(a_mean=new_mean),
+                self._solve_info(costs, weight, control_params.a_cov))
 
     # -- reset: the speculative cold start and the offline schedule ------------
     def reset(self, env_state=None, env_params=None, control_params=None):
@@ -384,16 +390,25 @@ class CoVOSolver(BaseSolver):
                                  "builds the Sigma schedule first")
             a_cov = _at(control_params.a_cov_offline, env_state.time)
             factor = _at(control_params.a_factor_offline, env_state.time)
-        new_mean = self._sample_rollout_update(env_state, env_params,
-                                               control_params, a_mean, factor, z,
-                                               draw)
-        return new_mean[0], control_params.replace(a_mean=new_mean, a_cov=a_cov), {}
+        new_mean, costs, weight = self._sample_rollout_update(
+            env_state, env_params, control_params, a_mean, factor, z, draw)
+        return (new_mean[0], control_params.replace(a_mean=new_mean, a_cov=a_cov),
+                self._solve_info(costs, weight, a_cov))
+
+    def _solve_info(self, costs, weight, a_cov) -> dict:
+        """The solve's info: ``{"metrics": solve and Sigma metrics}`` under
+        ``collect_metrics`` (JAX: CoVOSolver._solve_info), else empty."""
+        if not self.collect_metrics:
+            return {}
+        return {"metrics": {**metrics.solve_metrics(costs, weight),
+                            **metrics.sigma_metrics(a_cov)}}
 
     def _sample_rollout_update(self, env_state, env_params, control_params,
                                a_mean, factor, z, draw=None):
         """The joint sample + deterministic rollout around the shifted
         ``a_mean`` with the sampling ``factor``, the weights and the mean
-        update; returns the new mean (H, dA)."""
+        update; returns the new mean (H, dA), the costs (N,) and the
+        weights (N,)."""
         x0 = pack_state(env_state)
         args = (x0, env_state.time, env_state.pos_traj, env_state.vel_traj)
         if draw is None:
@@ -414,7 +429,8 @@ class CoVOSolver(BaseSolver):
                                  discount=control_params.discount, layout="hdn")
 
         weight = reductions.mppi_weights(costs, self.lam)
-        return reductions.mean_update_t(
+        new_mean = reductions.mean_update_t(
             weight, a_t.reshape(self.H, self.action_dim, self.N), a_mean,
             control_params.gamma_mean,
         )
+        return new_mean, costs, weight

@@ -34,6 +34,23 @@ def hover_sequence(env, H: int) -> torch.Tensor:
     return torch.stack([thrust, zero, zero, zero]).expand(H, 4).clone()
 
 
+def resolve_hessian_mode(env, hessian_mode: str, rng_mode: str) -> str:
+    """Resolve ``hessian_mode="auto"`` as JAX does: the adjoint estimator,
+    except under the parity sampler, whose reference estimator (fwd_fwd) is
+    not ported (the solver raises for it)."""
+    if hessian_mode != "auto":
+        return hessian_mode
+    return "fwd_fwd" if rng_mode == "parity" else "adjoint"
+
+
+def resolve_sigma_mode(sigma_mode: str, rng_mode: str) -> str:
+    """Resolve ``sigma_mode="auto"`` as JAX does: the Newton–Schulz
+    designer, eigh under the parity sampler."""
+    if sigma_mode != "auto":
+        return sigma_mode
+    return "eigh" if rng_mode == "parity" else "ns"
+
+
 def get_solver(
     env,
     name: str,
@@ -45,13 +62,15 @@ def get_solver(
     engine: str = "auto",
     sigma_mode: str = "ns",
     seed: int = 0,
+    collect_metrics: bool = False,
 ):
     """Build (solver, control_params) by name: "pid", "random", "mppi", or
     any name containing "covo" (the mode by substring, as the reference:
     "offline", then "spec" / "latency" for speculative, else online).
     ``engine="auto"`` runs the CUDA kernels for an env on the card and the
     plain path for one on the CPU. ``hessian_mode`` and ``sigma_mode`` are
-    CoVO's."""
+    CoVO's ("auto" resolves as JAX's factory does). ``collect_metrics``
+    makes MPPI and CoVO report each solve's health in ``info["metrics"]``."""
     if name == "pid":
         params = PIDParams.default(env.device, Kp=10.0, Kd=5.0, Ki=0.0, Kp_att=10.0)
         return PIDSolver(env, params), params
@@ -78,7 +97,8 @@ def get_solver(
             a_cov_chol=torch.linalg.cholesky(a_cov).contiguous(),
         )
         solver = MPPISolver(env, params, N=N, H=H, lam=lam, rng_mode=rng_mode,
-                            collect_debug=collect_debug, engine=engine, seed=seed)
+                            collect_debug=collect_debug, engine=engine, seed=seed,
+                            collect_metrics=collect_metrics)
         return solver, params
     if "offline" in name:
         mode = "offline"
@@ -101,7 +121,9 @@ def get_solver(
     )
     solver = CoVOSolver(
         env, params, N=N, H=H, lam=lam, mode=mode, rng_mode=rng_mode,
-        hessian_mode=hessian_mode, collect_debug=collect_debug, engine=engine,
-        sigma_mode=sigma_mode, seed=seed,
+        hessian_mode=resolve_hessian_mode(env, hessian_mode, rng_mode),
+        collect_debug=collect_debug, engine=engine,
+        sigma_mode=resolve_sigma_mode(sigma_mode, rng_mode), seed=seed,
+        collect_metrics=collect_metrics,
     )
     return solver, params

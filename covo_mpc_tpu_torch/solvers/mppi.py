@@ -14,7 +14,9 @@ sample-last fast path). One solve, in order:
    (``engine="cuda"``, ``rng_mode="fast"``) or the plain rollout
    (``engine="torch"``); ``engine="auto"`` picks by the env's device;
 4. softmax weights, the mean update, and the covariance update (which
-   leaves covariance and factor untouched at ``gamma_sigma == 0``).
+   leaves covariance and factor untouched at ``gamma_sigma == 0``);
+   ``collect_metrics`` puts the cost statistics and the ESS in
+   ``info["metrics"]`` (``runtime/metrics.py``).
 
 A solve reads no value on the host and only device tensors, so it can be
 captured as a CUDA graph and replayed (``runtime/graphs.py``), as JAX jits
@@ -36,6 +38,7 @@ import torch
 from covo_mpc_tpu_torch.models.structs import pack_state
 from covo_mpc_tpu_torch.ops import reductions, sampling
 from covo_mpc_tpu_torch.ops.rollout_cuda import make_rollout_sampling
+from covo_mpc_tpu_torch.runtime import metrics
 from covo_mpc_tpu_torch.solvers.base import BaseSolver, make_cost_rollout, resolve_engine
 
 
@@ -82,12 +85,14 @@ class MPPISolver(BaseSolver):
         collect_debug: bool = False,
         engine: str = "auto",
         seed: int = 0,
+        collect_metrics: bool = False,
     ) -> None:
         super().__init__(env, control_params)
         if collect_debug:
             raise NotImplementedError("debug pose collection is not ported yet")
         self.rollout = make_cost_rollout(env, resolve_engine(env, engine), rng_mode)
         self.N, self.H, self.lam = N, H, lam
+        self.collect_metrics = collect_metrics
         self.rng_mode = rng_mode
         self.action_dim = env.action_dim
         self.rollout_sampling = (make_rollout_sampling(env)
@@ -152,4 +157,6 @@ class MPPISolver(BaseSolver):
         )
         control_params = control_params.replace(a_mean=new_mean, a_cov=a_cov,
                                                 a_cov_chol=a_chol)
-        return new_mean[0], control_params, {}
+        info = ({"metrics": metrics.solve_metrics(costs, weight)}
+                if self.collect_metrics else {})
+        return new_mean[0], control_params, info

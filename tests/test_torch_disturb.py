@@ -458,6 +458,6 @@ def test_closed_loop_modes_run(kind):
     for name in ("covo_online", "covo_speculative", "covo_offline", "mppi"):
         solver, _ = get_solver(env, name, "N64_H4_lam0.01", rng_mode="fast",
                                engine="torch")
-        err, _ = make_episode_runner(env, solver, steps=8)(
+        err, _, _ = make_episode_runner(env, solver, steps=8)(
             torch.Generator().manual_seed(0), torch.Generator().manual_seed(1))
         assert bool(torch.isfinite(err).all()), name

@@ -13,9 +13,13 @@ without one): captured solves against eager ones from the same seed (2e-4,
 BASELINE.md's per-solve contract), fresh draws at each replay, replayed
 launch counts, the first 10 steps of a captured episode against the eager
 loop (2e-4; later steps diverge by chaos, BASELINE.md), the kernels' device
-keys against a numpy Philox4x32-10 + Box-Muller, and a capture that fails
-raising. ``python -m pytest tests/test_torch_graphs.py -q`` runs either set
-where it can.
+keys against a numpy Philox4x32-10 + Box-Muller, a capture that fails
+raising, and the harness that rides on the captured runner: a captured
+episode's solve metrics against the eager episode's (bit for bit over 300
+steps), the command line's eval launching K1-K3 once a step, and a
+captured render against the eager one (bit for bit, reset_on_done too).
+``python -m pytest tests/test_torch_graphs.py -q`` runs either set where
+it can.
 """
 
 import dataclasses
@@ -291,9 +295,9 @@ def test_cpu_runner_is_the_eager_loop():
     run = make_episode_runner(env, solver, steps=12)
     assert not isinstance(run, CapturedEpisode)
     solver.seed(2)
-    err, done = run(torch.Generator().manual_seed(0), torch.Generator().manual_seed(1))
+    err, done, _ = run(torch.Generator().manual_seed(0), torch.Generator().manual_seed(1))
     solver.seed(2)
-    err2, done2 = eager_episode(env, solver, 12, torch.Generator().manual_seed(0),
+    err2, done2, _ = eager_episode(env, solver, 12, torch.Generator().manual_seed(0),
                                 torch.Generator().manual_seed(1))
     assert torch.equal(err, err2) and torch.equal(done, done2)
     assert err.shape == (12,) and bool(torch.isfinite(err).all())
@@ -396,12 +400,12 @@ def test_captured_episode_matches_eager_first_steps(dev, name, rng_mode):
                            sigma_mode="ns_pallas" if "spec" in name else "ns")
     T = 30
     solver.seed(1)
-    ref, _ = eager_episode(env, solver, T, torch.Generator(dev).manual_seed(0),
+    ref, _, _ = eager_episode(env, solver, T, torch.Generator(dev).manual_seed(0),
                            torch.Generator(dev).manual_seed(1))
     run = make_episode_runner(env, solver, steps=T)
     assert isinstance(run, CapturedEpisode)
     solver.seed(1)
-    err, dones = run(torch.Generator(dev).manual_seed(0), torch.Generator(dev).manual_seed(1))
+    err, dones, _ = run(torch.Generator(dev).manual_seed(0), torch.Generator(dev).manual_seed(1))
     torch.testing.assert_close(err[:10], ref[:10], atol=2e-4, rtol=0)
     assert bool(torch.isfinite(err).all()) and dones.shape == (T,)
 
@@ -527,3 +531,71 @@ def test_a_capture_that_fails_raises(dev):
         graphs.capture(reads_host, x)
     assert not torch.cuda.is_current_stream_capturing()
     assert float((x * 2).sum()) == 8.0
+
+
+# --- the harness on the card: metrics, the command line, render -------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["covo_online", "mppi"])
+def test_captured_episode_metrics_equal_eager(dev, name):
+    """Over 300 steps, a captured episode's solve metrics (each scalar
+    written by the graph, Sigma's eigensolved after the replays) equal the
+    eager episode's bit for bit, as do its errors."""
+    env = _card_env(dev)
+    solver, _ = get_solver(env, name, f"N{Nc}_H{Hc}_lam0.01", rng_mode="kernel",
+                           hessian_mode="gn", sigma_mode="ns", collect_metrics=True)
+    solver.seed(1)
+    err_e, _, m_e = eager_episode(env, solver, 300, torch.Generator(dev).manual_seed(0),
+                                  torch.Generator(dev).manual_seed(1))
+    solver.seed(1)
+    run = make_episode_runner(env, solver, steps=300)
+    assert isinstance(run, CapturedEpisode)
+    err_c, _, m_c = run(torch.Generator(dev).manual_seed(0),
+                        torch.Generator(dev).manual_seed(1))
+    assert set(m_c) == set(m_e) and "ess" in m_c
+    assert ("sigma_cond" in m_c) == (name != "mppi")
+    assert torch.equal(err_c, err_e)
+    for k in m_e:
+        assert m_c[k].shape == (300,) and torch.equal(m_c[k], m_e[k]), k
+
+
+@pytest.mark.cuda
+def test_cli_eval_launches_the_main_path_kernels_once_a_step(dev, tmp_path):
+    """The command line's eval on the main path's settings (kernel rng, gn,
+    ns, cuda) launches K1, K2 and K3 once a step: 300 replays and the
+    capture's two warm-up calls."""
+    from covo_mpc_tpu_torch import cli
+    from covo_mpc_tpu_torch.ops import hessian_cuda, kernels
+
+    ks = (rollout_cuda.JOINT_KERNEL, rollout_cuda.PRIMAL_KERNEL, hessian_cuda.CHAIN_KERNEL)
+    kernels.library()
+    for k in ks:
+        k.launches = 0
+    rc = cli.main(["--task", "tracking_zigzag", "--controller", "covo_online",
+                   "--controller-params", f"N{Nc}_H{Hc}_lam0.01", "--mode", "eval",
+                   "--noDR", "--rng-mode", "kernel", "--hessian-mode", "gn",
+                   "--sigma-mode", "ns", "--engine", "cuda", "--total-steps", "300",
+                   "--results-dir", str(tmp_path)])
+    assert rc == 0
+    assert [k.launches for k in ks] == [302] * 3
+
+
+@pytest.mark.cuda
+def test_captured_render_equals_eager(dev):
+    """A captured recording equals the eager one (debug mode) bit for bit,
+    with and without reset_on_done (320 steps: the episode's time limit
+    ends it at step 300, inside the recording; domain randomization on,
+    so the redraw changes the params)."""
+    from covo_mpc_tpu_torch.runtime import debug, render
+
+    env = QuadEnv(EnvConfig(**{**ENV_KW, "enable_randomizer": True}), device=dev)
+    solver, _ = get_solver(env, "mppi", f"N{Nc}_H{Hc}_lam0.01", rng_mode="kernel")
+    for reset in (False, True):
+        kw = dict(seed=1, steps=320, reset_on_done=reset)
+        got = render.render_episode(env, solver, **kw)
+        with debug.debug_mode(nans=False):
+            ref = render.render_episode(env, solver, **kw)
+        assert set(got) == set(ref) and got["done"][300]
+        for k in ref:
+            np.testing.assert_array_equal(got[k], ref[k], err_msg=f"{k} reset={reset}")

@@ -408,7 +408,8 @@ def test_batched_solves_at_one_scenario_match_the_solvers():
 
 def test_batched_solves_draw_and_reject():
     """Without given normals the solves draw their own (finite means, one
-    row per scenario; the same seed repeats); unsupported options raise."""
+    row per scenario; the same seed repeats); unsupported options raise;
+    ``collect_metrics`` adds each scenario's metrics."""
     j, p = _scenarios()
     env = p["env"]
     a_means = t(_hover_means(j))
@@ -431,5 +432,15 @@ def test_batched_solves_draw_and_reject():
         make_batched_mppi_solve(env, N, H, LAM, rng="kernel", engine="torch")
     with pytest.raises(ValueError):
         make_batched_covo_solve(env, N, H, LAM, hessian_mode="sensitivity")
-    with pytest.raises(NotImplementedError):
-        make_batched_mppi_solve(env, N, H, LAM, collect_metrics=True)
+    # collect_metrics appends each scenario's health metrics (ESS in [1, N])
+    mppi = make_batched_mppi_solve(env, 128, H, LAM, engine="torch", collect_metrics=True)
+    *_, mm = mppi(*_args(p), a_means, a_covs, p["params"])
+    covo = make_batched_covo_solve(env, 128, H, LAM, hessian_mode="gn", engine="torch",
+                                   collect_metrics=True)
+    *_, cm = covo(*_args(p), a_means, p["params"])
+    assert set(mm) == {"cost_min", "cost_mean", "cost_max", "ess"}
+    assert set(cm) == set(mm) | {"sigma_cond", "sigma_logdet"}
+    for m in (mm, cm):
+        assert all(v.shape == (B,) and bool(torch.isfinite(v).all()) for v in m.values())
+        assert bool(((m["ess"] >= 1.0 - 1e-4) & (m["ess"] <= 128 + 1e-3)).all())
+    assert bool((cm["sigma_cond"] >= 1.0).all())

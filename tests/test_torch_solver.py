@@ -127,8 +127,9 @@ def test_episode_runner_and_evaluate():
         solver, _ = get_solver(env, "covo_online", "N64_H4_lam0.01",
                                rng_mode=rng_mode, engine=engine)
         run = make_episode_runner(env, solver, steps=20)
-        err, dones = run(torch.Generator().manual_seed(0),
-                         torch.Generator().manual_seed(1))
+        err, dones, metrics = run(torch.Generator().manual_seed(0),
+                                  torch.Generator().manual_seed(1))
+        assert metrics == {}
         assert err.shape == (20,) and dones.shape == (20,)
         assert bool(torch.isfinite(err).all())
     result = evaluate(env, solver, total_steps=300, seed=1)
@@ -144,8 +145,9 @@ def test_mppi_episode_runner_and_evaluate():
         solver, _ = get_solver(env, "mppi", "N64_H4_lam0.01", rng_mode=rng_mode,
                                engine=engine)
         run = make_episode_runner(env, solver, steps=20)
-        err, dones = run(torch.Generator().manual_seed(0),
-                         torch.Generator().manual_seed(1))
+        err, dones, metrics = run(torch.Generator().manual_seed(0),
+                                  torch.Generator().manual_seed(1))
+        assert metrics == {}
         assert err.shape == (20,) and dones.shape == (20,)
         assert bool(torch.isfinite(err).all())
     result = evaluate(env, solver, total_steps=300, seed=1)
@@ -154,7 +156,8 @@ def test_mppi_episode_runner_and_evaluate():
 
 def test_package_never_imports_jax():
     code = ("import sys, covo_mpc_tpu_torch, covo_mpc_tpu_torch.ops.hessian, "
-            "covo_mpc_tpu_torch.solvers.mppi; "
+            "covo_mpc_tpu_torch.solvers.mppi, covo_mpc_tpu_torch.cli, "
+            "covo_mpc_tpu_torch.utils.plotting; "
             "assert 'jax' not in sys.modules, 'jax imported'")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)
