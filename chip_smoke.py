@@ -55,16 +55,30 @@ source, at first use), then:
 5. the scenario-batched solves (``covo_mpc_tpu_torch.parallel``) on a
    domain-randomized env, B=16 scenarios at N=8192, H=32: (a) K6, K7
    per-step and K7 joint against their plain versions, at B=1 against
-   K4, K5 and K1, and the in-kernel draws of one scenario at B=4 and
-   B=16, timed with CUDA events, K7 joint's correlate alone as one
+   K4, K5 and K1, the in-kernel draws of one scenario at B=4 and B=16,
+   and K7's episode offset (a device word): scenarios 8..15 launched from
+   offset 8 against the same scenarios from offset 0 (bit for bit), their
+   costs against the plain rollout of their actions, the plain version's
+   offset; timed with CUDA events, K7 joint's correlate alone as one
    ``torch.bmm`` (a yardstick); (b) one batched CoVO solve and one
    batched MPPI solve per rng, ``engine="cuda"`` against
    ``engine="torch"`` on the same normals (2e-4, no host sync); (c) the
-   batched closed loops on the main path's env, B=4 scenarios reset from
-   seed 1, 150 steps (CoVO below 5.0 cm, MPPI below 8.0 cm and above
-   CoVO's); (d) aggregate solves/s at B = 1, 16, 64 for both solvers and
-   engines, the device kernels per batched solve at B=16 and B=64, and
-   one batched CoVO and MPPI solve broken down by layer at B=16;
+   hand-written batched closed loops on the main path's env, B=4
+   scenarios reset from seed 1, 150 steps (CoVO below 5.0 cm, MPPI below
+   8.0 cm and above CoVO's); (d) aggregate solves/s at B = 1, 16, 64 for
+   both solvers and engines, eager, and beside them each cuda solve
+   (kernel rng) captured as a CUDA graph: replays against eager solves bit
+   for bit, p50 / p99 (``time_blocking``) and chained ms (``time_chained``)
+   eager and captured, solves/s, the graph's nodes, the device ms of a
+   replay and its busy share; the device kernels per batched solve at B=16
+   and B=64, and one batched CoVO and MPPI solve broken down by layer at
+   B=16; (e) the batched protocol on the main path's env at N=8192, H=32:
+   ``evaluate_batched(num_eps=16, seed=1)`` (one batch of 16 captured
+   episodes of 300 steps) for CoVO online (K7 joint), MPPI kernel rng (K7
+   per-step), MPPI fast rng (K6) and PID, below 5.0 / 8.0 / 8.0 / 40.0 cm,
+   CoVO below MPPI; captured batched episodes against eager ones bit for
+   bit; ``run_supervised_batched`` (MPPI, chunks of 8) crashed at chunk 1
+   and resumed, equal bit for bit to an uninterrupted run;
 6. the fused Sigma-designer K8 (``sigma_mode="ns_pallas"``) and the other
    CoVO modes on the main path's env: (a) K8 against the plain designer on
    the gn Hessian of a reset state and on the JAX kernel test's R at scales
@@ -115,10 +129,11 @@ source, at first use), then:
    after its first chunk, then resumed, equal to both.
 
 Each kernel's launch count in the JSON record is read from the closed loop
-that runs it (a replayed graph adds its kernels' launches at each replay): K1-K3 from CoVO's, K5 from MPPI's kernel-rng loop, K4 from
-MPPI's fast loop, K7 joint from the batched CoVO loop, K7 per-step from
-the batched MPPI kernel-rng loop, K6 from the batched MPPI fast loop, K8
-from the speculative loop (counts set to 0 just before each loop); the
+that runs it (a replayed graph adds its kernels' launches at each replay):
+K1-K3 from CoVO's, K5 from MPPI's kernel-rng loop, K4 from MPPI's fast
+loop, K7 joint, K7 per-step and K6 from phase 5e's ``evaluate_batched``
+runs of CoVO, MPPI kernel rng and MPPI fast rng, K8 from the speculative
+loop (counts set to 0 just before each run); the
 records of K1-K3, K5 and K8 also hold ``cli_launches``, their launches in
 the command line's run that drives them (phase 9). A
 record's ``modes`` holds, for each disturbance mode it was checked in (and
@@ -1389,10 +1404,11 @@ def phase_scenario_kernels(env, dev, records):
         check(torch.equal(a1[0], a_s) and max_err(c1[0], cs) <= 2e-6,
               f"{label} at B=1: the single-scenario kernel's draws, costs within 2e-6")
         # scenario 2's in-kernel draws do not depend on the scenario count
-        _, a16 = k7(*kargs, 9, N, deterministic=True)
+        c16, a16 = k7(*kargs, 9, N, deterministic=True)
         _, a4 = k7(*four, a_means[:4], fac[:4], pb4, 9, N, deterministic=True)
         check(torch.equal(a4[2], a16[2]),
               f"{label}: scenario 2's in-kernel draws the same at B=4 and B={B}")
+        check_offset(label, k7, args, pb, a_means, fac, a16, c16, B, dev)
         ms = time_ms(lambda: k7(*kargs, 7, N, draws=draws), 50)
         ms_p = time_ms(lambda: k7.plain(*kargs, 7, N, draws=draws), 5, warmup=1)
         records[name] = dict(max_abs_err=max(err_a, err_c), ms=ms, plain_ms=ms_p,
@@ -1410,9 +1426,35 @@ def phase_scenario_kernels(env, dev, records):
         kern = (rollout_cuda.JOINT_BATCHED_KERNEL if joint
                 else rollout_cuda.SAMPLE_BATCHED_KERNEL)
         ms_k = bare_launch_ms(kern, *ptrs, mean.data_ptr(), fac.data_ptr(), None, seed_ptr(7),
-                              costs.data_ptr(), a_out.data_ptr(), B, N, H,
+                              None, costs.data_ptr(), a_out.data_ptr(), B, N, H,
                               k7._check_rollover, k7.mode, k7.reward, k7.block)
         say(f"  {label} {ms:.4f} ms, plain {ms_p:.4f} ms, kernel alone {ms_k:.4f} ms")
+
+
+def check_offset(label, k7, args, pb, a_means, fac, a_all, c_all, B, dev):
+    """K7's episode offset (a 0-d int32 device word): the upper half of the
+    scenarios launched from offset B/2 draws what they draw in the launch
+    from 0 (``a_all``, ``c_all``), bit for bit; the offset launch's costs
+    against the plain rollout of its actions (atol 2e-4, rtol 1e-5); and
+    the plain version's own offset property, bit for bit."""
+    from covo_mpc_tpu_torch.ops.rollout import make_rollout_batched
+
+    o = B // 2
+    upper, pbu = sub_batch(args, pb, list(range(o, B)))
+    word = torch.full((), o, dtype=torch.int32, device=dev)
+    c_o, a_o = k7(*upper, a_means[o:], fac[o:], pbu, 9, N, deterministic=True, offset=word)
+    check(torch.equal(a_o, a_all[o:]) and torch.equal(c_o, c_all[o:]),
+          f"{label}: scenarios {o}..{B - 1} from offset {o} (a device word) draw what "
+          "they draw from offset 0, actions and costs bit for bit")
+    c_p = make_rollout_batched(k7.env)(*upper, a_o, pbu, None, True, 1.0, layout="hdn")
+    say(f"  {label} from offset {o}: max |costs - plain rollout of its actions| "
+        f"{max_err(c_o, c_p):.3e}")
+    check(costs_close(c_o, c_p), f"{label} from offset {o}: costs within atol 2e-4, rtol "
+          "1e-5 of the plain rollout of its actions")
+    _, ap_all = k7.plain(*args, a_means, fac, pb, 9, N, deterministic=True)
+    _, ap_o = k7.plain(*upper, a_means[o:], fac[o:], pbu, 9, N, deterministic=True, offset=o)
+    check(torch.equal(ap_o, ap_all[o:]),
+          f"{label} plain version: from offset {o} it draws what it draws from 0")
 
 
 def phase_scenario_solves(env, dev, kernel_list):
@@ -1532,17 +1574,100 @@ def phase_scenario_loops(env, kernel_list):
     return out
 
 
+def capture_batched(env, kind: str, B: int, args, carry0, pb):
+    """One batched cuda solve (kernel rng) at B scenarios captured as a CUDA
+    graph (``runtime/graphs.capture_solver``, its seed stream and generator
+    registered) and its replays profiled (``graph_profile``: the device ms a
+    replay from sessions that lost no node). Returns (the solve, the
+    captured call, its row so far)."""
+    from covo_mpc_tpu_torch.runtime import graphs
+
+    solve = make_batched(env, kind, "cuda")
+    t0 = time.perf_counter()
+    cap = graphs.capture_solver(solve, solve, *args, *carry0, pb)
+    capture_s = time.perf_counter() - t0
+    nodes = graph_nodes(cap)
+    dev_ms, complete, seen = graph_profile(cap.replay, nodes, reps=2 if kind == "covo" else 10)
+    return solve, cap, {"graph_nodes": nodes, "capture_s": capture_s, "device_ms": dev_ms,
+                        "profile_sessions_complete": complete, "device_ops_recorded": seen}
+
+
+def captured_batched_row(kind: str, B: int, solve, cap, args, carry0, pb, row) -> dict:
+    """The captured batched solve of :func:`capture_batched` against its
+    eager twin: 3 chained replays against 3 chained eager solves from the
+    same seed, bit for bit; p50 / p99 of ``time_blocking`` and ms per solve
+    of ``time_chained`` eager and captured; solves/s = B / the chained ms;
+    the busy share, the profiled device ms a replay over the chained ms.
+    Returns the row."""
+    from covo_mpc_tpu_torch.runtime import profiling
+
+    n = len(carry0)
+
+    def call(f, carry):
+        return f(*args, *carry, pb)
+
+    chains = {}
+    for name, f in (("eager", solve), ("captured", cap)):
+        solve.seed(3)
+        carry, chains[name] = carry0, []
+        for _ in range(3):
+            out = call(f, carry)
+            chains[name].append(out)
+            carry = out[:n]
+    check(all(torch.equal(x, y) for e, r in zip(chains["eager"], chains["captured"])
+              for x, y in zip(e, r)),
+          f"batched {kind} B={B}: 3 chained replays equal 3 chained eager solves bit for bit")
+    slow = kind == "covo"
+    blocking = {"eager": profiling.time_blocking(lambda: call(solve, carry0),
+                                                 5 if slow else 20, 1),
+                "captured": profiling.time_blocking(lambda: call(cap, carry0), 20 if slow
+                                                    else 60, 2)}
+    chained = {"eager": profiling.time_chained(lambda c: call(solve, c)[:n], carry0,
+                                               iters=2 if slow else 4, k=4 if slow else 8),
+               "captured": profiling.time_chained(lambda c: call(cap, c)[:n], carry0,
+                                                  iters=4, k=8)}
+    for k in ("eager", "captured"):
+        row[f"{k}_p50_ms"] = blocking[k]["p50"] * 1e3
+        row[f"{k}_p99_ms"] = blocking[k]["p99"] * 1e3
+        row[f"{k}_chained_ms"] = chained[k]["p50"] * 1e3
+        row[f"{k}_solves_per_s"] = B * 1e3 / row[f"{k}_chained_ms"]
+    dev_ms = row["device_ms"]
+    row["busy"] = None if dev_ms is None else dev_ms / row["captured_chained_ms"]
+    busy = "not measured" if row["busy"] is None else f"{100 * row['busy']:.2f}%"
+    say(f"  B={B:3d} {kind} captured ({row['graph_nodes']} graph nodes, captured in "
+        f"{row['capture_s']:.2f} s): p50 / p99 {row['captured_p50_ms']:.4f} / "
+        f"{row['captured_p99_ms']:.4f} ms, chained {row['captured_chained_ms']:.4f} ms, "
+        f"{row['captured_solves_per_s']:.1f} solves/s; eager p50 / p99 "
+        f"{row['eager_p50_ms']:.4f} / {row['eager_p99_ms']:.4f} ms, chained "
+        f"{row['eager_chained_ms']:.4f} ms, {row['eager_solves_per_s']:.1f} solves/s; device "
+        f"{fmt_ms(dev_ms)} a replay ({row['profile_sessions_complete']} sessions complete, "
+        f"device ops recorded {row['device_ops_recorded']}), busy {busy}")
+    return row
+
+
 def phase_scenario_timing(env, dev):
     """5d: aggregate solves/s = B / (median events ms per batched solve) at
     each B, both solvers, engines in turns torch, cuda, cuda, torch (cuda
-    with kernel rng); then the device kernels and copies one batched cuda
-    solve enqueues at B=16 and B=64, which must not grow with B."""
+    with kernel rng); beside them, the same cuda solve captured as a CUDA
+    graph (``captured_batched_row``: replays against eager solves bit for
+    bit, p50 / p99 and chained ms eager and captured, solves/s, graph nodes,
+    device ms and busy share of a replay); then the device kernels and
+    copies one batched cuda solve enqueues at B=16 and B=64, which must not
+    grow with B."""
     phase(f"phase 5d: aggregate solves/s at B = {SCEN_TIMING_B} (events; cuda "
-        "engine with kernel rng)")
-    kernels_per_solve = {}
+        "engine with kernel rng), eager and captured")
+    # every case captured and its replays profiled first, as phase 2c does
+    # (profiler sessions late in a long process lose events)
+    inputs, graphs_b = {}, {}
     for B in SCEN_TIMING_B:
         args, pb, _, _ = scenario_batch(env, B, seed=23)
-        a_means, a_covs = initial_means(env, B)
+        inputs[B] = (args, pb, *initial_means(env, B))
+        for kind in ("covo", "mppi"):
+            carry0 = inputs[B][2:3] if kind == "covo" else inputs[B][2:4]
+            graphs_b[kind, B] = capture_batched(env, kind, B, args, carry0, pb)
+    kernels_per_solve, captured = {}, {}
+    for B in SCEN_TIMING_B:
+        args, pb, a_means, a_covs = inputs[B]
         for kind in ("covo", "mppi"):
             extra = () if kind == "covo" else (a_covs,)
             times = {"cuda": [], "torch": []}
@@ -1566,6 +1691,9 @@ def phase_scenario_timing(env, dev):
             say(f"  B={B:3d} {kind}: " + ", ".join(
                 f"{e} {med[e]:.4f} ms per batch-step, {1e3 * B / med[e]:.1f} solves/s"
                 for e in ("cuda", "torch")) + f" ({len(times['cuda'])} solves each)")
+            solve, cap, row = graphs_b.pop((kind, B))
+            captured[f"{kind} B={B}"] = captured_batched_row(
+                kind, B, solve, cap, args, (a_means, *extra), pb, row)
             if B in (16, 64):
                 solve = make_batched(env, kind, "cuda")
                 # 3 sessions (5 through PR 5; each processes a whole batched
@@ -1579,6 +1707,7 @@ def phase_scenario_timing(env, dev):
         check(kernels_per_solve[kind, 16] == kernels_per_solve[kind, 64],
               f"batched {kind}: device kernels and copies per solve the same at "
               "B=16 and B=64")
+    say("batched captured summary: " + json.dumps(captured))
 
 
 def profile_batched(env, dev):
@@ -1624,6 +1753,121 @@ def profile_batched(env, dev):
         if kernel:
             line += f", of it the kernel {fmt_ms(prof['kernel_ms'])}"
         say(line + f" ({prof['complete']} sessions complete)")
+
+# --- phase 5e: the batched protocol (evaluate_batched, run_supervised_batched) ---
+
+PROTOCOL_EPS = 16  # one batch of episodes (SCEN_B), 300 steps each
+PROTOCOL_CHUNK = 8  # run_supervised_batched's chunk of episodes
+EAGER_CHECK_B, EAGER_CHECK_STEPS = 4, 30  # captured against eager batched episodes
+
+
+def protocol_run(env, label, solver, kernel_list):
+    """``evaluate_batched(env, solver, num_eps=PROTOCOL_EPS, seed=1)`` with
+    every launch counter at 0 just before it: (the result, the counts just
+    after, wall s)."""
+    from covo_mpc_tpu_torch.runtime import evaluate_batched
+
+    for k in kernel_list:
+        k.launches = 0
+    t0 = time.perf_counter()
+    res = evaluate_batched(env, solver, num_eps=PROTOCOL_EPS, seed=1)
+    wall = time.perf_counter() - t0
+    launches = {k.symbol: k.launches for k in kernel_list}
+    say(f"  {label}: {res.summary()} ({PROTOCOL_EPS} episodes at once, {wall:.1f} s); per "
+        f"episode [cm]: {[round(100 * float(e), 3) for e in res.err_pos_ep]}")
+    say(f"  launches: { {k: v for k, v in launches.items() if v} }")
+    return res, launches, wall
+
+
+def phase_batched_protocol(env, kernel_list):
+    """5e: the batched protocol on the main path's env at N=8192, H=32, one
+    batch of PROTOCOL_EPS captured episodes of 300 steps (the batched
+    runner: one CUDA graph a batched control step): ``evaluate_batched`` for
+    CoVO online (kernel rng: K7 joint), MPPI kernel rng (K7 per-step), MPPI
+    fast rng (K6) and PID, each finite and under its limit, CoVO below MPPI
+    on the same episodes, each batched kernel launched by its run; the
+    captured batched episodes against the eager ones (debug mode) bit for
+    bit at B=EAGER_CHECK_B; then ``run_supervised_batched`` (MPPI kernel
+    rng, chunks of PROTOCOL_CHUNK) crashed at chunk 1 and resumed, equal bit
+    for bit to an uninterrupted supervised run. Returns each batched
+    kernel's launch count from the run that drives it."""
+    import tempfile
+
+    from covo_mpc_tpu_torch.ops import rollout_cuda
+    from covo_mpc_tpu_torch.runtime import debug, make_batched_episode_runner
+    from covo_mpc_tpu_torch.runtime import run_supervised_batched
+    from covo_mpc_tpu_torch.solvers import get_solver
+
+    t_phase = time.perf_counter()
+    phase(f"phase 5e: the batched protocol, evaluate_batched(num_eps={PROTOCOL_EPS}, "
+          f"seed=1), N={N}, H={H}, captured")
+    runs = {
+        "covo": ("CoVO online (gn, ns, kernel rng: K7 joint)", make_solver(env, "cuda")[0],
+                 rollout_cuda.JOINT_BATCHED_KERNEL, ERR_POS_LIMIT_CM),
+        "mppi": ("MPPI (kernel rng: K7 per-step)", make_mppi(env, "cuda")[0],
+                 rollout_cuda.SAMPLE_BATCHED_KERNEL, MPPI_ERR_POS_LIMIT_CM),
+        "mppi_fast": ("MPPI (fast rng: torch normals + K6)",
+                      make_mppi(env, "cuda", rng_mode="fast")[0],
+                      rollout_cuda.ROLLOUT_BATCHED_KERNEL, MPPI_ERR_POS_LIMIT_CM),
+        "pid": ("PID", get_solver(env, "pid")[0], None, PID_ERR_POS_LIMIT_CM),
+    }
+    results, out, walls = {}, {}, {}
+    for key, (label, solver, kernel, limit) in runs.items():
+        res, launches, walls[key] = protocol_run(env, label, solver, kernel_list)
+        results[key] = res
+        check(bool(torch.isfinite(res.err_pos_ep).all()) and res.mean * 100 < limit,
+              f"batched protocol, {label}: err_pos finite and below {limit} cm")
+        if kernel is not None:
+            out[kernel.symbol] = launches[kernel.symbol]
+            check(out[kernel.symbol] > 0, f"{kernel.symbol} launched by the {label} run")
+    check(results["covo"].mean < results["mppi"].mean,
+          "batched protocol: CoVO's err_pos below MPPI's on the same episodes")
+    # the batched control step's graph: the solve, the vmapped env step and
+    # each episode's draws from its own generators (one capture, 1 step)
+    for key, (label, solver, _, _) in runs.items():
+        run = make_batched_episode_runner(env, solver, steps=1)
+        run(1, 0, PROTOCOL_EPS)
+        say(f"  {label}: the batched control step at B={PROTOCOL_EPS} is "
+            f"{graph_nodes(run.captured[PROTOCOL_EPS])} graph nodes")
+    say("  captured batched episodes against eager ones (debug mode), "
+        f"B={EAGER_CHECK_B}, {EAGER_CHECK_STEPS} steps")
+    for key in ("covo", "mppi"):
+        run = make_batched_episode_runner(env, runs[key][1], steps=EAGER_CHECK_STEPS)
+        err_c, done_c = run(1, 0, EAGER_CHECK_B)
+        with debug.debug_mode(nans=False):
+            err_e, done_e = run(1, 0, EAGER_CHECK_B)
+        check(torch.equal(err_c, err_e) and torch.equal(done_c, done_e),
+              f"{runs[key][0]}: captured batched episodes equal eager ones bit for bit")
+    say(f"  run_supervised_batched, {runs['mppi'][0]}, chunks of {PROTOCOL_CHUNK}")
+    mppi = runs["mppi"][1]
+    kw = dict(num_eps=PROTOCOL_EPS, seed=1, chunk_episodes=PROTOCOL_CHUNK)
+    ref = run_supervised_batched(env, mppi, **kw)
+    say(f"  uninterrupted: {ref.summary()}; max |supervised - evaluate_batched| per "
+        f"episode {max_err(ref.err_pos_ep.float(), results['mppi'].err_pos_ep):.3e}")
+
+    def fault(chunk, attempt):
+        if chunk == 1:
+            raise RuntimeError("injected fault at chunk 1")
+
+    with tempfile.TemporaryDirectory() as ckpt:
+        try:
+            run_supervised_batched(env, mppi, checkpoint_dir=ckpt, max_retries=0,
+                                   _fault_hook=fault, **kw)
+            raise AssertionError("the injected fault did not stop the run")
+        except RuntimeError as e:
+            check("re-run the same command" in str(e),
+                  "the fault at chunk 1 stopped the run after its checkpoint")
+        sup = run_supervised_batched(env, mppi, checkpoint_dir=ckpt, **kw)
+    check(sup.resumed_at_chunk == 1 and torch.equal(sup.err_pos_ep, ref.err_pos_ep),
+          "the resumed run started at chunk 1 and equals the uninterrupted one bit for bit")
+    wall = time.perf_counter() - t_phase
+    say(f"  phase 5e wall {wall:.1f} s; evaluate_batched runs {walls}")
+    say("batched protocol summary: " + json.dumps({
+        key: {"mean_cm": 100 * r.mean, "std_cm": 100 * r.std,
+              "per_episode_cm": [100 * float(e) for e in r.err_pos_ep], "wall_s": walls[key]}
+        for key, r in results.items()}))
+    return out
+
 
 # --- phase 6: the fused Sigma-designer (K8) and the other CoVO modes ---------
 
@@ -1947,11 +2191,11 @@ def kernels_alone(inp, case, mode: str, reward: str = "penyaw") -> dict:
             k4_bound(B, N, H, mode, reward)),
         "sample_rollout_batched": (bare_launch_ms(
             rollout_cuda.SAMPLE_BATCHED_KERNEL, *ptrs_b, mean_b.data_ptr(),
-            inp.chols_b.data_ptr(), None, seed_ptr(7), *out_b, B, N, H, 0, mi, ri,
+            inp.chols_b.data_ptr(), None, seed_ptr(7), None, *out_b, B, N, H, 0, mi, ri,
             rollout_cuda.SAMPLE_BLOCK), k5_bound(B, N, H, mode, reward)),
         "joint_sample_rollout_batched": (bare_launch_ms(
             rollout_cuda.JOINT_BATCHED_KERNEL, *ptrs_b, mean_b.data_ptr(),
-            inp.factors_b.data_ptr(), None, seed_ptr(7), *out_b, B, N, H, 0, mi, ri,
+            inp.factors_b.data_ptr(), None, seed_ptr(7), None, *out_b, B, N, H, 0, mi, ri,
             rollout_cuda.JOINT_BLOCK), k1_bound(B, N, H, mode, reward)),
     }
 
@@ -2587,6 +2831,8 @@ def main(argv=None) -> int:
     launches.update(phase_scenario_loops(env, kernel_list))
     phase_scenario_timing(env_dr, dev)
     profile_batched(env_dr, dev)
+    # the batched kernels' launches are read from the batched protocol
+    launches.update(phase_batched_protocol(env, kernel_list))
     phase_sigma_kernel(env, dev, records)
     phase_sigma_solves(env, dev, kernel_list)
     launches.update(phase_mode_loops(env, args.total_steps, kernel_list, covo_kernels))

@@ -26,9 +26,11 @@
 // A. Draw (or load) the block's z into shared memory, d-major and
 //    sample-minor. The D/4 x S Philox calls are spread over all T threads,
 //    consecutive threads on consecutive samples. The counter is (j, n, 0,
-//    b): one Philox4x32-10 call (philox.cuh) gives 4 uniforms -> 2
+//    slot), slot = b + the episode offset (rng::scenario_slot; K7 only, 0
+//    in K1): one Philox4x32-10 call (philox.cuh) gives 4 uniforms -> 2
 //    Box-Muller pairs -> z rows 4j..4j+3 of sample n of scenario b, so the
-//    draws do not depend on S, T or B, and scenario 0 draws what K1 draws.
+//    draws do not depend on S, T or B, scenario 0 at offset 0 draws what K1
+//    draws, and scenario b at offset o what scenario o + b draws at 0.
 //    The key is the 64-bit device word `seed` points to, read by the
 //    threads that draw: a CUDA graph that replays the launch reads the word
 //    each solve writes (ops/sampling.py's seed stream), so every replay
@@ -184,8 +186,8 @@ __global__ void __launch_bounds__(kT) joint_sample_rollout_kernel(
     const float* __restrict__ vtar, const float* __restrict__ dist,
     const float* __restrict__ mean, const float* __restrict__ factor,
     const float* __restrict__ z, const uint64_t* __restrict__ seed_p,
-    float* __restrict__ costs, float* __restrict__ actions, int N, int H,
-    int check_rollover, int mode) {
+    const int* __restrict__ offset_p, float* __restrict__ costs,
+    float* __restrict__ actions, int N, int H, int check_rollover, int mode) {
   using G = Geometry<kS, kT>;
   constexpr int kSG = G::kSG, kTR = G::kTR;
   extern __shared__ __align__(16) float smem[];
@@ -214,13 +216,13 @@ __global__ void __launch_bounds__(kT) joint_sample_rollout_kernel(
     }
   } else {
     const uint64_t seed = *seed_p;
+    const uint32_t slot = rng::scenario_slot(b, offset_p);
     for (int i = tid; i < (D / 4) * kS; i += kT) {
       const int j = i / kS, s = i % kS;
       float4 r = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       if (n0 + s < N) {
         r = rng::normals4(make_uint4(static_cast<uint32_t>(j),
-                                     static_cast<uint32_t>(n0 + s), 0u,
-                                     static_cast<uint32_t>(b)),
+                                     static_cast<uint32_t>(n0 + s), 0u, slot),
                           seed);
       }
       float* zj = z_s + 4 * j * kS + s;
@@ -314,9 +316,9 @@ template <int kS, int kT>
 int launch_tile(const float* x0, const float* scal, const int* ints,
                 const float* ptar, const float* vtar, const float* dist,
                 const float* mean, const float* factor, const float* z,
-                const uint64_t* seed, float* costs, float* actions, int B,
-                int N, int H, int check_rollover, int mode, int reward,
-                cudaStream_t stream) {
+                const uint64_t* seed, const int* offset, float* costs,
+                float* actions, int B, int N, int H, int check_rollover,
+                int mode, int reward, cudaStream_t stream) {
   const size_t smem = sizeof(float) * Geometry<kS, kT>::smem_floats(4 * H);
   const auto kernel = reward == quad::kRealworld
                           ? joint_sample_rollout_kernel<kS, kT, quad::kRealworld>
@@ -327,7 +329,7 @@ int launch_tile(const float* x0, const float* scal, const int* ints,
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((N + kS - 1) / kS, B);
   kernel<<<grid, kT, smem, stream>>>(x0, scal, ints, ptar, vtar, dist, mean,
-                                     factor, z, seed, costs, actions, N, H,
+                                     factor, z, seed, offset, costs, actions, N, H,
                                      check_rollover, mode);
   return static_cast<int>(cudaGetLastError());
 }
@@ -339,9 +341,9 @@ bool aligned16(const void* p) {
 int launch(const float* x0, const float* scal, const int* ints,
            const float* ptar, const float* vtar, const float* dist,
            const float* mean, const float* factor, const float* z,
-           const uint64_t* seed, float* costs, float* actions, int B, int N,
-           int H, int check_rollover, int mode, int reward, int block,
-           cudaStream_t stream) {
+           const uint64_t* seed, const int* offset, float* costs,
+           float* actions, int B, int N, int H, int check_rollover, int mode,
+           int reward, int block, cudaStream_t stream) {
   // F's stages are 16-byte copies and the action tile 16-byte stores
   if (B <= 0 || B > quad::kMaxScenarios || N <= 0 || H <= 0 ||
       4 * H > kMaxD || (block != 64 && block != 128) ||
@@ -353,8 +355,8 @@ int launch(const float* x0, const float* scal, const int* ints,
   }
   const auto run = block == 64 ? launch_tile<64, kThreads64>
                                : launch_tile<128, kThreads128>;
-  return run(x0, scal, ints, ptar, vtar, dist, mean, factor, z, seed, costs,
-             actions, B, N, H, check_rollover, mode, reward, stream);
+  return run(x0, scal, ints, ptar, vtar, dist, mean, factor, z, seed, offset,
+             costs, actions, B, N, H, check_rollover, mode, reward, stream);
 }
 
 template <int kS, int kT>
@@ -396,21 +398,23 @@ extern "C" int joint_sample_rollout(
     float* actions, int N, int H, int check_rollover, int mode, int reward,
     int block, cudaStream_t stream) {
   return launch(x0, scal, ints, ptar, vtar, dist, mean, factor, z, seed,
-                costs, actions, 1, N, H, check_rollover, mode, reward, block,
-                stream);
+                nullptr, costs, actions, 1, N, H, check_rollover, mode, reward,
+                block, stream);
 }
 
 // K7, joint: B scenarios, every table scenario-strided; mean (B, D), factor
-// (B, D, D), z (B, D, N) or null, costs (B, N), actions (B, D, N).
+// (B, D, D), z (B, D, N) or null, costs (B, N), actions (B, D, N). offset,
+// when not null, points to the device word o of the episodes' offset:
+// scenario b draws as slot o + b (rng::scenario_slot).
 extern "C" int joint_sample_rollout_batched(
     const float* x0, const float* scal, const int* ints, const float* ptar,
     const float* vtar, const float* dist, const float* mean,
-    const float* factor, const float* z, const uint64_t* seed, float* costs,
-    float* actions, int B, int N, int H, int check_rollover, int mode, int reward,
-    int block, cudaStream_t stream) {
+    const float* factor, const float* z, const uint64_t* seed,
+    const int* offset, float* costs, float* actions, int B, int N, int H,
+    int check_rollover, int mode, int reward, int block, cudaStream_t stream) {
   return launch(x0, scal, ints, ptar, vtar, dist, mean, factor, z, seed,
-                costs, actions, B, N, H, check_rollover, mode, reward, block,
-                stream);
+                offset, costs, actions, B, N, H, check_rollover, mode, reward,
+                block, stream);
 }
 
 // The launch geometry and resources of a block of `block` samples at

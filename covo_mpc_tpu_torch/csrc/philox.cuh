@@ -1,4 +1,4 @@
-// Counter-based normals for the sampling kernels (K1, K5).
+// Counter-based normals for the sampling kernels (K1, K5, K7).
 //
 // Stands in for the TPU's hardware PRNG (pltpu.prng_random_bits and the
 // Box-Muller helpers _normals4 / _normals_joint / _normals3_scalar in
@@ -47,6 +47,16 @@ __device__ __forceinline__ float4 normals4(uint4 c, uint64_t seed) {
   const float2 p = box_muller(r.x, r.y);
   const float2 q = box_muller(r.z, r.w);
   return make_float4(p.x, p.y, q.x, q.y);
+}
+
+// The counter word of scenario b of a launch: b, plus the episode offset o
+// that the device word `offset` holds when it is given. Scenario b at
+// offset o then draws what scenario o + b draws at offset 0, so a chunk of
+// episodes [o, o + B) of a batched protocol draws as they do in one launch
+// from episode 0, and one captured launch serves every chunk (the word is
+// read on the device at each launch).
+__device__ __forceinline__ uint32_t scenario_slot(int b, const int* offset) {
+  return static_cast<uint32_t>(b + (offset != nullptr ? *offset : 0));
 }
 
 }  // namespace rng

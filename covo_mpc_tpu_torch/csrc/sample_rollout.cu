@@ -18,7 +18,7 @@
 // steps >= 1 from the scalar pack. "krng" (krng != 0, "shared" mode of the
 // single-scenario K5 only) draws it here: three standard normals from
 // Philox keyed by the device word disturb_seed points to, counter (0, 0, 1,
-// b) (word 2 set: disjoint from the action stream even for equal seeds),
+// slot) (word 2 set: disjoint from the action stream even for equal seeds),
 // scaled by scal[kDraw0], the
 // effective noise scale; the TPU kernel's per-solve shared draw. draw_out
 // (3,), when given, receives the normals (block 0 of scenario 0): a test
@@ -43,9 +43,12 @@
 //   A. Draw with every thread. The block stages the scenario's factors and
 //      means (20H floats) in shared memory; its H x S Philox calls are
 //      spread over all 512 threads (8 a sample at S = 64), consecutive
-//      threads on consecutive samples. The counter is (h, n, 0, b), keyed by
-//      the device word `seed` points to, in both kernels: the normals depend
-//      neither on S nor B, and scenario 0 draws what K5 draws. Both keys
+//      threads on consecutive samples. The counter is (h, n, 0, slot),
+//      slot = b + the episode offset (rng::scenario_slot; K7 only, 0 in K5),
+//      keyed by the device word `seed` points to, in both kernels: the
+//      normals depend neither on S nor B, scenario 0 at offset 0 draws what
+//      K5 draws, and scenario b at offset o what scenario o + b draws at
+//      offset 0. Both keys
 //      are read on the device, so a CUDA graph that replays the launch
 //      reads the words each solve writes (ops/sampling.py's seed stream).
 //      a_h = clip1(mean_h + L_h z_h) is one
@@ -147,6 +150,7 @@ __global__ void __launch_bounds__(kTileThreads) sample_rollout_tile_kernel(
     const float* __restrict__ vtar, const float* __restrict__ dist,
     const float* __restrict__ mean, const float* __restrict__ chol,
     const float* __restrict__ z, const uint64_t* __restrict__ seed_p,
+    const int* __restrict__ offset_p,
     const uint64_t* __restrict__ disturb_seed_p, int krng,
     float* __restrict__ draw_out, float* __restrict__ costs,
     float* __restrict__ actions, int N, int H, int check_rollover, int mode) {
@@ -159,6 +163,7 @@ __global__ void __launch_bounds__(kTileThreads) sample_rollout_tile_kernel(
   const int n0 = blockIdx.x * kS;
   const int b = blockIdx.y;
   const size_t off = static_cast<size_t>(b) * 4 * H * N;  // scenario b of z and actions
+  const uint32_t slot = rng::scenario_slot(b, offset_p);
   float* a_s = smem;              // a_s[(4h + k) kS + s]
   float* L_s = a_s + 4 * H * kS;  // L_h row-major at L_s[16h]
   float* m_s = L_s + 16 * H;      // mean_h at m_s[4h]
@@ -171,7 +176,7 @@ __global__ void __launch_bounds__(kTileThreads) sample_rollout_tile_kernel(
   for (int i = tid; i < 4 * H; i += kT) m_s[i] = mb[i];
   if (krng && tid == 0) {
     const float4 d = rng::normals4(
-        make_uint4(0u, 0u, 1u, static_cast<uint32_t>(b)), *disturb_seed_p);
+        make_uint4(0u, 0u, 1u, slot), *disturb_seed_p);
     const float eff = scal[quad::kNScal * b + quad::kDraw0];
     f_s[0] = eff * d.x;
     f_s[1] = eff * d.y;
@@ -197,8 +202,7 @@ __global__ void __launch_bounds__(kTileThreads) sample_rollout_tile_kernel(
                          z_h[3 * static_cast<size_t>(N)]);
       } else {
         zh = rng::normals4(
-            make_uint4(static_cast<uint32_t>(h), static_cast<uint32_t>(n), 0u,
-                       static_cast<uint32_t>(b)),
+            make_uint4(static_cast<uint32_t>(h), static_cast<uint32_t>(n), 0u, slot),
             seed);
       }
       const float* m = m_s + 4 * h;
@@ -238,11 +242,13 @@ __global__ void sample_rollout_step_kernel(
     const float* __restrict__ vtar, const float* __restrict__ dist,
     const float* __restrict__ mean, const float* __restrict__ chol,
     const float* __restrict__ z, const uint64_t* __restrict__ seed_p,
+    const int* __restrict__ offset_p,
     const uint64_t* __restrict__ disturb_seed_p, int krng,
     float* __restrict__ draw_out, float* __restrict__ costs,
     float* __restrict__ actions, int N, int H, int check_rollover, int mode) {
   extern __shared__ __align__(16) float smem[];
   const int b = blockIdx.y;
+  const uint32_t slot = rng::scenario_slot(b, offset_p);
   float* L_s = smem;           // L_h row-major at L_s[16h]
   float* m_s = smem + 16 * H;  // mean_h at m_s[4h]
   {
@@ -260,7 +266,7 @@ __global__ void sample_rollout_step_kernel(
   quad::RolloutShared sh = quad::load_shared(t, check_rollover, mode);
   if (krng) {
     const float4 d = rng::normals4(
-        make_uint4(0u, 0u, 1u, static_cast<uint32_t>(b)), *disturb_seed_p);
+        make_uint4(0u, 0u, 1u, slot), *disturb_seed_p);
     const float eff = t.scal[quad::kDraw0];
     sh.fx = eff * d.x;
     sh.fy = eff * d.y;
@@ -280,8 +286,7 @@ __global__ void sample_rollout_step_kernel(
       return make_float4(z_h[0], z_h[N], z_h[2 * (size_t)N], z_h[3 * (size_t)N]);
     }
     return rng::normals4(
-        make_uint4(static_cast<uint32_t>(h), static_cast<uint32_t>(n), 0u,
-                   static_cast<uint32_t>(b)),
+        make_uint4(static_cast<uint32_t>(h), static_cast<uint32_t>(n), 0u, slot),
         seed);
   };
   // step h + 1's draw is issued before step h's rollout, off its chain
@@ -327,8 +332,8 @@ bool aligned16(const void* p) {
 int launch(const float* x0, const float* scal, const int* ints,
            const float* ptar, const float* vtar, const float* dist,
            const float* mean, const float* chol, const float* z,
-           const uint64_t* seed, const uint64_t* disturb_seed, int krng,
-           float* draw_out, float* costs,
+           const uint64_t* seed, const int* offset, const uint64_t* disturb_seed,
+           int krng, float* draw_out, float* costs,
            float* actions, int B, int N, int H, int check_rollover, int mode,
            int reward, int block, cudaStream_t stream) {
   // the tile kernel writes its tile in 16-byte stores
@@ -351,7 +356,7 @@ int launch(const float* x0, const float* scal, const int* ints,
   auto run = [&](auto kernel, int threads, size_t floats) {
     return launch_kernel(kernel, grid, threads, sizeof(float) * floats, stream,
                          x0, scal, ints, ptar, vtar, dist, mean, chol, z, seed,
-                         disturb_seed, krng, draw_out, costs, actions, N, H,
+                         offset, disturb_seed, krng, draw_out, costs, actions, N, H,
                          check_rollover, mode);
   };
   // the tile kernel when the grid has no more blocks than the card has SMs
@@ -428,23 +433,26 @@ extern "C" int sample_rollout(
     const float* z, const uint64_t* seed, const uint64_t* disturb_seed,
     int krng, float* draw_out, float* costs, float* actions, int N, int H,
     int check_rollover, int mode, int reward, int block, cudaStream_t stream) {
-  return launch(x0, scal, ints, ptar, vtar, dist, mean, chol, z, seed,
+  return launch(x0, scal, ints, ptar, vtar, dist, mean, chol, z, seed, nullptr,
                 disturb_seed, krng, draw_out, costs, actions, 1, N, H,
                 check_rollover, mode, reward, block, stream);
 }
 
 // K7, per-step: B scenarios, every table scenario-strided; mean (B, H, 4),
 // chol (B, H, 4, 4), z (B, H, 4, N) or null, costs (B, N), actions
-// (B, 4H, N).
+// (B, 4H, N). offset, when not null, points to the device word o of the
+// episodes' offset: scenario b draws as slot o + b (what scenario o + b
+// draws at offset 0), so one captured launch serves every chunk of a
+// batched protocol.
 extern "C" int sample_rollout_batched(
     const float* x0, const float* scal, const int* ints, const float* ptar,
     const float* vtar, const float* dist, const float* mean, const float* chol,
-    const float* z, const uint64_t* seed, float* costs, float* actions, int B,
-    int N, int H, int check_rollover, int mode, int reward, int block,
-    cudaStream_t stream) {
-  return launch(x0, scal, ints, ptar, vtar, dist, mean, chol, z, seed, nullptr,
-                0, nullptr, costs, actions, B, N, H, check_rollover, mode, reward,
-                block, stream);
+    const float* z, const uint64_t* seed, const int* offset, float* costs,
+    float* actions, int B, int N, int H, int check_rollover, int mode,
+    int reward, int block, cudaStream_t stream) {
+  return launch(x0, scal, ints, ptar, vtar, dist, mean, chol, z, seed, offset,
+                nullptr, 0, nullptr, costs, actions, B, N, H, check_rollover,
+                mode, reward, block, stream);
 }
 
 // The launch geometry and resources of a block of `block` samples at

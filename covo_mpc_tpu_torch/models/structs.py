@@ -193,23 +193,6 @@ def index_params(params_b: EnvParams3D, b: int) -> EnvParams3D:
     return params_b.replace(**{k: v[b] for k, v in float_leaves(params_b).items()})
 
 
-def vmap_scenarios(fn: Callable, params_b: EnvParams3D) -> Callable:
-    """``fn(params, *args)`` over B scenarios at once: ``torch.func.vmap``
-    with ``params_b``'s tensor leaves and every tensor in ``args`` batched
-    on axis 0; other args (None) are passed as they are. EnvParams3D is not
-    a pytree vmap knows, so its leaves are handed in as a dict. Returns
-    ``batched(*args)``."""
-
-    def one(leaves, *args):
-        return fn(params_b.replace(**leaves), *args)
-
-    def batched(*args):
-        in_dims = (0, *(0 if isinstance(a, torch.Tensor) else None for a in args))
-        return torch.func.vmap(one, in_dims=in_dims)(float_leaves(params_b), *args)
-
-    return batched
-
-
 def state_from_numpy(leaves: Mapping[str, Any], device="cuda") -> EnvState3D:
     """Build :class:`EnvState3D` from the JAX struct's leaves as numpy
     arrays: float32 tensors, int32 ``time``, on ``device``."""
@@ -236,6 +219,93 @@ def pack_state(state: EnvState3D) -> torch.Tensor:
 def unpack_state(x: torch.Tensor):
     """Split a packed state ``(..., 16)`` into its five components."""
     return x[..., POS], x[..., QUAT], x[..., VEL], x[..., OMEGA], x[..., FDIST]
+
+
+# --- pytrees of tensors: dataclasses, dicts, lists and tuples ----------------
+
+def tree_flatten(tree) -> tuple:
+    """``(tensor leaves, spec)``: the spec holds the structure, every
+    non-tensor leaf, and each tensor's shape and dtype, and compares equal
+    for trees of one structure, constants, shapes and dtypes."""
+    leaves: list = []
+
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            leaves.append(x)
+            return ("tensor", tuple(x.shape), x.dtype)
+        if dataclasses.is_dataclass(x) and not isinstance(x, type):
+            names = tuple(f.name for f in dataclasses.fields(x))
+            return ("dataclass", type(x), names,
+                    tuple(walk(getattr(x, n)) for n in names))
+        if isinstance(x, dict):
+            keys = tuple(x)
+            return ("dict", keys, tuple(walk(x[k]) for k in keys))
+        if isinstance(x, (list, tuple)):
+            return (type(x), tuple(walk(v) for v in x))
+        return ("const", x)
+
+    spec = walk(tree)
+    return leaves, spec
+
+
+def tree_unflatten(spec, leaves) -> Any:
+    """The tree of ``spec`` with its tensors taken in turn from ``leaves``
+    (their shapes are not checked against the spec's)."""
+    it = iter(leaves)
+
+    def build(s):
+        kind = s[0]
+        if kind == "tensor":
+            return next(it)
+        if kind == "dataclass":
+            return s[1](**{n: build(c) for n, c in zip(s[2], s[3])})
+        if kind == "dict":
+            return {k: build(c) for k, c in zip(s[1], s[2])}
+        if kind == "const":
+            return s[1]
+        return kind(build(c) for c in s[1])
+
+    return build(spec)
+
+
+def stack(trees: Sequence) -> Any:
+    """B trees of one structure (an :class:`EnvState3D`, ``StepDraws``,
+    ``ResetDraws``, an info dict, solver params) as one tree whose tensor
+    leaves carry a leading B axis; the non-tensor leaves must agree (the
+    counterpart for :class:`EnvParams3D` is :func:`stack_params`)."""
+    flat = [tree_flatten(t) for t in trees]
+    spec = flat[0][1]
+    if any(s != spec for _, s in flat[1:]):
+        raise ValueError("stack: the trees differ in structure, a constant, a "
+                         "shape or a dtype")
+    return tree_unflatten(spec, [torch.stack(ls) for ls in zip(*(f[0] for f in flat))])
+
+
+def index(tree, b: int) -> Any:
+    """Element ``b`` of a tree batched by :func:`stack` (every tensor leaf
+    indexed on its leading axis)."""
+    leaves, spec = tree_flatten(tree)
+    return tree_unflatten(spec, [x[b] for x in leaves])
+
+
+def vmap_trees(fn: Callable, batched: tuple, shared: tuple = ()) -> Any:
+    """``fn(*batched_b, *shared)`` for every b at once: ``torch.func.vmap``
+    over the tensor leaves of ``batched`` (each on axis 0), ``shared`` taken
+    as it is (unbatched). The dataclasses and dicts in the arguments and in
+    ``fn``'s output are not pytrees vmap knows, so their tensor leaves are
+    handed across and the trees rebuilt on each side; non-tensor leaves
+    (Python floats, None) stay constants."""
+    leaves, spec = tree_flatten(tuple(batched))
+    out_spec = []
+
+    def one(b):
+        out = fn(*tree_unflatten(spec, b), *shared)
+        out_leaves, s = tree_flatten(out)
+        out_spec.append(s)
+        return tuple(out_leaves)
+
+    out = torch.func.vmap(one)(list(leaves))
+    return tree_unflatten(out_spec[0], out)
 
 
 def tree_select(cond: torch.Tensor, a, b):

@@ -39,7 +39,7 @@ from torch.func import hessian as func_hessian
 
 from covo_mpc_tpu_torch.models import dynamics
 from covo_mpc_tpu_torch.models.quad_env import QuadEnv
-from covo_mpc_tpu_torch.models.structs import vmap_scenarios
+from covo_mpc_tpu_torch.models.structs import vmap_trees
 from covo_mpc_tpu_torch.ops.hessian_cuda import make_tail_pullback, pullback, sens_chain_plain
 from covo_mpc_tpu_torch.ops.rollout import (
     disturb_table,
@@ -255,7 +255,7 @@ def make_hessian_batched(env: QuadEnv, H: int, second_order: bool = True):
         return hess(a_flat, x0, t0, pos_traj, vel_traj, params, draws)
 
     def hessian_b(a_flats, x0s, t0s, pos_trajs, vel_trajs, params_b, draws=None):
-        return vmap_scenarios(one, params_b)(a_flats, x0s, t0s, pos_trajs,
-                                            vel_trajs, draws)
+        return vmap_trees(one, (params_b, a_flats, x0s, t0s, pos_trajs, vel_trajs,
+                                draws))
 
     return hessian_b

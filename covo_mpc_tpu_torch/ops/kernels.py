@@ -17,7 +17,8 @@ tensors that lie on the CPU, by the wrappers in the ops modules.
 Every operand is a device pointer or a value fixed for the solver's life,
 so a launch can be captured into a CUDA graph (``runtime/graphs.py``): the
 sampling kernels' Philox keys too are device words (``seed`` pointers,
-written by :class:`~covo_mpc_tpu_torch.ops.sampling.SeedStream`). A launch
+written by :class:`~covo_mpc_tpu_torch.ops.sampling.SeedStream`), and so is
+K7's episode offset (``offset``). A launch
 made while the stream captures is recorded, not run: it goes to the
 capture's tally (:func:`recording`), and the graph adds it to the count at
 each replay.
@@ -55,8 +56,8 @@ _SIGNATURES = {
     "rollout_costs": [*[_P] * 8, *[_I] * 6, _P],
     "sample_rollout": [*[_P] * 11, _I, _P, _P, _P, *[_I] * 6, _P],
     "rollout_costs_batched": [*[_P] * 8, *[_I] * 7, _P],
-    "sample_rollout_batched": [*[_P] * 12, *[_I] * 7, _P],
-    "joint_sample_rollout_batched": [*[_P] * 12, *[_I] * 7, _P],
+    "sample_rollout_batched": [*[_P] * 13, *[_I] * 7, _P],
+    "joint_sample_rollout_batched": [*[_P] * 13, *[_I] * 7, _P],
     "joint_sample_rollout_info": [_I, _I, _P],
     "sample_rollout_info": [_I, _I, _I, _P],
     "rollout_costs_info": [_I, _I, _I, _P],

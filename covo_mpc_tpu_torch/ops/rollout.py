@@ -26,7 +26,7 @@ import torch
 
 from covo_mpc_tpu_torch.models import dynamics, rewards
 from covo_mpc_tpu_torch.models.quad_env import QuadEnv
-from covo_mpc_tpu_torch.models.structs import FDIST, OMEGA, POS, QUAT, VEL, vmap_scenarios
+from covo_mpc_tpu_torch.models.structs import FDIST, OMEGA, POS, QUAT, VEL, vmap_trees
 
 
 def make_reward(env: QuadEnv):
@@ -208,7 +208,7 @@ def make_rollout_batched(env: QuadEnv):
             return rollout(x0, t0, pos_traj, vel_traj, acts, params, draw,
                            deterministic, discount, layout)
 
-        return vmap_scenarios(one, params_b)(x0s, t0s, pos_trajs, vel_trajs,
-                                             actions, draws)
+        return vmap_trees(one, (params_b, x0s, t0s, pos_trajs, vel_trajs, actions,
+                                draws))
 
     return rollout_costs_b

@@ -162,6 +162,34 @@ def _seed_generator(seed: Seed, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(seed_value(seed))
 
 
+Offset = Union[int, torch.Tensor, None]
+
+
+def offset_word(offset: Offset, device) -> Optional[torch.Tensor]:
+    """K7's episode offset as the 0-d int32 device word its kernels read
+    (None: no word, the kernels take 0): a caller's word as it is (a CUDA
+    graph's buffer, rewritten for each chunk), an int by a fill kernel."""
+    if offset is None or isinstance(offset, torch.Tensor):
+        if offset is not None:
+            kernels.check_cuda("offset", offset, (), torch.int32, device=device)
+        return offset
+    return torch.full((), int(offset), dtype=torch.int32, device=device)
+
+
+def _scenario_normals(seed: Seed, offset: Offset, shape, B: int, device) -> torch.Tensor:
+    """The plain K7 versions' normals (B, *shape): scenario b from its own
+    generator, seeded with the key plus (offset + b) times splitmix64's
+    increment (mod 2^64), so scenario 0 at offset 0 draws what the plain K1
+    / K5 draw from ``seed``, and scenario b at offset o what scenario o + b
+    draws at offset 0 (an offset word on the CPU is read on the host)."""
+    o = 0 if offset is None else int(offset)
+    key = seed_value(seed)
+    return torch.stack([
+        torch.randn(*shape, device=device, generator=_seed_generator(
+            (key + (o + b) * sampling.GOLDEN) & ((1 << 64) - 1), device))
+        for b in range(B)])
+
+
 def _dyn_scalars(env: QuadEnv, params, device):
     """The first nine scalar-pack entries: the physics constants."""
     return [params.m, params.g, _full(env._dt, device), params.alpha_bodyrate,
@@ -562,7 +590,8 @@ def make_rollout_sampling(env: QuadEnv, block: int = SAMPLE_BLOCK):
 # ``stack_params``) and draws (B, 3), each scenario's disturbance draw. The
 # disturbance modes are the single-scenario kernels' with a scenario-strided
 # (B, 3H) dist table; the draw is handed in (JAX's batched builders never
-# take "krng").
+# take "krng"). K7's ``offset`` shifts the scenarios' Philox slots, so a
+# chunk of a batched protocol draws as its episodes do in one launch.
 
 
 class RolloutCostsBatched(_RolloutKernelWrapper):
@@ -625,9 +654,13 @@ class SampleRolloutBatched(_RolloutKernelWrapper):
     draws=None, z=None) -> (costs (B, N), a_t (B, 4H, N))``. ``chols`` are
     the per-step lower Cholesky factors, row-major. ``z`` (B, H, 4, N) feeds
     given normals; without it the kernel draws Philox normals keyed by
-    ``seed`` (an int or a 0-d int64 device word) with the scenario in the
-    counter (scenario 0 draws what K5 draws), and the plain version draws
-    from a generator seeded with its value.
+    ``seed`` (an int or a 0-d int64 device word) with the scenario's slot
+    in the counter, and the plain version draws each scenario from a
+    generator seeded from its value and the slot (:func:`_scenario_normals`).
+    The slot of scenario b is ``offset`` + b (``offset`` an int, a 0-d int32
+    device word, or None for 0; :func:`offset_word`): scenario 0 at offset 0
+    draws what K5 draws, and scenario b at offset o what scenario o + b draws
+    at offset 0, whatever B.
     """
 
     blocks = SAMPLE_BLOCKS
@@ -636,11 +669,10 @@ class SampleRolloutBatched(_RolloutKernelWrapper):
     def plain(self, x0s, t0s, pos_trajs, vel_trajs, a_means, chols, params_b,
               seed: Seed, N: int, deterministic: bool = False, discount=1.0,
               draws: Optional[torch.Tensor] = None,
-              z: Optional[torch.Tensor] = None):
+              z: Optional[torch.Tensor] = None, offset: Offset = None):
         B, H, dA = a_means.shape
         if z is None:
-            z = torch.randn(B, H, dA, N, generator=_seed_generator(seed, x0s.device),
-                            device=x0s.device)
+            z = _scenario_normals(seed, offset, (H, dA, N), B, x0s.device)
         a_t = torch.clamp(
             a_means[..., None] + torch.einsum("bhij,bhjn->bhin", chols, z),
             -1.0, 1.0).reshape(B, H * dA, N)
@@ -651,11 +683,11 @@ class SampleRolloutBatched(_RolloutKernelWrapper):
     def __call__(self, x0s, t0s, pos_trajs, vel_trajs, a_means, chols,
                  params_b, seed: Seed, N: int, deterministic: bool = False,
                  discount=1.0, draws: Optional[torch.Tensor] = None,
-                 z: Optional[torch.Tensor] = None):
+                 z: Optional[torch.Tensor] = None, offset: Offset = None):
         if kernels.route(x0s, a_means, chols) == "plain":
             return self.plain(x0s, t0s, pos_trajs, vel_trajs, a_means, chols,
                               params_b, seed, N, deterministic, discount,
-                              draws, z)
+                              draws, z, offset)
         B, H, dA = a_means.shape
         if dA != 4:
             raise ValueError(f"action_dim must be 4, got {dA}")
@@ -668,12 +700,14 @@ class SampleRolloutBatched(_RolloutKernelWrapper):
         if z is not None:
             kernels.check_cuda("z", z, (B, H, 4, N), device=dev)
         key = None if z is not None else seed_word(seed, dev)
+        off = offset_word(offset, dev)
         costs = torch.empty(B, N, device=dev)
         a_t = torch.empty(B, 4 * H, N, device=dev)
         SAMPLE_BATCHED_KERNEL.launch(
             *(t.data_ptr() for t in ops), mean.data_ptr(), chols.data_ptr(),
             None if z is None else z.data_ptr(),
             None if key is None else key.data_ptr(),
+            None if off is None else off.data_ptr(),
             costs.data_ptr(), a_t.data_ptr(), B, N, H, self._check_rollover,
             self.mode, self.reward, self.block,
         )
@@ -688,9 +722,10 @@ class JointSampleRolloutBatched(_RolloutKernelWrapper):
     (B, D, D), params_b, seed, N, deterministic=False, discount=1.0,
     draws=None, z=None) -> (costs (B, N), a_t (B, D, N))``. ``z`` (B, D, N)
     feeds given normals; without it the kernel draws Philox normals keyed by
-    ``seed`` (an int or a 0-d int64 device word) with the scenario in the
-    counter (scenario 0 draws what K1 draws), and the plain version draws
-    from a generator seeded with its value.
+    ``seed`` (an int or a 0-d int64 device word) with the scenario's slot
+    in the counter, ``offset`` + b, as :class:`SampleRolloutBatched`'s
+    (scenario 0 at offset 0 draws what K1 draws), and the plain version
+    draws each scenario from its own generator (:func:`_scenario_normals`).
     """
 
     blocks = JOINT_BLOCKS
@@ -699,12 +734,11 @@ class JointSampleRolloutBatched(_RolloutKernelWrapper):
     def plain(self, x0s, t0s, pos_trajs, vel_trajs, a_means, factors,
               params_b, seed: Seed, N: int, deterministic: bool = False,
               discount=1.0, draws: Optional[torch.Tensor] = None,
-              z: Optional[torch.Tensor] = None):
+              z: Optional[torch.Tensor] = None, offset: Offset = None):
         B = a_means.shape[0]
         D = a_means[0].numel()
         if z is None:
-            z = torch.randn(B, D, N, generator=_seed_generator(seed, x0s.device),
-                            device=x0s.device)
+            z = _scenario_normals(seed, offset, (D, N), B, x0s.device)
         a_t = torch.clamp(a_means.reshape(B, D, 1) + factors @ z, -1.0, 1.0)
         costs = self._rollout(x0s, t0s, pos_trajs, vel_trajs, a_t, params_b,
                                 draws, deterministic, discount, layout="hdn")
@@ -713,11 +747,11 @@ class JointSampleRolloutBatched(_RolloutKernelWrapper):
     def __call__(self, x0s, t0s, pos_trajs, vel_trajs, a_means, factors,
                  params_b, seed: Seed, N: int, deterministic: bool = False,
                  discount=1.0, draws: Optional[torch.Tensor] = None,
-                 z: Optional[torch.Tensor] = None):
+                 z: Optional[torch.Tensor] = None, offset: Offset = None):
         if kernels.route(x0s, a_means, factors) == "plain":
             return self.plain(x0s, t0s, pos_trajs, vel_trajs, a_means,
                               factors, params_b, seed, N, deterministic,
-                              discount, draws, z)
+                              discount, draws, z, offset)
         B, H, dA = a_means.shape
         if dA != 4:
             raise ValueError(f"action_dim must be 4, got {dA}")
@@ -732,12 +766,14 @@ class JointSampleRolloutBatched(_RolloutKernelWrapper):
         if z is not None:
             kernels.check_cuda("z", z, (B, D, N), device=dev)
         key = None if z is not None else seed_word(seed, dev)
+        off = offset_word(offset, dev)
         costs = torch.empty(B, N, device=dev)
         a_t = torch.empty(B, D, N, device=dev)
         JOINT_BATCHED_KERNEL.launch(
             *(t.data_ptr() for t in ops), mean.data_ptr(), factors.data_ptr(),
             None if z is None else z.data_ptr(),
             None if key is None else key.data_ptr(),
+            None if off is None else off.data_ptr(),
             costs.data_ptr(), a_t.data_ptr(), B, N, H, self._check_rollover,
             self.mode, self.reward, self.block,
         )

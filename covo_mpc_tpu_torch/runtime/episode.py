@@ -14,6 +14,15 @@ eager loop (:func:`eager_episode`), as is every env inside
 ``runtime.debug.debug_mode()``, where each solve is also checked finite.
 Nothing reads a device value on the host inside a captured episode.
 
+The batched protocol's runner (:class:`BatchedEpisodes`, JAX: the
+``jax.vmap`` of ``run_one_ep`` in ``evaluate_batched``) steps a chunk of B
+episodes at once: the controller's batched twin
+(``parallel.batched_controller``) and the env's vmapped auto-resetting
+step (``models/batched.py``), each episode drawing from its own reset,
+step and solve generators, seeded from the protocol's seed and the
+episode's index alone (:func:`episode_seeds`). On the card the batched
+control step is one CUDA graph per B, replayed T times.
+
 A solver built with ``collect_metrics`` reports each solve's health
 (``runtime/metrics.py``); the runner returns them as (T,) tensors, one per
 metric. The captured step writes each scalar into a (T,) buffer and CoVO's
@@ -26,8 +35,11 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
+from covo_mpc_tpu_torch.models.batched import BatchedEnv
+from covo_mpc_tpu_torch.parallel import scenarios
 from covo_mpc_tpu_torch.runtime import debug, graphs, metrics
 
 
@@ -165,3 +177,115 @@ def make_episode_runner(env, controller, steps: Optional[int] = None):
         return eager_episode(env, controller, T, reset_gen, gen, env_params)
 
     return run_one_ep
+
+
+# --- the batched protocol: B episodes at once ----------------------------------
+
+# each episode's generators, in the order episode_seeds gives their seeds
+STREAMS = ("reset", "step", "solve")
+
+
+def episode_seeds(seed: int, episode: int) -> tuple:
+    """The seeds of episode ``episode``'s reset, step and solve generators
+    in the batched protocol from ``seed`` (JAX: ``split(fold_in(base, 0 |
+    1), num_eps)``): a pure function of the two, so an episode draws the
+    same whatever its chunk and its batch."""
+    return tuple(int(w) for w in
+                 np.random.SeedSequence([seed, episode]).generate_state(3, np.uint64))
+
+
+class BatchedEpisodes:
+    """``run(seed, lo, hi, env_params=None) -> (err_pos (B, T), dones (B,
+    T))``: episodes [lo, hi) of the batched protocol from ``seed``, B = hi
+    - lo at once. Each chunk restarts the twin's streams from ``seed``
+    (nothing random is carried between chunks, as in JAX) and seeds every
+    episode's generators from its index (:func:`episode_seeds`); K7 reads
+    ``lo`` as its episode offset. On the card one batched control step (the
+    twin's solve, the vmapped env step with its auto-reset select, the
+    write-back of the carry and of ``err_pos[:, t]``, ``done[:, t]``) is
+    captured once per B, with every generator and seed stream it draws from
+    registered, and replayed T times; the reset runs eagerly. On the CPU,
+    and inside ``debug_mode()``, the eager loop (each solve checked finite
+    there)."""
+
+    def __init__(self, env, controller, steps: int):
+        self.env, self.steps = env, steps
+        self.twin = scenarios.batched_controller(controller)
+        self.benv = BatchedEnv(env)
+        self._gens: dict = {}  # B -> one list of B generators a stream
+        self.captured: dict = {}  # B -> the captured control step (CapturedCall)
+
+    def _generators(self, seed: int, lo: int, hi: int) -> list:
+        B = hi - lo
+        if B not in self._gens:
+            self._gens[B] = [[torch.Generator(device=self.env.device) for _ in range(B)]
+                             for _ in STREAMS]
+        gens = self._gens[B]
+        for b in range(B):
+            for stream, s in zip(gens, episode_seeds(seed, lo + b)):
+                stream[b].manual_seed(s)
+        return gens
+
+    def _control_step(self, carry, env_params, offset, step_gens, solve_gens):
+        """One step of every episode: (the new carry, err_pos (B,) of the
+        pre-step states, done (B,))."""
+        obs, state, tcarry, info = carry
+        action, tcarry = self.twin(state, info, env_params, tcarry, solve_gens, offset)
+        if debug.nans_checked():
+            debug.check_finite(action, None, "batched solve")
+        obs, state, _, done, info = self.benv.step(step_gens, state, action, env_params)
+        return (obs, state, tcarry, info), info["err_pos"], done
+
+    def _capture(self, B, carry, env_params, step_gens, solve_gens):
+        T, dev = self.steps, self.env.device
+
+        def step(carry, env_params, offset, t, err_pos, dones):
+            new, err, done = self._control_step(carry, env_params, offset, step_gens,
+                                                solve_gens)
+            idx = torch.clamp(t, max=T - 1)  # the warm-up calls stay in bounds
+            err_pos.index_copy_(1, idx, err[:, None])
+            dones.index_copy_(1, idx, done[:, None])
+            t.add_(1)
+            graphs.copy_into(carry, new)
+
+        self.captured[B] = graphs.capture(
+            step, carry, env_params, torch.zeros((), dtype=torch.int32, device=dev),
+            torch.zeros(1, dtype=torch.int64, device=dev), torch.zeros(B, T, device=dev),
+            torch.zeros(B, T, dtype=torch.bool, device=dev),
+            streams=[*self.twin.random_streams(), *step_gens, *solve_gens])
+
+    def __call__(self, seed: int, lo: int, hi: int, env_params=None):
+        if env_params is None:
+            env_params = self.env.default_params
+        B = hi - lo
+        reset_gens, step_gens, solve_gens = self._generators(seed, lo, hi)
+        self.twin.seed(seed)
+        obs, info, state = self.benv.reset(reset_gens, env_params)
+        carry = (obs, state, self.twin.reset(B), info)
+        if torch.device(self.env.device).type != "cuda" or debug.jit_disabled():
+            errs, dones = [], []
+            for _ in range(self.steps):
+                carry, err, done = self._control_step(carry, env_params, lo, step_gens,
+                                                      solve_gens)
+                errs.append(err)
+                dones.append(done)
+            return torch.stack(errs, dim=1), torch.stack(dones, dim=1)
+        if B not in self.captured:
+            self._capture(B, carry, env_params, step_gens, solve_gens)
+        cap = self.captured[B]
+        buf_carry, buf_params, offset, t, err_pos, dones = cap.args
+        graphs.copy_into(buf_carry, carry)
+        graphs.copy_into(buf_params, env_params)
+        offset.fill_(lo)
+        t.zero_()
+        for _ in range(self.steps):
+            cap.replay()
+        return err_pos.clone(), dones.clone()
+
+
+def make_batched_episode_runner(env, controller, steps: Optional[int] = None):
+    """The batched protocol's episode runner (:class:`BatchedEpisodes`) for
+    ``controller``'s batched twin; T = ``steps`` or the env's episode
+    length. Raises for a controller with no batched twin."""
+    return BatchedEpisodes(env, controller,
+                           steps or env.default_params.max_steps_in_episode)

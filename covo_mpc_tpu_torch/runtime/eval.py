@@ -7,7 +7,12 @@ generators seeded from ``seed``, so the trajectories are not the JAX
 package's (its threefry keys are not ported); the protocol is the same. The
 episodes go through :func:`make_episode_runner`: on the card each control
 step is one replayed CUDA graph, as JAX scans its jitted step; on the CPU
-the eager loop. ``evaluate_batched`` is not ported yet.
+the eager loop.
+
+:func:`evaluate_batched` is JAX's throughput protocol: ``num_eps``
+independent episodes stepped at once by the controller's batched twin
+(``runtime/episode.py::BatchedEpisodes``), each with its own generators
+seeded from ``seed`` and its index.
 """
 
 from __future__ import annotations
@@ -18,7 +23,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from covo_mpc_tpu_torch.runtime.episode import make_episode_runner
+from covo_mpc_tpu_torch.runtime.episode import (
+    make_batched_episode_runner,
+    make_episode_runner,
+)
 from covo_mpc_tpu_torch.runtime.metrics import MetricsLogger
 
 
@@ -109,3 +117,19 @@ def evaluate(env, controller, total_steps: int = 12000, num_trajs: int = 4,
     if metrics_path and metrics:
         write_metrics_jsonl(metrics, err_pos_ep, metrics_path)
     return result
+
+
+def evaluate_batched(env, controller, num_eps: int = 40, seed: int = 1,
+                     env_params=None) -> EvalResult:
+    """Throughput-oriented: all ``num_eps`` episodes at once, each with its
+    own generators (JAX: ``vmap`` of the episode over independent keys).
+    The controller runs as its batched twin (``parallel.batched_controller``;
+    one that has none raises). Reads the device once, at the end."""
+    run = make_batched_episode_runner(env, controller)
+    err_pos, _ = run(seed, 0, num_eps, env_params)
+    err_pos_ep = err_pos.mean(dim=1).cpu()
+    return EvalResult(
+        err_pos_ep=err_pos_ep,
+        mean=float(err_pos_ep.mean()),
+        std=float(err_pos_ep.std(correction=0)),
+    )

@@ -32,61 +32,16 @@ and so does any failure to capture. Nothing runs eagerly in its place.
 
 from __future__ import annotations
 
-import dataclasses
 import weakref
-from typing import Any, Callable, Sequence
+from typing import Callable, Sequence
 
 import torch
 
+from covo_mpc_tpu_torch.models.structs import tree_flatten as flatten
+from covo_mpc_tpu_torch.models.structs import tree_unflatten as unflatten
 from covo_mpc_tpu_torch.ops import kernels
 
 WARMUP = 2  # eager calls on a side stream before the capture
-
-
-# --- pytrees of tensors: dataclasses, dicts, lists and tuples ----------------
-
-def flatten(tree) -> tuple:
-    """``(tensor leaves, spec)``: the spec holds the structure, every
-    non-tensor leaf, and each tensor's shape and dtype, and compares equal
-    for trees that one captured graph can take."""
-    leaves: list = []
-
-    def walk(x):
-        if isinstance(x, torch.Tensor):
-            leaves.append(x)
-            return ("tensor", tuple(x.shape), x.dtype)
-        if dataclasses.is_dataclass(x) and not isinstance(x, type):
-            names = tuple(f.name for f in dataclasses.fields(x))
-            return ("dataclass", type(x), names,
-                    tuple(walk(getattr(x, n)) for n in names))
-        if isinstance(x, dict):
-            keys = tuple(x)
-            return ("dict", keys, tuple(walk(x[k]) for k in keys))
-        if isinstance(x, (list, tuple)):
-            return (type(x), tuple(walk(v) for v in x))
-        return ("const", x)
-
-    spec = walk(tree)
-    return leaves, spec
-
-
-def unflatten(spec, leaves) -> Any:
-    """The tree of ``spec`` with its tensors taken in turn from ``leaves``."""
-    it = iter(leaves)
-
-    def build(s):
-        kind = s[0]
-        if kind == "tensor":
-            return next(it)
-        if kind == "dataclass":
-            return s[1](**{n: build(c) for n, c in zip(s[2], s[3])})
-        if kind == "dict":
-            return {k: build(c) for k, c in zip(s[1], s[2])}
-        if kind == "const":
-            return s[1]
-        return kind(build(c) for c in s[1])
-
-    return build(spec)
 
 
 def copy_into(dst, src) -> None:

@@ -1,7 +1,7 @@
 """Failure-detecting, checkpointed evaluation: recovery for long runs.
 
-Counterpart of the single-protocol half of
-:mod:`covo_mpc_tpu.runtime.supervisor`. ``run_supervised`` runs the exact
+Counterpart of :mod:`covo_mpc_tpu.runtime.supervisor`. ``run_supervised``
+runs the exact
 :func:`covo_mpc_tpu_torch.runtime.eval.evaluate` protocol as a sequence of
 chunks (runs of episodes) and adds around each chunk:
 
@@ -21,13 +21,27 @@ chunks (runs of episodes) and adds around each chunk:
 
 Every event is appended to ``checkpoint_dir/events.jsonl``. Between chunks
 the random state lives on the host (numpy arrays), so a chunk's input is
-exactly what a checkpoint holds. ``run_supervised_batched`` and
-``CellStore`` are not ported yet (they wait for ``evaluate_batched``).
+exactly what a checkpoint holds.
+
+``run_supervised_batched`` is the same recovery over the throughput
+protocol (:func:`~covo_mpc_tpu_torch.runtime.eval.evaluate_batched`),
+chunked over blocks of episodes. That protocol carries no random state
+between episodes (each has its own generators, seeded from the protocol's
+seed and its index), so the chunks are independent and the carry is a
+dummy, as in JAX; the manifest says ``"protocol": "batched"``.
+
+``CellStore`` lifts recovery to the level of a sweep (a matrix of config
+cells): each finished cell's summary goes into ``root/cells.json``, so a
+sweep interrupted between cells resumes without recomputing a finished
+one, and the cell in flight resumes from its own checkpoint under
+``root/<slug>/``. It is host code only and keeps JAX's file layout, so
+either package reads the other's store.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import os
 import time
@@ -36,7 +50,10 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from covo_mpc_tpu_torch.runtime.episode import make_episode_runner
+from covo_mpc_tpu_torch.runtime.episode import (
+    make_batched_episode_runner,
+    make_episode_runner,
+)
 from covo_mpc_tpu_torch.runtime.eval import EvalResult, protocol, run_episode
 
 _MANIFEST = "manifest.json"
@@ -261,3 +278,152 @@ def _run_chunked(run_chunk, carry, num_eps, chunk_episodes, manifest,
         events=log.records,
         resumed_at_chunk=resumed_at,
     )
+
+
+def run_supervised_batched(
+    env,
+    controller,
+    num_eps: int = 40,
+    seed: int = 1,
+    env_params=None,
+    checkpoint_dir: Optional[str] = None,
+    chunk_episodes: int = 8,
+    max_retries: int = 2,
+    backoff_s: float = 0.0,
+    probe: Optional[Callable[[], bool]] = None,
+    fingerprint: str = "",
+    _fault_hook: Optional[Callable[[int, int], None]] = None,
+) -> SupervisedResult:
+    """:func:`~covo_mpc_tpu_torch.runtime.eval.evaluate_batched` with
+    checkpoint/resume and failure recovery, chunked over blocks of
+    ``chunk_episodes`` episodes (the arguments as :func:`run_supervised`'s).
+
+    Each chunk runs its episodes with their own generators and the twin's
+    streams restarted from ``seed`` (K7 offset to the chunk's first
+    episode), so an episode's draws do not depend on its chunk: a resumed
+    run equals an uninterrupted one bit for bit, and the per-episode values
+    equal ``evaluate_batched``'s up to the arithmetic of another batch
+    width (on the card one captured step per chunk width). A dummy carry
+    keeps the checkpoint format shared with :func:`run_supervised`.
+    """
+    run = make_batched_episode_runner(env, controller)
+
+    def run_chunk(carry, lo, hi):
+        err_pos, _ = run(seed, lo, hi, env_params)
+        return carry, err_pos.mean(dim=1).cpu()
+
+    manifest = {
+        "seed": seed,
+        "num_eps": num_eps,
+        "chunk_episodes": chunk_episodes,
+        "fingerprint": fingerprint,
+        "protocol": "batched",
+    }
+    return _run_chunked(
+        run_chunk, (), num_eps, chunk_episodes, manifest, checkpoint_dir,
+        max_retries, backoff_s, probe, _fault_hook,
+    )
+
+
+def _clear_checkpoint(ckpt_dir: str) -> None:
+    """Remove a chunked run's checkpoint (manifest and state) from ``ckpt_dir``."""
+    for f in (_MANIFEST, _STATE):
+        p = os.path.join(ckpt_dir, f)
+        if os.path.exists(p):
+            os.remove(p)
+
+
+class CellStore:
+    """Sweep-level resume for the scripts that run a matrix of config cells
+    (JAX: ``runtime.supervisor.CellStore``, the same files).
+
+    Every finished cell's summary is recorded in ``root/cells.json``
+    (replaced atomically) under its key with the config's fingerprint;
+    re-running the same sweep skips finished cells, and the cell in flight
+    resumes from its own :func:`run_supervised` /
+    :func:`run_supervised_batched` checkpoint under :meth:`cell_dir`. A
+    fingerprint change invalidates that cell only.
+    """
+
+    _CELLS = "cells.json"
+
+    def __init__(self, root: str):
+        self.root = root
+        os.makedirs(root, exist_ok=True)
+        self._path = os.path.join(root, self._CELLS)
+        self._cells = {}
+        if os.path.exists(self._path):
+            with open(self._path) as fh:
+                self._cells = json.load(fh)
+
+    @staticmethod
+    def _slug(key: str) -> str:
+        """A file-system-safe, unique directory name for a cell key: a
+        readable prefix (unsafe characters as '_', which can collide: 'covo
+        N=8' and 'covo_N.8') and the first 8 hex digits of the key's SHA-1,
+        so one cell's clearing of a stale checkpoint never touches another's."""
+        safe = "".join(c if c.isalnum() or c in "-_." else "_" for c in key)
+        return f"{safe}-{hashlib.sha1(key.encode()).hexdigest()[:8]}"
+
+    def cell_dir(self, key: str) -> str:
+        return os.path.join(self.root, self._slug(key))
+
+    def get(self, key: str, fingerprint: str):
+        rec = self._cells.get(key)
+        if rec is not None and rec.get("fingerprint") == fingerprint:
+            return rec["value"]
+        return None
+
+    def put(self, key: str, fingerprint: str, value) -> None:
+        self._cells[key] = {"fingerprint": fingerprint, "value": value}
+        self._flush()
+
+    def drop(self, key: str, clear_checkpoint: bool = False) -> None:
+        """Forget a finished cell (a fresh re-measurement).
+        ``clear_checkpoint=True`` also deletes the cell's chunk checkpoint,
+        so the re-run recomputes (a finished checkpoint would resume at its
+        end)."""
+        if self._cells.pop(key, None) is not None:
+            self._flush()
+        if clear_checkpoint:
+            _clear_checkpoint(self.cell_dir(key))
+
+    def _flush(self) -> None:
+        tmp = self._path + ".tmp"
+        with open(tmp, "w") as fh:
+            json.dump(self._cells, fh, indent=1)
+        os.replace(tmp, self._path)
+
+    def run_cell(self, key: str, fingerprint: str, fn):
+        """Memoized cell: ``fn(checkpoint_dir) -> json-able``. Returns
+        ``(value, was_cached)``; on a miss, runs ``fn`` with the cell's own
+        checkpoint directory (pass it to :func:`run_supervised` or
+        :func:`run_supervised_batched`) and records the result.
+
+        A miss must recompute, not crash, on a stale checkpoint: one whose
+        manifest has another fingerprint is cleared first, and a refusal of
+        a checkpoint of a different protocol (a field the fingerprint does
+        not encode: seed, chunk_episodes, num_trajs) clears it and retries
+        once."""
+        cached = self.get(key, fingerprint)
+        if cached is not None:
+            return cached, True
+        d = self.cell_dir(key)
+        mpath = os.path.join(d, _MANIFEST)
+        if os.path.exists(mpath):
+            try:
+                with open(mpath) as fh:
+                    stale = json.load(fh).get("fingerprint") != fingerprint
+            except (OSError, ValueError):
+                stale = True  # an unreadable manifest: clear it too
+            if stale:
+                _clear_checkpoint(d)
+        try:
+            value = fn(d)
+        except ValueError as e:
+            if "different protocol" not in str(e):
+                raise
+            _clear_checkpoint(d)
+            value = fn(d)
+        self.put(key, fingerprint, value)
+        return value, False

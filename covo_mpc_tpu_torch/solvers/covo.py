@@ -172,6 +172,8 @@ class CoVOSolver(BaseSolver):
         self.collect_metrics = collect_metrics
         self.mode = mode
         self.rng_mode = rng_mode
+        self.hessian_mode = hessian_mode
+        self.sigma_mode = sigma_mode
         self.engine = engine
         self.action_dim = env.action_dim
         self.D = H * env.action_dim

@@ -90,7 +90,8 @@ class MPPISolver(BaseSolver):
         super().__init__(env, control_params)
         if collect_debug:
             raise NotImplementedError("debug pose collection is not ported yet")
-        self.rollout = make_cost_rollout(env, resolve_engine(env, engine), rng_mode)
+        self.engine = resolve_engine(env, engine)
+        self.rollout = make_cost_rollout(env, self.engine, rng_mode)
         self.N, self.H, self.lam = N, H, lam
         self.collect_metrics = collect_metrics
         self.rng_mode = rng_mode

@@ -140,9 +140,23 @@ def build_all(texts: dict, out: Path = OUT,
             if not hasattr(cdll, name):
                 continue
             fn = getattr(cdll, name)
-            fn.argtypes, fn.restype = kernels._SIGNATURES[name], ctypes.c_int
+            sig = kernels._SIGNATURES[name]
+            if name in K7_ENTRIES and not offset_operand(text):
+                sig = sig[1:]  # an earlier K7 source: no offset pointer
+            fn.argtypes, fn.restype = sig, ctypes.c_int
         built[text] = (info, cdll)
     return built
+
+
+# K7's entry points, which take the episode offset's pointer
+K7_ENTRIES = ("sample_rollout_batched", "joint_sample_rollout_batched")
+
+
+def offset_operand(text: str) -> tuple:
+    """The episode-offset operand of a source's batched C entry point: a
+    null pointer (offset 0) where the entry point takes one, none where an
+    earlier source's does not."""
+    return (None,) if "const int* offset" in text else ()
 
 
 def seed_operand(text: str, word: torch.Tensor) -> int:
@@ -239,8 +253,10 @@ def main(argv=None) -> None:
         else:
             fn, shape = cdll.joint_sample_rollout_batched, (b,)
 
+        extra = offset_operand(text) if b > 1 else ()
+
         def launch():
-            err = fn(*ptrs, means.data_ptr(), factors.data_ptr(), zp, key(text),
+            err = fn(*ptrs, means.data_ptr(), factors.data_ptr(), zp, key(text), *extra,
                      costs.data_ptr(),
                      acts.data_ptr(), *shape, N, H, 0, mode, reward, block, stream)
             if err != 0:

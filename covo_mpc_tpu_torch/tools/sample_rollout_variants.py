@@ -54,6 +54,7 @@ from covo_mpc_tpu_torch.tools.joint_rollout_variants import (
     build_all,
     edited,
     operands,
+    offset_operand,
     seed_operand,
 )
 
@@ -69,8 +70,7 @@ _CHOICE = "  if (static_cast<long long>(grid.x) * B > sms) {"
 _OUTLINE = "__device__ __noinline__ float rollout_cost("
 _COPY = "  const quad::RolloutShared sh = shared;\n"
 _DRAW = """        zh = rng::normals4(
-            make_uint4(static_cast<uint32_t>(h), static_cast<uint32_t>(n), 0u,
-                       static_cast<uint32_t>(b)),
+            make_uint4(static_cast<uint32_t>(h), static_cast<uint32_t>(n), 0u, slot),
             seed);
 """
 _CORRELATE = """      a[0] = quad::clip1(m[0] + L[0] * zh.x);
@@ -87,8 +87,7 @@ _STEP_FACTORS = """    const float* m = m_s + 4 * h;
 _STEP_AHEAD = ("  float4 znext = draw(0);\n",
                "    const float4 zh = znext;\n    if (h + 1 < H) znext = draw(h + 1);\n")
 _STEP_DRAW = """    return rng::normals4(
-        make_uint4(static_cast<uint32_t>(h), static_cast<uint32_t>(n), 0u,
-                   static_cast<uint32_t>(b)),
+        make_uint4(static_cast<uint32_t>(h), static_cast<uint32_t>(n), 0u, slot),
         seed);
 """
 _STEP_CORRELATE = """        quad::clip1(m[0] + L[0] * zh.x),
@@ -214,7 +213,7 @@ def main(argv=None) -> None:
                     costs.data_ptr(), acts.data_ptr(), N)
         else:
             fn = cdll.sample_rollout_batched
-            rest = (costs.data_ptr(), acts.data_ptr(), b, N)
+            rest = (*offset_operand(text), costs.data_ptr(), acts.data_ptr(), b, N)
 
         def launch():
             err = fn(*ptrs, means.data_ptr(), chols.data_ptr(), zp, seed, *rest, H, 0, mode,

@@ -17,7 +17,11 @@ keys against a numpy Philox4x32-10 + Box-Muller, a capture that fails
 raising, and the harness that rides on the captured runner: a captured
 episode's solve metrics against the eager episode's (bit for bit over 300
 steps), the command line's eval launching K1-K3 once a step, and a
-captured render against the eager one (bit for bit, reset_on_done too).
+captured render against the eager one (bit for bit, reset_on_done too);
+the batched protocol: captured batched solves (CoVO and MPPI kernel rng,
+MPPI fast) and the batched runner's captured episodes against eager ones
+bit for bit, a replayed batched chunk with no host sync, and K7's episode
+offset (scenario b at offset o draws what scenario o + b draws at 0).
 ``python -m pytest tests/test_torch_graphs.py -q`` runs either set where
 it can.
 """
@@ -29,6 +33,7 @@ import pytest
 import torch
 
 from covo_mpc_tpu_torch.models import EnvConfig, QuadEnv, pack_state
+from covo_mpc_tpu_torch.models.structs import float_leaves
 from covo_mpc_tpu_torch.ops import rollout_cuda, sampling
 from covo_mpc_tpu_torch.runtime import graphs, profiling
 from covo_mpc_tpu_torch.runtime.episode import (
@@ -599,3 +604,133 @@ def test_captured_render_equals_eager(dev):
         assert set(got) == set(ref) and got["done"][300]
         for k in ref:
             np.testing.assert_array_equal(got[k], ref[k], err_msg=f"{k} reset={reset}")
+
+
+# --- the batched protocol on the card: captured solves and episodes, K7's offset ----
+
+Bc = 4
+
+
+def _batched_inputs(env, B=Bc):
+    """B episodes' solve inputs from the batched env's reset (their noisy
+    states), one shared env_params expanded as the batched solves take it."""
+    from covo_mpc_tpu_torch.models.batched import BatchedEnv
+    from covo_mpc_tpu_torch.parallel.scenarios import _expand_params, _solve_inputs
+
+    gens = [torch.Generator(env.device).manual_seed(10 + b) for b in range(B)]
+    _, info, state = BatchedEnv(env).reset(gens, env.default_params)
+    return _solve_inputs(state, info), _expand_params(env.default_params, B)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,rng", [("covo", "kernel"), ("mppi", "kernel"), ("mppi", "fast")])
+def test_captured_batched_solve_matches_eager(dev, kind, rng):
+    """A batched solve (B=4) captured as a CUDA graph: five chained replays
+    equal five chained eager solves from the same seed bit for bit, and
+    launch what they launch; two replays on the same inputs draw afresh."""
+    from covo_mpc_tpu_torch.parallel import make_batched_covo_solve, make_batched_mppi_solve
+    from covo_mpc_tpu_torch.solvers.factory import hover_sequence
+
+    env = _card_env(dev)
+    args, pb = _batched_inputs(env)
+    means = hover_sequence(env, Hc).expand(Bc, Hc, 4).contiguous()
+    if kind == "covo":
+        solve = make_batched_covo_solve(env, Nc, Hc, 0.01, rng=rng, hessian_mode="gn")
+        carry0 = (means,)
+    else:
+        solve = make_batched_mppi_solve(env, Nc, Hc, 0.01, rng=rng)
+        carry0 = (means, (0.25 * torch.eye(4, device=dev)).expand(Bc, Hc, 4, 4).contiguous())
+    ks = [rollout_cuda.JOINT_BATCHED_KERNEL, rollout_cuda.SAMPLE_BATCHED_KERNEL,
+          rollout_cuda.ROLLOUT_BATCHED_KERNEL]
+
+    def chain(f):
+        solve.seed(3)
+        for k in ks:
+            k.launches = 0
+        carry, outs = carry0, []
+        for _ in range(5):
+            out = f(*args, *carry, pb)
+            outs.append(out)
+            carry = out[:len(carry0)]
+        return outs, [k.launches for k in ks]
+
+    eager, eager_counts = chain(solve)
+    cap = graphs.capture_solver(solve, solve, *args, *carry0, pb)
+    replayed, replay_counts = chain(cap)
+    for e, r in zip(eager, replayed):
+        assert all(torch.equal(x, y) for x, y in zip(e, r))
+    assert replay_counts == eager_counts and sum(eager_counts) == 5
+    first, second = cap(*args, *carry0, pb), cap(*args, *carry0, pb)
+    assert not torch.equal(first[0], second[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,rng_mode", [("covo_online", "kernel"), ("mppi", "kernel"),
+                                           ("mppi", "fast"), ("pid", "fast")])
+def test_captured_batched_episode_matches_eager(dev, name, rng_mode):
+    """The batched runner's captured control step (B=4 episodes, 50 steps)
+    gives the eager batched loop's errors and dones bit for bit, and again
+    for a second chunk [4, 8), which reuses the capture with K7 offset 4."""
+    from covo_mpc_tpu_torch.runtime import debug, make_batched_episode_runner
+
+    env = _card_env(dev)
+    solver, _ = get_solver(env, name, f"N{Nc}_H{Hc}_lam0.01", rng_mode=rng_mode)
+    run = make_batched_episode_runner(env, solver, steps=50)
+    for lo in (0, Bc):
+        err_c, done_c = run(7, lo, lo + Bc)
+        with debug.debug_mode(nans=False):
+            err_e, done_e = run(7, lo, lo + Bc)
+        assert err_c.shape == (Bc, 50) and bool(torch.isfinite(err_c).all())
+        assert torch.equal(err_c, err_e) and torch.equal(done_c, done_e)
+    assert len(run.captured) == 1
+
+
+@pytest.mark.cuda
+def test_replayed_batched_step_never_syncs(dev):
+    """Once captured, a chunk of the batched protocol (the eager reset, the
+    loads, 20 replays of the batched MPPI step, the fresh outputs) runs with
+    host syncs turned into errors."""
+    from covo_mpc_tpu_torch.runtime import make_batched_episode_runner
+
+    env = _card_env(dev)
+    solver, _ = get_solver(env, "mppi", f"N{Nc}_H{Hc}_lam0.01", rng_mode="kernel")
+    run = make_batched_episode_runner(env, solver, steps=20)
+    first, _ = run(3, 0, Bc)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again, _ = run(3, 0, Bc)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(first, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("joint", [False, True], ids=["per_step", "joint"])
+def test_k7_offset_on_the_card(dev, joint):
+    """K7's episode offset, a device word: scenario b at offset o draws what
+    scenario o + b draws at offset 0, bit for bit (actions and costs), for
+    both K7 kernels at the main path's H and N; an offset word of 0 is no
+    offset."""
+    env = _card_env(dev)
+    Hm, Nm = 32, 8192
+    args, pb = _batched_inputs(env)
+    g = torch.Generator(dev).manual_seed(2)
+    means = torch.randn(Bc, Hm, 4, generator=g, device=dev) * 0.2
+    if joint:
+        fac = torch.randn(Bc, 4 * Hm, 4 * Hm, generator=g, device=dev) * 0.05
+    else:
+        A = torch.randn(Bc, Hm, 4, 4, generator=g, device=dev) * 0.2
+        fac = torch.linalg.cholesky(A @ A.mT + 0.05 * torch.eye(4, device=dev)).contiguous()
+    k7 = rollout_cuda.make_rollout_batched_sampling(env, joint=joint)
+    c4, a4 = k7(*args, means, fac, pb, 9, Nm, deterministic=True)
+    c0, a0 = k7(*args, means, fac, pb, 9, Nm, deterministic=True,
+                offset=torch.zeros((), dtype=torch.int32, device=dev))
+    assert torch.equal(a0, a4) and torch.equal(c0, c4)
+    word = torch.full((), 2, dtype=torch.int32, device=dev)
+    c2, a2 = k7(*(x[2:] for x in args), means[2:], fac[2:],
+                pb.replace(**{k: v[2:] for k, v in float_leaves(pb).items()}), 9, Nm,
+                deterministic=True, offset=word)
+    assert torch.equal(a2, a4[2:]) and torch.equal(c2, c4[2:])
+    assert not torch.equal(a2[0], a4[0])
+
