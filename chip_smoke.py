@@ -126,7 +126,21 @@ source, at first use), then:
    with ``ns_pallas``: K8 launched, the captured p50 under 20 ms, the JSON
    line echoed; (d) eval ``--supervised --chunk-episodes 2`` with MPPI
    equal to the unsupervised eval bit for bit, and a supervised run crashed
-   after its first chunk, then resumed, equal to both.
+   after its first chunk, then resumed, equal to both;
+10. the paper's sweeps: (a) K1, K4, K5, K6, K7 per-step and K7 joint at
+   N = 16 (below one block of every size they take) and N = 100 (ragged
+   over a few), H=32, B=4, against their plain versions on given normals,
+   their in-kernel draws (every block size bit for bit, the n samples
+   those of an N=8192 launch, K7's scenario 0 that of a B=1 launch), and
+   each alone at N=16; (b) the ported scripts
+   (``covo_mpc_tpu_torch/scripts``) in-process with ``--quick`` (4
+   episodes a cell), every file into a temporary directory:
+   paper_results (PID, MPPI, CoVO online and offline at N=8192: CoVO below
+   5.0, MPPI below 8.0, PID below 40.0 cm, CoVO online below MPPI; a second
+   run on the same checkpoint root all cached, writing the same bytes),
+   mode_gates (the 8 cells, its section appended to a file of one line,
+   CoVO below MPPI at each N) and n_ablation at N = 16 and 100 (CoVO
+   online below MPPI at each); every cell finite, no episode failed.
 
 Each kernel's launch count in the JSON record is read from the closed loop
 that runs it (a replayed graph adds its kernels' launches at each replay):
@@ -135,7 +149,11 @@ loop, K7 joint, K7 per-step and K6 from phase 5e's ``evaluate_batched``
 runs of CoVO, MPPI kernel rng and MPPI fast rng, K8 from the speculative
 loop (counts set to 0 just before each run); the
 records of K1-K3, K5 and K8 also hold ``cli_launches``, their launches in
-the command line's run that drives them (phase 9). A
+the command line's run that drives them (phase 9); the records of K1-K5
+hold ``sweep_launches``, their launches in each script's run of phase
+10b (counts set to 0 just before each), and those of K1, K4-K7
+``small_n``, phase 10a's max abs error at N = 16 and 100 and the time
+alone and bound at N=16. A
 record's ``modes`` holds, for each disturbance mode it was checked in (and
 "sd13" / "sd16" for K3), the kernel's max abs error, the environments that
 ran it, its time alone, its bound counting the mode's extra operations and
@@ -2064,43 +2082,41 @@ def mode_record(records, name: str, mode: str, **values) -> None:
     records.setdefault(name, {}).setdefault("modes", {}).setdefault(mode, {}).update(values)
 
 
-def mode_kernel_inputs(dev, seed: int):
+def mode_kernel_inputs(dev, seed: int, n: int = N, B: int = SCEN_B):
     """The operands K1, K4-K7 are checked and timed on, from a numpy seed: a
     mean and full factor with normals (K1), actions (K4), per-step means and
-    Cholesky factors with normals (K5), the same at B=SCEN_B (K6, K7), the
+    Cholesky factors with normals (K5), the same at B scenarios (K6, K7), the
     output buffers of the bare launches, and the numpy generator after its
-    draws (``rng``)."""
-    B = SCEN_B
+    draws (``rng``); n samples (N=8192 and B=SCEN_B by default)."""
     rng = np.random.default_rng(seed)
     cuda = lambda x: to_dev(x, dev)  # noqa: E731
     a_mean, factor = cuda(rng.normal(size=(H, 4)) * 0.2), cuda(rng.normal(size=(D, D)) * 0.1)
-    z1 = cuda(rng.standard_normal((D, N)))
-    acts = cuda(rng.normal(size=(H, 4, N)) * 0.5)
+    z1 = cuda(rng.standard_normal((D, n)))
+    acts = cuda(rng.normal(size=(H, 4, n)) * 0.5)
     A = rng.normal(size=(H, 4, 4)) * 0.2
     chol = cuda(np.linalg.cholesky(A @ A.transpose(0, 2, 1) + 0.05 * np.eye(4)))
-    z5 = cuda(rng.standard_normal((H, 4, N)))
-    acts_b = cuda(rng.normal(size=(B, H, 4, N)) * 0.5)
+    z5 = cuda(rng.standard_normal((H, 4, n)))
+    acts_b = cuda(rng.normal(size=(B, H, 4, n)) * 0.5)
     means_b = cuda(rng.normal(size=(B, H, 4)) * 0.2)
     Ab = rng.normal(size=(B, H, 4, 4)) * 0.2
     chols_b = cuda(np.linalg.cholesky(Ab @ Ab.swapaxes(-1, -2) + 0.05 * np.eye(4)))
     factors_b = cuda(rng.normal(size=(B, D, D)) * 0.1)
-    z7 = {False: cuda(rng.standard_normal((B, H, 4, N))),
-          True: cuda(rng.standard_normal((B, D, N)))}
+    z7 = {False: cuda(rng.standard_normal((B, H, 4, n))),
+          True: cuda(rng.standard_normal((B, D, n)))}
     return types.SimpleNamespace(
         a_mean=a_mean, factor=factor, z1=z1, acts=acts, chol=chol, z5=z5, acts_b=acts_b,
         means_b=means_b, chols_b=chols_b, factors_b=factors_b, z7=z7,
-        costs=torch.empty(N, device=dev), a_out=torch.empty(D, N, device=dev),
-        costs_b=torch.empty(B, N, device=dev), a_out_b=torch.empty(B, D, N, device=dev),
+        costs=torch.empty(n, device=dev), a_out=torch.empty(D, n, device=dev),
+        costs_b=torch.empty(B, n, device=dev), a_out_b=torch.empty(B, D, n, device=dev),
         rng=rng)
 
 
-def mode_case(env, env_b, dev, seed: int):
+def mode_case(env, env_b, dev, seed: int, B: int = SCEN_B):
     """One scenario's rollout inputs on ``env`` (:func:`mode_inputs` from
-    ``seed``) and SCEN_B scenarios' on ``env_b`` (domain-randomized, reset
-    from seed + 1, the start force F0, t0 = 47 .. 50, draws from seed + 2)."""
+    ``seed``) and B scenarios' on ``env_b`` (domain-randomized, reset from
+    seed + 1, the start force F0, t0 = 47 .. 50, draws from seed + 2)."""
     from covo_mpc_tpu_torch.models import pack_state
 
-    B = SCEN_B
     p, st, draw = mode_inputs(env, dev, seed)
     args, pb, _, _ = scenario_batch(env_b, B, seed=seed + 1)
     x0s = args[0].clone()
@@ -2116,16 +2132,18 @@ def check_rollout_kernels(label: str, inp, case) -> dict:
     """K1, K4, K5, K6 and K7 (per-step and joint) against their plain
     versions on ``inp``'s normals and ``case``'s inputs and draws (CoVO's
     rollouts deterministic, MPPI's stochastic): actions within 1e-5, costs
-    within atol 2e-4, rtol 1e-5. Returns each kernel's max abs error."""
+    within atol 2e-4, rtol 1e-5, at ``inp``'s sample count. Returns each
+    kernel's max abs error."""
     from covo_mpc_tpu_torch.ops import rollout_cuda
 
+    n = inp.costs.shape[0]
     env, roll, p, draw = case.env, case.roll, case.p, case.draw
     args, pb, draws = case.args, case.pb, case.draws
     errs = {}
     k1 = rollout_cuda.make_rollout_joint_sampling(env)
     kw1 = dict(deterministic=True, draw=draw, z=inp.z1)
-    c_k, a_k = k1(*roll, inp.a_mean, inp.factor, p, 0, N, **kw1)
-    c_p, a_p = k1.plain(*roll, inp.a_mean, inp.factor, p, 0, N, **kw1)
+    c_k, a_k = k1(*roll, inp.a_mean, inp.factor, p, 0, n, **kw1)
+    c_p, a_p = k1.plain(*roll, inp.a_mean, inp.factor, p, 0, n, **kw1)
     check(max_err(a_k, a_p) <= 1e-5 and costs_close(c_k, c_p),
           f"K1 ({label}): actions within 1e-5, costs within atol 2e-4, rtol 1e-5")
     errs["joint_sample_rollout"] = max(max_err(a_k, a_p), max_err(c_k, c_p))
@@ -2134,8 +2152,8 @@ def check_rollout_kernels(label: str, inp, case) -> dict:
     check(costs_close(c_k, c_p), f"K4 ({label}): costs within atol 2e-4, rtol 1e-5")
     errs["rollout_costs"] = max_err(c_k, c_p)
     k5 = rollout_cuda.make_rollout_sampling(env)
-    c_k, a_k = k5(*roll, inp.a_mean, inp.chol, p, 0, N, draw=draw, z=inp.z5)
-    c_p, a_p = k5.plain(*roll, inp.a_mean, inp.chol, p, 0, N, draw=draw, z=inp.z5)
+    c_k, a_k = k5(*roll, inp.a_mean, inp.chol, p, 0, n, draw=draw, z=inp.z5)
+    c_p, a_p = k5.plain(*roll, inp.a_mean, inp.chol, p, 0, n, draw=draw, z=inp.z5)
     check(max_err(a_k, a_p) <= 1e-5 and costs_close(c_k, c_p),
           f"K5 ({label}): actions within 1e-5, costs within atol 2e-4, rtol 1e-5")
     errs["sample_rollout"] = max(max_err(a_k, a_p), max_err(c_k, c_p))
@@ -2147,8 +2165,8 @@ def check_rollout_kernels(label: str, inp, case) -> dict:
                              (True, "joint_sample_rollout_batched", inp.factors_b)):
         k7 = rollout_cuda.make_rollout_batched_sampling(case.env_b, joint=joint)
         kw7 = dict(deterministic=joint, draws=draws, z=inp.z7[joint])
-        c_k, a_k = k7(*args, inp.means_b, fac, pb, 0, N, **kw7)
-        c_p, a_p = k7.plain(*args, inp.means_b, fac, pb, 0, N, **kw7)
+        c_k, a_k = k7(*args, inp.means_b, fac, pb, 0, n, **kw7)
+        c_p, a_p = k7.plain(*args, inp.means_b, fac, pb, 0, n, **kw7)
         check(max_err(a_k, a_p) <= 1e-5 and costs_close(c_k, c_p),
               f"K7 {'joint' if joint else 'per-step'} ({label}): actions within "
               "1e-5, costs within atol 2e-4, rtol 1e-5")
@@ -2159,10 +2177,11 @@ def check_rollout_kernels(label: str, inp, case) -> dict:
 def kernels_alone(inp, case, mode: str, reward: str = "penyaw") -> dict:
     """Each rollout kernel alone in ``mode`` with ``reward``: bare launches
     (in-kernel draws, K5 without "krng", rollover off) on operands the
-    wrappers' own packing made from ``case``. Returns {name: (ms, bound)}."""
+    wrappers' own packing made from ``case``, at ``inp``'s sample and
+    scenario counts. Returns {name: (ms, bound)}."""
     from covo_mpc_tpu_torch.ops import rollout_cuda
 
-    B = SCEN_B
+    B, n = inp.costs_b.shape
     mi, ri = rollout_cuda.MODES[mode], rollout_cuda.REWARDS[reward]
     ops = rollout_cuda._launch_operands(case.env, *case.roll, case.p, case.draw, False, 1.0, H)
     ptrs = [t.data_ptr() for t in ops]
@@ -2176,27 +2195,27 @@ def kernels_alone(inp, case, mode: str, reward: str = "penyaw") -> dict:
     return {
         "joint_sample_rollout": (bare_launch_ms(
             rollout_cuda.JOINT_KERNEL, *ptrs, mean.data_ptr(), inp.factor.data_ptr(), None,
-            seed_ptr(7), *out, N, H, 0, mi, ri, rollout_cuda.JOINT_BLOCK),
-            k1_bound(1, N, H, mode, reward)),
+            seed_ptr(7), *out, n, H, 0, mi, ri, rollout_cuda.JOINT_BLOCK),
+            k1_bound(1, n, H, mode, reward)),
         "rollout_costs": (bare_launch_ms(
-            rollout_cuda.ROLLOUT_KERNEL, *ptrs, inp.acts.data_ptr(), out[0], N, H,
-            0, mi, ri, rollout_cuda.ROLLOUT_BLOCK), k4_bound(1, N, H, mode, reward)),
+            rollout_cuda.ROLLOUT_KERNEL, *ptrs, inp.acts.data_ptr(), out[0], n, H,
+            0, mi, ri, rollout_cuda.ROLLOUT_BLOCK), k4_bound(1, n, H, mode, reward)),
         "sample_rollout": (bare_launch_ms(
             rollout_cuda.SAMPLE_KERNEL, *ptrs, mean.data_ptr(), inp.chol.data_ptr(), None,
-            seed_ptr(7), None, 0, None, *out, N, H, 0, mi, ri, rollout_cuda.SAMPLE_BLOCK),
-            k5_bound(1, N, H, mode, reward)),
+            seed_ptr(7), None, 0, None, *out, n, H, 0, mi, ri, rollout_cuda.SAMPLE_BLOCK),
+            k5_bound(1, n, H, mode, reward)),
         "rollout_costs_batched": (bare_launch_ms(
             rollout_cuda.ROLLOUT_BATCHED_KERNEL, *ptrs_b, inp.acts_b.data_ptr(),
-            out_b[0], B, N, H, 0, mi, ri, rollout_cuda.ROLLOUT_BLOCK),
-            k4_bound(B, N, H, mode, reward)),
+            out_b[0], B, n, H, 0, mi, ri, rollout_cuda.ROLLOUT_BLOCK),
+            k4_bound(B, n, H, mode, reward)),
         "sample_rollout_batched": (bare_launch_ms(
             rollout_cuda.SAMPLE_BATCHED_KERNEL, *ptrs_b, mean_b.data_ptr(),
-            inp.chols_b.data_ptr(), None, seed_ptr(7), None, *out_b, B, N, H, 0, mi, ri,
-            rollout_cuda.SAMPLE_BLOCK), k5_bound(B, N, H, mode, reward)),
+            inp.chols_b.data_ptr(), None, seed_ptr(7), None, *out_b, B, n, H, 0, mi, ri,
+            rollout_cuda.SAMPLE_BLOCK), k5_bound(B, n, H, mode, reward)),
         "joint_sample_rollout_batched": (bare_launch_ms(
             rollout_cuda.JOINT_BATCHED_KERNEL, *ptrs_b, mean_b.data_ptr(),
-            inp.factors_b.data_ptr(), None, seed_ptr(7), None, *out_b, B, N, H, 0, mi, ri,
-            rollout_cuda.JOINT_BLOCK), k1_bound(B, N, H, mode, reward)),
+            inp.factors_b.data_ptr(), None, seed_ptr(7), None, *out_b, B, n, H, 0, mi, ri,
+            rollout_cuda.JOINT_BLOCK), k1_bound(B, n, H, mode, reward)),
     }
 
 
@@ -2754,6 +2773,194 @@ def phase_cli(kernel_list, records):
     return launches
 
 
+# --- phase 10: the paper's sweeps (covo_mpc_tpu_torch/scripts) ---------------
+
+# N=16 lies below one block of every size the rollout kernels take (32, 64,
+# 128); N=100 is ragged over 4, 2 or 1 of them (the N-ablation's range)
+SMALL_NS = (16, 100)
+SMALL_B = 4  # K6's and K7's scenarios in 10a
+# the kernels the sweeps run (sequential protocol, ns designer: no K6-K8)
+SWEEP_KERNELS = ("joint_sample_rollout", "primal", "sens_chain", "rollout_costs",
+                 "sample_rollout")
+
+
+def check_small_draws(inp, case) -> None:
+    """In-kernel draws at ``inp``'s sample count n: K1 at each block it takes
+    and K5 at each of its blocks give the same bits, and their n samples
+    equal the first n of a launch at N (the last block's idle lanes draw and
+    write nothing); K7 (per-step, joint): scenario 0 of the B-scenario
+    launch equals the one-scenario launch."""
+    from covo_mpc_tpu_torch.models.structs import index_params, stack_params
+    from covo_mpc_tpu_torch.ops import rollout_cuda
+
+    n = inp.costs.shape[0]
+    roll, p, draw = case.roll, case.p, case.draw
+    for label, make, blocks, fac in (
+            ("K1", rollout_cuda.make_rollout_joint_sampling, rollout_cuda.JOINT_BLOCKS,
+             inp.factor),
+            ("K5", rollout_cuda.make_rollout_sampling, rollout_cuda.SAMPLE_BLOCKS, inp.chol)):
+        outs = [make(case.env, block=b)(*roll, inp.a_mean, fac, p, 31, n, draw=draw)
+                for b in blocks]
+        c_f, a_f = make(case.env)(*roll, inp.a_mean, fac, p, 31, N, draw=draw)
+        check(all(torch.equal(x, y) for o in outs[1:] for x, y in zip(outs[0], o))
+              and torch.equal(outs[0][1], a_f[:, :n]) and torch.equal(outs[0][0], c_f[:n]),
+              f"{label} at N={n}: blocks {blocks} bit for bit, and the first {n} samples "
+              f"of an N={N} launch")
+    one = tuple(x[:1] for x in case.args)
+    pb1 = stack_params([index_params(case.pb, 0)])
+    for joint, fac in ((False, inp.chols_b), (True, inp.factors_b)):
+        k7 = rollout_cuda.make_rollout_batched_sampling(case.env_b, joint=joint)
+        c_b, a_b = k7(*case.args, inp.means_b, fac, case.pb, 33, n, draws=case.draws)
+        c_1, a_1 = k7(*one, inp.means_b[:1], fac[:1], pb1, 33, n, draws=case.draws[:1])
+        check(torch.equal(a_1[0], a_b[0]) and torch.equal(c_1[0], c_b[0]),
+              f"K7 {'joint' if joint else 'per-step'} at N={n}: scenario 0 of B="
+              f"{a_b.shape[0]} equals the B=1 launch bit for bit")
+
+
+def phase_small_n(dev, records):
+    """10a: K1, K4, K5, K6, K7 per-step and K7 joint at N = 16 (below one
+    block) and 100 (ragged over a few), H=32, B=SMALL_B, against their plain
+    versions on given normals (:func:`check_rollout_kernels`), their
+    in-kernel draws (:func:`check_small_draws`), and each kernel alone at
+    N=16 (bare launches). Kept in each record's ``small_n``."""
+    from covo_mpc_tpu_torch.models import EnvConfig, QuadEnv
+
+    phase(f"phase 10a: K1, K4-K7 at N = {SMALL_NS} (below one block, ragged over a "
+          f"few), H={H}, B={SMALL_B}, against their plain versions, and alone at "
+          f"N={SMALL_NS[0]}")
+    env = QuadEnv(EnvConfig(**ENV_KW))
+    env_b = QuadEnv(EnvConfig(**{**ENV_KW, "enable_randomizer": True}))
+    for n in SMALL_NS:
+        inp = mode_kernel_inputs(dev, 160 + n, n=n, B=SMALL_B)
+        case = mode_case(env, env_b, dev, 170 + n, B=SMALL_B)
+        errs = check_rollout_kernels(f"N={n}", inp, case)
+        check_small_draws(inp, case)
+        alone = kernels_alone(inp, case, "shared") if n == SMALL_NS[0] else {}
+        for name, err in errs.items():
+            rec = dict(max_abs_err=err)
+            if name in alone:
+                ms, bnd = alone[name]
+                rec.update(alone_ms=ms, bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"])
+            records.setdefault(name, {}).setdefault("small_n", {})[str(n)] = rec
+        say(f"  N={n} max abs errors: " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+        if alone:
+            say(f"  N={n} alone ms: " + ", ".join(
+                f"{k} {v[0]:.4f} (bound {v[1]['bound_ms']:.6f} {v[1]['bound_by']})"
+                for k, v in alone.items()))
+
+
+def sweep_run(script, argv, kernel_list):
+    """``script.run`` of ``argv`` at the --quick protocol, every launch counter
+    at 0 just before it; returns its rows and the counts just after."""
+    from covo_mpc_tpu_torch.scripts import protocol_steps
+
+    args = script.build_parser().parse_args(argv)
+    for k in kernel_list:
+        k.launches = 0
+    t0 = time.perf_counter()
+    rows = script.run(args, protocol_steps(args.quick))
+    torch.cuda.synchronize()
+    counts = {k.symbol: k.launches for k in kernel_list}
+    say(f"  {script.__name__.rsplit('.', 1)[1]} {' '.join(argv)}: "
+        f"{time.perf_counter() - t0:.1f} s; launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    return rows, counts
+
+
+def check_cells(label: str, cells) -> None:
+    check(all(np.isfinite(c["mean"]) and c["failed"] == 0 for c in cells),
+          f"{label}: every cell finite, no failed episode")
+
+
+def phase_sweeps(kernel_list, records):
+    """10b: the ported scripts in-process with --quick (4 episodes a cell),
+    every file into a temporary directory: paper_results (PID, MPPI, CoVO
+    online and offline at N=8192; PERF.md's limits, CoVO online below MPPI;
+    a second run all cached, writing the same bytes), mode_gates (the 8
+    cells; its section appended to a file of one line; CoVO below MPPI at
+    each N) and n_ablation at N = 16 and 100 (CoVO online below MPPI at
+    each). Each of K1-K5 launched; their launches kept in each record's
+    ``sweep_launches`` by script."""
+    import shutil
+    import tempfile
+
+    from covo_mpc_tpu_torch.scripts import mode_gates, n_ablation, paper_results
+
+    t_phase = time.perf_counter()
+    d = tempfile.mkdtemp(prefix="covo_sweeps_")
+    launches = {}
+    try:
+        phase("phase 10b: paper_results --quick (pid, mppi, covo_online, covo_offline; "
+              f"N={N}, H={H}), in-process")
+        argv = ["--quick", "--out", f"{d}/RESULTS_TORCH.md", "--checkpoint-root",
+                f"{d}/ckpt_paper"]
+        rows, launches["paper_results"] = sweep_run(paper_results, argv, kernel_list)
+        check_cells("paper_results", rows)
+        by = {r["name"]: r["mean"] for r in rows}
+        check(by["covo_online"] < ERR_POS_LIMIT_CM and by["covo_offline"] < ERR_POS_LIMIT_CM
+              and by["mppi"] < MPPI_ERR_POS_LIMIT_CM and by["pid"] < PID_ERR_POS_LIMIT_CM,
+              f"paper_results: CoVO online and offline below {ERR_POS_LIMIT_CM}, MPPI below "
+              f"{MPPI_ERR_POS_LIMIT_CM}, PID below {PID_ERR_POS_LIMIT_CM} cm")
+        check(by["covo_online"] < by["mppi"], "paper_results: CoVO online below MPPI")
+        with open(f"{d}/RESULTS_TORCH.md", "rb") as fh:
+            first = fh.read()
+        again, _ = sweep_run(paper_results, argv, kernel_list)
+        with open(f"{d}/RESULTS_TORCH.md", "rb") as fh:
+            second = fh.read()
+        check(all(r["cached"] for r in again) and second == first,
+              "paper_results again on the same checkpoint root: every cell cached, the "
+              "same bytes written")
+        for line in first.decode().splitlines():
+            say(f"  | {line}")
+
+        phase("phase 10b: mode_gates --quick (the 8 cells), its section appended")
+        head = "# the sweeps' check\n"
+        with open(f"{d}/gates.md", "w") as fh:
+            fh.write(head)
+        rows, launches["mode_gates"] = sweep_run(
+            mode_gates, ["--quick", "--out", f"{d}/gates.md", "--json", f"{d}/gates.json",
+                         "--checkpoint-root", f"{d}/ckpt_gates"], kernel_list)
+        check_cells("mode_gates", rows)
+        with open(f"{d}/gates.md") as fh:
+            doc = fh.read()
+        check(doc.startswith(head + "\n" + mode_gates.BEGIN)
+              and doc.endswith(mode_gates.END + "\n") and len(rows) == 8,
+              "mode_gates: 8 cells, the section appended after the file's line")
+        for n in (N, 1024):
+            at = [r for r in rows if r["n"] == n]
+            mppi = min(r["mean"] for r in at if r["name"] == "mppi")
+            covo = max(r["mean"] for r in at if r["name"] != "mppi")
+            check(covo < mppi, f"mode_gates at N={n}: every CoVO cell ({covo:.2f} cm at "
+                  f"most) below MPPI ({mppi:.2f} cm at least)")
+        check(all(r["mean"] < (MPPI_ERR_POS_LIMIT_CM if r["name"] == "mppi"
+                               else ERR_POS_LIMIT_CM) for r in rows if r["n"] == N),
+              f"mode_gates at N={N}: CoVO below {ERR_POS_LIMIT_CM}, MPPI below "
+              f"{MPPI_ERR_POS_LIMIT_CM} cm")
+        for line in doc.splitlines():
+            say(f"  | {line}")
+
+        phase(f"phase 10b: n_ablation --quick --ns {' '.join(map(str, SMALL_NS))}")
+        cells, launches["n_ablation"] = sweep_run(
+            n_ablation, ["--quick", "--ns", *map(str, SMALL_NS), "--out",
+                         f"{d}/RESULTS_N_TORCH.md", "--checkpoint-root", f"{d}/ckpt_n"],
+            kernel_list)
+        check_cells("n_ablation", cells.values())
+        for n in SMALL_NS:
+            check(cells[(n, "covo_online")]["mean"] < cells[(n, "mppi")]["mean"],
+                  f"n_ablation at N={n}: CoVO online below MPPI")
+        with open(f"{d}/RESULTS_N_TORCH.md") as fh:
+            for line in fh.read().splitlines():
+                say(f"  | {line}")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    for sym in SWEEP_KERNELS:
+        by_script = {script: counts[sym] for script, counts in launches.items()}
+        check(sum(by_script.values()) > 0, f"{sym} launched by the sweeps")
+        records.setdefault(sym, {})["sweep_launches"] = by_script
+    say(f"  phase 10b wall {time.perf_counter() - t_phase:.1f} s (budget 120 s)")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--total-steps", type=int, default=1200,
@@ -2843,6 +3050,8 @@ def main(argv=None) -> int:
     phase_realworld_solves(dev, kernel_list)
     phase_realworld_loops(dev, args.total_steps, kernel_list, records)
     phase_cli(kernel_list, records)
+    phase_small_n(dev, records)
+    phase_sweeps(kernel_list, records)
     phase("done")
 
     say(json.dumps({"kernels": [

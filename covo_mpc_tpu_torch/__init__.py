@@ -19,6 +19,8 @@ that mirrors its layout and public names:
   utils/    episode plotting (matplotlib, imported when drawing)
   cli.py    the command line: ``python -m covo_mpc_tpu_torch.cli``
             (eval, render, bench)
+  scripts/  the paper's sweeps: ``python -m covo_mpc_tpu_torch.scripts.
+            paper_results`` (and mode_gates, n_ablation)
   csrc/     the CUDA C++ kernels (compiled by nvcc at first use)
   tools/    chip-only measurement tools (not imported here)
 

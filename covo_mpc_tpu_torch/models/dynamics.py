@@ -25,9 +25,20 @@ from covo_mpc_tpu_torch.models.rewards import _abs
 from covo_mpc_tpu_torch.models.structs import FDIST, OMEGA, POS, QUAT, VEL, EnvParams3D
 
 
+def clip_action(a: torch.Tensor) -> torch.Tensor:
+    """``a`` clipped to [-1, 1], with JAX's derivative at the bounds:
+    ``jnp.clip`` is a min of a max, whose derivative at a tie is 1/2 to each
+    operand, so it is 1/2 at a = +-1, where ``torch.clamp``'s is 1. The
+    Hessian meets a nominal action exactly on a bound whenever the weighted
+    mean's heavy samples were all clipped there. The values are
+    ``torch.clamp``'s."""
+    one = a.new_ones(())
+    return torch.minimum(torch.maximum(a, -one), one)
+
+
 def control_to_thrust_omega(action: torch.Tensor, params: EnvParams3D):
     """Map a normalized action in [-1, 1]^4 to ([thrust, omega_tar], torque)."""
-    action = torch.clamp(action, -1.0, 1.0)
+    action = clip_action(action)
     thrust = (action[..., 0:1] + 1.0) / 2.0 * params.max_thrust
     torque = action[..., 1:4] * params.max_torque
     omega_tar = torque / params.max_torque * params.max_omega
@@ -71,7 +82,7 @@ def core_step(s: torch.Tensor, a: torch.Tensor, fdist: torch.Tensor,
     under the normalized action ``a`` (clipped, as step_env does) and the
     force ``fdist``: the step the Hessian differentiates and the plain
     primal rollout integrates (JAX: ops/hessian._step13)."""
-    u, _ = control_to_thrust_omega(torch.clamp(a, -1.0, 1.0), params)
+    u, _ = control_to_thrust_omega(clip_action(a), params)
     return bodyrate_step(torch.cat([s, fdist], dim=-1), u, params, dt)[..., :13]
 
 

@@ -20,9 +20,9 @@ def make_cost_rollout(env, engine: str, rng_mode: str):
     """The costs-only rollout a solver's fast sampler feeds: K4 on
     ``engine="cuda"`` (which runs rng modes "fast" and "kernel"), the plain
     rollout on ``engine="torch"`` (rng mode "fast" only)."""
+    if rng_mode not in (sampling.FAST, sampling.KERNEL):
+        raise NotImplementedError(f"rng_mode {rng_mode!r} is not ported yet")
     if engine == "cuda":
-        if rng_mode not in (sampling.FAST, sampling.KERNEL):
-            raise NotImplementedError(f"rng_mode {rng_mode!r} is not ported yet")
         return make_rollout_costs(env)
     if engine == "torch":
         if rng_mode != sampling.FAST:

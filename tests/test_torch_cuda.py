@@ -953,3 +953,141 @@ def test_rollout_costs_with_terminations_match_plain(dev):
         x = torch.cat([s_new, f_new.expand(n, 3)], dim=-1)
     mid = int(((first > 0) & (first < Hs)).sum())
     assert 0 < mid < n, f"{mid} of {n} samples terminate mid-horizon"
+
+
+# --- small N: below one block of every size, and ragged over a few ----------
+
+# N=16 and 32 fill less than one block of any size a kernel takes (32, 64,
+# 128); N=64 fills one block of 64 exactly; N=100 is ragged over 4, 2 or 1
+# blocks of 32, 64 or 128. H=32 (D=128), the N-ablation's width
+# (scripts/n_ablation.py: N = 16 ... 1024).
+SMALL_NS = [16, 32, 64, 100]
+HS = 32
+
+
+def _small_inputs(dev, n, seed=20):
+    g = torch.Generator(dev).manual_seed(seed)
+    a_mean = torch.randn(HS, 4, generator=g, device=dev) * 0.2
+    factor = torch.randn(4 * HS, 4 * HS, generator=g, device=dev) * 0.1
+    A = torch.randn(HS, 4, 4, generator=g, device=dev) * 0.2
+    chol = torch.linalg.cholesky(A @ A.mT + 0.05 * torch.eye(4, device=dev)).contiguous()
+    draw = torch.randn(3, generator=g, device=dev)
+    return g, a_mean, factor, chol, draw
+
+
+def _costs_and_actions_close(got, ref):
+    torch.testing.assert_close(got[1], ref[1], atol=2e-4, rtol=0)
+    torch.testing.assert_close(got[0], ref[0], atol=2e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("n", SMALL_NS)
+def test_joint_sample_rollout_at_small_n_matches_plain(dev, n):
+    """K1 at H=32 with given normals against its plain version, deterministic
+    and under the shared draw; blocks of 64 and 128 agree bit for bit; its
+    in-kernel draws of the first n samples equal those of a launch at
+    N=8192 (the idle lanes of the last block draw and write nothing)."""
+    env, p, st = _env_state(dev)
+    roll = (pack_state(st), st.time, st.pos_traj, st.vel_traj)
+    g, a_mean, factor, _, draw = _small_inputs(dev, n)
+    z = torch.randn(4 * HS, n, generator=g, device=dev)
+    for kw in (dict(deterministic=True), dict(draw=draw)):
+        outs = [rollout_cuda.make_rollout_joint_sampling(env, block=b)(
+            *roll, a_mean, factor, p, 0, n, discount=0.98, z=z, **kw)
+            for b in rollout_cuda.JOINT_BLOCKS]
+        k1 = rollout_cuda.make_rollout_joint_sampling(env)
+        ref = k1.plain(*roll, a_mean, factor, p, 0, n, discount=0.98, z=z, **kw)
+        assert outs[0][0].shape == (n,) and outs[0][1].shape == (4 * HS, n)
+        _costs_and_actions_close(outs[0], ref)
+        assert all(torch.equal(x, y) for x, y in zip(outs[0], outs[1]))
+    c_n, a_n = k1(*roll, a_mean, factor, p, 31, n, draw=draw)
+    c_f, a_f = k1(*roll, a_mean, factor, p, 31, 8192, draw=draw)
+    assert torch.equal(a_n, a_f[:, :n]) and torch.equal(c_n, c_f[:n])
+
+
+@pytest.mark.parametrize("n", SMALL_NS)
+def test_rollout_costs_at_small_n_match_plain(dev, n):
+    """K4 at H=32 in both layouts against its plain version, deterministic
+    and under the shared draw; blocks of 32, 64 and 128 (the split kernel at
+    these grids) agree bit for bit."""
+    env, p, st = _env_state(dev)
+    roll = (pack_state(st), st.time, st.pos_traj, st.vel_traj)
+    g, _, _, _, draw = _small_inputs(dev, n)
+    acts = torch.randn(HS, 4, n, generator=g, device=dev) * 0.5
+    for layout, a in (("hdn", acts), ("nhd", acts.permute(2, 0, 1).contiguous())):
+        for kw in (dict(deterministic=True), dict(draw=draw)):
+            outs = [rollout_cuda.make_rollout_costs(env, block=b)(
+                *roll, a, p, discount=0.98, layout=layout, **kw)
+                for b in rollout_cuda.ROLLOUT_BLOCKS]
+            ref = rollout_cuda.make_rollout_costs(env).plain(
+                *roll, a, p, discount=0.98, layout=layout, **kw)
+            assert outs[0].shape == (n,)
+            torch.testing.assert_close(outs[0], ref, atol=2e-4, rtol=1e-5)
+            assert all(torch.equal(outs[0], o) for o in outs[1:])
+
+
+@pytest.mark.parametrize("n", SMALL_NS)
+def test_sample_rollout_at_small_n_matches_plain(dev, n):
+    """K5 at H=32 with given normals against its plain version, deterministic
+    and under the shared draw; with in-kernel draws, blocks of 32, 64 and
+    128 (the tile kernel at these grids) agree bit for bit, and the first n
+    samples equal those of a launch at N=8192."""
+    env, p, st = _env_state(dev)
+    roll = (pack_state(st), st.time, st.pos_traj, st.vel_traj)
+    g, a_mean, _, chol, draw = _small_inputs(dev, n)
+    z = torch.randn(HS, 4, n, generator=g, device=dev)
+    k5 = rollout_cuda.make_rollout_sampling(env)
+    for kw in (dict(deterministic=True), dict(draw=draw)):
+        got = k5(*roll, a_mean, chol, p, 0, n, discount=0.98, z=z, **kw)
+        ref = k5.plain(*roll, a_mean, chol, p, 0, n, discount=0.98, z=z, **kw)
+        assert got[0].shape == (n,) and got[1].shape == (4 * HS, n)
+        _costs_and_actions_close(got, ref)
+    outs = [rollout_cuda.make_rollout_sampling(env, block=b)(
+        *roll, a_mean, chol, p, 41, n, draw=draw) for b in rollout_cuda.SAMPLE_BLOCKS]
+    assert all(torch.equal(x, y) for o in outs[1:] for x, y in zip(outs[0], o))
+    c_f, a_f = k5(*roll, a_mean, chol, p, 41, 8192, draw=draw)
+    assert torch.equal(outs[0][1], a_f[..., :n]) and torch.equal(outs[0][0], c_f[:n])
+
+
+def _small_scenarios(dev, n, Bs=4, seed=21):
+    """Bs domain-randomized scenarios and per-scenario inputs at H=32."""
+    env, args, pb = _scenarios(dev, Bs)
+    g = torch.Generator(dev).manual_seed(seed)
+    a_means = torch.randn(Bs, HS, 4, generator=g, device=dev) * 0.2
+    A = torch.randn(Bs, HS, 4, 4, generator=g, device=dev) * 0.2
+    chols = torch.linalg.cholesky(A @ A.mT + 0.05 * torch.eye(4, device=dev)).contiguous()
+    factors = torch.randn(Bs, 4 * HS, 4 * HS, generator=g, device=dev) * 0.1
+    draws = torch.randn(Bs, 3, generator=g, device=dev)
+    return env, args, pb, g, a_means, chols, factors, draws
+
+
+@pytest.mark.parametrize("n", SMALL_NS)
+def test_batched_kernels_at_small_n_match_plain(dev, n):
+    """K6 (both layouts), K7 per-step and K7 joint at B=4, H=32 with given
+    normals against their plain versions, deterministic and under
+    per-scenario shared draws; with in-kernel draws, scenario 0 of the B=4
+    launch equals the B=1 launch of the same scenario bit for bit."""
+    env, args, pb, g, a_means, chols, factors, draws = _small_scenarios(dev, n)
+    Bs = a_means.shape[0]
+    acts = torch.randn(Bs, HS, 4, n, generator=g, device=dev) * 0.5
+    k6 = rollout_cuda.make_rollout_batched_costs(env)
+    for kw in (dict(deterministic=True), dict(draws=draws)):
+        for layout, a in (("hdn", acts), ("nhd", acts.permute(0, 3, 1, 2).contiguous())):
+            got = k6(*args, a, pb, discount=0.98, layout=layout, **kw)
+            assert got.shape == (Bs, n)
+            torch.testing.assert_close(
+                got, k6.plain(*args, a, pb, discount=0.98, layout=layout, **kw),
+                atol=2e-4, rtol=1e-5)
+    one = tuple(x[:1] for x in args)
+    pb1 = stack_params([index_params(pb, 0)])
+    for joint, fac, z in (
+            (False, chols, torch.randn(Bs, HS, 4, n, generator=g, device=dev)),
+            (True, factors, torch.randn(Bs, 4 * HS, n, generator=g, device=dev))):
+        k7 = rollout_cuda.make_rollout_batched_sampling(env, joint=joint)
+        kargs = (*args, a_means, fac, pb, 0, n)
+        for kw in (dict(deterministic=True), dict(draws=draws)):
+            got = k7(*kargs, discount=0.98, z=z, **kw)
+            assert got[0].shape == (Bs, n)
+            _costs_and_actions_close(got, k7.plain(*kargs, discount=0.98, z=z, **kw))
+        c4, a4 = k7(*args, a_means, fac, pb, 51, n, draws=draws)
+        c1, a1 = k7(*one, a_means[:1], fac[:1], pb1, 51, n, draws=draws[:1])
+        assert torch.equal(a1[0], a4[0]) and torch.equal(c1[0], c4[0])

@@ -734,3 +734,50 @@ def test_k7_offset_on_the_card(dev, joint):
     assert torch.equal(a2, a4[2:]) and torch.equal(c2, c4[2:])
     assert not torch.equal(a2[0], a4[0])
 
+
+
+# --- captured solves below one block of samples ---------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["covo_online", "mppi"])
+def test_captured_solve_below_one_block_equals_eager(dev, name):
+    """The N-ablation's smallest cell, N=16 at H=32 (below one block of K1
+    and K5): CoVO online (gn, ns, kernel rng: K1, K2, K3) and MPPI (kernel
+    rng: K5) captured as CUDA graphs; five chained replays equal five
+    chained eager solves from the same seed bit for bit, launch what they
+    launch, and stay finite."""
+    from covo_mpc_tpu_torch.ops import hessian_cuda
+
+    env = _card_env(dev)
+    p = env.default_params
+    obs, info, state = env.reset(torch.Generator(dev).manual_seed(5), p)
+    solver, cp0 = get_solver(env, name, "N16_H32_lam0.01", rng_mode="kernel",
+                             hessian_mode="gn", sigma_mode="ns", engine="cuda")
+    cp0 = solver.reset(state, p, cp0)
+    kernel_list = ([rollout_cuda.JOINT_KERNEL, rollout_cuda.PRIMAL_KERNEL,
+                    hessian_cuda.CHAIN_KERNEL] if name == "covo_online"
+                   else [rollout_cuda.SAMPLE_KERNEL])
+
+    def chain(f):
+        solver.seed(3)
+        for k in kernel_list:
+            k.launches = 0
+        cp, outs = cp0, []
+        for _ in range(5):
+            out = f(obs, state, p, cp, info)
+            outs.append(_tensors("call", out))
+            cp = out[1]
+        return outs, [k.launches for k in kernel_list]
+
+    eager, eager_counts = chain(solver)
+    solver.seed(3)
+    cap = graphs.capture_solver(solver, solver, obs, state, p, cp0, info)
+    replayed, replay_counts = chain(cap)
+    for e, r in zip(eager, replayed):
+        assert r.keys() == e.keys()
+        for key in e:
+            assert torch.equal(r[key], e[key]), key
+            assert bool(torch.isfinite(r[key]).all()), key
+    assert replay_counts == eager_counts and all(c == 5 for c in eager_counts)
+    assert eager[0]["a_mean"].shape == (32, 4)
