@@ -140,7 +140,17 @@ source, at first use), then:
    run on the same checkpoint root all cached, writing the same bytes),
    mode_gates (the 8 cells, its section appended to a file of one line,
    CoVO below MPPI at each N) and n_ablation at N = 16 and 100 (CoVO
-   online below MPPI at each); every cell finite, no episode failed.
+   online below MPPI at each); every cell finite, no episode failed;
+11. the bench, ``python -m covo_mpc_tpu_torch.bench``, each run in a
+   process of its own after every earlier phase: ``--all --scenarios 16
+   --k 8``, then ``--scenarios 64 --no-latency``: each exits 0, its last line has
+   the root ``bench.py``'s record keys (``BENCH_r05.json``) plus ``device``
+   and ``method``, the latency keys with the device per-solve ones in the
+   first; every row of the JAX bench printed with its capture and method;
+   the main path's per-solve p50 within 10% of phase 2c's captured chained
+   ms; the per-solve marker is K1 (``joint_sample_rollout_kernel``); the
+   batched rows at B = 16 and 64 give the device ms of a batched solve from
+   a complete profiler session or say "not measured" with the counts.
 
 Each kernel's launch count in the JSON record is read from the closed loop
 that runs it (a replayed graph adds its kernels' launches at each replay):
@@ -189,6 +199,7 @@ import argparse
 import concurrent.futures
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -197,6 +208,18 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from covo_mpc_tpu_torch.ops.counts import (
+    HBM_BYTES_PER_S,
+    fp32_peak,
+    k1_bound,
+    k2_bound,
+    k3_bound,
+    k4_bound,
+    k5_bound,
+    k8_bound,
+)
+from covo_mpc_tpu_torch.runtime.profiling import graph_nodes, graph_profile
 
 N, H = 8192, 32
 D = 4 * H
@@ -214,27 +237,9 @@ SCEN_TIMING_B = (1, 16, 64)
 # inside about 800 s)
 SCEN_LOOP_B, SCEN_LOOP_STEPS = 4, 150
 PID_ERR_POS_LIMIT_CM = 40.0
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA's data sheet)
-# fp32 operations of one sample's rollout step (csrc/quad_core.cuh
-# rollout_step, counted by hand, a transcendental as one): dyn_step ~124
-# (the action map 18, bodyrate_step 106), penyaw_reward ~57, bookkeeping ~10
-STEP_FLOPS = 190
-# what a disturbance mode adds to a sample's step: "drag" the next force
-# from the pre-step velocity, 3 x (v - wind/2, -|s| rel, x |rel|, / 2.25:
-# 6 with the abs and the scaling) = 18; "mixed" adds 3 x (two adds, the
-# redraw select, / 3) = 12 more; "table" reads its force, "shared" as before
-MODE_FLOPS = {"shared": 0, "table": 0, "drag": 18, "mixed": 30}
-# the reward's operations against penyaw's ~57 (two norms, the log barrier,
-# atan2) in STEP_FLOPS: realworld counts 16 (three differences, their
-# squares and sum, / 3, 1 - q_w^2, the two weights, the sum and the scale)
-REWARD_FLOPS = {"penyaw": 0, "realworld": 16 - 57}
-DYN_FLOPS = 124
-BOX_MULLER_FLOPS = 5  # per normal: log, sqrt, sin/cos and scaling per pair
-K8_MATMULS = 104  # optimize_sigma_ns: 2 x 16 (power squaring) + 24 + 1 + 47 (NS)
 # the command line's eval runs (phase 9)
 CLI_STEPS = 1200
 T0 = time.perf_counter()
-PEAK = {}  # "fp32": FLOP/s outside the tensor cores, set in main()
 
 
 def say(*args):
@@ -243,61 +248,6 @@ def say(*args):
 
 def phase(title: str) -> None:
     say(f"[{time.perf_counter() - T0:7.1f} s] {title}")
-
-
-def bound(flops: float, nbytes: float) -> dict:
-    """The least time the card could take for work of ``flops`` fp32
-    operations moving ``nbytes`` (each input read once, each output written
-    once): the larger of the two times, with the one that bounds named."""
-    t_ops = flops / PEAK["fp32"] * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    return dict(bound_ms=max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes",
-                library_ms=None)
-
-
-def rollout_bytes(B: int, N: int, H: int, mode: str = "shared",
-                  reward: str = "penyaw") -> int:
-    """Bytes of a rollout kernel's small per-scenario tables: x0 (16), the
-    position targets (3H) and the velocity targets (3H, which realworld does
-    not read), scalar pack (17), int pack (3), the dist table (3H, read in
-    the "table" and "mixed" modes), and its costs (N)."""
-    dist = 3 * H if mode in ("table", "mixed") else 0
-    targets = 3 * H if reward == "realworld" else 6 * H
-    return 4 * B * (16 + targets + dist + 17 + 3 + N)
-
-
-def step_flops(mode: str, reward: str = "penyaw") -> int:
-    return STEP_FLOPS + MODE_FLOPS[mode] + REWARD_FLOPS[reward]
-
-
-def k1_bound(B: int, N: int, H: int, mode: str = "shared", reward: str = "penyaw") -> dict:
-    """K1 / K7 joint with in-kernel draws: F (D, D) and the mean in, the
-    actions (D, N) out; the correlate 2 N D^2, the draws and the steps."""
-    D = 4 * H
-    flops = B * N * (2 * D * D + BOX_MULLER_FLOPS * D + H * step_flops(mode, reward))
-    return bound(flops, rollout_bytes(B, N, H, mode, reward)
-                 + 4 * B * (D * D + D + D * N))
-
-
-def k5_bound(B: int, N: int, H: int, mode: str = "shared", reward: str = "penyaw") -> dict:
-    """K5 / K7 per-step with in-kernel draws: the means and 4x4 factors in,
-    the actions (4H, N) out; a lower 4x4 correlate (20) + mean (4) a step."""
-    flops = B * N * H * (24 + 4 * BOX_MULLER_FLOPS + step_flops(mode, reward))
-    return bound(flops, rollout_bytes(B, N, H, mode, reward)
-                 + 4 * B * (4 * H + 16 * H + 4 * H * N))
-
-
-def k4_bound(B: int, N: int, H: int, mode: str = "shared", reward: str = "penyaw") -> dict:
-    """K4 / K6: the actions (4H, N) in, the costs out."""
-    return bound(B * N * H * step_flops(mode, reward),
-                 rollout_bytes(B, N, H, mode, reward) + 4 * B * 4 * H * N)
-
-
-def k8_bound(D: int) -> dict:
-    """K8: R in, a_cov and the factor out; 104 (D, D) products and a
-    Cholesky (D^3 / 3)."""
-    return bound(K8_MATMULS * 2 * D**3 + D**3 / 3, 4 * 3 * D * D)
 
 
 def time_ms(fn, reps: int, warmup: int = 3) -> float:
@@ -485,7 +435,7 @@ def phase_kernels(env, dev, records):
     ms_k2p = time_ms(lambda: k2.plain(x0, a_seq, dist, p), 20)
     # x0, actions (H, 4), disturbance table (H, 3), the scalars in; (H, 13) out
     records["primal"] = dict(max_abs_err=err2, ms=ms_k2, plain_ms=ms_k2p,
-                             **bound(H * DYN_FLOPS, 4 * (16 + 7 * H + 17 + 13 * H)))
+                             **k2_bound(H))
     say(f"  K2 {ms_k2:.4f} ms, plain {ms_k2p:.4f} ms")
 
     # K3: sensitivity chain (J = [A | B] with A near the identity, as a
@@ -506,7 +456,7 @@ def phase_kernels(env, dev, records):
     # J (H, 13, 17) in, T (H, 17, D) out; per step a (13 x 17) x (17 x D) product
     records["sens_chain"] = dict(max_abs_err=max_err(T_k, T_p), ms=ms_k3,
                                  plain_ms=ms_k3p,
-                                 **bound(H * 13 * 17 * D * 2, 4 * H * 17 * (13 + D)))
+                                 **k3_bound(H))
     say(f"  K3 {ms_k3:.4f} ms, plain {ms_k3p:.4f} ms")
 
     # K4: rollout costs of given actions, both layouts, deterministic and
@@ -875,38 +825,6 @@ def captured_cases(env):
     ]
 
 
-def graph_nodes(cap) -> int:
-    """The nodes of a captured call's CUDA graph (kernels, copies, fills:
-    the device ops one replay runs), read with libcuda's
-    cuGraphGetNodes."""
-    import ctypes
-
-    count = ctypes.c_size_t(0)
-    err = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
-        ctypes.c_void_p(cap.graph.raw_cuda_graph()), None, ctypes.byref(count))
-    if err != 0:
-        raise RuntimeError(f"cuGraphGetNodes: CUresult {err}")
-    return count.value
-
-
-def graph_profile(replay, nodes: int, reps: int = 10, sessions: int = 3):
-    """Profiler sessions of ``reps`` replays of a captured solve whose graph
-    holds ``nodes`` device ops: the device ms a replay, from the sessions
-    that lost no event (each recorded reps x nodes device ops, and one more
-    for each host call that enqueued device work around the replays, the
-    generators' offsets). Returns (device ms a replay or None, "k of n"
-    sessions complete, the device ops each session recorded)."""
-    replay()
-    torch.cuda.synchronize()
-    full, seen = [], []
-    for _ in range(sessions):
-        device, host_ops, _ = profiled(replay, reps)
-        seen.append(len(device))
-        if len(device) == reps * nodes + host_ops:
-            full.append(sum(e.self_device_time_total for e in device) / 1e3 / reps)
-    return (float(np.median(full)) if full else None), f"{len(full)} of {sessions}", seen
-
-
 def solve_calls(solver, method, obs, state, p, info):
     """(the solve, ``call(f, cp)`` that runs f on the case's arguments,
     ``carry(out)`` the params the next solve of a chain takes)."""
@@ -1041,62 +959,14 @@ def solve_times(env, dev, make=make_solver, reps=60, warmup=5):
         k: len(v) for k, v in times.items()}
 
 
-PROFILER_PAD_S = 0.05
-# CUDA API calls that enqueue device work (kernel launches, copies, fills)
-ENQUEUE_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cuMemcpy", "cudaMemset",
-                 "cuMemset")
+def device_profile(fn, reps: int = 1, sessions: int = 3, name: str = "") -> dict:
+    """``runtime.profiling.device_profile``, its check of the host's
+    enqueued work printed."""
+    from covo_mpc_tpu_torch.runtime import profiling
 
-
-def profiled(fn, reps: int = 1):
-    """``reps`` calls of ``fn`` under one torch.profiler session whose
-    window has PROFILER_PAD_S of idle time at both ends: ``(device kernels
-    and copies recorded, host calls that enqueued device work, wall ms of
-    the calls)``. On the H100 a session can lose device events, up to a few
-    hundred and more as the process has run more sessions; the host calls
-    that enqueue them are counted exactly in every session."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        time.sleep(PROFILER_PAD_S)
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-        time.sleep(PROFILER_PAD_S)
-    events = prof.events()
-    return ([e for e in events if e.device_type == DeviceType.CUDA],
-            sum(e.device_type == DeviceType.CPU and e.name.startswith(ENQUEUE_CALLS)
-                for e in events), wall_ms)
-
-
-def device_profile(fn, reps: int = 1, sessions: int = 3, name: str = ""):
-    """``sessions`` profiler sessions of ``reps`` calls of ``fn`` each,
-    after one warm-up call. Device time is read only from the complete
-    sessions, those that recorded every device kernel and copy the host
-    enqueued: one that lost events would undercount. Returns a dict with
-    ``ops``, the device kernels and copies enqueued per call (the same in
-    every session, or this raises); the medians over the complete sessions
-    of ``ms``, device ms per call, ``kernel_ms``, the same for the kernels
-    whose name contains ``name``, ``wall_ms`` per call (profiler on) and
-    ``busy``, the device's busy share of that wall time, each None when no
-    session was complete; and ``complete``, "k of n"."""
-    fn()
-    torch.cuda.synchronize()
-    enqueued, full = set(), []
-    for _ in range(sessions):
-        device, launches, wall_ms = profiled(fn, reps)
-        enqueued.add(launches)
-        if len(device) == launches:
-            ms = sum(e.self_device_time_total for e in device) / 1e3 / reps
-            kernel_ms = sum(e.self_device_time_total for e in device
-                            if name and name in e.name) / 1e3 / reps
-            full.append((ms, kernel_ms, wall_ms / reps, ms * reps / wall_ms))
-    check(len(enqueued) == 1, f"the same device work enqueued in every session: {enqueued}")
-    med = [float(np.median(v)) for v in zip(*full)] or [None] * 4
-    return dict(zip(("ms", "kernel_ms", "wall_ms", "busy"), med),
-                ops=enqueued.pop() // reps, complete=f"{len(full)} of {sessions}")
+    prof = profiling.device_profile(fn, reps, sessions, name)
+    check(True, f"the same device work enqueued in every session: {{{prof['enqueued']}}}")
+    return prof
 
 
 def fmt_ms(ms) -> str:
@@ -1605,7 +1475,9 @@ def capture_batched(env, kind: str, B: int, args, carry0, pb):
     cap = graphs.capture_solver(solve, solve, *args, *carry0, pb)
     capture_s = time.perf_counter() - t0
     nodes = graph_nodes(cap)
-    dev_ms, complete, seen = graph_profile(cap.replay, nodes, reps=2 if kind == "covo" else 10)
+    # 1 session (3 before phase 11): phase 11 reads these graphs' device ms
+    dev_ms, complete, seen = graph_profile(cap.replay, nodes, reps=2 if kind == "covo" else 10,
+                                           sessions=1)
     return solve, cap, {"graph_nodes": nodes, "capture_s": capture_s, "device_ms": dev_ms,
                         "profile_sessions_complete": complete, "device_ops_recorded": seen}
 
@@ -1714,9 +1586,11 @@ def phase_scenario_timing(env, dev):
                 kind, B, solve, cap, args, (a_means, *extra), pb, row)
             if B in (16, 64):
                 solve = make_batched(env, kind, "cuda")
-                # 3 sessions (5 through PR 5; each processes a whole batched
-                # solve's events)
-                prof = device_profile(lambda: solve(*args, a_means, *extra, pb), sessions=3)
+                # 1 session (3 before phase 11; each processes a whole batched
+                # solve's events): the ops are counted exactly in every
+                # session, and phase 11 reads the batched solves' device ms in
+                # a process of its own
+                prof = device_profile(lambda: solve(*args, a_means, *extra, pb), sessions=1)
                 kernels_per_solve[kind, B] = prof["ops"]
                 say(f"  B={B:3d} {kind} cuda: {prof['ops']} device kernels and copies per "
                     f"batched solve; device {fmt_ms(prof['ms'])} ({prof['complete']} "
@@ -2286,7 +2160,7 @@ def phase_mode_kernels(dev, records):
     T_out = torch.empty_like(T_k)
     ms3 = bare_launch_ms(hessian_cuda.CHAIN_KERNEL, J.data_ptr(), T_out.data_ptr(), H, 16, 4,
                          reps=200)
-    b3 = bound(H * 16 * 20 * D * 2, 4 * H * 20 * (16 + D))
+    b3 = k3_bound(H, sd=16)
     mode_record(records, "sens_chain", "sd13", max_abs_err=records["sens_chain"]["max_abs_err"],
                 checked_in=["gaussian"])
     mode_record(records, "sens_chain", "sd16", alone_ms=ms3, max_abs_err=max_err(T_k, T_p),
@@ -2308,7 +2182,7 @@ def phase_mode_kernels(dev, records):
     states = torch.empty(H, 13, device=dev)
     ms2 = bare_launch_ms(rollout_cuda.PRIMAL_KERNEL, x0.contiguous().data_ptr(), scal.data_ptr(),
                          a_flat.data_ptr(), d_flat.data_ptr(), states.data_ptr(), H, reps=200)
-    b2 = bound(H * DYN_FLOPS, 4 * (16 + 7 * H + 17 + 13 * H))
+    b2 = k2_bound(H)
     mode_record(records, "primal", "shared", max_abs_err=records["primal"]["max_abs_err"],
                 checked_in=["gaussian"])
     mode_record(records, "primal", "table", alone_ms=ms2, max_abs_err=err2,
@@ -2961,6 +2835,99 @@ def phase_sweeps(kernel_list, records):
     return launches
 
 
+# --- phase 11: the bench (python -m covo_mpc_tpu_torch.bench) ------------------
+
+# --k 8: the rows' chains of 64 solves (256 by default) keep the phase near
+# three minutes; the latency pass keeps its chains of 256
+BENCH_RUNS = (["--all", "--scenarios", "16", "--k", "8"],
+              ["--scenarios", "64", "--no-latency"])
+# the keys the root bench.py's latency pass adds to its record (bench.py:693-719)
+LATENCY_KEYS = {"per_solve_p99_ms", "per_solve_p50_ms", "chain_mean_p99_ms",
+                "chain_mean_p50_ms", "act_per_solve_p99_ms", "act_per_solve_p50_ms",
+                "act_chain_mean_p99_ms", "act_chain_mean_p50_ms", "act_solves_per_s",
+                "host_dispatch_p99_ms", "rtt_p50_ms"}
+# the rows --all prints (the JAX bench's, with the port's engines), by text
+ALL_ROWS = ("mppi         engine=torch ", "mppi         engine=cuda ",
+            "covo_online  engine=torch ", "covo_online  engine=cuda ",
+            "mppi         engine=cuda+krng ", "covo_online  engine=cuda+krng ",
+            "covo_online  engine=cuda+eigh ", "covo_online  engine=cuda+gn ",
+            "covo_online  engine=cuda+krng+gn ", "engine=cuda+drag", "covo_offline engine",
+            "covo_spec    engine=cuda ", "covo_spec    engine=cuda+gn ",
+            "covo_spec    engine=cuda+krng ", "pid ")
+
+
+def bench_run(argv):
+    """``python -m covo_mpc_tpu_torch.bench argv`` in a process of its own:
+    (its JSON record, its row lines, wall s). A nonzero exit raises."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "covo_mpc_tpu_torch.bench", *argv],
+                          capture_output=True, text=True, cwd=root, timeout=900)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"bench {argv} exited {proc.returncode}:\n"
+                             f"{proc.stderr[-4000:]}")
+    rows = [line for line in proc.stderr.splitlines() if line.startswith("[bench]")]
+    return json.loads(proc.stdout.strip().splitlines()[-1]), rows, wall
+
+
+def check_batched_rows(rows, B: int) -> None:
+    """The batched CoVO and MPPI rows at B: device ms from a complete
+    session, or "not measured" with the device ops recorded."""
+    for kind in ("covo_online", "mppi"):
+        line = next(r for r in rows if r.startswith(f"[bench] {kind}") and
+                    f"scenario-batched B={B} " in r)
+        check(re.search(r"device \d+\.\d+ ms a solve, busy", line) is not None
+              or "device ms not measured (" in line,
+              f"bench: the batched {kind} row at B={B} gives its device ms from a complete "
+              "session or says it was not measured, with the counts")
+
+
+def phase_bench(main_path):
+    """Phase 11: the bench in processes of their own (:data:`BENCH_RUNS`),
+    checked as the module docstring says; ``main_path`` is phase 2c's row of
+    the captured main-path solve."""
+    from covo_mpc_tpu_torch.ops import kernels
+
+    t_phase = time.perf_counter()
+    jax_keys = set(json.loads(
+        (Path(__file__).resolve().parent / "BENCH_r05.json").read_text())["parsed"])
+    for argv in BENCH_RUNS:
+        phase(f"phase 11: python -m covo_mpc_tpu_torch.bench {' '.join(argv)} (a process "
+              "of its own)")
+        record, rows, wall = bench_run(argv)
+        for line in rows:
+            say("  " + line)
+        say("  " + json.dumps(record))
+        say(f"  bench {' '.join(argv)}: wall {wall:.1f} s")
+        latency = "--no-latency" not in argv
+        keys = (jax_keys if latency else jax_keys - LATENCY_KEYS) | {"device", "method"}
+        check(set(record) == keys, "bench: the record has bench.py's keys"
+              + (" (the device per-solve ones too)" if latency else " less the latency "
+                 "pass's") + ", device and method")
+        solve_rows = [r for r in rows if "solves/s" in r or "obs->action" in r]
+        check(all("method=" in r for r in solve_rows),
+              f"bench: each of {len(solve_rows)} rows prints its method")
+        check(record["method"] in ("trace", "events"), f"bench: value measured by "
+              f"{record['method']}")
+        if "--all" in argv:
+            missing = [r for r in ALL_ROWS if not any(r in line for line in rows)]
+            check(not missing, f"bench --all: every row of the JAX bench printed "
+                  f"(missing: {missing})")
+        if latency:
+            ref = main_path["captured_chained_ms"]
+            got = record["per_solve_p50_ms"]
+            check(abs(got - ref) <= 0.1 * ref, f"bench: the main path's per-solve p50 "
+                  f"{got:.4f} ms within 10% of phase 2c's captured chained {ref:.4f} ms")
+            line = next(r for r in rows if r.startswith("[bench] latency covo_online ")
+                        and "marker " in r)
+            marker = line.split("marker ", 1)[1].rsplit(", ", 1)[0]
+            check(kernels.device_kernel(marker) == "joint_sample_rollout_kernel",
+                  f"bench: the per-solve marker is K1 ({marker[:60]})")
+        check_batched_rows(rows, int(argv[argv.index("--scenarios") + 1]))
+    say(f"  phase 11 wall {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--total-steps", type=int, default=1200,
@@ -2996,8 +2963,7 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     # 128 fp32 lanes per SM, an FMA counted as two operations
-    PEAK["fp32"] = sms * 128 * 2 * clock_mhz * 1e6
-    say(f"fp32 peak {PEAK['fp32'] / 1e12:.2f} TFLOP/s ({sms} SMs at {clock_mhz:.0f} MHz), "
+    say(f"fp32 peak {fp32_peak() / 1e12:.2f} TFLOP/s ({sms} SMs at {clock_mhz:.0f} MHz), "
         f"memory {HBM_BYTES_PER_S / 1e12:.2f} TB/s")
     t0 = time.perf_counter()
     # the earlier K2 / K3 and K4 / K6 and the latency probe build beside the
@@ -3027,7 +2993,7 @@ def main(argv=None) -> int:
     phase_chain_kernels(dev, records, earlier, probe, clock_mhz)
     phase_rollout_kernels(dev, records, earlier_rollout, probe, clock_mhz)
     phase_solve(env, dev, single_kernels)
-    phase_captured(env, dev, kernel_list)
+    captured = phase_captured(env, dev, kernel_list)
     launches = phase_closed_loops(env, dev, args.total_steps, covo_kernels,
                                   single_kernels)
     profile_solves(env, dev)
@@ -3052,6 +3018,7 @@ def main(argv=None) -> int:
     phase_cli(kernel_list, records)
     phase_small_n(dev, records)
     phase_sweeps(kernel_list, records)
+    phase_bench(captured["covo_online (gn, ns, kernel rng: the main path)"])
     phase("done")
 
     say(json.dumps({"kernels": [

@@ -32,6 +32,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -64,6 +65,32 @@ _SIGNATURES = {
     "sigma_ns": [_P, _P, _P, _I, _F, _F, _F, _F, _I, _I, _I, _I, _I, _P],
     "sigma_ns_info": [_P],
 }
+
+
+# the ``__global__`` functions of csrc/*.cu: a profiler trace names a launch
+# by its device function (K1 / K7 joint, K2, K3, K4 / K6 by the grid, K5 /
+# K7 per-step by the grid, K8)
+DEVICE_KERNELS = (
+    "joint_sample_rollout_kernel",  # joint_sample_rollout.cu:183
+    "primal_kernel",  # primal.cu:172
+    "sens_chain_kernel",  # sens_chain.cu:104
+    "rollout_step_kernel",  # rollout.cu:351
+    "rollout_split_kernel",  # rollout.cu:539
+    "sample_rollout_tile_kernel",  # sample_rollout.cu:147
+    "sample_rollout_step_kernel",  # sample_rollout.cu:239
+    "sigma_ns_kernel",  # sigma_ns.cu:326
+)
+
+
+def device_kernel(name: str):
+    """The ``__global__`` function of ``csrc/`` that a trace's kernel name
+    (demangled: ``void (anonymous namespace)::f<64, 128, 0>(float const*,
+    ...)``) launches, or None for any other kernel. Matched by whole
+    identifier: ``rollout_step_kernel`` is not ``sample_rollout_step_kernel``."""
+    for token in re.findall(r"[A-Za-z_]\w*", name):
+        if token in DEVICE_KERNELS:
+            return token
+    return None
 
 
 def _sources():

@@ -1091,3 +1091,118 @@ def test_batched_kernels_at_small_n_match_plain(dev, n):
         c4, a4 = k7(*args, a_means, fac, pb, 51, n, draws=draws)
         c1, a1 = k7(*one, a_means[:1], fac[:1], pb1, 51, n, draws=draws[:1])
         assert torch.equal(a1[0], a4[0]) and torch.equal(c1[0], c4[0])
+
+
+# --- the trace readers on the card (runtime/profiling.py) -----------------------
+
+
+def _captured(dev, name, rng_mode):
+    """A full-width solve (N=8192, H=32) captured as a CUDA graph, its
+    graph's nodes and ``step(cp) -> cp`` through the captured call."""
+    from covo_mpc_tpu_torch.runtime import graphs, profiling
+    from covo_mpc_tpu_torch.solvers import get_solver
+
+    env = QuadEnv(EnvConfig(task="tracking_zigzag", enable_randomizer=False,
+                            disturb_type="gaussian", disable_rollover_terminate=True,
+                            generate_noisy_state=True), device=dev)
+    obs, info, state = env.reset(torch.Generator(dev).manual_seed(0))
+    p = env.default_params
+    solver, cp = get_solver(env, name, "N8192_H32_lam0.01", rng_mode=rng_mode,
+                            hessian_mode="gn", sigma_mode="ns", engine="cuda")
+    cap = graphs.capture_solver(solver, solver, obs, state, p, cp, info)
+    return cap, profiling.graph_nodes(cap), (lambda c: cap(obs, state, p, c, info)[1]), cp
+
+
+def _chain(step, cp, length):
+    def run(i):
+        c = cp
+        for _ in range(length):
+            c = step(c)
+        return c
+    return run
+
+
+def _complete_chains(run, iters, nodes, trace_dir, sessions=3, **kw):
+    """The chains of the first of ``sessions`` profiler sessions that lost
+    no event (a session can lose events on the H100; none complete fails)."""
+    from covo_mpc_tpu_torch.runtime import profiling
+
+    lost = []
+    for _ in range(sessions):
+        try:
+            return profiling.trace_chains(run, iters, nodes, trace_dir, **kw)
+        except profiling.LostEvents as e:
+            lost.append(str(e))
+    pytest.fail(f"no complete profiler session of {sessions}: {lost}")
+
+
+def test_time_trace_reads_the_traced_chains(dev, tmp_path):
+    """time_trace on a captured MPPI solve (kernel rng) reads the device
+    wall of the chains it traced: within 10% of the host's wall of the same
+    chains (each ends in a sync). A session slows the replays (the graph
+    launch is instrumented on the host), so both lie above time_chained's
+    CUDA-event time of the untraced chains, printed beside."""
+    import time
+
+    from covo_mpc_tpu_torch.runtime import profiling
+
+    cap, nodes, step, cp = _captured(dev, "mppi", "kernel")
+    host = []
+
+    def make_run(length):
+        def run(i):
+            t0 = time.perf_counter()
+            out = profiling._sync(_chain(step, cp, length)(i))
+            host.append((time.perf_counter() - t0) / length)
+            return out
+        return run
+
+    per = profiling.time_trace(make_run, chain=64, iters=4, trace_dir=str(tmp_path),
+                               nodes=nodes)
+    traced_host = float(sum(host[1:]) / len(host[1:]))  # host[0] is the warm-up
+    ev = profiling.time_chained(step, cp, iters=8, k=64)["p50"]
+    print(f"time_trace {per * 1e3:.4f} ms, host {traced_host * 1e3:.4f} ms a replay "
+          f"under the profiler; CUDA events {ev * 1e3:.4f} ms untraced")
+    assert abs(per - traced_host) <= 0.1 * traced_host, (per, traced_host, ev)
+    assert per >= 0.9 * ev
+
+
+@pytest.mark.parametrize("name, rng_mode, marker", [
+    ("covo_online", "kernel", "joint_sample_rollout_kernel"),  # the main path: K1
+    ("mppi", "kernel", "sample_rollout_tile_kernel"),  # K5
+])
+def test_auto_marker_on_the_card(dev, tmp_path, name, rng_mode, marker):
+    """per_solve_distribution's auto marker is the largest of the repo's
+    kernels that fires once a solve: K1 on the main path (beside K2 and
+    K3), K5's tile kernel on MPPI with kernel rng."""
+    from covo_mpc_tpu_torch.runtime import profiling
+
+    cap, nodes, step, cp = _captured(dev, name, rng_mode)
+    run = _chain(step, cp, 16)
+    run(0)
+    chains = _complete_chains(run, 2, nodes, str(tmp_path), gap_s=0.025)
+    events = [r for c in chains for r in c]
+    dist = profiling.per_solve_distribution(events, 32)
+    assert kernels.device_kernel(dist["marker"]) == marker
+    assert dist["n"] == 30 and 0 < dist["p50"] <= dist["p99"] <= dist["max"]
+
+
+def test_complete_session_holds_replays_times_nodes(dev, tmp_path):
+    """A complete session of 20 replays of a captured MPPI solve: inside
+    the chain's range the graph launched 20 times, and its device ops are
+    20 x the graph's nodes plus the host's enqueue calls (the copies in and
+    out around each replay)."""
+    from covo_mpc_tpu_torch.runtime import profiling
+
+    cap, nodes, step, cp = _captured(dev, "mppi", "fast")
+    run = _chain(step, cp, 20)
+    run(0)
+    chains = _complete_chains(run, 1, nodes, str(tmp_path))
+    _, host = profiling.load_device_trace(str(tmp_path))
+    (a, b), = profiling.chain_windows(host)
+    calls = [r for r in host if r["category"] != "user_annotation" and a <= r["ts_us"] <= b]
+    assert sum(r["name"].startswith("cudaGraphLaunch") for r in calls) == 20
+    enqueued = sum(r["name"].startswith(profiling.ENQUEUE_CALLS) for r in calls)
+    assert len(chains[0]) == 20 * nodes + enqueued
+    assert sum(kernels.device_kernel(r["name"]) == "rollout_split_kernel"
+               for r in chains[0]) == 20
