@@ -150,7 +150,22 @@ source, at first use), then:
    the main path's per-solve p50 within 10% of phase 2c's captured chained
    ms; the per-solve marker is K1 (``joint_sample_rollout_kernel``); the
    batched rows at B = 16 and 64 give the device ms of a batched solve from
-   a complete profiler session or say "not measured" with the counts.
+   a complete profiler session or say "not measured" with the counts;
+12. JAX's key tree on the card (``utils/prng.py``): (a) keys, splits,
+   fold_ins and uniforms on the card equal the CPU's bit for bit, normals
+   within 2 ulp of max(|x|, 1), at the samplers' widths (8192 keys, 128
+   draws each); (b) one full-width solve each of CoVO online parity
+   (fwd_fwd, eigh: JAX's defaults), MPPI parity and CoVO invariant (gn,
+   ns), ``engine="cuda"`` (K4 on the key's samples and the disturbance draw
+   through the reference's chain) against ``engine="torch"`` on the same
+   key: action, a_mean and Σ within 2e-4, K4 launched, no host sync but
+   eigh's; (c) the MPPI parity and CoVO invariant solves captured with the
+   key as a graph input: replays equal eager solves bit for bit; (d)
+   ``evaluate`` under JAX's key schedule: CoVO online parity for
+   :data:`KEY_COVO_STEPS` steps (eager: eigh reads the host), below 5.0
+   cm, and MPPI parity captured for 1200 steps, below 8.0 cm; err_pos and
+   wall of each printed; K4's launches there go to its record's
+   ``key_tree_launches``.
 
 Each kernel's launch count in the JSON record is read from the closed loop
 that runs it (a replayed graph adds its kernels' launches at each replay):
@@ -161,7 +176,8 @@ loop (counts set to 0 just before each run); the
 records of K1-K3, K5 and K8 also hold ``cli_launches``, their launches in
 the command line's run that drives them (phase 9); the records of K1-K5
 hold ``sweep_launches``, their launches in each script's run of phase
-10b (counts set to 0 just before each), and those of K1, K4-K7
+10b (counts set to 0 just before each), K4's ``key_tree_launches``, its
+launches in each of phase 12's solves and loops, and those of K1, K4-K7
 ``small_n``, phase 10a's max abs error at N = 16 and 100 and the time
 alone and bound at N=16. A
 record's ``modes`` holds, for each disturbance mode it was checked in (and
@@ -239,6 +255,9 @@ SCEN_LOOP_B, SCEN_LOOP_STEPS = 4, 150
 PID_ERR_POS_LIMIT_CM = 40.0
 # the command line's eval runs (phase 9)
 CLI_STEPS = 1200
+# phase 12's closed loops under JAX's key schedule: CoVO online parity runs
+# eagerly (eigh reads the host) for one episode, MPPI parity captured
+KEY_COVO_STEPS, KEY_MPPI_STEPS = 300, 1200
 T0 = time.perf_counter()
 
 
@@ -821,7 +840,7 @@ def captured_cases(env):
         ("mppi (fast rng: torch normals + K4)", *make_mppi(env, "cuda", rng_mode="fast"),
          "call", True),
         ("pid", *get_solver(env, "pid"), "call", False),
-        ("random", *get_solver(env, "random"), "call", True),
+        ("random", *get_solver(env, "random", rng_mode="fast"), "call", True),
     ]
 
 
@@ -1911,7 +1930,7 @@ def phase_mode_loops(env, total_steps, kernel_list, covo_kernels):
     check(pid.mean > max(spec.mean, off.mean),
           "pid err_pos above both CoVO modes' on the same reset trajectories")
     phase("  random (one episode)")
-    rnd, _ = closed_loop(env, get_solver(env, "random")[0],
+    rnd, _ = closed_loop(env, get_solver(env, "random", rng_mode="fast")[0],
                          env.default_params.max_steps_in_episode, kernel_list)
     check(np.isfinite(rnd.mean), "random err_pos finite")
     return {covariance_cuda.SIGMA_KERNEL.symbol: k8}
@@ -2620,7 +2639,7 @@ def phase_cli(kernel_list, records):
               "one bit for bit")
         env = QuadEnv(EnvConfig(**ENV_KW))
         make = lambda: get_solver(env, "mppi", f"N{N}_H{H}_lam0.01", rng_mode="kernel",
-                                  engine="cuda")[0]
+                                  engine="cuda", collect_debug=False)[0]
 
         def crash(chunk, attempt):
             if chunk == 1:
@@ -2928,6 +2947,137 @@ def phase_bench(main_path):
     say(f"  phase 11 wall {time.perf_counter() - t_phase:.1f} s")
 
 
+# --- phase 12: JAX's key tree on the card -------------------------------------
+
+
+def normal_ulps(ours: torch.Tensor, ref: torch.Tensor) -> float:
+    """The largest |ours - ref| in ulps of max(|ref|, 1)."""
+    ours, ref = ours.cpu().double(), ref.cpu().double()
+    ulp = torch.from_numpy(np.spacing(ref.abs().clamp_min(1.0).numpy().astype(np.float32)))
+    return float(((ours - ref).abs() / ulp).max())
+
+
+def keyed_solve(solver):
+    """``solver`` as ``f(obs, state, p, cp, info, key)``: the key a
+    positional input, so a capture takes it as a graph buffer."""
+    return lambda obs, state, p, cp, info, key: solver(obs, state, p, cp, info, key=key)
+
+
+def phase_key_tree(env, dev, kernel_list) -> dict:
+    """Phase 12 (the module docstring); returns K4's launches in (b) and
+    (d), by run."""
+    from covo_mpc_tpu_torch.ops import rollout_cuda
+    from covo_mpc_tpu_torch.runtime import graphs
+    from covo_mpc_tpu_torch.solvers import get_solver
+    from covo_mpc_tpu_torch.utils import prng
+
+    t_phase = time.perf_counter()
+    k4 = rollout_cuda.ROLLOUT_KERNEL.symbol
+    phase("phase 12a: utils/prng on the card against the CPU (8192 keys, 128 draws each)")
+    for seed in (0, 1, 2**31 - 1):
+        cpu, gpu = prng.PRNGKey(seed), prng.PRNGKey(seed, dev)
+        kc, kg = prng.split(cpu, N), prng.split(gpu, N)
+        same = (torch.equal(kg.cpu(), kc)
+                and torch.equal(prng.fold_in(gpu, 7919).cpu(), prng.fold_in(cpu, 7919))
+                and torch.equal(prng.fold_in(gpu, torch.arange(N, device=dev)).cpu(),
+                                prng.fold_in(cpu, torch.arange(N)))
+                and torch.equal(prng.uniform(kg, (D,), -1.0, 1.0).cpu(),
+                                prng.uniform(kc, (D,), -1.0, 1.0)))
+        check(same, f"seed {seed}: split, fold_in and uniform on the card equal the CPU's "
+              "bit for bit")
+        zg, zc = prng.normal(kg, (D,)), prng.normal(kc, (D,))
+        ulps = normal_ulps(zg, zc)
+        say(f"  seed {seed}: normals differing from the CPU's "
+            f"{float((zg.cpu() != zc).double().mean()):.2e} of {zc.numel()}, "
+            f"max {ulps:.1f} ulp")
+        check(ulps <= 2.0, f"seed {seed}: normals on the card within 2 ulp of the CPU's")
+    kg = prng.PRNGKey(3, dev)
+    say(f"  parity draw (N={N}, D={D}): {time_ms(lambda: prng.normal(prng.split(kg, N), (D,)), 10):.3f} ms, "
+        f"invariant {time_ms(lambda: prng.normal(prng.fold_in(kg, torch.arange(N, device=dev)), (D,)), 10):.3f} ms, "
+        f"MPPI parity ({N} x {H} keys of 4) "
+        f"{time_ms(lambda: prng.normal(prng.split(prng.split(kg, N), H), (4,)), 10):.3f} ms")
+
+    p = env.default_params
+    obs, info, state = env.reset(prng.PRNGKey(42, dev), p)
+    cases = {
+        "covo_online parity (fwd_fwd, eigh)": ("covo_online", dict(
+            rng_mode="parity", hessian_mode="fwd_fwd", sigma_mode="eigh"), True),
+        "mppi parity": ("mppi", dict(rng_mode="parity"), False),
+        "covo_online invariant (gn, ns)": ("covo_online", dict(
+            rng_mode="invariant", hessian_mode="gn", sigma_mode="ns"), False),
+    }
+    launches, solvers = {}, {}
+    for label, (name, kw, eigh) in cases.items():
+        phase(f"phase 12b: one full-width {label} solve, engine='cuda' (K4) against "
+              "engine='torch' on the same key")
+        out = {}
+        for engine in ("cuda", "torch"):
+            solver, cp = get_solver(env, name, f"N{N}_H{H}_lam0.01", engine=engine,
+                                    collect_debug=False, **kw)
+            solvers[label, engine] = (solver, cp)
+            key = prng.PRNGKey(3, dev)
+            fn = lambda: solver(obs, state, p, cp, info, key=key)
+            t0 = time.perf_counter()
+            if eigh:  # eigh reads its status on the host: no sync check
+                fn()
+                torch.cuda.synchronize()
+                for k in kernel_list:
+                    k.launches = 0
+                res = fn()
+                torch.cuda.synchronize()
+                counts = {k.symbol: k.launches for k in kernel_list}
+            else:
+                res, counts = run_once(fn, kernel_list)
+            wall = (time.perf_counter() - t0) * 1e3
+            out[engine] = res
+            say(f"  {engine}: {wall:.1f} ms for the solves (warm-up and checked), "
+                f"launches { {k: v for k, v in counts.items() if v} }")
+            if engine == "cuda":
+                launches[f"solve {label}"] = counts[k4]
+                check(counts[k4] > 0, f"{label}: K4 launched by the cuda solve")
+        (a_c, cp_c, _), (a_t, cp_t, _) = out["cuda"], out["torch"]
+        errs = {"action": max_err(a_c, a_t), "a_mean": max_err(cp_c.a_mean, cp_t.a_mean),
+                "a_cov": max_err(cp_c.a_cov, cp_t.a_cov)}
+        say(f"  {label} max |cuda - torch|: {errs}")
+        check(all(v <= 2e-4 for v in errs.values())
+              and all(bool(torch.isfinite(x).all()) for x in (a_c, cp_c.a_mean, cp_c.a_cov)),
+              f"{label}: action, a_mean and a_cov finite and within 2e-4"
+              + ("" if eigh else " (no host sync)"))
+
+    for label in ("mppi parity", "covo_online invariant (gn, ns)"):
+        phase(f"phase 12c: the {label} solve captured, the key a graph input")
+        solver, cp = solvers[label, "cuda"]
+        fn = keyed_solve(solver)
+        cap = graphs.capture_solver(fn, solver, obs, state, p, cp, info, prng.PRNGKey(0, dev))
+        same = True
+        for seed in (5, 6, 7):
+            key = prng.PRNGKey(seed, dev)
+            a_r, cp_r, _ = cap(obs, state, p, cp, info, key)
+            a_e, cp_e, _ = fn(obs, state, p, cp, info, key)
+            same &= torch.equal(a_r, a_e) and torch.equal(cp_r.a_mean, cp_e.a_mean)
+        check(same, f"{label}: three replays on three keys equal their eager solves "
+              "bit for bit")
+        say(f"  {label}: graph of {graph_nodes(cap)} nodes, replay "
+            f"{time_ms(lambda: cap(obs, state, p, cp, info, key), 20):.3f} ms, eager "
+            f"{time_ms(lambda: fn(obs, state, p, cp, info, key), 5):.3f} ms (events)")
+
+    loops = {"covo_online parity (fwd_fwd, eigh), eager": (
+        "covo_online parity (fwd_fwd, eigh)", KEY_COVO_STEPS, ERR_POS_LIMIT_CM),
+        "mppi parity, captured": ("mppi parity", KEY_MPPI_STEPS, MPPI_ERR_POS_LIMIT_CM)}
+    for label, (case, steps, limit) in loops.items():
+        phase(f"phase 12d: {label}, evaluate(total_steps={steps}, seed=1) under JAX's "
+              "key schedule")
+        solver, _ = solvers[case, "cuda"]
+        result, counts = closed_loop(env, solver, steps, kernel_list)
+        launches[f"loop {label}"] = counts[k4]
+        check(counts[k4] > 0, f"{label}: K4 launched in the closed loop")
+        check(np.isfinite(result.mean) and result.mean * 100 < limit,
+              f"{label}: err_pos finite and below {limit} cm")
+    say(f"  K4 launches in phase 12: {launches}")
+    say(f"  phase 12 wall {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--total-steps", type=int, default=1200,
@@ -3019,6 +3169,8 @@ def main(argv=None) -> int:
     phase_small_n(dev, records)
     phase_sweeps(kernel_list, records)
     phase_bench(captured["covo_online (gn, ns, kernel rng: the main path)"])
+    records[rollout_cuda.ROLLOUT_KERNEL.symbol]["key_tree_launches"] = phase_key_tree(
+        env, dev, kernel_list)
     phase("done")
 
     say(json.dumps({"kernels": [

@@ -99,6 +99,8 @@ def _run(cfg) -> int:
         hessian_mode=cfg.hessian_mode,
         engine=cfg.engine,
         sigma_mode=cfg.sigma_mode,
+        # the kernels compute costs only; the debug poses need the plain path
+        collect_debug=(cfg.engine == "torch"),
         collect_metrics=cfg.metrics,
     )
     name = cfg.name or f"{cfg.controller}_{cfg.task}"
@@ -159,21 +161,28 @@ def _bench(env, solver, trace_dir) -> dict:
     20 calls after 2) and per solve of a chain (``time_chained``, CUDA
     events; on the card only). On the card the solve is captured as a CUDA
     graph (``runtime/graphs.capture_solver``), as JAX jits it, unless
-    ``debug_mode()`` disables capture; on the CPU it runs eagerly."""
+    ``debug_mode()`` disables capture or the solve reads the host (``eigh``);
+    on the CPU it runs eagerly. A solver that draws from JAX keys takes
+    the reset's and every solve's from ``PRNGKey(0)`` (a graph input when
+    captured)."""
     from covo_mpc_tpu_torch.runtime import debug, graphs, metrics, profiling
+    from covo_mpc_tpu_torch.utils import prng
 
     p = env.default_params
     obs, info, state = env.reset(torch.Generator(device=env.device).manual_seed(0), p)
-    cp = solver.reset(state, p, solver.init_control_params)
+    keys = ((prng.PRNGKey(0, env.device),) if getattr(solver, "draws_from_keys", False)
+            else ())
+    cp = solver.reset(state, p, solver.init_control_params, *keys)
     card = torch.device(env.device).type == "cuda"
-    solve = solver
-    if card and not debug.jit_disabled():
+    solve = ((lambda o, s, pp, c, i, k: solver(o, s, pp, c, i, key=k)) if keys
+             else solver)
+    if card and not debug.jit_disabled() and solver.capturable:
         with metrics.deferred_sigma():
-            solve = graphs.capture_solver(solver, solver, obs, state, p, cp, info)
+            solve = graphs.capture_solver(solve, solver, obs, state, p, cp, info, *keys)
     with profiling.trace(trace_dir):
-        stats = profiling.time_blocking(solve, 20, 2, obs, state, p, cp, info)
-        amort = (profiling.time_chained(lambda c: solve(obs, state, p, c, info)[1], cp)
-                 if card else None)
+        stats = profiling.time_blocking(solve, 20, 2, obs, state, p, cp, info, *keys)
+        amort = (profiling.time_chained(lambda c: solve(obs, state, p, c, info, *keys)[1],
+                                        cp) if card else None)
     rnd = lambda d: {k: round(v, 6) if isinstance(v, float) else v
                      for k, v in d.items()}
     return {"per_dispatch": rnd(stats),

@@ -11,7 +11,9 @@ draw, time, vel, f_disturb)``, so callers and tests choose where the draw
 comes from. ``draw`` is the model's raw random input: standard normals for
 "gaussian" (and "none", which ignores them), uniforms in
 ``[-disturb_scale, disturb_scale)`` for "periodic" and "mixed", unused (None)
-for "sin" and "drag".
+for "sin" and "drag". :func:`disturb_draw_from_key` makes a model's draw
+from a JAX key as JAX's model draws it, and :func:`derive_dynamics_keys`
+is the reference's key chain from a step's key down to that draw.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 from covo_mpc_tpu_torch.models import rotation
 from covo_mpc_tpu_torch.models.rewards import _abs
 from covo_mpc_tpu_torch.models.structs import FDIST, OMEGA, POS, QUAT, VEL, EnvParams3D
+from covo_mpc_tpu_torch.utils import prng
 
 
 def clip_action(a: torch.Tensor) -> torch.Tensor:
@@ -156,3 +159,37 @@ def get_disturb_fn(disturb_type: str):
     if disturb_type not in DISTURB_FNS:
         raise NotImplementedError(f"unknown disturb_type {disturb_type!r}")
     return DISTURB_FNS[disturb_type]
+
+
+def derive_dynamics_keys(step_key: torch.Tensor, fast: bool = False) -> torch.Tensor:
+    """The reference's key chain from a step's key down to its disturbance
+    draw (JAX: models/dynamics.derive_dynamics_keys): ``split(k)[1]``, then
+    ``split(.)[0]`` twice. ``fast`` skips it (the step key itself), as JAX's
+    non-parity samplers do. Maps over a stack of keys (..., 2)."""
+    if fast:
+        return step_key
+    return dynamics_keys_after_split(prng.split(step_key))
+
+
+def dynamics_keys_after_split(halves: torch.Tensor) -> torch.Tensor:
+    """:func:`derive_dynamics_keys` given ``split(step_key)`` (..., 2, 2),
+    which a caller that also takes ``split(step_key)[0]`` (the env step's
+    info key) splits once for both."""
+    key = prng.split(halves[..., 1, :])[..., 0, :]
+    return prng.split(key)[..., 0, :]
+
+
+def disturb_draw_from_key(disturb_type: str, key: torch.Tensor, disturb_scale,
+                          deterministic: bool = False):
+    """The draw (..., 3) JAX's ``disturb_type`` model makes from ``key`` (a
+    disturb key, or a stack of them): the normals of "gaussian" (JAX:
+    dynamics.py:152; and "none", which ignores them) or None when
+    ``deterministic`` zeroes their scale; the uniforms in [-disturb_scale,
+    disturb_scale) of "periodic" and "mixed" (dynamics.py:117), drawn
+    deterministic or not; None for "sin" and "drag", which draw nothing."""
+    if disturb_type in UNIFORM_DRAW:
+        scale = torch.as_tensor(disturb_scale, device=key.device)
+        return prng.uniform(key, (3,), -scale, scale)
+    if disturb_type in ("gaussian", "none") and not deterministic:
+        return prng.normal(key, (3,))
+    return None

@@ -1,12 +1,15 @@
 """Quad3D environment in PyTorch: reset, step, auto-reset, info, obs.
 
 Counterpart of :mod:`covo_mpc_tpu.models.quad_env`, with a ``device`` (the
-card by default; ``device="cpu"`` asks for the CPU) and a
-``torch.Generator`` in place of each JAX key. Every random
-number an env method needs comes from one small draw method
-(:meth:`QuadEnv.draw_reset`, :meth:`QuadEnv.draw_step`) and enters a pure
-method (:meth:`QuadEnv.reset_from_draws`, :meth:`QuadEnv.step_from_draws`)
-as a tensor, so tests can inject the numbers JAX drew.
+card by default; ``device="cpu"`` asks for the CPU). Every random number an
+env method needs comes from one small draw method (:meth:`QuadEnv.draw_reset`,
+:meth:`QuadEnv.draw_step`, :meth:`QuadEnv.draw_params`) and enters a pure
+method (:meth:`QuadEnv.reset_from_draws`, :meth:`QuadEnv.step_from_draws`,
+:meth:`QuadEnv.params_from_draws`) as a tensor, so tests can inject the
+numbers JAX drew. A draw method takes a ``torch.Generator``, or a JAX key
+(``utils/prng.py``), and then draws what JAX's env draws from that key, in
+JAX's key tree: ``reset(key)``, ``step(key)`` and ``sample_params(key)``
+give JAX's values.
 
 Reference quirks kept: reward and termination on the PRE-step state; the
 disturbance updated from the pre-step state; ``noisy_state`` at the
@@ -30,6 +33,7 @@ from covo_mpc_tpu_torch.models.structs import (
     pack_state,
     tree_select,
 )
+from covo_mpc_tpu_torch.utils import prng
 
 # obs-noise layout of the (13,) standard-normal draw: field -> (slice of the
 # draw, factor on obs_noise_scale)
@@ -116,10 +120,15 @@ class QuadEnv:
     def default_params(self) -> EnvParams3D:
         return self._default_params
 
-    def draw_params(self, gen: torch.Generator) -> torch.Tensor:
+    def draw_params(self, gen) -> torch.Tensor:
         """The uniforms in [-1, 1) that :meth:`params_from_draws` maps to
-        parameters: 17 under domain randomization, else 6."""
+        parameters: 17 under domain randomization, else 6. From a key, JAX's
+        (quad_env.py:117-133): ``uniform(split(key)[0], (17,))`` under DR,
+        ``uniform(key, (6,))`` without."""
         n = 17 if self.config.enable_randomizer else 6
+        if prng.is_key(gen):
+            key = prng.split(gen)[0] if self.config.enable_randomizer else gen
+            return prng.uniform(key, (n,), -1.0, 1.0)
         return torch.rand(n, generator=gen, device=self.device) * 2.0 - 1.0
 
     def params_from_draws(self, u: torch.Tensor) -> EnvParams3D:
@@ -139,7 +148,7 @@ class QuadEnv:
             disturb_params=u[6:12] * p.disturb_scale,
         )
 
-    def sample_params(self, gen: torch.Generator) -> EnvParams3D:
+    def sample_params(self, gen) -> EnvParams3D:
         return self.params_from_draws(self.draw_params(gen))
 
     # -- error metrics ------------------------------------------------------
@@ -153,11 +162,33 @@ class QuadEnv:
 
     # -- draws --------------------------------------------------------------
     def _draw_obs_noise(self, gen):
+        """The (13,) normals of ``noisy_state``; from a key (get_info's
+        ``info_key``), JAX's four from ``split(key, 5)``: pos (3), vel (3),
+        quat (4), omega (3), drawn as one (4, 4) draw of which each takes
+        its first elements (a shape's bits are a prefix of a longer one's)."""
         if not self.config.generate_noisy_state:
             return None
+        if prng.is_key(gen):
+            z = prng.normal(prng.split(gen, 5)[:4], (4,))
+            return torch.cat([z[0, :3], z[1, :3], z[2], z[3, :3]])
         return torch.randn(13, generator=gen, device=self.device)
 
-    def draw_reset(self, gen: torch.Generator) -> ResetDraws:
+    def draw_reset(self, gen) -> ResetDraws:
+        """A reset's draws from a generator, or from a key as JAX's reset_env
+        draws them (quad_env.py:149-187): the trajectory from ``split(key,
+        3)[0]``, the force's uniforms from ``[1]`` (held here over
+        ``disturb_scale``, which the reset multiplies back exactly) and the
+        obs noise from ``split(key)[0]``, the trajectory's own key (a split's
+        key i does not depend on the count)."""
+        if prng.is_key(gen):
+            traj_key, disturb_key, _ = prng.split(gen, 3)
+            scale = self._default_params.disturb_scale
+            f = prng.uniform(disturb_key, (3,), -scale, scale)
+            return ResetDraws(
+                traj=self._draw_traj(traj_key, self._max_steps, self.device),
+                f_disturb=f / scale,
+                obs_noise=self._draw_obs_noise(traj_key),
+            )
         return ResetDraws(
             traj=self._draw_traj(gen, self._max_steps, self.device),
             f_disturb=torch.rand(3, generator=gen, device=self.device) * 2.0 - 1.0,
@@ -181,7 +212,27 @@ class QuadEnv:
             return torch.randn(*batch, 3, generator=gen, device=self.device)
         return None
 
-    def draw_step(self, gen: torch.Generator) -> StepDraws:
+    def disturb_from_key(self, key: torch.Tensor, deterministic: bool = False,
+                         fast: bool = False) -> Optional[torch.Tensor]:
+        """:meth:`draw_disturb` from a step key as JAX's env step draws it:
+        the reference's key chain (``fast``: none), then the model's draw
+        (``models/dynamics.disturb_draw_from_key``); maps over a stack of
+        keys."""
+        return dynamics.disturb_draw_from_key(
+            self.config.disturb_type, dynamics.derive_dynamics_keys(key, fast),
+            self._default_params.disturb_scale, deterministic)
+
+    def draw_step(self, gen) -> StepDraws:
+        """A step's draws from a generator, or from a key as JAX's step_env
+        draws them: the disturbance through the reference's key chain
+        (quad_env.py:284, dynamics.py:177-200) and the obs noise from
+        ``split(key)[0]``."""
+        if prng.is_key(gen):
+            halves = prng.split(gen)  # [the info key, the chain's first]
+            disturb = dynamics.disturb_draw_from_key(
+                self.config.disturb_type, dynamics.dynamics_keys_after_split(halves),
+                self._default_params.disturb_scale)
+            return StepDraws(disturb=disturb, obs_noise=self._draw_obs_noise(halves[0]))
         return StepDraws(
             disturb=self.draw_disturb(gen),
             obs_noise=self._draw_obs_noise(gen),
@@ -219,10 +270,10 @@ class QuadEnv:
         info = self.get_info(state, state, params, draws.obs_noise)
         return self.get_obs(state, params), info, state
 
-    def reset_env(self, gen: torch.Generator, params: EnvParams3D):
+    def reset_env(self, gen, params: EnvParams3D):
         return self.reset_from_draws(self.draw_reset(gen), params)
 
-    def reset(self, gen: torch.Generator, params: Optional[EnvParams3D] = None):
+    def reset(self, gen, params: Optional[EnvParams3D] = None):
         return self.reset_env(gen, self.default_params if params is None else params)
 
     # -- step ---------------------------------------------------------------
@@ -277,21 +328,26 @@ class QuadEnv:
         info = self.get_info(state, next_state, params, draws.obs_noise)
         return self.get_obs(next_state, params), next_state, reward, done, info
 
-    def step_env(self, gen: torch.Generator, state: EnvState3D,
+    def step_env(self, gen, state: EnvState3D,
                  action: torch.Tensor, params: EnvParams3D,
                  deterministic: bool = False):
         return self.step_from_draws(self.draw_step(gen), state, action,
                                     params, deterministic)
 
-    def step(self, gen: torch.Generator, state: EnvState3D,
+    def step(self, gen, state: EnvState3D,
              action: torch.Tensor, params: Optional[EnvParams3D] = None):
         """Auto-resetting step: run both step_env and reset_env, select on
-        ``done`` with ``torch.where`` (no host sync)."""
+        ``done`` with ``torch.where`` (no host sync). ``gen``: a generator,
+        both draw from in turn, or a key, split as JAX's step splits it
+        (``key, key_reset``; quad_env.py:301)."""
         params = self.default_params if params is None else params
+        step_src = reset_src = gen
+        if prng.is_key(gen):
+            step_src, reset_src = prng.split(gen)
         obs_st, state_st, reward, done, info = self.step_env(
-            gen, state, action, params
+            step_src, state, action, params
         )
-        obs_re, info_re, state_re = self.reset_env(gen, params)
+        obs_re, info_re, state_re = self.reset_env(reset_src, params)
         state = tree_select(done, state_re, state_st)
         info = tree_select(done, info_re, info)
         obs = torch.where(done, obs_re, obs_st)

@@ -3,9 +3,11 @@
 Counterpart of :mod:`covo_mpc_tpu.models.trajectory`: the Lissajous
 (``tracking``), slow Lissajous (``tracking_slow``), zigzag
 (``tracking_zigzag``) and fixed (``hovering``) generators. Each one's random
-numbers come from its draw function (a ``torch.Generator``); its pure
-function turns them into the ``(pos_traj, vel_traj, acc_traj)`` tables, so
-tests can hand it the numbers JAX drew.
+numbers come from its draw function, from a ``torch.Generator`` or from a
+JAX key (``utils/prng.py``: then the very numbers JAX's generator draws
+from that key, in its order); its pure function turns them into the
+``(pos_traj, vel_traj, acc_traj)`` tables, so tests can hand it the numbers
+JAX drew.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ import math
 from typing import Union
 
 import torch
+
+from covo_mpc_tpu_torch.utils import prng
 
 POINT_PER_SEG = 40
 LISSAJOUS_PAD = 50  # table steps past the episode end, for horizons that overrun it
@@ -59,7 +63,7 @@ class ZigzagDraws:
 TrajDraws = Union[FixedDraws, LissajousDraws, ZigzagDraws]
 
 
-def draw_fixed(gen: torch.Generator, max_steps: int, device) -> FixedDraws:
+def draw_fixed(src, max_steps: int, device) -> FixedDraws:
     return FixedDraws(device=torch.device(device))
 
 
@@ -69,7 +73,13 @@ def fixed_from_draws(max_steps: int, dt: float, draws: FixedDraws):
     return zeros, zeros, zeros
 
 
-def draw_lissajous(gen: torch.Generator, max_steps: int, device) -> LissajousDraws:
+def draw_lissajous(gen, max_steps: int, device) -> LissajousDraws:
+    """The amplitudes and phases from a generator, or from a key as JAX's
+    generator draws them: ``split(key, 2)``, one uniform (3, 2) each."""
+    if prng.is_key(gen):
+        key_amp, key_phase = prng.split(gen, 2)
+        return LissajousDraws(amp=prng.uniform(key_amp, (3, 2), -1.0, 1.0),
+                              phase=prng.uniform(key_phase, (3, 2), -math.pi, math.pi))
     amp = torch.rand(3, 2, generator=gen, device=device) * 2.0 - 1.0
     phase = torch.rand(3, 2, generator=gen, device=device) * (2.0 * math.pi) - math.pi
     return LissajousDraws(amp=amp, phase=phase)
@@ -97,8 +107,19 @@ def lissajous_from_draws(max_steps: int, dt: float, draws: LissajousDraws,
     return pos, vel, acc
 
 
-def draw_zigzag(gen: torch.Generator, max_steps: int, device) -> ZigzagDraws:
+def draw_zigzag(gen, max_steps: int, device) -> ZigzagDraws:
+    """The zigzag's uniforms from a generator, or from a key as JAX's
+    generator draws them (JAX trajectory.py:84-104): ``split(key, num_seg)``,
+    the start from key 0 (a uniform (3,)), and from key j the two angles (a
+    uniform (2,)) and the length (a uniform of shape ()). All of them are
+    prefixes of one (num_seg, 3) draw of bits."""
     n = num_segments(max_steps)
+    if prng.is_key(gen):
+        b = prng.random_bits(prng.split(gen, n), (3,))
+        angles = prng.uniform_from_bits(b[:, :2], -math.pi / 3, math.pi / 3)
+        dist = prng.uniform_from_bits(b[:, :1], 1.0, 1.5)
+        return ZigzagDraws(start=prng.uniform_from_bits(b[0], -1.0, 1.0),
+                           segs=torch.cat([angles, dist], dim=1))
     start = torch.rand(3, generator=gen, device=device) * 2.0 - 1.0
     u = torch.rand(n, 3, generator=gen, device=device)
     angles = u[:, :2] * (2.0 * math.pi / 3.0) - math.pi / 3.0

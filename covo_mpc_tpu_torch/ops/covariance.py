@@ -1,7 +1,8 @@
 """CoVO's sampling-covariance design: Sigma ∝ R^{-1/2} at fixed determinant.
 
-Counterpart of :mod:`covo_mpc_tpu.ops.covariance` (``optimize_sigma`` and
-the Newton–Schulz ``optimize_sigma_ns``). Every matmul here must run in
+Counterpart of :mod:`covo_mpc_tpu.ops.covariance` (``optimize_sigma``,
+the Newton–Schulz ``optimize_sigma_ns`` and the generic Hessian estimators
+``make_hessian``). Every matmul here must run in
 true fp32: TF32 on Hopper truncates like the TPU's default bf16 matmuls,
 which NaN the lambda_min refinement; the solver turns TF32 off when it is
 built. The one Cholesky is ``cholesky_ex``, which does not read its error
@@ -14,6 +15,10 @@ import math
 from typing import Tuple
 
 import torch
+from torch.func import grad, jacfwd
+
+FWD_FWD = "fwd_fwd"  # jacfwd of jacfwd: the reference's estimator
+FWD_REV = "fwd_rev"  # jacfwd of grad: one reverse pass a tangent
 
 
 def optimize_sigma(R: torch.Tensor, sample_sigma, horizon_dim: int):
@@ -136,3 +141,16 @@ def optimize_sigma_ns(
     a_cov = scale * Z
     factor = (torch.sqrt(scale) * Lz).contiguous()  # row-major, as above
     return a_cov, factor
+
+
+def make_hessian(cost_fn, mode: str = FWD_FWD):
+    """The Hessian of a scalar rollout cost with respect to the flattened
+    action sequence: ``cost_fn(a_flat, *args) -> scalar`` gives
+    ``hessian(a_flat, *args) -> (D, D)`` (JAX: covariance.make_hessian).
+    ``fwd_fwd`` is the reference's forward-over-forward estimator, ``fwd_rev``
+    forward over one reverse pass; the same matrix to rounding."""
+    if mode == FWD_FWD:
+        return jacfwd(jacfwd(cost_fn, argnums=0), argnums=0)
+    if mode == FWD_REV:
+        return jacfwd(grad(cost_fn, argnums=0), argnums=0)
+    raise ValueError(f"unknown hessian mode {mode!r}")

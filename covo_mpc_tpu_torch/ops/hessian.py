@@ -240,17 +240,12 @@ def make_hessian_adjoint(env: QuadEnv, H: int, primal: str = "torch",
     return hessian
 
 
-def make_hessian_batched(env: QuadEnv, H: int, second_order: bool = True):
-    """Build ``hessian_b(a_flats (B, D), x0s (B, 16), t0s (B,), pos_trajs
-    (B, T, 3), vel_trajs, params_b, draws=None (B, H, 3)) -> (B, D, D)``:
-    :func:`make_hessian_adjoint` for B scenarios at once by
-    ``torch.func.vmap``, with the plain primal and chain, as JAX's
-    scenario-batched solve vmaps ``make_hessian_adjoint(primal="scan")``: K2
-    and K3 are ctypes launches, which vmap cannot batch, and a loop over B
-    would undo the batching."""
-    hess = make_hessian_adjoint(env, H, primal="torch", tail="torch",
-                                second_order=second_order)
-
+def vmap_hessian(hess):
+    """``hessian_b(a_flats (B, D), x0s (B, 16), t0s (B,), pos_trajs (B, T,
+    3), vel_trajs, params_b, draws=None (B, H, 3)) -> (B, D, D)``: the
+    Hessian ``hess`` (any estimator's signature) at B points at once by
+    ``torch.func.vmap``, as JAX vmaps its Hessians over scenarios and over
+    the offline schedule."""
     def one(params, a_flat, x0, t0, pos_traj, vel_traj, draws):
         return hess(a_flat, x0, t0, pos_traj, vel_traj, params, draws)
 
@@ -259,3 +254,59 @@ def make_hessian_batched(env: QuadEnv, H: int, second_order: bool = True):
                                 draws))
 
     return hessian_b
+
+
+def make_hessian_batched(env: QuadEnv, H: int, second_order: bool = True):
+    """:func:`make_hessian_adjoint` for B scenarios at once
+    (:func:`vmap_hessian`), with the plain primal and chain, as JAX's
+    scenario-batched solve vmaps ``make_hessian_adjoint(primal="scan")``: K2
+    and K3 are ctypes launches, which vmap cannot batch, and a loop over B
+    would undo the batching."""
+    return vmap_hessian(make_hessian_adjoint(env, H, primal="torch", tail="torch",
+                                             second_order=second_order))
+
+
+def make_hessian_sensitivity(env: QuadEnv, H: int):
+    """Build ``hessian(a_flat, x0, t0, pos_traj, vel_traj, params,
+    draws=None) -> (D, D)``, the exact Hessian by second-order sensitivity
+    propagation (the module docstring): per step h, with T = [S1; E_h]
+    (E_h the step's action block of the identity), S1' = J T and S2' =
+    J_s S2 + T^T Hf T; R accumulates S1'^T (grad^2 r) S1' + sum_k (grad
+    r)_k S2'_k over every step but the last (constant-trimmed), negated.
+    ``draws`` as :func:`make_hessian_adjoint`'s."""
+    dA = env.action_dim
+    D = H * dA
+    vel = env.config.disturb_type in dynamics.VEL_COUPLED
+    sd = _SDV if vel else _SD
+
+    def hessian(a_flat, x0, t0, pos_traj, vel_traj, params, draws=None):
+        if vel:
+            aux = build_hessian_aux_table(env, t0, params, draws, H)
+        else:
+            aux = build_hessian_disturb_table(env, x0, t0, params, draws, H)
+        step_z, reward = _local_fns(env, params)
+        step_jac, step_hess = jacfwd(step_z), jacfwd(jacfwd(step_z))
+        reward_grad, reward_hess = grad(reward), func_hessian(reward)
+        ptars, vtars = target_window(t0, pos_traj, vel_traj, H, offset=1)
+        a_seq = a_flat.reshape(H, dA)
+        eye = torch.eye(D, device=a_flat.device, dtype=a_flat.dtype)
+        s = x0[:sd]
+        S1 = a_flat.new_zeros(sd, D)
+        S2 = a_flat.new_zeros(sd, D, D)
+        R = a_flat.new_zeros(D, D)
+        for h in range(H):
+            z = torch.cat([s, a_seq[h]])
+            s_new = step_z(z, aux[h])
+            J, Hf = step_jac(z, aux[h]), step_hess(z, aux[h])
+            T = torch.cat([S1, eye[h * dA:(h + 1) * dA]])  # (sd + dA, D)
+            S1 = J @ T
+            S2 = (torch.einsum("kl,lab->kab", J[:, :sd], S2)
+                  + torch.einsum("kuv,ua,vb->kab", Hf, T, T))
+            if h < H - 1:
+                g_r = reward_grad(s_new, ptars[h], vtars[h])
+                H_r = reward_hess(s_new, ptars[h], vtars[h])
+                R = R + S1.T @ H_r @ S1 + torch.einsum("k,kab->ab", g_r, S2)
+            s = s_new
+        return -R
+
+    return hessian

@@ -14,7 +14,14 @@ force rides each sample's state: step 0 integrates x0's own, step h + 1 the
 model's output at time t0 + h from the PRE-step velocity and force (JAX:
 ops/rollout.py:132-149; for "gaussian" and "none" that is the one shared
 force). A deterministic rollout zeroes only the gaussian scale: "periodic"
-and "mixed" still take their uniform draw.
+and "mixed" still take their uniform draw. ``collect_poses`` also returns
+each step's post-step positions, JAX's debug poses.
+
+:func:`make_hessian_cost` is the reference's Hessian objective, one
+differentiable deterministic rollout (JAX: ops/rollout.make_hessian_cost),
+which the generic estimators (``ops/covariance.make_hessian``) differentiate
+twice; :func:`hessian_draws_from_key` gives its per-step draws from JAX's
+per-step key split.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ import torch
 from covo_mpc_tpu_torch.models import dynamics, rewards
 from covo_mpc_tpu_torch.models.quad_env import QuadEnv
 from covo_mpc_tpu_torch.models.structs import FDIST, OMEGA, POS, QUAT, VEL, vmap_trees
+from covo_mpc_tpu_torch.utils import prng
 
 
 def make_reward(env: QuadEnv):
@@ -133,13 +141,16 @@ def disturb_table(env: QuadEnv, params, f0, t0, draws, H: int) -> torch.Tensor:
 
 def make_rollout(env: QuadEnv):
     """Build ``rollout_costs(x0, t0, pos_traj, vel_traj, actions, params,
-    draw=None, deterministic=False, discount=1.0, layout="nhd") -> costs (N,)``.
+    draw=None, deterministic=False, discount=1.0, layout="nhd",
+    collect_poses=False) -> costs (N,)``.
 
     ``actions`` is (N, H, 4) for ``layout="nhd"``, or (H, 4, N) / (H*4, N)
     for ``layout="hdn"`` (the samplers' sample-last layout). Cost is the
     negated discounted sum of the env's reward (:func:`make_reward`).
     ``draw`` (3,) is the disturbance model's draw shared by the rollout
-    (:meth:`QuadEnv.draw_disturb`).
+    (:meth:`QuadEnv.draw_disturb`). ``collect_poses`` returns ``(costs,
+    poses)`` instead, poses (H, N, 3) the positions after each step (JAX's
+    debug poses).
     """
     reward = make_reward(env)
     done_fn = _make_done(env)
@@ -148,7 +159,7 @@ def make_rollout(env: QuadEnv):
     def rollout_costs(x0, t0, pos_traj, vel_traj, actions, params,
                       draw: Optional[torch.Tensor] = None,
                       deterministic: bool = False, discount=1.0,
-                      layout: str = "nhd"):
+                      layout: str = "nhd", collect_poses: bool = False):
         if layout == "nhd":
             acts = actions.permute(1, 0, 2)  # (H, N, 4)
         elif layout == "hdn":
@@ -166,7 +177,7 @@ def make_rollout(env: QuadEnv):
         x = x0[:16].expand(N, 16)
         r_prev = torch.zeros(N, device=x0.device)
         d_prev = torch.zeros(N, dtype=torch.bool, device=x0.device)
-        rews = []
+        rews, poses = [], []
         for h in range(H):
             r = reward(x, ptar[h], vtar[h])
             d = done_fn(x, t0 + h, params.max_steps_in_episode)
@@ -178,11 +189,67 @@ def make_rollout(env: QuadEnv):
             x = torch.cat([x_new[:, :13], f_new.expand(N, 3)], dim=-1)
             r_prev, d_prev = r, d
             rews.append(r)
+            poses.append(x[:, POS])
         disc = torch.pow(discount, torch.arange(H, device=x0.device,
                                                 dtype=torch.float32))
-        return -torch.einsum("h,hn->n", disc, torch.stack(rews))
+        costs = -torch.einsum("h,hn->n", disc, torch.stack(rews))
+        return (costs, torch.stack(poses)) if collect_poses else costs
 
     return rollout_costs
+
+
+def hessian_draws_from_key(env: QuadEnv, key: torch.Tensor, H: int,
+                           params=None) -> Optional[torch.Tensor]:
+    """The per-step disturbance draws (H, 3) of the Hessian's rollout from
+    its key, as JAX's splits it (ops/rollout.py:200-212): step h takes
+    ``rng_act_h, key = split(key)``, then the reference's chain from
+    ``rng_act_h`` to its draw. Only "periodic" and "mixed" read a draw there
+    (the deterministic rollout zeroes the gaussian scale), so every other
+    model gets None and no key is split. A stack of keys (B, 2) gives (B,
+    H, 3)."""
+    if env.config.disturb_type not in dynamics.UNIFORM_DRAW:
+        return None
+    acts = []
+    for _ in range(H):
+        rng_act, key = prng.split(key).unbind(-2)
+        acts.append(rng_act)
+    return env.disturb_from_key(torch.stack(acts, dim=-2), deterministic=True)
+
+
+def make_hessian_cost(env: QuadEnv, H: int):
+    """Build ``cost(a_flat, x0, t0, pos_traj, vel_traj, params, draws=None)
+    -> scalar``, the reference's Hessian objective (JAX:
+    ops/rollout.make_hessian_cost): one deterministic H-step rollout of the
+    (H * 4,) action sequence from x0, rewards on the post-step states,
+    never frozen, the last one and the constant step-0 term dropped,
+    negated. ``draws`` (H, 3) are the per-step disturbance draws
+    (:func:`hessian_draws_from_key`; "periodic" and "mixed" only). It is
+    what ``ops/covariance.make_hessian`` differentiates twice."""
+    reward = make_reward(env)
+    dt, dA = env._dt, env.action_dim
+
+    def cost(a_flat, x0, t0, pos_traj, vel_traj, params, draws=None):
+        check_draw(env, draws, deterministic=True)
+        a_seq = a_flat.reshape(H, dA)
+        params = params.replace(dyn_noise_scale=params.dyn_noise_scale * 0.0)
+        ptars, vtars = target_window(t0, pos_traj, vel_traj, H, offset=1)
+        zero = x0.new_zeros(3)
+        # a batch of one: under torch.func.jacfwd a 0-d reward times a
+        # Python float gives a float64 tangent, a (1,) one does not
+        x, rews = x0[None, :16], []
+        for h in range(H):
+            u, _ = dynamics.control_to_thrust_omega(dynamics.clip_action(a_seq[h]),
+                                                    params)
+            x_new = dynamics.bodyrate_step(x, u, params, dt)
+            f_new = env.disturb_fn(params, zero if draws is None else draws[h],
+                                   t0 + h, x[:, VEL], x[:, FDIST])
+            x = torch.cat([x_new[:, :13], f_new.expand(1, 3)], dim=-1)
+            rews.append(reward(x, ptars[h], vtars[h]))
+        # rews[h] = reward(s_{h+1}); the reference sums reward(s_1 .. s_{H-1})
+        # plus terms constant in the actions, so the last entry goes
+        return -torch.sum(torch.cat(rews[:-1]))
+
+    return cost
 
 
 def make_rollout_batched(env: QuadEnv):

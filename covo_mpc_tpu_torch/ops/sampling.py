@@ -1,11 +1,18 @@
-"""Correlated-noise action sampling, fast mode: CoVO's joint MVN and
-MPPI's per-step MVN blocks; and the solvers' Philox seed stream.
+"""Correlated-noise action sampling: CoVO's joint MVN and MPPI's per-step
+MVN blocks; and the solvers' Philox seed stream.
 
-Counterpart of :func:`covo_mpc_tpu.ops.sampling.sample_joint_t` and
-:func:`~covo_mpc_tpu.ops.sampling.sample_per_step_t`. Modes: ``FAST``
-draws z with ``torch.randn`` from the caller's generator; ``KERNEL`` draws
-inside the sample + rollout kernels (Philox) and never comes here. The
-parity and invariant modes are not ported.
+Counterpart of :mod:`covo_mpc_tpu.ops.sampling`. Modes:
+
+- ``FAST`` draws z with ``torch.randn`` from the caller's generator;
+- ``KERNEL`` draws inside the sample + rollout kernels (Philox) and never
+  comes here;
+- ``PARITY`` draws JAX's z from a JAX key (``utils/prng.py``) in the
+  reference's key tree: one key a sample (``split(key, N)``), and for
+  MPPI one a step under it. Samples come sample-first, (N, D) or
+  (N, H, dA), as JAX's parity sampler gives them; the sample-last forms
+  refuse it, as JAX's do;
+- ``INVARIANT`` draws JAX's z from ``fold_in(key, sample_id)`` per sample,
+  in either layout.
 
 :class:`SeedStream` keys the kernels' Philox draws. JAX passes each solve a
 fresh key as traced data (``rng_act``, split per step); here the key lives
@@ -21,8 +28,17 @@ from typing import Optional
 
 import torch
 
+from covo_mpc_tpu_torch.utils import prng
+from covo_mpc_tpu_torch.utils.keys import fold_in_batch
+
+PARITY = "parity"
 FAST = "fast"
+INVARIANT = "invariant"
 KERNEL = "kernel"
+# the modes that draw from a JAX key, as JAX does (the others from generators)
+KEY_MODES = (PARITY, INVARIANT)
+# where the key schedule's forms outside runtime.eval.evaluate are queued
+KEY_ITEM = 'ROADMAP.md queue 1, "key-drawing controllers in render, the supervisors and the batched protocol"'
 
 _MASK64 = (1 << 64) - 1
 
@@ -83,33 +99,95 @@ class SeedStream:
         self.counter.copy_(state)
 
 
-def sample_joint_t(gen: Optional[torch.Generator], mean_flat: torch.Tensor,
-                   factor: torch.Tensor, N: int,
-                   z: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """N samples of mean + factor z (fast mode), emitted sample-last as (D, N).
+def _z_from(gen, shape: tuple, device, mode: str, sample_ids=None):
+    """The standard normals (*shape) of a sample-last draw: from a JAX key
+    under the invariant mode (parity's layout is sample-first: refused, as
+    JAX refuses it), else from the generator ``gen``."""
+    if not prng.is_key(gen):
+        return torch.randn(*shape, generator=gen, device=device)
+    if mode == PARITY:
+        raise ValueError("transposed sampling is a fast-path layout: parity "
+                         "samples come sample-first (sample_joint, sample_per_step)")
+    N, *block = shape
+    return std_normal_invariant(gen, N, tuple(block), sample_ids)
+
+
+def sample_joint_t(gen, mean_flat: torch.Tensor, factor: torch.Tensor, N: int,
+                   z: Optional[torch.Tensor] = None, mode: str = FAST,
+                   sample_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """N samples of mean + factor z, emitted sample-last as (D, N).
 
     ``z`` (N, D) feeds given normals (tests hand in the ones JAX drew);
-    otherwise they come from ``gen`` on ``mean_flat``'s device. A leading
-    scenario axis on mean (B, D), factor (B, D, D) and z (B, N, D) gives
-    (B, D, N): the batched correlate of JAX's scenario-batched CoVO solve,
-    one batched matmul."""
+    otherwise they come from ``gen``: a generator, on ``mean_flat``'s
+    device, or a JAX key under ``mode="invariant"``. A leading scenario
+    axis on mean (B, D), factor (B, D, D) and z (B, N, D) gives (B, D, N):
+    the batched correlate of JAX's scenario-batched CoVO solve, one batched
+    matmul."""
     *batch, D = mean_flat.shape
     if z is None:
-        z = torch.randn(*batch, N, D, generator=gen, device=mean_flat.device)
+        z = _z_from(gen, (*batch, N, D), mean_flat.device, mode, sample_ids)
     return mean_flat[..., None] + torch.einsum("...ed,...nd->...en", factor, z)
 
 
-def sample_per_step_t(gen: Optional[torch.Generator], a_mean: torch.Tensor,
-                      chol: torch.Tensor, N: int,
-                      z: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """N samples of a_h = mean_h + chol_h z_h per step (fast mode), emitted
-    sample-last as (H, dA, N).
+def sample_per_step_t(gen, a_mean: torch.Tensor, chol: torch.Tensor, N: int,
+                      z: Optional[torch.Tensor] = None, mode: str = FAST,
+                      sample_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """N samples of a_h = mean_h + chol_h z_h per step, emitted sample-last
+    as (H, dA, N).
 
     ``chol`` (H, dA, dA) is each step's Cholesky factor. ``z`` (N, H, dA)
     feeds given normals (tests hand in the ones JAX drew); otherwise they
-    come from ``gen`` on ``a_mean``'s device. A leading scenario axis on
-    all three gives (B, H, dA, N)."""
+    come from ``gen``: a generator, on ``a_mean``'s device, or a JAX key
+    under ``mode="invariant"``. A leading scenario axis on all three gives
+    (B, H, dA, N)."""
     *batch, H, dA = a_mean.shape
     if z is None:
-        z = torch.randn(*batch, N, H, dA, generator=gen, device=a_mean.device)
+        z = _z_from(gen, (*batch, N, H, dA), a_mean.device, mode, sample_ids)
     return a_mean[..., None] + torch.einsum("...hij,...nhj->...hin", chol, z)
+
+
+def std_normal_invariant(key: torch.Tensor, N: int, shape: tuple,
+                         sample_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(N, *shape) standard normals, sample n's from ``fold_in(key, id_n)``
+    (ids ``0 .. N-1`` unless given): JAX's invariant ``_std_normal``."""
+    if sample_ids is None:
+        sample_ids = torch.arange(N, device=key.device)
+    return prng.normal(fold_in_batch(key, sample_ids), shape)
+
+
+def _z_joint(key, N: int, D: int, mode: str, sample_ids=None) -> torch.Tensor:
+    if mode == PARITY:
+        return prng.normal(prng.split(key, N), (D,))
+    if mode == INVARIANT:
+        return std_normal_invariant(key, N, (D,), sample_ids)
+    raise ValueError(f"rng mode {mode!r} does not draw from a key")
+
+
+def _z_per_step(key, N: int, H: int, dA: int, mode: str,
+                sample_ids=None) -> torch.Tensor:
+    if mode == PARITY:
+        # per sample n a key, per step h a key under it (reference mppi.py:53-65)
+        return prng.normal(prng.split(prng.split(key, N), H), (dA,))
+    if mode == INVARIANT:
+        return std_normal_invariant(key, N, (H, dA), sample_ids)
+    raise ValueError(f"rng mode {mode!r} does not draw from a key")
+
+
+def sample_joint(key: torch.Tensor, mean_flat: torch.Tensor, factor: torch.Tensor,
+                 N: int, mode: str = PARITY,
+                 sample_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """CoVO's joint draw from a key, sample-first: (N, D) = mean + z
+    factor^T. Parity must be fed ``cholesky(cov)``, as the reference's
+    ``multivariate_normal`` factors."""
+    z = _z_joint(key, N, mean_flat.shape[-1], mode, sample_ids)
+    return mean_flat[None] + z @ factor.T
+
+
+def sample_per_step(key: torch.Tensor, a_mean: torch.Tensor, chol: torch.Tensor,
+                    N: int, mode: str = PARITY,
+                    sample_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """MPPI's per-step draw from a key, sample-first: (N, H, dA), a[n, h] =
+    mean_h + chol_h z[n, h]."""
+    H, dA = a_mean.shape
+    z = _z_per_step(key, N, H, dA, mode, sample_ids)
+    return a_mean[None] + torch.einsum("hij,nhj->nhi", chol, z)

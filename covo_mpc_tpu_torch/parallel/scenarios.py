@@ -422,6 +422,10 @@ def batched_controller(controller) -> BatchedTwin:
     ``ns_pallas`` / ``eigh`` designers wait for a later slice (ROADMAP.md
     queue 1); nothing falls back to a loop over episodes."""
     env = controller.env
+    if getattr(controller, "draws_from_keys", False):
+        raise NotImplementedError(
+            f"no batched twin of a controller that draws from JAX keys (rng_mode "
+            f"{controller.rng_mode!r}): {sampling.KEY_ITEM}")
     if isinstance(controller, CoVOSolver):
         if controller.mode != "online":
             raise NotImplementedError(

@@ -33,9 +33,10 @@ class RunConfig:
     name: str = ""
 
     # the solver's knobs
-    rng_mode: str = "fast"  # fast | kernel (in-kernel Philox draw, cuda engine only)
-    # auto resolves to the adjoint Hessian (the JAX factory's rule)
-    hessian_mode: str = "auto"  # auto | gn (Gauss-Newton) | adjoint
+    # parity / invariant draw from JAX's keys (JAX's episodes, step for step)
+    rng_mode: str = "fast"  # parity | fast | invariant | kernel (in-kernel Philox draw, cuda engine only)
+    # auto resolves as the JAX factory does: fwd_fwd under parity, else adjoint
+    hessian_mode: str = "auto"  # auto | fwd_fwd (reference) | fwd_rev | sensitivity | adjoint | gn (Gauss-Newton)
     engine: str = "auto"  # auto | torch | cuda
     sigma_mode: str = "auto"  # auto | eigh | ns | ns_pallas (K8 on the cuda engine)
     # render mode: re-sample env params + reset the controller whenever an

@@ -12,7 +12,20 @@ the speculative cold start, offline's schedule) runs eagerly, then loads the
 graph's buffers. For an env the caller put on the CPU, the runner is the
 eager loop (:func:`eager_episode`), as is every env inside
 ``runtime.debug.debug_mode()``, where each solve is also checked finite.
-Nothing reads a device value on the host inside a captured episode.
+Nothing reads a device value on the host inside a captured episode. A
+solver that reads the host (``capturable`` False: CoVO's ``eigh``
+designer) runs the eager loop on the card too.
+
+JAX's key schedule (``make_episode_runner``, runtime/episode.py:32-69):
+when the step source is a JAX key (``utils/prng.py``), the runner follows
+it as JAX does: ``rng_control, rng = split(rng)`` for the solver's reset,
+then each step ``rng, rng_act, rng_step, _ = split(rng, 4)`` (the solve's
+key, the env step's), and ``rng = split(rng)[0]``; the episode's last key
+is written back into the caller's key tensor, as a generator advances in
+place. A solver that draws from keys (``draws_from_keys``) gets
+``rng_act`` and needs this schedule; any other solver draws from its own
+streams beside it. Captured, the key is a device buffer of the graph's
+carry.
 
 The batched protocol's runner (:class:`BatchedEpisodes`, JAX: the
 ``jax.vmap`` of ``run_one_ep`` in ``evaluate_batched``) steps a chunk of B
@@ -41,13 +54,59 @@ import torch
 from covo_mpc_tpu_torch.models.batched import BatchedEnv
 from covo_mpc_tpu_torch.parallel import scenarios
 from covo_mpc_tpu_torch.runtime import debug, graphs, metrics
+from covo_mpc_tpu_torch.utils import prng
 
 
-def _start(env, controller, reset_gen, env_params):
+def _keyed(controller, gen) -> bool:
+    """True when ``gen`` is a JAX key (the episode follows JAX's key
+    schedule); raises for a key-drawing solver given a generator."""
+    if prng.is_key(gen):
+        return True
+    if getattr(controller, "draws_from_keys", False):
+        raise ValueError(f"{type(controller).__name__} draws from JAX keys: run its "
+                         "episode on a key (runtime.eval.evaluate makes them)")
+    return False
+
+
+def _key_kw(controller, key) -> dict:
+    return {"key": key} if getattr(controller, "draws_from_keys", False) else {}
+
+
+def _start(env, controller, reset_gen, env_params, rng=None) -> tuple:
+    """The episode's first carry (obs, state, solver params, info), plus the
+    carried key under the key schedule (``rng``: the episode's key)."""
     obs, info, env_state = env.reset(reset_gen, env_params)
+    if rng is None:
+        control_params = controller.reset(env_state, env_params,
+                                          controller.init_control_params)
+        return obs, env_state, control_params, info
+    rng_control, rng = prng.split(rng)
     control_params = controller.reset(env_state, env_params,
-                                      controller.init_control_params)
-    return obs, env_state, control_params, info
+                                      controller.init_control_params,
+                                      **_key_kw(controller, rng_control))
+    return obs, env_state, control_params, info, rng
+
+
+def _control_step(env, controller, carry: tuple, env_params, gen, where=None):
+    """One control step: the solve, then the auto-resetting env step.
+    Returns (the new carry, err_pos of the PRE-step state, done, the solve's
+    metrics). A carry of five holds the key of JAX's schedule, which draws
+    the step in place of ``gen``. ``where`` names the step for
+    ``debug_mode()``'s finite check of the solve."""
+    obs, env_state, control_params, info = carry[:4]
+    kw = {}
+    if len(carry) == 5:
+        rng, rng_act, gen, _ = prng.split(carry[4], 4)
+        kw = _key_kw(controller, rng_act)
+    action, control_params, out = controller(obs, env_state, env_params,
+                                             control_params, info, **kw)
+    if where is not None and debug.nans_checked():
+        debug.check_finite(action, control_params, where)
+    obs, env_state, _, done, info = env.step(gen, env_state, action, env_params)
+    new = (obs, env_state, control_params, info)
+    if len(carry) == 5:
+        new += (prng.split(rng)[0],)
+    return new, info["err_pos"], done, (out or {}).get("metrics", {})
 
 
 def _stack_metrics(per_step: list) -> dict:
@@ -59,29 +118,26 @@ def _stack_metrics(per_step: list) -> dict:
                                   for k in per_step[0]})
 
 
-def eager_episode(env, controller, steps: int, reset_gen: torch.Generator,
-                  gen: torch.Generator, env_params=None):
+def eager_episode(env, controller, steps: int, reset_gen, gen, env_params=None):
     """One episode as a Python loop of eager solves and env steps: returns
-    (err_pos (T,), dones (T,), metrics). Inside ``debug_mode()`` each
-    solve's action and new mean are checked finite."""
+    (err_pos (T,), dones (T,), metrics). ``reset_gen`` / ``gen``: generators,
+    or JAX keys (the key schedule; ``gen`` receives the episode's last
+    key). Inside ``debug_mode()`` each solve's action and new mean are
+    checked finite."""
     if env_params is None:
         env_params = env.default_params
-    obs, env_state, control_params, info = _start(env, controller, reset_gen,
-                                                  env_params)
-    check = debug.nans_checked()
+    keyed = _keyed(controller, gen)
+    carry = _start(env, controller, reset_gen, env_params, gen if keyed else None)
     err_pos, dones, per_step = [], [], []
     with metrics.deferred_sigma():
         for t in range(steps):
-            action, control_params, out = controller(
-                obs, env_state, env_params, control_params, info
-            )
-            if check:
-                debug.check_finite(action, control_params, f"step {t}")
-            obs, env_state, _, done, info = env.step(gen, env_state, action,
-                                                     env_params)
-            err_pos.append(info["err_pos"])
+            carry, err, done, m = _control_step(env, controller, carry, env_params,
+                                                gen, where=f"step {t}")
+            err_pos.append(err)
             dones.append(done)
-            per_step.append((out or {}).get("metrics", {}))
+            per_step.append(m)
+    if keyed:
+        gen.copy_(carry[4])
     return torch.stack(err_pos), torch.stack(dones), _stack_metrics(per_step)
 
 
@@ -104,9 +160,11 @@ class CapturedEpisode:
             return {}
         streams = controller.random_streams()
         saved = [s.get_state() for s in streams]
-        obs, env_state, control_params, info = carry
+        obs, env_state, control_params, info = carry[:4]
+        kw = _key_kw(controller, carry[4]) if len(carry) == 5 else {}
         with metrics.deferred_sigma():
-            _, _, out = controller(obs, env_state, env_params, control_params, info)
+            _, _, out = controller(obs, env_state, env_params, control_params, info,
+                                   **kw)
         for s, state in zip(streams, saved):
             s.set_state(state)
         return {k: torch.zeros((T, *v.shape), dtype=v.dtype, device=v.device)
@@ -116,38 +174,36 @@ class CapturedEpisode:
         env, controller, T = self.env, self.controller, self.steps
 
         def step(carry, env_params, t, err_pos, dones, bufs):
-            obs, env_state, control_params, info = carry
-            action, control_params, out = controller(obs, env_state, env_params,
-                                                     control_params, info)
-            obs, env_state, _, done, info = env.step(gen, env_state, action,
-                                                     env_params)
+            new, err, done, step_metrics = _control_step(env, controller, carry,
+                                                         env_params, gen)
             idx = torch.clamp(t, max=T - 1)  # the warm-up calls stay in bounds
-            err_pos.index_copy_(0, idx, info["err_pos"].reshape(1))
+            err_pos.index_copy_(0, idx, err.reshape(1))
             dones.index_copy_(0, idx, done.reshape(1))
-            for k, v in (out or {}).get("metrics", {}).items():
+            for k, v in step_metrics.items():
                 bufs[k].index_copy_(0, idx, v.unsqueeze(0))
             t.add_(1)
-            graphs.copy_into(carry, (obs, env_state, control_params, info))
+            graphs.copy_into(carry, new)
 
         dev = env.device
         t = torch.zeros(1, dtype=torch.int64, device=dev)
         err_pos = torch.zeros(T, device=dev)
         dones = torch.zeros(T, dtype=torch.bool, device=dev)
         bufs = self._metric_buffers(carry, env_params)
-        streams = [*controller.random_streams(), gen]
+        streams = [*controller.random_streams(), *([] if prng.is_key(gen) else [gen])]
         with metrics.deferred_sigma():
             self._step = graphs.capture(step, carry, env_params, t, err_pos, dones,
                                         bufs, streams=streams)
         self._gen = gen
 
-    def __call__(self, reset_gen: torch.Generator, gen: torch.Generator,
-                 env_params=None):
+    def __call__(self, reset_gen, gen, env_params=None):
         if env_params is None:
             env_params = self.env.default_params
-        carry = _start(self.env, self.controller, reset_gen, env_params)
+        keyed = _keyed(self.controller, gen)
+        carry = _start(self.env, self.controller, reset_gen, env_params,
+                       gen if keyed else None)
         if self._step is None:
             self._capture(gen, env_params, carry)
-        elif gen is not self._gen:
+        elif not keyed and gen is not self._gen:
             raise ValueError("captured episode: the step generator is part of the "
                              "capture; make a runner for another one")
         buf_carry, buf_params, t, err_pos, dones, bufs = self._step.args
@@ -156,6 +212,8 @@ class CapturedEpisode:
         t.zero_()
         for _ in range(self.steps):
             self._step.replay()
+        if keyed:
+            gen.copy_(buf_carry[4])
         return (err_pos.clone(), dones.clone(),
                 metrics.resolve_sigma({k: v.clone() for k, v in bufs.items()}))
 
@@ -164,16 +222,18 @@ def make_episode_runner(env, controller, steps: Optional[int] = None):
     """Build ``run_one_ep(reset_gen, gen, env_params=None) -> (err_pos (T,),
     dones (T,), metrics)``. ``err_pos[t]`` is the tracking error of the
     PRE-step state at step t; ``reset_gen`` draws the reset, ``gen`` the
-    steps; ``metrics`` holds a (T,) tensor per solve metric (``{}`` when
-    the solver collects none). On the card, the control step is a captured
-    CUDA graph (:class:`CapturedEpisode`); on the CPU, and inside
-    ``debug_mode()``, the eager loop."""
+    steps (two generators, or two JAX keys: the key schedule, which writes
+    the episode's last key into ``gen``); ``metrics`` holds a (T,) tensor
+    per solve metric (``{}`` when the solver collects none). On the card,
+    the control step is a captured CUDA graph (:class:`CapturedEpisode`);
+    on the CPU, inside ``debug_mode()`` and for a solver that is not
+    ``capturable``, the eager loop."""
     T = steps or env.default_params.max_steps_in_episode
-    if torch.device(env.device).type == "cuda" and not debug.jit_disabled():
+    if (torch.device(env.device).type == "cuda" and not debug.jit_disabled()
+            and getattr(controller, "capturable", True)):
         return CapturedEpisode(env, controller, T)
 
-    def run_one_ep(reset_gen: torch.Generator, gen: torch.Generator,
-                   env_params=None):
+    def run_one_ep(reset_gen, gen, env_params=None):
         return eager_episode(env, controller, T, reset_gen, gen, env_params)
 
     return run_one_ep

@@ -1,13 +1,16 @@
 """Evaluation protocol: fixed reset trajectories x repetitions.
 
 Counterpart of :func:`covo_mpc_tpu.runtime.eval.evaluate`: ``num_trajs``
-reset trajectories, each run ``reps`` times in a row, with one step
-generator threaded through all episodes. The draws come from torch
-generators seeded from ``seed``, so the trajectories are not the JAX
-package's (its threefry keys are not ported); the protocol is the same. The
-episodes go through :func:`make_episode_runner`: on the card each control
-step is one replayed CUDA graph, as JAX scans its jitted step; on the CPU
-the eager loop.
+reset trajectories, each run ``reps`` times in a row, with one random
+stream threaded through all episodes. For a solver that draws from JAX keys
+("parity", "invariant") that stream is JAX's own (:func:`key_protocol`:
+``PRNGKey(seed)``, its split, the reset keys, the key chain through every
+episode), so the episodes are JAX's, step for step. For any other solver
+the draws come from torch generators seeded from ``seed``: the protocol is
+the same, the trajectories are not the JAX package's. The episodes go
+through :func:`make_episode_runner`: on the card each control step is one
+replayed CUDA graph, as JAX scans its jitted step; on the CPU (and for a
+solver that reads the host) the eager loop.
 
 :func:`evaluate_batched` is JAX's throughput protocol: ``num_eps``
 independent episodes stepped at once by the controller's batched twin
@@ -28,6 +31,7 @@ from covo_mpc_tpu_torch.runtime.episode import (
     make_episode_runner,
 )
 from covo_mpc_tpu_torch.runtime.metrics import MetricsLogger
+from covo_mpc_tpu_torch.utils import prng
 
 
 @dataclasses.dataclass
@@ -43,10 +47,9 @@ class EvalResult:
         return f"err_pos: {self.mean*100:.2f} +/- {self.std*100:.2f} cm"
 
 
-def protocol(env, total_steps: int, num_trajs: int, seed: int):
-    """The protocol's plan from ``seed``: ``(num_eps, reps, reset_seeds,
-    step_seed)``. Episode i resets from ``reset_seeds[i // reps]``; one
-    step generator seeded with ``step_seed`` runs through all episodes."""
+def _episodes(env, total_steps: int, num_trajs: int):
+    """(num_trajs, reps) of the protocol: ``total_steps // max_steps``
+    episodes over at most ``num_trajs`` reset trajectories."""
     max_steps = env.default_params.max_steps_in_episode
     num_eps = int(total_steps // max_steps)
     if num_eps < 1:
@@ -56,7 +59,25 @@ def protocol(env, total_steps: int, num_trajs: int, seed: int):
         )
     # fewer episodes than reset trajectories: the first num_eps once each
     num_trajs = min(num_trajs, num_eps)
-    reps = num_eps // num_trajs
+    return num_trajs, num_eps // num_trajs
+
+
+def key_protocol(env, total_steps: int, num_trajs: int, seed: int):
+    """JAX's plan from ``seed`` (runtime/eval.py:92-96): ``(num_eps, reps,
+    reset_keys (num_trajs, 2), rng)``: ``rng, meta = split(PRNGKey(seed))``,
+    ``reset_keys = split(meta, num_trajs)``; episode i resets from
+    ``reset_keys[i // reps]`` and ``rng`` runs through all episodes."""
+    num_trajs, reps = _episodes(env, total_steps, num_trajs)
+    rng, meta = prng.split(prng.PRNGKey(seed, env.device))
+    return num_trajs * reps, reps, prng.split(meta, num_trajs), rng.clone()
+
+
+def protocol(env, total_steps: int, num_trajs: int, seed: int):
+    """The protocol's plan from ``seed`` for a solver that draws from
+    generators: ``(num_eps, reps, reset_seeds, step_seed)``. Episode i
+    resets from ``reset_seeds[i // reps]``; one step generator seeded with
+    ``step_seed`` runs through all episodes."""
+    num_trajs, reps = _episodes(env, total_steps, num_trajs)
     meta = torch.Generator().manual_seed(seed)
     reset_seeds = torch.randint(0, 2**62, (num_trajs,), generator=meta).tolist()
     step_seed = int(torch.randint(0, 2**62, (), generator=meta))
@@ -94,17 +115,26 @@ def evaluate(env, controller, total_steps: int = 12000, num_trajs: int = 4,
     trajectory ``i // reps``. Reads the device once, at the end (and once
     an episode for the Sigma metrics of a solver that collects them).
     ``metrics_path``: when the controller collects solve metrics, also
-    write them as JSONL, one record per (episode, step)."""
-    num_eps, reps, reset_seeds, step_seed = protocol(env, total_steps, num_trajs, seed)
+    write them as JSONL, one record per (episode, step). A solver that
+    draws from JAX keys runs JAX's key schedule (:func:`key_protocol`)."""
     run_one_ep = make_episode_runner(env, controller)
-    gen = torch.Generator(device=env.device).manual_seed(step_seed)
     controller.seed(seed)
-
     errs, per_ep = [], []
-    for i in range(num_eps):
-        err, metrics = run_episode(env, run_one_ep, reset_seeds[i // reps], gen)
-        errs.append(err)
-        per_ep.append(metrics)
+    if getattr(controller, "draws_from_keys", False):
+        num_eps, reps, reset_keys, rng = key_protocol(env, total_steps, num_trajs,
+                                                      seed)
+        for i in range(num_eps):
+            err_pos, _, metrics = run_one_ep(reset_keys[i // reps], rng)
+            errs.append(err_pos.mean())
+            per_ep.append(metrics)
+    else:
+        num_eps, reps, reset_seeds, step_seed = protocol(env, total_steps, num_trajs,
+                                                         seed)
+        gen = torch.Generator(device=env.device).manual_seed(step_seed)
+        for i in range(num_eps):
+            err, metrics = run_episode(env, run_one_ep, reset_seeds[i // reps], gen)
+            errs.append(err)
+            per_ep.append(metrics)
     err_pos_ep = torch.stack(errs).cpu()
     metrics = ({k: torch.stack([m[k] for m in per_ep]).cpu() for k in per_ep[0]}
                if per_ep[0] else None)

@@ -28,6 +28,13 @@ Non-tensor leaves (the solver params' floats, the env's int constants) are
 part of the capture, as static arguments are part of a JAX trace: a call
 with other values raises. Only CUDA tensors are taken: CPU tensors raise,
 and so does any failure to capture. Nothing runs eagerly in its place.
+
+:class:`Graphed` is the part of a solve that JAX jits inside an eager one:
+a pure function (the reference Hessians, whose ``torch.func`` transforms
+cost the host seconds a call eagerly) captured at its first call on card
+tensors and replayed at every later one, while the rest of the solve runs
+eagerly (CoVO's ``eigh`` reads the host, so its solve is not captured
+whole).
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ import torch
 from covo_mpc_tpu_torch.models.structs import tree_flatten as flatten
 from covo_mpc_tpu_torch.models.structs import tree_unflatten as unflatten
 from covo_mpc_tpu_torch.ops import kernels
+from covo_mpc_tpu_torch.runtime import debug
 
 WARMUP = 2  # eager calls on a side stream before the capture
 
@@ -167,3 +175,25 @@ def capture_solver(method: Callable, solver, *args) -> CapturedCall:
     the solver draws from (one left out would not advance, or the capture's
     warm-up would move it)."""
     return capture(method, *args, streams=solver.random_streams())
+
+
+class Graphed:
+    """``fn`` (pure: tensors in, tensors out, no random stream) as a CUDA
+    graph when called on card tensors: captured at the first call with a
+    spec of arguments (structure, constants, shapes, dtypes), replayed at
+    every later call with it (fresh outputs each call). ``fn`` itself runs
+    on CPU tensors, inside ``debug_mode()``, and while a stream is being
+    captured (an enclosing capture records its ops as its own)."""
+
+    def __init__(self, fn: Callable):
+        self.fn = fn
+        self._captured: dict = {}
+
+    def __call__(self, *args):
+        leaves, spec = flatten(args)
+        if (not leaves or leaves[0].device.type != "cuda" or debug.jit_disabled()
+                or torch.cuda.is_current_stream_capturing()):
+            return self.fn(*args)
+        if spec not in self._captured:
+            self._captured[spec] = capture(self.fn, *args)
+        return self._captured[spec](*args)

@@ -28,6 +28,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from covo_mpc_tpu_torch.ops import sampling
 from covo_mpc_tpu_torch.runtime import debug, graphs, metrics
 
 RECORD_FIELDS = (
@@ -125,6 +126,11 @@ def render_episode(env, controller, seed: int = 1, steps: Optional[int] = None,
     ``env.step`` has already re-initialized the state under the OLD params;
     the new draw takes effect from the following step, as in JAX. Off by
     default: the env params then stay fixed."""
+    if getattr(controller, "draws_from_keys", False):
+        raise NotImplementedError(
+            "render_episode: a controller that draws from JAX keys (rng_mode "
+            f"{controller.rng_mode!r}) has no recorded key schedule yet "
+            f"({sampling.KEY_ITEM})")
     T = steps or env.default_params.max_steps_in_episode
     dev = env.device
     meta = torch.Generator().manual_seed(seed)

@@ -50,6 +50,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from covo_mpc_tpu_torch.ops import sampling
+
 from covo_mpc_tpu_torch.runtime.episode import (
     make_batched_episode_runner,
     make_episode_runner,
@@ -176,6 +178,11 @@ def run_supervised(
         inside the chunk's try-block, so a raise exercises the
         backend-failure path.
     """
+    if getattr(controller, "draws_from_keys", False):
+        raise NotImplementedError(
+            "run_supervised: a controller that draws from JAX keys (rng_mode "
+            f"{controller.rng_mode!r}) has no chunked key schedule yet "
+            f"({sampling.KEY_ITEM})")
     num_eps, reps, reset_seeds, step_seed = protocol(env, total_steps, num_trajs, seed)
     run_one_ep = make_episode_runner(env, controller)
     gen = torch.Generator(device=env.device).manual_seed(step_seed)

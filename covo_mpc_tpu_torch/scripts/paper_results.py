@@ -18,9 +18,10 @@ engines (``--engine auto | torch | cuda``, ``cuda`` the default in the
 place of ``pallas``; PID runs on the env's device, whatever the engine) and ``--device cuda |
 cpu`` (the card by default, raising without one). Each cell's fingerprint
 is the JAX script's with the device appended, and its value also keeps the
-count of failed episodes. The rng and Hessian choices the port lacks
-(``invariant``; ``fwd_fwd``, ``fwd_rev``, ``sensitivity``) raise
-``NotImplementedError``.
+count of failed episodes. Every Hessian estimator runs. ``--rng
+invariant`` draws from JAX's keys, which the supervised cells' chunked
+schedule does not carry yet: it raises ``NotImplementedError`` there, and
+runs with ``--unsupervised`` (``evaluate``'s key schedule).
 
 Usage: python -m covo_mpc_tpu_torch.scripts.paper_results [--n 8192] [--h 32] [--quick]
 """

@@ -1,11 +1,18 @@
 """Solver factory + hyperparameter parsing (the packed "N{N}_H{H}_lam{lam}"
-string of the JAX factory): "pid", "random", "mppi" and the CoVO modes."""
+string of the JAX factory): "pid", "random", "mppi" and the CoVO modes.
+
+``get_solver``'s defaults are JAX's: the reference-parity path
+(``rng_mode="parity"``, ``hessian_mode="fwd_fwd"``, ``sigma_mode="eigh"``,
+``collect_debug=True``, on the plain engine, which ``engine="auto"``
+picks under ``collect_debug`` as JAX picks "jnp"). The fast path on the
+card names its settings: :data:`FAST_PATH`.
+"""
 
 from __future__ import annotations
 
 import torch
 
-from covo_mpc_tpu_torch.ops import sampling
+from covo_mpc_tpu_torch.ops import covariance, sampling
 from covo_mpc_tpu_torch.solvers.base import RandomSolver, resolve_engine
 from covo_mpc_tpu_torch.solvers.covo import CoVOParams, CoVOSolver
 from covo_mpc_tpu_torch.solvers.mppi import MPPIParams, MPPISolver
@@ -15,6 +22,11 @@ DEFAULT_N = 8192
 DEFAULT_H = 32
 DEFAULT_LAM = 0.01
 DEFAULT_SIGMA = 0.5
+
+# the settings of the main path's fast solves (the port's defaults before it
+# took JAX's): torch-generator draws, Gauss–Newton, Newton–Schulz, no poses
+FAST_PATH = dict(rng_mode=sampling.FAST, hessian_mode="gn", sigma_mode="ns",
+                 collect_debug=False)
 
 
 def parse_sample_params(param_text: str):
@@ -36,11 +48,11 @@ def hover_sequence(env, H: int) -> torch.Tensor:
 
 def resolve_hessian_mode(env, hessian_mode: str, rng_mode: str) -> str:
     """Resolve ``hessian_mode="auto"`` as JAX does: the adjoint estimator,
-    except under the parity sampler, whose reference estimator (fwd_fwd) is
-    not ported (the solver raises for it)."""
+    except under the parity sampler, which keeps the reference's own
+    estimator (fwd_fwd)."""
     if hessian_mode != "auto":
         return hessian_mode
-    return "fwd_fwd" if rng_mode == "parity" else "adjoint"
+    return covariance.FWD_FWD if rng_mode == sampling.PARITY else "adjoint"
 
 
 def resolve_sigma_mode(sigma_mode: str, rng_mode: str) -> str:
@@ -48,7 +60,7 @@ def resolve_sigma_mode(sigma_mode: str, rng_mode: str) -> str:
     designer, eigh under the parity sampler."""
     if sigma_mode != "auto":
         return sigma_mode
-    return "eigh" if rng_mode == "parity" else "ns"
+    return "eigh" if rng_mode == sampling.PARITY else "ns"
 
 
 def get_solver(
@@ -56,32 +68,34 @@ def get_solver(
     name: str,
     controller_params: str = "",
     debug: bool = False,
-    rng_mode: str = sampling.FAST,
-    hessian_mode: str = "gn",
-    collect_debug: bool = False,
+    rng_mode: str = sampling.PARITY,
+    hessian_mode: str = covariance.FWD_FWD,
+    collect_debug: bool = True,
     engine: str = "auto",
-    sigma_mode: str = "ns",
+    sigma_mode: str = "eigh",
     seed: int = 0,
     collect_metrics: bool = False,
 ):
     """Build (solver, control_params) by name: "pid", "random", "mppi", or
     any name containing "covo" (the mode by substring, as the reference:
     "offline", then "spec" / "latency" for speculative, else online).
-    ``engine="auto"`` runs the CUDA kernels for an env on the card and the
-    plain path for one on the CPU. ``hessian_mode`` and ``sigma_mode`` are
-    CoVO's ("auto" resolves as JAX's factory does). ``collect_metrics``
-    makes MPPI and CoVO report each solve's health in ``info["metrics"]``."""
+    The defaults are JAX's (the module docstring); ``**FAST_PATH`` names the
+    main path's. ``engine="auto"`` runs the plain path under
+    ``collect_debug`` or for an env on the CPU, else the CUDA kernels.
+    ``hessian_mode`` and ``sigma_mode`` are CoVO's ("auto" resolves as
+    JAX's factory does). ``collect_metrics`` makes MPPI and CoVO report each
+    solve's health in ``info["metrics"]``."""
     if name == "pid":
         params = PIDParams.default(env.device, Kp=10.0, Kd=5.0, Ki=0.0, Kp_att=10.0)
         return PIDSolver(env, params), params
     if name == "random":
-        return RandomSolver(env, None, seed=seed), None
+        return RandomSolver(env, None, seed=seed, rng_mode=rng_mode), None
     if name != "mppi" and "covo" not in name:
         raise NotImplementedError(f"unknown controller {name!r}")
     N, H, lam, sigma = parse_sample_params(controller_params)
     if debug:
         N, H = 4, 2  # fast-feedback smoke config
-    engine = resolve_engine(env, engine)
+    engine = resolve_engine(env, engine, collect_debug)
     if name == "mppi":
         a_cov = (torch.eye(env.action_dim, device=env.device) * sigma**2).expand(
             H, env.action_dim, env.action_dim).contiguous()

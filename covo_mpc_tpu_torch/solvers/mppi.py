@@ -10,9 +10,14 @@ sample-last fast path). One solve, in order:
    gaussian normals, or the uniforms of "periodic" / "mixed"): K5
    (``rng_mode="kernel"``: per-step draw, rollout and costs in one launch;
    the gaussian draw in-kernel too, the uniforms from the device
-   generator), or z and the draw from the solver's device generator, then K4
-   (``engine="cuda"``, ``rng_mode="fast"``) or the plain rollout
-   (``engine="torch"``); ``engine="auto"`` picks by the env's device;
+   generator), or z and the draw from the solver's device generator
+   (``"fast"``) or from JAX's key (``"parity"``: a key a sample and a step,
+   sample-first, the draw through the reference's key chain;
+   ``"invariant"``: a ``fold_in`` a sample, sample-last, the draw from the
+   step key itself), then K4 (``engine="cuda"``) or the plain rollout
+   (``engine="torch"``); ``engine="auto"`` picks by the env's device, and
+   the plain path under ``collect_debug``, which also returns the sampled
+   rollouts' ``pos_mean`` and ``pos_std`` (H, 3);
 4. softmax weights, the mean update, and the covariance update (which
    leaves covariance and factor untouched at ``gamma_sigma == 0``);
    ``collect_metrics`` puts the cost statistics and the ESS in
@@ -38,8 +43,13 @@ import torch
 from covo_mpc_tpu_torch.models.structs import pack_state
 from covo_mpc_tpu_torch.ops import reductions, sampling
 from covo_mpc_tpu_torch.ops.rollout_cuda import make_rollout_sampling
-from covo_mpc_tpu_torch.runtime import metrics
-from covo_mpc_tpu_torch.solvers.base import BaseSolver, make_cost_rollout, resolve_engine
+from covo_mpc_tpu_torch.solvers.base import (
+    BaseSolver,
+    make_cost_rollout,
+    resolve_engine,
+    solve_info,
+)
+from covo_mpc_tpu_torch.utils import prng
 
 
 @dataclasses.dataclass
@@ -88,13 +98,16 @@ class MPPISolver(BaseSolver):
         collect_metrics: bool = False,
     ) -> None:
         super().__init__(env, control_params)
-        if collect_debug:
-            raise NotImplementedError("debug pose collection is not ported yet")
-        self.engine = resolve_engine(env, engine)
+        self.engine = resolve_engine(env, engine, collect_debug)
+        if collect_debug and self.engine == "cuda":
+            # the kernels compute costs only (JAX: the pallas engine refuses it)
+            raise ValueError("engine='cuda' requires collect_debug=False")
         self.rollout = make_cost_rollout(env, self.engine, rng_mode)
         self.N, self.H, self.lam = N, H, lam
         self.collect_metrics = collect_metrics
+        self.collect_debug = collect_debug
         self.rng_mode = rng_mode
+        self.draws_from_keys = rng_mode in sampling.KEY_MODES
         self.action_dim = env.action_dim
         self.rollout_sampling = (make_rollout_sampling(env)
                                  if rng_mode == sampling.KERNEL else None)
@@ -113,11 +126,13 @@ class MPPISolver(BaseSolver):
 
     def __call__(self, obs, env_state, env_params, control_params: MPPIParams,
                  info: Optional[dict] = None, z: Optional[torch.Tensor] = None,
-                 draw: Optional[torch.Tensor] = None):
-        """One solve. ``z`` (N, H, dA) feeds given standard normals to the
-        sampler and ``draw`` (3,) the shared disturbance draw (tests hand in
-        the ones JAX drew; K5 then runs its input-z mode); by default they
-        come from the solver's generators."""
+                 draw: Optional[torch.Tensor] = None, key=None):
+        """One solve. ``key`` is JAX's ``rng_act`` (key-drawing rng modes;
+        JAX's chain: ``key, act_key = split(key)``, ``key, step_key =
+        split(key)``). ``z`` (N, H, dA) feeds given standard normals to the
+        generator modes' sampler and ``draw`` (3,) the shared disturbance
+        draw (tests hand in the ones JAX drew; K5 then runs its input-z
+        mode); by default they come from the solver's generators or key."""
         if info is not None and info.get("noisy_state") is not None:
             env_state = info["noisy_state"]
 
@@ -127,28 +142,39 @@ class MPPISolver(BaseSolver):
 
         x0 = pack_state(env_state)
         args = (x0, env_state.time, env_state.pos_traj, env_state.vel_traj)
-        if self.rollout_sampling is not None:
+        kw = dict(deterministic=False, discount=control_params.discount)
+        if self.collect_debug:
+            kw["collect_poses"] = True
+        if self.draws_from_keys:
+            rest, act_key = prng.split(self._key(key))
+            step_key = prng.split(rest)[1]
+            if draw is None:
+                draw = self.env.disturb_from_key(
+                    step_key, fast=self.rng_mode != sampling.PARITY)
+        if self.rng_mode == sampling.PARITY:
+            a = torch.clamp(sampling.sample_per_step(act_key, a_mean, a_chol, self.N),
+                            -1.0, 1.0)
+            out = self.rollout(*args, a, env_params, draw, layout="nhd", **kw)
+            a_t = a.permute(1, 2, 0)
+        elif self.rollout_sampling is not None:
             seed, disturb_seed = self.seeds.next(2)
             if draw is None and self.env.config.disturb_type != "gaussian":
                 # K5 draws the gaussian force itself, no other model's
                 draw = self.env.draw_disturb(self.device_generator)
-            costs, a_flat = self.rollout_sampling(
+            out, a_flat = self.rollout_sampling(
                 *args, a_mean, a_chol, env_params, seed, self.N,
-                deterministic=False, discount=control_params.discount,
                 draw=draw, z=None if z is None else z.permute(1, 2, 0).contiguous(),
-                disturb_seed=disturb_seed,
+                disturb_seed=disturb_seed, **kw,
             )
             a_t = a_flat.reshape(self.H, self.action_dim, self.N)
         else:
-            a_t = torch.clamp(
-                sampling.sample_per_step_t(self.device_generator, a_mean, a_chol,
-                                           self.N, z=z),
-                -1.0, 1.0,
-            )
-            if draw is None:
+            src = act_key if self.draws_from_keys else self.device_generator
+            a_t = torch.clamp(sampling.sample_per_step_t(src, a_mean, a_chol, self.N, z=z,
+                                                         mode=self.rng_mode), -1.0, 1.0)
+            if draw is None and not self.draws_from_keys:
                 draw = self.env.draw_disturb(self.device_generator)
-            costs = self.rollout(*args, a_t, env_params, draw, deterministic=False,
-                                 discount=control_params.discount, layout="hdn")
+            out = self.rollout(*args, a_t, env_params, draw, layout="hdn", **kw)
+        costs, poses = out if self.collect_debug else (out, None)
 
         weight = reductions.mppi_weights(costs, self.lam)
         new_mean = reductions.mean_update_t(weight, a_t, a_mean,
@@ -158,6 +184,5 @@ class MPPISolver(BaseSolver):
         )
         control_params = control_params.replace(a_mean=new_mean, a_cov=a_cov,
                                                 a_cov_chol=a_chol)
-        info = ({"metrics": metrics.solve_metrics(costs, weight)}
-                if self.collect_metrics else {})
-        return new_mean[0], control_params, info
+        return (new_mean[0], control_params,
+                solve_info(self.collect_metrics, costs, weight, poses))

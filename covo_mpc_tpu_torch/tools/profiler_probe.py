@@ -65,7 +65,7 @@ def main(argv=None) -> int:
     p = env.default_params
     obs, info, state = env.reset(torch.Generator("cuda").manual_seed(0), p)
     solver, cp = get_solver(env, "covo_online", f"N{N}_H{H}_lam0.01", rng_mode="kernel",
-                            hessian_mode="gn", sigma_mode="ns", engine="cuda")
+                            hessian_mode="gn", sigma_mode="ns", engine="cuda", collect_debug=False)
     cap = graphs.capture_solver(solver, solver, obs, state, p, cp, info)
     nodes = profiling.graph_nodes(cap)
     out["main_path_nodes"] = nodes

@@ -1,1 +1,2 @@
-"""Small shared utilities: episode plotting (``utils/plotting.py``)."""
+"""Small shared utilities: JAX's threefry key tree (``utils/prng.py``,
+``utils/keys.py``) and episode plotting (``utils/plotting.py``)."""

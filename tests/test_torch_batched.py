@@ -44,7 +44,7 @@ from covo_mpc_tpu_torch.runtime import (
     run_supervised_batched,
 )
 from covo_mpc_tpu_torch.runtime.episode import eager_episode, episode_seeds
-from covo_mpc_tpu_torch.solvers import get_solver
+from covo_mpc_tpu_torch.solvers import FAST_PATH, get_solver
 from tests.test_torch_models import (
     ATOL,
     ENV_KW,
@@ -297,7 +297,7 @@ def test_batched_refuses_a_mismatched_checkpoint(tmp_path):
 @pytest.mark.parametrize("name", ["covo_speculative", "covo_offline"])
 def test_evaluate_batched_raises_for_speculative_and_offline(name):
     env = cpu_env()
-    solver, _ = get_solver(env, name, PSTR)
+    solver, _ = get_solver(env, name, PSTR, **FAST_PATH)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         evaluate_batched(env, solver, num_eps=2)
 
@@ -312,7 +312,8 @@ def test_sampling_twin_first_solve_does_not_depend_on_its_chunk(name):
     first solve in a batch of 2 from offset 2 within 2e-4."""
     env = cpu_env()
     p = env.default_params
-    solver, _ = get_solver(env, name, PSTR, hessian_mode="adjoint", engine="torch")
+    solver, _ = get_solver(env, name, PSTR, hessian_mode="adjoint", engine="torch",
+                           rng_mode="fast", sigma_mode="ns", collect_debug=False)
     benv = BatchedEnv(env)
 
     def first(lo, hi):

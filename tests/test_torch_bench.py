@@ -86,12 +86,21 @@ def test_rows_give_a_positive_rate(row):
     (["--engine", "cuda"], ValueError, "--device cuda"),
     (["--engine", "pallas"], ValueError, "--engine cuda"),
     (["--engine", "jnp"], ValueError, "--engine torch"),
-    (["--rng", "invariant"], NotImplementedError, "invariant"),
-    (["--hessian-mode", "fwd_fwd"], NotImplementedError, "fwd_fwd"),
 ])
 def test_refuses_what_the_port_does_not_run(argv, error, match):
     with pytest.raises(error, match=match):
         bench.main([*SMALL, *argv])
+
+
+@pytest.mark.parametrize("rng", ["invariant", "parity"])
+def test_key_drawing_headline_rows_run(rng, capsys):
+    """The key-drawing samplers, which the bench once refused, run its
+    headline row (the key carried through the chain, split once a solve;
+    parity designs with eigh); every Hessian estimator is held against JAX
+    in tests/test_torch_parity.py."""
+    bench.main([*SMALL, "--rng", rng, "--no-latency"])
+    record = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert record["mode"] == f"torch+{rng}+gn" and record["value"] > 0
 
 
 def test_the_card_by_default():

@@ -29,13 +29,16 @@ also on every input of one closed-loop episode of the main path; K4 and K6
 repeatable over 10 launches and bit for bit equal to the kernel they
 replaced in every mode and reward (K6 at B=1 also to K4), and K4 against
 its plain version with rollover termination on, where samples terminate
-mid-horizon.
+mid-horizon; JAX's key tree (``utils/prng.py``) on the card equal to the
+CPU's, and K4 fed the parity and invariant samplers' draws at N = 16 and
+8192.
 Tolerances are the ones ``chip_smoke.py`` states (the JAX kernel tests'
 own).
 """
 
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -1108,7 +1111,7 @@ def _captured(dev, name, rng_mode):
     obs, info, state = env.reset(torch.Generator(dev).manual_seed(0))
     p = env.default_params
     solver, cp = get_solver(env, name, "N8192_H32_lam0.01", rng_mode=rng_mode,
-                            hessian_mode="gn", sigma_mode="ns", engine="cuda")
+                            hessian_mode="gn", sigma_mode="ns", engine="cuda", collect_debug=False)
     cap = graphs.capture_solver(solver, solver, obs, state, p, cp, info)
     return cap, profiling.graph_nodes(cap), (lambda c: cap(obs, state, p, c, info)[1]), cp
 
@@ -1206,3 +1209,64 @@ def test_complete_session_holds_replays_times_nodes(dev, tmp_path):
     assert len(chains[0]) == 20 * nodes + enqueued
     assert sum(kernels.device_kernel(r["name"]) == "rollout_split_kernel"
                for r in chains[0]) == 20
+
+
+# --- JAX's key tree on the card (utils/prng.py) -------------------------------------
+
+
+@pytest.mark.parametrize("seed", [0, 7, 2**31 - 1])
+def test_prng_on_the_card_equals_the_cpu(dev, seed):
+    """Keys, splits, fold_ins, bits and uniforms on the card equal the
+    CPU's bit for bit (integer ops, one float64 product and sum rounded
+    once); normals within 2 ulp of max(|x|, 1) (the device's log1p)."""
+    from covo_mpc_tpu_torch.utils import prng
+
+    cpu, gpu = prng.PRNGKey(seed), prng.PRNGKey(seed, dev)
+    assert torch.equal(gpu.cpu(), cpu)
+    kc, kg = prng.split(cpu, 1000), prng.split(gpu, 1000)
+    assert torch.equal(kg.cpu(), kc)
+    assert torch.equal(prng.fold_in(gpu, 7919).cpu(), prng.fold_in(cpu, 7919))
+    ids = torch.arange(1000)
+    assert torch.equal(prng.fold_in(gpu, ids.to(dev)).cpu(), prng.fold_in(cpu, ids))
+    assert torch.equal(prng.random_bits(kg, (5, 3)).cpu(), prng.random_bits(kc, (5, 3)))
+    for lo, hi in ((-1.0, 1.0), (-0.2, 0.2), (1.0, 1.5)):
+        assert torch.equal(prng.uniform(kg, (33,), lo, hi).cpu(),
+                           prng.uniform(kc, (33,), lo, hi))
+    zg, zc = prng.normal(kg, (128,)).cpu().double(), prng.normal(kc, (128,)).double()
+    ulp = torch.from_numpy(np.spacing(zc.abs().clamp_min(1.0).numpy().astype(np.float32)))
+    assert float(((zg - zc).abs() / ulp).max()) <= 2.0
+
+
+@pytest.mark.parametrize("n", [16, 8192])
+@pytest.mark.parametrize("mode", ["parity", "invariant"])
+def test_k4_on_key_drawn_samples_matches_plain(dev, n, mode):
+    """K4 fed the parity sampler's (N, H, 4) draws (layout nhd) or the
+    invariant sampler's (H*4, N) ones (hdn), under a disturbance drawn
+    through the reference's key chain, against its plain version: N = 16
+    (below one block) and 8192 (the main path's), H=32."""
+    from covo_mpc_tpu_torch.ops import sampling
+    from covo_mpc_tpu_torch.utils import prng
+
+    Hs = 32
+    env, p, st = _env_state(dev)
+    g = torch.Generator(dev).manual_seed(9)
+    mean = torch.randn(4 * Hs, generator=g, device=dev) * 0.2
+    A = torch.randn(4 * Hs, 4 * Hs, generator=g, device=dev) * 0.05
+    L = torch.linalg.cholesky(A @ A.T + 0.1 * torch.eye(4 * Hs, device=dev)).contiguous()
+    key = prng.PRNGKey(11, dev)
+    act_key, step_key = prng.split(key)
+    if mode == "parity":
+        acts = torch.clamp(sampling.sample_joint(act_key, mean, L, n), -1.0, 1.0)
+        acts, layout = acts.reshape(n, Hs, 4), "nhd"
+    else:
+        acts = torch.clamp(sampling.sample_joint_t(act_key, mean, L, n, mode=mode),
+                           -1.0, 1.0)
+        layout = "hdn"
+    draw = env.disturb_from_key(step_key, fast=mode != "parity")
+    args = (pack_state(st), st.time, st.pos_traj, st.vel_traj, acts, p, draw)
+    k4 = rollout_cuda.make_rollout_costs(env)
+    before = rollout_cuda.ROLLOUT_KERNEL.launches
+    c_k = k4(*args, discount=1.0, layout=layout)
+    assert rollout_cuda.ROLLOUT_KERNEL.launches == before + 1
+    c_p = k4.plain(*args, discount=1.0, layout=layout)
+    torch.testing.assert_close(c_k, c_p, atol=2e-4, rtol=1e-5)

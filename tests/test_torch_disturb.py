@@ -400,7 +400,8 @@ def test_covo_solve_matches_jax(kind, engine, rng_mode, hessian_mode):
     jp = jenv.default_params
     obs, info, state = jenv.reset_env(jax.random.PRNGKey(0), jp)
     solver, _ = get_solver(env, "covo_online", PSTR, rng_mode=rng_mode,
-                           hessian_mode=hessian_mode, sigma_mode="ns", engine=engine)
+                           hessian_mode=hessian_mode,
+                           sigma_mode="ns", engine=engine, collect_debug=False)
     p, st = to_torch_params(jp), to_torch_state(state)
     tinfo = {"noisy_state": to_torch_state(info["noisy_state"])}
     cp = covo_params_from_numpy(leaves(jcp), device="cpu")
@@ -430,7 +431,7 @@ def test_mppi_solve_matches_jax(kind, engine, rng_mode):
                                 collect_debug=False)
     jp = jenv.default_params
     obs, info, state = jenv.reset_env(jax.random.PRNGKey(0), jp)
-    solver, _ = get_solver(env, "mppi", PSTR, rng_mode=rng_mode, engine=engine)
+    solver, _ = get_solver(env, "mppi", PSTR, rng_mode=rng_mode, engine=engine, collect_debug=False)
     p, st = to_torch_params(jp), to_torch_state(state)
     tinfo = {"noisy_state": to_torch_state(info["noisy_state"])}
     cp = mppi_params_from_numpy(leaves(jcp), device="cpu")
@@ -457,7 +458,8 @@ def test_closed_loop_modes_run(kind):
     _, env = make_envs(disturb_type=kind)
     for name in ("covo_online", "covo_speculative", "covo_offline", "mppi"):
         solver, _ = get_solver(env, name, "N64_H4_lam0.01", rng_mode="fast",
-                               engine="torch")
+                               engine="torch",
+                               hessian_mode="gn", sigma_mode="ns", collect_debug=False)
         err, _, _ = make_episode_runner(env, solver, steps=8)(
             torch.Generator().manual_seed(0), torch.Generator().manual_seed(1))
         assert bool(torch.isfinite(err).all()), name

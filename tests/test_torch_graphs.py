@@ -116,7 +116,8 @@ def test_consecutive_solves_take_different_seeds(name):
     afresh from its stream: five solves, ten distinct words for MPPI (the
     actions' and the krng draw's); the words are the stream's."""
     env = cpu_env()
-    solver, cp = get_solver(env, name, PSTR, rng_mode="kernel", engine="cuda", seed=4)
+    solver, cp = get_solver(env, name, PSTR, rng_mode="kernel", engine="cuda", seed=4,
+                            hessian_mode="gn", sigma_mode="ns", collect_debug=False)
     seen = _spy_keys(solver)
     obs, info, state = env.reset(torch.Generator().manual_seed(0))
     for _ in range(5):
@@ -134,7 +135,8 @@ def test_seed_replays_the_chain_of_solves(name, rng_mode):
     """``seed(s)`` twice gives the same chain of three solves bit for bit;
     another seed gives other actions."""
     env = cpu_env()
-    solver, cp0 = get_solver(env, name, PSTR, rng_mode=rng_mode, engine="cuda")
+    solver, cp0 = get_solver(env, name, PSTR, rng_mode=rng_mode, engine="cuda",
+                             hessian_mode="gn", sigma_mode="ns", collect_debug=False)
     obs, info, state = env.reset(torch.Generator().manual_seed(1))
     p = env.default_params
     cp0 = solver.reset(state, p, cp0)
@@ -239,7 +241,7 @@ def test_graphs_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors only"):
         graphs.capture(fn, torch.ones(3))
     env = cpu_env()
-    solver, cp = get_solver(env, "mppi", PSTR, rng_mode="fast")
+    solver, cp = get_solver(env, "mppi", PSTR, rng_mode="fast", collect_debug=False)
     obs, info, state = env.reset(torch.Generator().manual_seed(0))
     with pytest.raises(ValueError, match="CUDA tensors only"):
         graphs.capture_solver(solver, solver, obs, state, env.default_params, cp, info)
@@ -296,7 +298,7 @@ def test_cpu_runner_is_the_eager_loop():
     """On a CPU env the runner is the eager loop: the same err_pos as
     eager_episode on the same generators and seed, bit for bit."""
     env = cpu_env()
-    solver, _ = get_solver(env, "mppi", PSTR, rng_mode="kernel", engine="cuda")
+    solver, _ = get_solver(env, "mppi", PSTR, rng_mode="kernel", engine="cuda", collect_debug=False)
     run = make_episode_runner(env, solver, steps=12)
     assert not isinstance(run, CapturedEpisode)
     solver.seed(2)
@@ -351,7 +353,8 @@ def test_captured_solve_matches_eager(dev, name, rng_mode, method):
     p = env.default_params
     obs, info, state = env.reset(torch.Generator(dev).manual_seed(5), p)
     solver, cp0 = get_solver(env, name, f"N{Nc}_H{Hc}_lam0.01", rng_mode=rng_mode,
-                             sigma_mode="ns_pallas" if "spec" in name else "ns")
+                             sigma_mode="ns_pallas" if "spec" in name else "ns",
+                             hessian_mode="gn", collect_debug=False)
     cp0 = solver.reset(state, p, cp0)
     if method == "prepare":
         fn, args = solver.prepare, lambda cp: (state, p, cp, info)
@@ -402,7 +405,8 @@ def test_captured_episode_matches_eager_first_steps(dev, name, rng_mode):
     chaos, BASELINE.md); the whole captured episode stays finite."""
     env = _card_env(dev)
     solver, _ = get_solver(env, name, f"N{Nc}_H{Hc}_lam0.01", rng_mode=rng_mode,
-                           sigma_mode="ns_pallas" if "spec" in name else "ns")
+                           sigma_mode="ns_pallas" if "spec" in name else "ns",
+                           hessian_mode="gn", collect_debug=False)
     T = 30
     solver.seed(1)
     ref, _, _ = eager_episode(env, solver, T, torch.Generator(dev).manual_seed(0),
@@ -549,7 +553,8 @@ def test_captured_episode_metrics_equal_eager(dev, name):
     eager episode's bit for bit, as do its errors."""
     env = _card_env(dev)
     solver, _ = get_solver(env, name, f"N{Nc}_H{Hc}_lam0.01", rng_mode="kernel",
-                           hessian_mode="gn", sigma_mode="ns", collect_metrics=True)
+                           hessian_mode="gn",
+                           sigma_mode="ns", collect_metrics=True, collect_debug=False)
     solver.seed(1)
     err_e, _, m_e = eager_episode(env, solver, 300, torch.Generator(dev).manual_seed(0),
                                   torch.Generator(dev).manual_seed(1))
@@ -595,7 +600,8 @@ def test_captured_render_equals_eager(dev):
     from covo_mpc_tpu_torch.runtime import debug, render
 
     env = QuadEnv(EnvConfig(**{**ENV_KW, "enable_randomizer": True}), device=dev)
-    solver, _ = get_solver(env, "mppi", f"N{Nc}_H{Hc}_lam0.01", rng_mode="kernel")
+    solver, _ = get_solver(env, "mppi", f"N{Nc}_H{Hc}_lam0.01", rng_mode="kernel",
+                           collect_debug=False)
     for reset in (False, True):
         kw = dict(seed=1, steps=320, reset_on_done=reset)
         got = render.render_episode(env, solver, **kw)
@@ -674,7 +680,8 @@ def test_captured_batched_episode_matches_eager(dev, name, rng_mode):
     from covo_mpc_tpu_torch.runtime import debug, make_batched_episode_runner
 
     env = _card_env(dev)
-    solver, _ = get_solver(env, name, f"N{Nc}_H{Hc}_lam0.01", rng_mode=rng_mode)
+    solver, _ = get_solver(env, name, f"N{Nc}_H{Hc}_lam0.01", rng_mode=rng_mode,
+                           hessian_mode="gn", sigma_mode="ns", collect_debug=False)
     run = make_batched_episode_runner(env, solver, steps=50)
     for lo in (0, Bc):
         err_c, done_c = run(7, lo, lo + Bc)
@@ -693,7 +700,8 @@ def test_replayed_batched_step_never_syncs(dev):
     from covo_mpc_tpu_torch.runtime import make_batched_episode_runner
 
     env = _card_env(dev)
-    solver, _ = get_solver(env, "mppi", f"N{Nc}_H{Hc}_lam0.01", rng_mode="kernel")
+    solver, _ = get_solver(env, "mppi", f"N{Nc}_H{Hc}_lam0.01", rng_mode="kernel",
+                           collect_debug=False)
     run = make_batched_episode_runner(env, solver, steps=20)
     first, _ = run(3, 0, Bc)
     torch.cuda.synchronize()
@@ -753,7 +761,7 @@ def test_captured_solve_below_one_block_equals_eager(dev, name):
     p = env.default_params
     obs, info, state = env.reset(torch.Generator(dev).manual_seed(5), p)
     solver, cp0 = get_solver(env, name, "N16_H32_lam0.01", rng_mode="kernel",
-                             hessian_mode="gn", sigma_mode="ns", engine="cuda")
+                             hessian_mode="gn", sigma_mode="ns", engine="cuda", collect_debug=False)
     cp0 = solver.reset(state, p, cp0)
     kernel_list = ([rollout_cuda.JOINT_KERNEL, rollout_cuda.PRIMAL_KERNEL,
                     hessian_cuda.CHAIN_KERNEL] if name == "covo_online"
@@ -781,3 +789,50 @@ def test_captured_solve_below_one_block_equals_eager(dev, name):
             assert bool(torch.isfinite(r[key]).all()), key
     assert replay_counts == eager_counts and all(c == 5 for c in eager_counts)
     assert eager[0]["a_mean"].shape == (32, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["fwd_fwd", "sensitivity"])
+def test_graphed_reference_hessian_equals_eager(dev, mode):
+    """runtime/graphs.Graphed on a reference Hessian (H=8): its replays on
+    two inputs equal eager calls bit for bit, and a CPU call runs eagerly."""
+    from covo_mpc_tpu_torch.ops import covariance
+    from covo_mpc_tpu_torch.ops.hessian import make_hessian_sensitivity
+    from covo_mpc_tpu_torch.ops.rollout import make_hessian_cost
+    from covo_mpc_tpu_torch.runtime.graphs import Graphed
+
+    env = _card_env(dev)
+    p = env.default_params
+    hess = (make_hessian_sensitivity(env, Hc) if mode == "sensitivity" else
+            covariance.make_hessian(make_hessian_cost(env, Hc), mode))
+    graphed = Graphed(hess)
+    g = torch.Generator(dev).manual_seed(3)
+    for seed in (0, 1):
+        _, info, _ = env.reset(torch.Generator(dev).manual_seed(seed), p)
+        st = info["noisy_state"]
+        a = torch.randn(4 * Hc, generator=g, device=dev) * 0.3
+        args = (a, pack_state(st), st.time, st.pos_traj, st.vel_traj, p, None)
+        assert torch.equal(graphed(*args), hess(*args))
+    assert len(graphed._captured) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,rng_mode", [("mppi", "parity"), ("covo_online", "invariant")])
+def test_captured_key_schedule_episode_equals_eager(dev, name, rng_mode):
+    """JAX's key schedule captured (the key a device buffer of the carry):
+    30 steps' err_pos equal the eager loop's on the same keys (10 steps
+    within 2e-4, chaos after), and both write the same last key back."""
+    from covo_mpc_tpu_torch.utils import prng
+
+    env = _card_env(dev)
+    solver, _ = get_solver(env, name, f"N{Nc}_H{Hc}_lam0.01", rng_mode=rng_mode,
+                           hessian_mode="gn", sigma_mode="ns", collect_debug=False)
+    assert solver.draws_from_keys and solver.capturable
+    T = 30
+    k_eager, k_cap = prng.PRNGKey(1, dev), prng.PRNGKey(1, dev)
+    ref, _, _ = eager_episode(env, solver, T, prng.PRNGKey(100, dev), k_eager)
+    run = make_episode_runner(env, solver, steps=T)
+    assert isinstance(run, CapturedEpisode)
+    err, _, _ = run(prng.PRNGKey(100, dev), k_cap)
+    torch.testing.assert_close(err[:10], ref[:10], atol=2e-4, rtol=0)
+    assert torch.equal(k_cap, k_eager)

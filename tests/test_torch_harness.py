@@ -44,6 +44,7 @@ from covo_mpc_tpu_torch.runtime.episode import eager_episode
 from covo_mpc_tpu_torch.runtime.eval import write_metrics_jsonl
 from covo_mpc_tpu_torch.runtime.supervisor import run_supervised
 from covo_mpc_tpu_torch.solvers import (
+    FAST_PATH,
     PIDParams,
     PIDSolver,
     covo_params_from_numpy,
@@ -123,7 +124,7 @@ def test_solve_info_metrics_match_jax(name):
     obs, info, state = jenv.reset_env(jax.random.PRNGKey(0), jp)
     key = jax.random.PRNGKey(5)
     _, _, jout = jsolver(obs, state, jp, key, jcp, info)
-    tkw = dict(rng_mode="fast", engine="torch", collect_metrics=True)
+    tkw = dict(rng_mode="fast", engine="torch", collect_debug=False, collect_metrics=True)
     if name != "mppi":
         tkw.update(hessian_mode="gn", sigma_mode="ns")
     solver, _ = get_solver(env, name, PSTR, **tkw)
@@ -190,7 +191,7 @@ def test_solver_state_checkpoints_load_both_ways(tmp_path):
                              ("covo_speculative", covo_params_from_numpy)):
         _, jcp = j_get_solver(jenv, name, "N16_H4_lam0.01", rng_mode="fast",
                               engine="jnp", collect_debug=False)
-        _, cp = get_solver(env, name, "N16_H4_lam0.01")
+        _, cp = get_solver(env, name, "N16_H4_lam0.01", **FAST_PATH)
         jcp2 = jcp.replace(a_mean=jcp.a_mean + 0.1, a_cov=jcp.a_cov * 1.5)
         jpath = jckpt.save_solver_state(jcp2, str(tmp_path / f"j_{name}.npz"))
         loaded = checkpoint.load_solver_state(cp, jpath)
@@ -220,7 +221,7 @@ def test_jax_offline_schedule_drives_the_port(tmp_path):
                collect_debug=False)
     jsolver, jcp = j_get_solver(jenv, "covo_offline", PSTR, **jkw)
     solver, cp = get_solver(env, "covo_offline", PSTR, rng_mode="fast", hessian_mode="gn",
-                            sigma_mode="ns", engine="torch")
+                            sigma_mode="ns", engine="torch", collect_debug=False)
     jp = jenv.default_params
     obs, info, state = jenv.reset_env(jax.random.PRNGKey(0), jp)
     states, keys = jsolver.offline_schedule_inputs(state, jp, jax.random.PRNGKey(7))
@@ -274,7 +275,7 @@ def test_render_reset_on_done():
     a controller reset)."""
     env = cpu_env(enable_randomizer=True)
     short = env.default_params.replace(max_steps_in_episode=10)
-    solver, _ = get_solver(env, "mppi", "N8_H3_lam0.01")
+    solver, _ = get_solver(env, "mppi", "N8_H3_lam0.01", rng_mode="fast", collect_debug=False)
     kw = dict(seed=1, steps=25, env_params=short)
     t_plain = render.render_episode(env, solver, reset_on_done=False, **kw)
     t_reset = render.render_episode(env, solver, reset_on_done=True, **kw)
@@ -321,7 +322,7 @@ def test_debug_mode_restores_and_checked_solver_raises():
     assert not debug.nans_checked()
 
     env = cpu_env()
-    solver, cp = get_solver(env, "mppi", "N16_H4_lam0.01")
+    solver, cp = get_solver(env, "mppi", "N16_H4_lam0.01", rng_mode="fast", collect_debug=False)
     obs, info, state = env.reset(torch.Generator().manual_seed(0))
     solve = debug.checked_solver(solver)
     action, _, _ = solve(obs, state, env.default_params, cp, info)
@@ -423,7 +424,8 @@ def test_supervised_crash_then_resume_mppi(tmp_path):
     stream and generator ride in the checkpoint) equals an uninterrupted
     run bit for bit; a backend failure is logged on disk."""
     env = cpu_env()
-    make = lambda: get_solver(env, "mppi", "N16_H4_lam0.01")[0]
+    make = lambda: get_solver(env, "mppi", "N16_H4_lam0.01",
+                              rng_mode="fast", collect_debug=False)[0]
     ref = run_supervised(env, make(), total_steps=900, seed=5, chunk_episodes=1)
     ckpt = str(tmp_path / "ckpt")
 

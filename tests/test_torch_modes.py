@@ -23,7 +23,12 @@ from covo_mpc_tpu_torch.models.structs import EnvParams3D, state_from_numpy
 from covo_mpc_tpu_torch.ops import covariance, covariance_cuda, rollout_cuda
 from covo_mpc_tpu_torch.parallel import make_batched_covo_solve, make_batched_mppi_solve
 from covo_mpc_tpu_torch.runtime import evaluate
-from covo_mpc_tpu_torch.solvers import covo_params_from_numpy, get_solver, resolve_engine
+from covo_mpc_tpu_torch.solvers import (
+    FAST_PATH,
+    covo_params_from_numpy,
+    get_solver,
+    resolve_engine,
+)
 from tests.test_torch_models import (
     STATE_FIELDS,
     leaves,
@@ -38,7 +43,8 @@ D = 4 * H
 PSTR = f"N{N}_H{H}_lam0.01"
 JKW = dict(rng_mode="fast", hessian_mode="gn", sigma_mode="ns", engine="jnp",
            collect_debug=False)
-KW = dict(rng_mode="fast", hessian_mode="gn", sigma_mode="ns", engine="torch")
+KW = dict(rng_mode="fast", hessian_mode="gn", sigma_mode="ns", engine="torch",
+          collect_debug=False)
 TOL = 2e-4
 
 
@@ -112,7 +118,8 @@ def test_speculative_prepare_matches_jax(spec):
 def test_speculative_call_is_act_plus_prepare(engine, rng_mode):
     """__call__ is exactly act() then prepare(), the same draws consumed."""
     _, env = make_envs()
-    kw = dict(rng_mode=rng_mode, engine=engine, sigma_mode="ns_pallas", seed=4)
+    kw = dict(rng_mode=rng_mode, engine=engine, sigma_mode="ns_pallas", seed=4,
+              hessian_mode="gn", collect_debug=False)
     s1, cp = get_solver(env, "covo_speculative", "N64_H4_lam0.01", **kw)
     s2, _ = get_solver(env, "covo_speculative", "N64_H4_lam0.01", **kw)
     _, info, st = env.reset(torch.Generator().manual_seed(2))
@@ -131,18 +138,19 @@ def test_speculative_mode_guards_and_factory():
     cold-start factor; act() and prepare() raise outside it."""
     _, env = make_envs()
     for name in ("covo_speculative", "covo_latency"):
-        solver, cp = get_solver(env, name, "N64_H4_lam0.01")
+        solver, cp = get_solver(env, name, "N64_H4_lam0.01", **FAST_PATH)
         assert solver.mode == "speculative"
         torch.testing.assert_close(cp.a_factor @ cp.a_factor.T, cp.a_cov, atol=1e-7,
                                    rtol=0)
         assert solver.reset() is cp and solver.reset(None, None, cp) is cp
-    onl, cp = get_solver(env, "covo_online", "N64_H4_lam0.01")
+    onl, cp = get_solver(env, "covo_online", "N64_H4_lam0.01", **FAST_PATH)
     _, info, st = env.reset(torch.Generator().manual_seed(0))
     with pytest.raises(ValueError, match="speculative"):
         onl.act(None, st, env.default_params, cp, info)
     with pytest.raises(ValueError, match="speculative"):
         onl.prepare(st, env.default_params, cp)
-    assert get_solver(env, "covo_offline_latency", "N64_H4_lam0.01")[0].mode == "offline"
+    offline = get_solver(env, "covo_offline_latency", "N64_H4_lam0.01", **FAST_PATH)[0]
+    assert offline.mode == "offline"
 
 
 def test_speculative_matches_online_when_prediction_exact():
@@ -258,7 +266,8 @@ def test_ns_pallas_on_cpu_is_the_plain_designer(engine):
     equals the "ns" solve bit for bit; on engine="cuda" the solver holds
     the K8 wrapper, on "torch" and in offline mode the plain designer."""
     _, env = make_envs()
-    kw = dict(rng_mode="fast", engine=engine, seed=1)
+    kw = dict(rng_mode="fast", engine=engine, seed=1, hessian_mode="gn",
+              collect_debug=False)
     s_k, cp = get_solver(env, "covo_online", "N64_H4_lam0.01", sigma_mode="ns_pallas", **kw)
     s_p, _ = get_solver(env, "covo_online", "N64_H4_lam0.01", sigma_mode="ns", **kw)
     expected = (covariance_cuda.optimize_sigma_ns_cuda if engine == "cuda"
@@ -284,7 +293,8 @@ def test_closed_loops_of_the_new_solvers():
     _, env = make_envs()
     err = {}
     for name in ("covo_speculative", "covo_offline", "pid", "random"):
-        solver, _ = get_solver(env, name, "N64_H4_lam0.01", sigma_mode="ns_pallas")
+        solver, _ = get_solver(env, name, "N64_H4_lam0.01", sigma_mode="ns_pallas",
+                               rng_mode="fast", hessian_mode="gn", collect_debug=False)
         result = evaluate(env, solver, total_steps=300, seed=1)
         assert result.err_pos_ep.shape == (1,) and np.isfinite(result.mean), name
         err[name] = result.mean
@@ -307,9 +317,9 @@ def test_entry_points_default_to_the_card():
     _, env = make_envs()
     assert resolve_engine(env, "auto") == "torch"
     assert resolve_engine(type("Env", (), {"device": torch.device("cuda")}), "auto") == "cuda"
-    covo, _ = get_solver(env, "covo_online", "N64_H4_lam0.01")
+    covo, _ = get_solver(env, "covo_online", "N64_H4_lam0.01", **FAST_PATH)
     assert covo.engine == "torch"
-    mppi, _ = get_solver(env, "mppi", "N64_H4_lam0.01")
+    mppi, _ = get_solver(env, "mppi", "N64_H4_lam0.01", rng_mode="fast", collect_debug=False)
     assert not isinstance(mppi.rollout, rollout_cuda.RolloutCosts)
     assert make_batched_covo_solve(env, 64, 4, 0.01).engine == "torch"
     assert make_batched_mppi_solve(env, 64, 4, 0.01).engine == "torch"

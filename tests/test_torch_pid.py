@@ -124,7 +124,7 @@ def test_pid_and_random_from_the_factory():
     solver, cp = get_solver(env, "pid")
     assert (cp.Kp, cp.Kd, cp.Ki, cp.Kp_att) == (10.0, 5.0, 0.0, 10.0)
     assert isinstance(solver, PIDSolver) and cp.integral.device.type == "cpu"
-    rnd, none = get_solver(env, "random", seed=3)
+    rnd, none = get_solver(env, "random", seed=3, rng_mode="fast")
     assert isinstance(rnd, RandomSolver) and none is None
     draws = torch.stack([rnd(None, None, None, None)[0] for _ in range(2000)])
     assert draws.shape == (2000, 4) and draws.device.type == "cpu"

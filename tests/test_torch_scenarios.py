@@ -385,7 +385,8 @@ def test_batched_solves_at_one_scenario_match_the_solvers():
     rng = np.random.default_rng(5)
 
     solver, cp = get_solver(env, "covo_online", f"N{N1}_H{H}_lam{LAM}",
-                            hessian_mode="adjoint", engine="torch")
+                            hessian_mode="adjoint", engine="torch",
+                            rng_mode="fast", sigma_mode="ns", collect_debug=False)
     z = t(rng.standard_normal((N1, D)))
     cp = CoVOParams(**{**vars(cp), "gamma_mean": GM, "discount": DISC})
     _, ref, _ = solver(None, st, p1, cp, None, z=z)
@@ -393,7 +394,8 @@ def test_batched_solves_at_one_scenario_match_the_solvers():
         x0, t0, pos, vel, cp.a_mean[None], pb, gamma_mean=GM, discount=DISC, z=z[None])
     torch.testing.assert_close(got[0], ref.a_mean, atol=1e-6, rtol=0)
 
-    solver, cp = get_solver(env, "mppi", f"N{N1}_H{H}_lam{LAM}", engine="torch")
+    solver, cp = get_solver(env, "mppi", f"N{N1}_H{H}_lam{LAM}", engine="torch",
+                            rng_mode="fast", collect_debug=False)
     z = t(rng.standard_normal((N1, H, 4)))
     draw = t(rng.standard_normal(3))
     cp = MPPIParams(**{**vars(cp), "gamma_mean": GM, "gamma_sigma": GS,

@@ -258,9 +258,13 @@ def test_n_ablation_rerun_is_cached_and_writes_the_same_bytes(ablation):
 
 
 @pytest.mark.parametrize("flags", [["--rng", "invariant", "--controllers", "mppi"],
-                                   ["--hessian-mode", "fwd_fwd", "--controllers",
-                                    "covo_offline"]], ids=["invariant", "fwd_fwd"])
+                                   ["--hessian-mode", "fwd_fwd", "--rng", "invariant",
+                                    "--controllers", "covo_offline"]],
+                         ids=["invariant", "fwd_fwd"])
 def test_modes_the_port_lacks_raise(tmp_path, flags):
+    """A key-drawing sampler in a supervised cell: the chunked key schedule
+    is not ported. (Every Hessian estimator is: fwd_fwd alone no longer
+    raises, tests/test_torch_parity.py holds it against JAX.)"""
     with pytest.raises(NotImplementedError):
         paper_results.main([*SMALL, "--n", "16", "--engine", "torch", *flags,
                             "--out", str(tmp_path / "R.md"),

@@ -39,7 +39,7 @@ def test_mppi_solve_at_small_n_matches_jax(n):
     jsolver, jcp = j_get_solver(jenv, "mppi", pstr, rng_mode="fast", engine="jnp",
                                 collect_debug=False)
     jp, obs, info, state, tinfo = _reset(jenv)
-    solver, _ = get_solver(env, "mppi", pstr, rng_mode="fast", engine="torch")
+    solver, _ = get_solver(env, "mppi", pstr, rng_mode="fast", engine="torch", collect_debug=False)
     p, st = to_torch_params(jp), to_torch_state(state)
     cp = mppi_params_from_numpy(leaves(jcp), device="cpu")
     for key in (jax.random.PRNGKey(5), jax.random.PRNGKey(6)):
@@ -68,7 +68,8 @@ def test_covo_solve_at_small_n_matches_jax(n):
                                 collect_debug=False)
     jp, obs, info, state, tinfo = _reset(jenv)
     solver, _ = get_solver(env, "covo_online", pstr, rng_mode="fast",
-                           hessian_mode="adjoint", sigma_mode="ns", engine="torch")
+                           hessian_mode="adjoint",
+                           sigma_mode="ns", engine="torch", collect_debug=False)
     p, st = to_torch_params(jp), to_torch_state(state)
     cp = covo_params_from_numpy(leaves(jcp), device="cpu")
     for key in (jax.random.PRNGKey(5), jax.random.PRNGKey(6)):

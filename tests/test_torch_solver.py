@@ -49,7 +49,7 @@ def test_solve_matches_jax(engine, rng_mode, hessian_mode):
 
     solver, _ = get_solver(env, "covo_online", PSTR, rng_mode=rng_mode,
                            hessian_mode=hessian_mode, sigma_mode="ns",
-                           engine=engine)
+                           engine=engine, collect_debug=False)
     p = to_torch_params(jp)
     st = to_torch_state(state)
     tinfo = {"noisy_state": to_torch_state(info["noisy_state"])}
@@ -80,7 +80,7 @@ def test_mppi_solve_matches_jax(engine, rng_mode):
                                 engine="jnp", collect_debug=False)
     jp = jenv.default_params
     obs, info, state = jenv.reset_env(jax.random.PRNGKey(0), jp)
-    solver, _ = get_solver(env, "mppi", PSTR, rng_mode=rng_mode, engine=engine)
+    solver, _ = get_solver(env, "mppi", PSTR, rng_mode=rng_mode, engine=engine, collect_debug=False)
     p = to_torch_params(jp)
     st = to_torch_state(state)
     tinfo = {"noisy_state": to_torch_state(info["noisy_state"])}
@@ -103,19 +103,26 @@ def test_mppi_solve_matches_jax(engine, rng_mode):
 def test_solver_modes_that_are_not_ported_raise():
     _, env = make_envs()
     with pytest.raises(ValueError):
-        get_solver(env, "covo_online", PSTR, rng_mode="kernel", engine="torch")
+        get_solver(env, "covo_online", PSTR, rng_mode="kernel", engine="torch",
+                   hessian_mode="gn", sigma_mode="ns", collect_debug=False)
     with pytest.raises(NotImplementedError):
         get_solver(env, "lqr")
     with pytest.raises(ValueError):
-        get_solver(env, "covo_online", PSTR, sigma_mode="ns_triton")
+        get_solver(env, "covo_online", PSTR, sigma_mode="ns_triton",
+                   rng_mode="fast", hessian_mode="gn", collect_debug=False)
     with pytest.raises(ValueError, match="parity"):
-        get_solver(env, "covo_online", PSTR, rng_mode="parity", sigma_mode="ns_pallas")
+        get_solver(env, "covo_online", PSTR, rng_mode="parity", sigma_mode="ns_pallas",
+                   hessian_mode="gn", collect_debug=False)
     with pytest.raises(ValueError):
-        get_solver(env, "mppi", PSTR, rng_mode="kernel", engine="torch")
-    with pytest.raises(NotImplementedError):
-        get_solver(env, "covo_offline", PSTR, hessian_mode="fwd_fwd")
-    with pytest.raises(NotImplementedError):
-        get_solver(env, "covo_online", PSTR, hessian_mode="sensitivity")
+        get_solver(env, "mppi", PSTR, rng_mode="kernel", engine="torch", collect_debug=False)
+    # every Hessian estimator is ported: an unknown one raises
+    with pytest.raises(ValueError, match="hessian_mode"):
+        get_solver(env, "covo_offline", PSTR, hessian_mode="fwd_bwd",
+                   rng_mode="fast", sigma_mode="ns", collect_debug=False)
+    # the kernels compute costs only: no debug poses on the cuda engine
+    for name in ("covo_online", "mppi"):
+        with pytest.raises(ValueError, match="collect_debug"):
+            get_solver(env, name, PSTR, engine="cuda", collect_debug=True)
 
 
 def test_episode_runner_and_evaluate():
@@ -125,7 +132,8 @@ def test_episode_runner_and_evaluate():
     _, env = make_envs()
     for engine, rng_mode in (("torch", "fast"), ("cuda", "kernel")):
         solver, _ = get_solver(env, "covo_online", "N64_H4_lam0.01",
-                               rng_mode=rng_mode, engine=engine)
+                               rng_mode=rng_mode, engine=engine,
+                               hessian_mode="gn", sigma_mode="ns", collect_debug=False)
         run = make_episode_runner(env, solver, steps=20)
         err, dones, metrics = run(torch.Generator().manual_seed(0),
                                   torch.Generator().manual_seed(1))
@@ -143,7 +151,7 @@ def test_mppi_episode_runner_and_evaluate():
     _, env = make_envs()
     for engine, rng_mode in (("torch", "fast"), ("cuda", "fast"), ("cuda", "kernel")):
         solver, _ = get_solver(env, "mppi", "N64_H4_lam0.01", rng_mode=rng_mode,
-                               engine=engine)
+                               engine=engine, collect_debug=False)
         run = make_episode_runner(env, solver, steps=20)
         err, dones, metrics = run(torch.Generator().manual_seed(0),
                                   torch.Generator().manual_seed(1))

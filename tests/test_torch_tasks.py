@@ -347,7 +347,8 @@ def test_covo_solve_matches_jax(engine, rng_mode, hessian_mode):
     starts from JAX's params, so errors do not compound."""
     env, p, st, tinfo = (_reset_pair()[i] for i in (1, 6, 7, 8))
     solver, _ = get_solver(env, "covo_online", PSTR, rng_mode=rng_mode,
-                           hessian_mode=hessian_mode, sigma_mode="ns", engine=engine)
+                           hessian_mode=hessian_mode,
+                           sigma_mode="ns", engine=engine, collect_debug=False)
     for key, (jcp, a_r, jcp_r) in zip(SOLVE_KEYS, _j_solves("covo_online", hessian_mode)):
         z = torch.from_numpy(np.array(jax.random.normal(jax.random.split(key)[1], (N, D))))
         a, cp, _ = solver(None, st, p, covo_params_from_numpy(leaves(jcp), device="cpu"),
@@ -362,9 +363,8 @@ def test_speculative_prepare_matches_jax():
     prepare's deterministic model step and the design around the shifted
     nominal give JAX's a_cov and a_factor within 2e-4."""
     jenv, env, jp, obs, info, state, p, st, tinfo = _reset_pair()
-    kw = dict(rng_mode="fast", hessian_mode="gn", sigma_mode="ns")
-    jsolver, jcp = j_get_solver(jenv, "covo_speculative", PSTR, engine="jnp",
-                                collect_debug=False, **kw)
+    kw = dict(rng_mode="fast", hessian_mode="gn", sigma_mode="ns", collect_debug=False)
+    jsolver, jcp = j_get_solver(jenv, "covo_speculative", PSTR, engine="jnp", **kw)
     solver, _ = get_solver(env, "covo_speculative", PSTR, engine="torch", **kw)
     jcp1 = jsolver.reset(state, jp, jcp, jax.random.PRNGKey(1))
     cp1 = solver.reset(st, p, covo_params_from_numpy(leaves(jcp), device="cpu"))
@@ -386,7 +386,7 @@ def test_mppi_solve_matches_jax(engine, rng_mode):
     """Two chained MPPI solves against JAX's jnp engine, each fed the normals
     and the shared gaussian draw JAX drew (fast keys)."""
     env, p, st, tinfo = (_reset_pair()[i] for i in (1, 6, 7, 8))
-    solver, _ = get_solver(env, "mppi", PSTR, rng_mode=rng_mode, engine=engine)
+    solver, _ = get_solver(env, "mppi", PSTR, rng_mode=rng_mode, engine=engine, collect_debug=False)
     for key, (jcp, a_r, jcp_r) in zip(SOLVE_KEYS, _j_solves("mppi")):
         rest, act_key = jax.random.split(key)
         z = torch.from_numpy(np.array(jax.random.normal(act_key, (N, H, 4))))
