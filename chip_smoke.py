@@ -38,8 +38,9 @@ source, at first use), then:
    from the same seed and params (2e-4 on every output), checks that two
    replays on the same inputs draw afresh and that the replays launch what
    the eager solves launch, prints p50 / p99 (``time_blocking``) and ms per
-   solve of a chain (``time_chained``) eager and captured, and the
-   device's busy share inside the replays; the captured main-path solve's
+   solve of a chain (``time_chained``) eager and captured, timed
+   ``graphs.SETTLE_S`` after the last capture, and the device's busy share
+   inside the replays; the captured main-path solve's
    p50 must be under 20 ms, the 50 Hz budget;
 3. runs the closed loops, ``evaluate(env, solver, total_steps, seed=1)``,
    every one through the captured runner (one CUDA graph a control step):
@@ -166,6 +167,33 @@ source, at first use), then:
    cm, and MPPI parity captured for 1200 steps, below 8.0 cm; err_pos and
    wall of each printed; K4's launches there go to its record's
    ``key_tree_launches``.
+13. every controller in the batched protocol, the supervisors and render:
+   (a) the batched twins of CoVO speculative and offline under kernel
+   and fast rng at B=16, N=8192, H=32 (gn, ns): the reset (speculative's
+   step-0 Σ; offline's 16 schedules of 300 states, its wall and peak
+   memory printed) and one step on ``engine="cuda"`` against the
+   ``engine="torch"`` twin within 2e-4 (fast: the same generators, K6
+   against the plain rollout; kernel: ``sample_update`` on the same
+   normals, K7 joint's input-z mode), and one step captured equal to the
+   eager step bit for bit; the eigh twin (online, fast rng) eager within
+   2e-4 of the torch twin, its batched Hessian's graph equal to the eager
+   Hessian bit for bit; (b) ``evaluate_batched(num_eps=16, seed=1)``,
+   captured, of speculative (kernel rng, K7 joint) and offline (fast rng,
+   K6): no failed episode, below 5.0 cm and below phase 5e's MPPI row;
+   (c) JAX's key schedule in the batched protocol: each episode's reset
+   state on its reset key equal to the single keyed reset's bit for bit,
+   ``evaluate_batched`` of MPPI parity (K6, ``nhd``) below 8.0 cm; the
+   fwd_fwd batched Hessian as one graph at B = 2 and 16 (capture s, nodes,
+   replay ms, peak memory); one full-width batched CoVO parity solve
+   (fwd_fwd, eigh) at B=2 within 2e-4 of the single parity solve of each
+   episode; (d) ``run_supervised`` of MPPI parity, 1200 steps in chunks
+   of 2 episodes, a fault injected at chunk 1 and retried, equal to phase
+   12d's ``evaluate`` bit for bit; (e) ``render_episode`` of MPPI parity,
+   300 steps captured, finite, its first :data:`RENDER_CHECK_STEPS` steps
+   equal to the eager recorder's bit for bit. K4's, K6's and K7 joint's
+   launches in these runs go to their records' ``batched_modes_launches``.
+   ``--phase13`` builds the kernels and runs this phase alone (no kernels
+   record, no result line).
 
 Each kernel's launch count in the JSON record is read from the closed loop
 that runs it (a replayed graph adds its kernels' launches at each replay):
@@ -258,6 +286,9 @@ CLI_STEPS = 1200
 # phase 12's closed loops under JAX's key schedule: CoVO online parity runs
 # eagerly (eigh reads the host) for one episode, MPPI parity captured
 KEY_COVO_STEPS, KEY_MPPI_STEPS = 300, 1200
+# phase 13: the batched twins' and keyed harness's checks at B=TWIN_B, the
+# captured recorder against the eager one over its first RENDER_CHECK_STEPS
+TWIN_B, RENDER_CHECK_STEPS = 16, 20
 T0 = time.perf_counter()
 
 
@@ -863,8 +894,8 @@ def phase_captured(env, dev, kernel_list):
     (2e-4 on every output), fresh draws at each replay, the replays' launch
     counts equal to the eager ones, p50 / p99 by time_blocking and ms per
     solve by time_chained for both, and the device's busy share inside the
-    replays (device ms a replay over the chained ms a replay). Returns a
-    summary by case."""
+    replays (device ms a replay over the chained ms a replay), the timing
+    after ``graphs.settle()``. Returns a summary by case."""
     from covo_mpc_tpu_torch.runtime import graphs, profiling
 
     p = env.default_params
@@ -883,6 +914,9 @@ def phase_captured(env, dev, kernel_list):
             f"device ops recorded: {seen})")
         cases.append((label, solver, cp0, method, draws, fn, call, carry, cap,
                       dict(capture_s=capture_s, graph_nodes=nodes, device_ms=dev_ms)))
+    slept = graphs.settle()
+    say(f"  timing starts {slept:.1f} s later, {graphs.SETTLE_S:.0f} s after the last "
+        "capture (the card's slow spell after one, PERF.md §6)")
     summary = {}
     for label, solver, cp0, method, draws, fn, call, carry, cap, rec in cases:
         phase(f"phase 2c: captured solves, {label}")
@@ -1690,7 +1724,7 @@ def protocol_run(env, label, solver, kernel_list):
     return res, launches, wall
 
 
-def phase_batched_protocol(env, kernel_list):
+def phase_batched_protocol(env, kernel_list, refs: dict):
     """5e: the batched protocol on the main path's env at N=8192, H=32, one
     batch of PROTOCOL_EPS captured episodes of 300 steps (the batched
     runner: one CUDA graph a batched control step): ``evaluate_batched`` for
@@ -1701,7 +1735,8 @@ def phase_batched_protocol(env, kernel_list):
     bit at B=EAGER_CHECK_B; then ``run_supervised_batched`` (MPPI kernel
     rng, chunks of PROTOCOL_CHUNK) crashed at chunk 1 and resumed, equal bit
     for bit to an uninterrupted supervised run. Returns each batched
-    kernel's launch count from the run that drives it."""
+    kernel's launch count from the run that drives it; puts the MPPI row in
+    ``refs`` (phase 13 holds its twins against it)."""
     import tempfile
 
     from covo_mpc_tpu_torch.ops import rollout_cuda
@@ -1733,6 +1768,7 @@ def phase_batched_protocol(env, kernel_list):
             check(out[kernel.symbol] > 0, f"{kernel.symbol} launched by the {label} run")
     check(results["covo"].mean < results["mppi"].mean,
           "batched protocol: CoVO's err_pos below MPPI's on the same episodes")
+    refs["5e mppi"] = results["mppi"]
     # the batched control step's graph: the solve, the vmapped env step and
     # each episode's draws from its own generators (one capture, 1 step)
     for key, (label, solver, _, _) in runs.items():
@@ -2963,9 +2999,9 @@ def keyed_solve(solver):
     return lambda obs, state, p, cp, info, key: solver(obs, state, p, cp, info, key=key)
 
 
-def phase_key_tree(env, dev, kernel_list) -> dict:
+def phase_key_tree(env, dev, kernel_list, refs: dict) -> dict:
     """Phase 12 (the module docstring); returns K4's launches in (b) and
-    (d), by run."""
+    (d), by run, and puts (d)'s results in ``refs``."""
     from covo_mpc_tpu_torch.ops import rollout_cuda
     from covo_mpc_tpu_torch.runtime import graphs
     from covo_mpc_tpu_torch.solvers import get_solver
@@ -3069,6 +3105,7 @@ def phase_key_tree(env, dev, kernel_list) -> dict:
               "key schedule")
         solver, _ = solvers[case, "cuda"]
         result, counts = closed_loop(env, solver, steps, kernel_list)
+        refs[f"12d {case}"] = result
         launches[f"loop {label}"] = counts[k4]
         check(counts[k4] > 0, f"{label}: K4 launched in the closed loop")
         check(np.isfinite(result.mean) and result.mean * 100 < limit,
@@ -3078,12 +3115,356 @@ def phase_key_tree(env, dev, kernel_list) -> dict:
     return launches
 
 
+# --- phase 13: every controller in the batched protocol, the supervisors, render ---
+
+
+def twin_of(env, name, engine, rng_mode, sigma_mode="ns"):
+    """The batched twin of a CoVO solver at the main path's N, H and
+    estimator (gn), on ``engine`` with ``rng_mode``."""
+    from covo_mpc_tpu_torch.parallel import batched_controller
+
+    return batched_controller(make_solver(env, engine, rng_mode=rng_mode, name=name,
+                                          sigma_mode=sigma_mode)[0])
+
+
+def episode_gens(dev, seed: int, B: int) -> list:
+    return [torch.Generator(device=dev).manual_seed(seed * 1000 + b) for b in range(B)]
+
+
+def tree_max_err(a, b) -> float:
+    from covo_mpc_tpu_torch.models.structs import tree_flatten
+
+    return max(max_err(x.float(), y.float())
+               for x, y in zip(tree_flatten(a)[0], tree_flatten(b)[0]))
+
+
+def trees_equal(a, b) -> bool:
+    from covo_mpc_tpu_torch.models.structs import tree_flatten
+
+    la, lb = tree_flatten(a)[0], tree_flatten(b)[0]
+    return len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def act_factors(kind: str, carry, state):
+    """The (a_covs, factors) a twin's step samples with: speculative's
+    carried ones, offline's gathered at each episode's time."""
+    if kind == "covo_speculative":
+        return carry[1], carry[2]
+    covs, facs = carry[1], carry[2]
+    idx = torch.clamp(state.time, 0, covs.shape[1] - 1).long()
+    b = torch.arange(covs.shape[0], device=idx.device)
+    return covs[b, idx], facs[b, idx]
+
+
+def captured_twin_step(twin, p, state, info, carry, gens):
+    """One step of ``twin`` captured (its solve's streams and the episodes'
+    generators registered) and replayed, against the eager step from the
+    same stream states: (bit for bit, graph nodes, replay ms)."""
+    from covo_mpc_tpu_torch.runtime import graphs
+
+    def fn(state, info, carry):
+        return twin(state, info, p, carry, gens, 0)
+
+    streams = [*twin.random_streams(), *([] if twin.draws_from_keys else gens)]
+    cap = graphs.capture(fn, state, info, carry, streams=streams)
+    saved = [s.get_state() for s in streams]
+    eager = fn(state, info, carry)
+    for s, st in zip(streams, saved):
+        s.set_state(st)
+    replay = cap(state, info, carry)
+    same = trees_equal(eager, replay)
+    ms = time_ms(lambda: cap(state, info, carry), 5, warmup=1)
+    return same, graph_nodes(cap), ms
+
+
+def phase_twins(env, dev) -> None:
+    """13a: the speculative and offline twins under kernel and fast rng, and
+    the online twin with the ns and the eigh designer, at B=TWIN_B, N=8192,
+    H=32."""
+    from covo_mpc_tpu_torch.models.batched import BatchedEnv
+    from covo_mpc_tpu_torch.models.structs import expand_params
+    from covo_mpc_tpu_torch.parallel.scenarios import _shift, _solve_inputs
+
+    B, p = TWIN_B, env.default_params
+    _, info, state = BatchedEnv(env).reset(episode_gens(dev, 1, B), p)
+    pb = expand_params(p, B)
+    for name in ("covo_speculative", "covo_offline"):
+        ref = twin_of(env, name, "torch", "fast")
+        t0 = time.perf_counter()
+        carry_t = ref.reset(B, state, p, episode_gens(dev, 2, B))
+        torch.cuda.synchronize()
+        say(f"  {name} torch twin's reset at B={B}: {time.perf_counter() - t0:.2f} s")
+        for rng in ("fast", "kernel"):
+            phase(f"phase 13a: the batched {name} twin, {rng} rng, B={B}, engine='cuda' "
+                  "against engine='torch'")
+            twin = twin_of(env, name, "cuda", rng)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            carry = twin.reset(B, state, p, episode_gens(dev, 2, B))
+            torch.cuda.synchronize()
+            err = tree_max_err(carry, carry_t)
+            say(f"  reset {time.perf_counter() - t0:.2f} s, peak "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+                f"max |cuda - torch| of the reset's carry {err:.3e}")
+            check(err <= 2e-4, f"{name} {rng}: the twin's reset within 2e-4 of the torch twin's")
+            if rng == "fast":
+                a_c, new_c = twin(state, info, p, carry, episode_gens(dev, 3, B))
+                a_t, new_t = ref(state, info, p, carry_t, episode_gens(dev, 3, B))
+                errs = {"action": max_err(a_c, a_t), "carry": tree_max_err(new_c, new_t)}
+            else:
+                z = torch.randn(B, N, D, generator=torch.Generator(device=dev).manual_seed(4),
+                                device=dev)
+                covs, facs = act_factors(name, carry, state)
+                args = (*_solve_inputs(state, info), _shift(carry[0]), covs, facs, pb)
+                m_c, c_c, _ = twin.solve.sample_update(*args, z=z)
+                m_t, c_t, _ = ref.solve.sample_update(*args, z=z)
+                errs = {"a_mean": max_err(m_c, m_t), "costs": max_err(c_c, c_t)}
+                a_c = m_c
+            say(f"  one step, max |cuda - torch| on the same normals: {errs}")
+            check(all(v <= 2e-4 for v in errs.values()) and bool(torch.isfinite(a_c).all()),
+                  f"{name} {rng}: the batched step within 2e-4 of the torch twin's")
+            same, nodes, ms = captured_twin_step(twin, p, state, info, carry,
+                                                 episode_gens(dev, 5, B))
+            say(f"  the twin's step captured: {nodes} graph nodes, replay {ms:.3f} ms")
+            check(same, f"{name} {rng}: the captured step equals the eager step bit for bit")
+    for sigma_mode in ("ns", "eigh"):
+        phase(f"phase 13a: the batched CoVO online twin with sigma_mode={sigma_mode!r}, "
+              f"fast rng, B={B}, engine='cuda' against engine='torch'")
+        designer_step(env, dev, state, info, sigma_mode)
+
+
+def designer_step(env, dev, state, info, sigma_mode: str) -> None:
+    """13a's online twin with the ``sigma_mode`` designer (fast rng): its
+    design (the batched Hessian, the designer) and step on the card's
+    engine against the torch twin's on the same normals, taken apart: Σ,
+    the costs, the action and the new mean (printed with the ESS of the
+    scenario where it parts most), Σ and the action held to 2e-4 and the
+    costs to K6's contract; the design repeated bit for bit; for eigh (not
+    capturable) the batched Hessian's graph against the eager Hessian."""
+    from covo_mpc_tpu_torch.models.structs import expand_params
+    from covo_mpc_tpu_torch.parallel.scenarios import _inputs, _shift, _solve_inputs
+
+    B, p = TWIN_B, env.default_params
+    twin = twin_of(env, "covo_online", "cuda", "fast", sigma_mode=sigma_mode)
+    ref = twin_of(env, "covo_online", "torch", "fast", sigma_mode=sigma_mode)
+    check(twin.capturable == (sigma_mode != "eigh"),
+          f"{sigma_mode} twin capturable: {twin.capturable} (eigh reads the host)")
+    pb, means = expand_params(p, B), _shift(twin.reset(B))
+    inputs = _solve_inputs(state, info)
+    t0 = time.perf_counter()
+    covs_c, facs_c = twin.solve.design(*inputs, means, pb)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    covs_t, facs_t = ref.solve.design(*inputs, means, pb)
+    again = twin.solve.design(*inputs, means, pb)
+    z = torch.stack([torch.randn(N, D, generator=g, device=dev)
+                     for g in episode_gens(dev, 6, B)])
+    m_c, c_c, w_c = twin.solve.sample_update(*inputs, means, covs_c, facs_c, pb, z=z)
+    m_t, c_t, _ = ref.solve.sample_update(*inputs, means, covs_t, facs_t, pb, z=z)
+    errs = {"a_cov": max_err(covs_c, covs_t), "costs": max_err(c_c, c_t),
+            "action": max_err(m_c[:, 0], m_t[:, 0]), "a_mean": max_err(m_c, m_t)}
+    worst = int((m_c - m_t).abs().flatten(1).amax(dim=1).argmax())
+    ess = 1.0 / (w_c ** 2).sum(dim=-1)
+    say(f"  design {wall:.2f} s; max |cuda - torch|: {errs}; the mean parts most in "
+        f"scenario {worst}, ESS {float(ess[worst]):.2f} (ESS over the batch "
+        f"{float(ess.min()):.2f}-{float(ess.max()):.2f})")
+    check(trees_equal(again, (covs_c, facs_c)), f"{sigma_mode}: the design repeats bit for bit")
+    # BASELINE.md's per-solve contract (action and Σ) and K6's own (costs);
+    # the rest of the mean follows the costs through the weights, which a
+    # cost's last bits move where two samples share them (ESS near 2)
+    check(errs["a_cov"] <= 2e-4 and errs["action"] <= 2e-4 and costs_close(c_c, c_t),
+          f"{sigma_mode} twin: Σ and the action within 2e-4 of the torch twin's, the "
+          "costs within atol 2e-4, rtol 1e-5")
+    if sigma_mode == "eigh":
+        hess = twin.solve._hessian
+        h_args = (means.reshape(B, D), *_inputs(info["noisy_state"]), pb, None)
+        same = torch.equal(hess(*h_args), hess.fn(*h_args))
+        say(f"  its batched Hessian: replay "
+            f"{time_ms(lambda: hess(*h_args), 5, warmup=1):.3f} ms against eager "
+            f"{time_ms(lambda: hess.fn(*h_args), 3, warmup=1):.3f} ms")
+        check(same, "eigh twin: the graphed batched Hessian equals the eager one bit for bit")
+
+
+def hessian_graph_row(env, dev, B: int) -> None:
+    """The fwd_fwd batched Hessian as one graph at B: capture s, replay ms,
+    graph nodes, peak memory (the B=2 parity solve of 13c runs it)."""
+    from covo_mpc_tpu_torch.models.batched import BatchedEnv
+    from covo_mpc_tpu_torch.models.structs import expand_params
+    from covo_mpc_tpu_torch.parallel.scenarios import _inputs, _shift
+    from covo_mpc_tpu_torch.parallel import make_batched_covo_solve
+
+    p = env.default_params
+    _, info, _ = BatchedEnv(env).reset(episode_gens(dev, 7, B), p)
+    solve = make_batched_covo_solve(env, N, H, 0.01, rng="parity", hessian_mode="fwd_fwd",
+                                    engine="cuda", sigma_mode="eigh")
+    means = make_solver(env, "torch")[1].a_mean.expand(B, H, 4)
+    args = (_shift(means).reshape(B, D), *_inputs(info["noisy_state"]),
+            expand_params(p, B), None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    R = solve._hessian(*args)
+    torch.cuda.synchronize()
+    cap_s = time.perf_counter() - t0
+    nodes = graph_nodes(next(iter(solve._hessian._captured.values())))
+    say(f"  fwd_fwd batched Hessian, B={B}: captured in {cap_s:.1f} s, {nodes} nodes, "
+        f"replay {time_ms(lambda: solve._hessian(*args), 5, warmup=1):.3f} ms, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, finite "
+        f"{bool(torch.isfinite(R).all())}")
+
+
+def batched_run(env, label, solver, kernels_used, kernel_list, limit):
+    """``evaluate_batched(num_eps=TWIN_B, seed=1)`` (counts at 0 just before
+    it), finite and below ``limit``, each of ``kernels_used`` launched:
+    (result, counts)."""
+    res, launches, _ = protocol_run(env, label, solver, kernel_list)
+    check(bool(torch.isfinite(res.err_pos_ep).all()) and res.mean * 100 < limit,
+          f"{label}: no failed episode, err_pos below {limit} cm")
+    for k in kernels_used:
+        check(launches[k.symbol] > 0, f"{label}: {k.symbol} launched")
+    return res, launches
+
+
+def phase_batched_modes(env, dev, kernel_list, refs: dict) -> dict:
+    """Phase 13 (the module docstring); returns each kernel's launches in
+    its runs. ``refs`` holds phase 5e's MPPI row and phase 12d's MPPI parity
+    loop; a missing one (``--phase13``) is run here."""
+    import tempfile
+
+    from covo_mpc_tpu_torch.models.batched import BatchedEnv
+    from covo_mpc_tpu_torch.models.structs import expand_params, index, tree_flatten
+    from covo_mpc_tpu_torch.ops import rollout_cuda
+    from covo_mpc_tpu_torch.parallel import make_batched_covo_solve
+    from covo_mpc_tpu_torch.parallel.scenarios import _solve_inputs
+    from covo_mpc_tpu_torch.runtime import debug, evaluate, render_episode, run_supervised
+    from covo_mpc_tpu_torch.runtime.episode import batched_keys
+    from covo_mpc_tpu_torch.solvers import get_solver
+
+    t_phase = time.perf_counter()
+    k4, k6 = rollout_cuda.ROLLOUT_KERNEL, rollout_cuda.ROLLOUT_BATCHED_KERNEL
+    k7j = rollout_cuda.JOINT_BATCHED_KERNEL
+    launches = {k4.symbol: {}, k6.symbol: {}, k7j.symbol: {}}
+    p = env.default_params
+    pstr = f"N{N}_H{H}_lam0.01"
+    phase_twins(env, dev)
+    t_a = time.perf_counter() - t_phase
+
+    phase(f"phase 13b: evaluate_batched(num_eps={TWIN_B}, seed=1), captured, the new twins")
+    if "5e mppi" not in refs:
+        refs["5e mppi"] = protocol_run(env, "MPPI (kernel rng), the 5e row",
+                                       make_mppi(env, "cuda")[0], kernel_list)[0]
+    mppi_5e = refs["5e mppi"].mean
+    runs = {"speculative (gn, ns, kernel rng: K7 joint)": (
+                make_solver(env, "cuda", name="covo_speculative")[0], k7j),
+            "offline (gn, ns, fast rng: K6)": (
+                make_solver(env, "cuda", rng_mode="fast", name="covo_offline")[0], k6)}
+    for label, (solver, kernel) in runs.items():
+        res, counts = batched_run(env, label, solver, [kernel], kernel_list,
+                                  ERR_POS_LIMIT_CM)
+        launches[kernel.symbol][f"13b {label}"] = counts[kernel.symbol]
+        check(res.mean < mppi_5e, f"{label}: err_pos below MPPI's phase-5e row "
+              f"({100 * mppi_5e:.2f} cm)")
+
+    phase("phase 13c: JAX's key schedule in the batched protocol (MPPI parity: K6, nhd)")
+    mppi_parity = get_solver(env, "mppi", pstr, rng_mode="parity", engine="cuda",
+                             collect_debug=False)[0]
+    reset_keys, run_keys = batched_keys(1, 0, TWIN_B, dev)
+    _, info_b, states = BatchedEnv(env).reset(reset_keys, p)
+    same = all(trees_equal(index(states, b), env.reset(reset_keys[b], p)[2])
+               for b in range(TWIN_B))
+    check(same, "each episode's reset state equals the single keyed reset's bit for bit")
+    res, counts = batched_run(env, "MPPI parity", mppi_parity, [k6], kernel_list,
+                              MPPI_ERR_POS_LIMIT_CM)
+    launches[k6.symbol]["13c MPPI parity"] = counts[k6.symbol]
+    for B in (2, TWIN_B):
+        hessian_graph_row(env, dev, B)
+    say("  one full-width batched CoVO parity solve (fwd_fwd, eigh), B=2, against the "
+        "single parity solve of each episode")
+    solve = make_batched_covo_solve(env, N, H, 0.01, rng="parity", hessian_mode="fwd_fwd",
+                                    engine="cuda", sigma_mode="eigh")
+    single, cp = get_solver(env, "covo_online", pstr, rng_mode="parity", engine="cuda",
+                            collect_debug=False)
+    keys = first_rng_act(run_keys[:2])
+    info2 = {"noisy_state": index(info_b["noisy_state"], slice(0, 2))}
+    means, _ = solve(*_solve_inputs(None, info2), cp.a_mean.expand(2, H, 4).contiguous(),
+                     expand_params(p, 2), key=keys)
+    errs = []
+    for b in range(2):
+        one = index(info2, b)
+        _, cp_b, _ = single(None, one["noisy_state"], p, cp, one, key=keys[b])
+        errs.append(max_err(means[b], cp_b.a_mean))
+    say(f"  max |batched - single| of the new means: {errs}")
+    check(max(errs) <= 2e-4, "batched CoVO parity solve within 2e-4 of the single solves")
+
+    phase(f"phase 13d: run_supervised(MPPI parity, total_steps={KEY_MPPI_STEPS}, "
+          "chunk_episodes=2) with a fault injected at chunk 1")
+    if "12d mppi parity" not in refs:
+        refs["12d mppi parity"] = closed_loop(env, mppi_parity, KEY_MPPI_STEPS,
+                                              kernel_list)[0]
+    ref = refs["12d mppi parity"]
+    faults = []
+
+    def fault(chunk, attempt):
+        if chunk == 1 and attempt == 0:
+            faults.append(chunk)
+            raise RuntimeError("injected fault at chunk 1")
+
+    for k in kernel_list:
+        k.launches = 0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as ckpt:
+        sup = run_supervised(env, mppi_parity, total_steps=KEY_MPPI_STEPS, seed=1,
+                             checkpoint_dir=ckpt, chunk_episodes=2, max_retries=1,
+                             _fault_hook=fault)
+    launches[k4.symbol]["13d supervised MPPI parity"] = k4.launches
+    say(f"  {sup.summary()} in {time.perf_counter() - t0:.1f} s; phase 12d's evaluate "
+        f"{ref.summary()}; events {[e['kind'] for e in sup.events]}")
+    check(faults == [1] and torch.equal(sup.err_pos_ep.float(), ref.err_pos_ep),
+          "the supervised run, retried after the fault, equals phase 12d's evaluate bit "
+          "for bit")
+
+    phase("phase 13e: render_episode(MPPI parity), 300 steps, captured, against eager")
+    for k in kernel_list:
+        k.launches = 0
+    t0 = time.perf_counter()
+    trace = render_episode(env, mppi_parity, seed=1)
+    launches[k4.symbol]["13e render MPPI parity"] = k4.launches
+    wall = time.perf_counter() - t0
+    with debug.debug_mode(nans=False):
+        eager = render_episode(env, mppi_parity, seed=1, steps=RENDER_CHECK_STEPS)
+    same = all(np.array_equal(trace[k][:RENDER_CHECK_STEPS], v) for k, v in eager.items())
+    finite = all(np.isfinite(v).all() for v in trace.values() if v.dtype.kind == "f")
+    say(f"  {wall:.1f} s, mean err_pos {100 * float(trace['err_pos'].mean()):.2f} cm, "
+        f"finite {finite}; the first {RENDER_CHECK_STEPS} steps equal eager: {same}")
+    check(finite and trace["err_pos"].shape == (300,), "render: 300 finite steps")
+    check(same, f"render: the captured recorder equals the eager one over the first "
+          f"{RENDER_CHECK_STEPS} steps bit for bit")
+    say(f"  launches in phase 13: {launches}")
+    say(f"  phase 13 wall {time.perf_counter() - t_phase:.1f} s (13a {t_a:.1f} s)")
+    return launches
+
+
+def first_rng_act(keys):
+    """Each episode's ``rng_act`` of the first step of JAX's episode chain
+    from its run key: ``rng_control, rng = split(key)``, then ``rng,
+    rng_act, ... = split(rng, 4)``."""
+    from covo_mpc_tpu_torch.utils import prng
+
+    rng = prng.split(keys)[..., 1, :]
+    return prng.split(rng, 4)[..., 1, :]
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--total-steps", type=int, default=1200,
                     help="length of the closed loops that do not run the "
                          "40-episode protocol (CoVO online, MPPI kernel rng and "
                          "speculative run PROTOCOL_STEPS)")
+    ap.add_argument("--phase13", action="store_true",
+                    help="build the kernels and run phase 13 alone (a quick check of "
+                         "the batched modes, the supervisors and render; no kernels "
+                         "record, no result line)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -3138,7 +3519,10 @@ def main(argv=None) -> int:
                                     rollout_cuda.SAMPLE_BATCHED_KERNEL,
                                     rollout_cuda.JOINT_BATCHED_KERNEL,
                                     covariance_cuda.SIGMA_KERNEL]
-    records = {}
+    records, refs = {}, {}
+    if args.phase13:
+        phase_batched_modes(env, dev, kernel_list, refs)
+        return 0
     phase_kernels(env, dev, records)
     phase_chain_kernels(dev, records, earlier, probe, clock_mhz)
     phase_rollout_kernels(dev, records, earlier_rollout, probe, clock_mhz)
@@ -3155,7 +3539,7 @@ def main(argv=None) -> int:
     phase_scenario_timing(env_dr, dev)
     profile_batched(env_dr, dev)
     # the batched kernels' launches are read from the batched protocol
-    launches.update(phase_batched_protocol(env, kernel_list))
+    launches.update(phase_batched_protocol(env, kernel_list, refs))
     phase_sigma_kernel(env, dev, records)
     phase_sigma_solves(env, dev, kernel_list)
     launches.update(phase_mode_loops(env, args.total_steps, kernel_list, covo_kernels))
@@ -3170,7 +3554,9 @@ def main(argv=None) -> int:
     phase_sweeps(kernel_list, records)
     phase_bench(captured["covo_online (gn, ns, kernel rng: the main path)"])
     records[rollout_cuda.ROLLOUT_KERNEL.symbol]["key_tree_launches"] = phase_key_tree(
-        env, dev, kernel_list)
+        env, dev, kernel_list, refs)
+    for symbol, counts in phase_batched_modes(env, dev, kernel_list, refs).items():
+        records[symbol]["batched_modes_launches"] = counts
     phase("done")
 
     say(json.dumps({"kernels": [

@@ -35,7 +35,10 @@ so. Each row, on the card:
   reads its rate from device timestamps of a trace (``time_trace``); on
   the H100 a profiler session slows each replay of a captured graph (the
   host's graph launch is instrumented node by node), so the traced wall,
-  printed beside, times a slower run than the one a user gets.
+  printed beside, times a slower run than the one a user gets. The
+  headline row and the latency pass time ``graphs.SETTLE_S`` after their
+  last capture: for up to ~28 s after one the H100 ran every replay ~11%
+  slower; the other rows may read that spell.
 
 On the CPU the rate is ``time_slope``'s (method ``host_slope``). Rows go to
 stderr; the last stdout line is one JSON object with ``bench.py``'s record
@@ -173,7 +176,7 @@ def chain_runner(step, carry0):
 
 def measure_solve_rate(fn, owner, call, carry_of, carry0, card: bool, k: int = 32,
                        reps: int = 5, eager: Optional[str] = None,
-                       launch_counts: Optional[dict] = None):
+                       launch_counts: Optional[dict] = None, settle: bool = False):
     """Per-solve seconds of ``fn`` in chains of 8k solves: ``call(f, carry)``
     runs f on the row's arguments and ``carry_of(out)`` is the carry the next
     solve takes; ``owner`` is the solver whose random streams ``fn`` draws
@@ -181,9 +184,10 @@ def measure_solve_rate(fn, owner, call, carry_of, carry0, card: bool, k: int = 3
     ``eager`` says why it cannot be (a failed capture raises: it can leave
     the CUDA libraries' handles unusable); profiler sessions of a short
     chain come first (:func:`traced_chain`: the device seconds a solve),
-    then the rate by CUDA events, the median of 4 chains (``time_chained``). On the
-    CPU the rate is ``time_slope``'s. Returns a dict: ``per_solve`` (s),
-    ``method``, ``overhead`` (s, the slope's), ``label`` (captured / eager),
+    then the rate by CUDA events, the median of 4 chains (``time_chained``),
+    with ``settle`` only after ``graphs.settle()`` (the card's slow spell
+    after a capture). On the CPU the rate is ``time_slope``'s. Returns a
+    dict: ``per_solve`` (s), ``method``, ``overhead`` (s, the slope's), ``label`` (captured / eager),
     ``nodes``, ``chain`` (solves a timed chain) and :func:`traced_chain`'s
     keys (``launch_counts``: the kernels' counts at the row's shapes,
     :func:`row_counts`)."""
@@ -203,6 +207,8 @@ def measure_solve_rate(fn, owner, call, carry_of, carry0, card: bool, k: int = 3
     row.update(traced_chain(step, carry0, row["nodes"], launch_counts))
     if row["nodes"] is None:  # eager: keep a chain to about TRACE_OPS device ops
         row["chain"] = min(8 * k, max(2, TRACE_OPS // row["ops"]))
+    if settle:
+        graphs.settle()
     per = profiling.time_chained(step, carry0, iters=4, k=row["chain"])["p50"]
     return {**row, "per_solve": per, "method": "events"}
 
@@ -305,8 +311,9 @@ def _card(env) -> bool:
 
 
 def _solve_row(env, args, controller, engine, sigma_mode="ns", rng_mode=None,
-               hessian_mode="adjoint") -> dict:
-    """:func:`bench_one`'s measurement and its stderr line; returns the row."""
+               hessian_mode="adjoint", settle: bool = False) -> dict:
+    """:func:`bench_one`'s measurement and its stderr line; returns the row
+    (``settle``: :func:`measure_solve_rate`'s, the headline row's)."""
     from covo_mpc_tpu_torch.solvers import get_solver
 
     rng_mode = rng_mode or "fast"
@@ -322,7 +329,7 @@ def _solve_row(env, args, controller, engine, sigma_mode="ns", rng_mode=None,
     # torch.linalg.eigh reads its solver's status on the host: no capture
     eager = "eigh checks its result on the host" if sigma_mode == "eigh" else None
     r = measure_solve_rate(fn, solver, call, carry_of, carry0, _card(env), k=args.k,
-                           eager=eager, launch_counts=row_counts(env, args))
+                           eager=eager, launch_counts=row_counts(env, args), settle=settle)
     per = r["per_solve"]
     tag = f"{engine}+krng" if rng_mode == "kernel" else engine
     if rng_mode in sampling.KEY_MODES:
@@ -517,7 +524,8 @@ def bench_latency(env, args, iters: int = 60, chain: int = 256) -> dict:
     - the round trip, reported apart: an empty captured replay plus a
       one-element copy to the host (on the CPU an empty op).
 
-    The profiler sessions run before the timing loops. Returns
+    The profiler sessions run before the timing loops, which start after
+    ``graphs.settle()`` on the card. Returns
     ``{"covo_online": ..., "covo_speculative_act": ...}``, each with
     ``per_solve`` (None on the CPU), ``chain_mean``, ``host_dispatch`` and
     ``rtt``."""
@@ -547,10 +555,11 @@ def bench_latency(env, args, iters: int = 60, chain: int = 256) -> dict:
         if card:
             traced[name] = traced_marker(step, cp0, profiling.graph_nodes(fn), name)
         out[name] = {"per_solve": None}
-    # the timing loops, after every profiler session
+    # the timing loops, after every profiler session and the slow spell
     if card:
         x = torch.zeros((), dtype=torch.int32, device=env.device)
         empty = graphs.capture(lambda v: v + 1, x)
+        graphs.settle()
         rtt = profiling.time_blocking(lambda: empty(x), iters, 3)
     else:
         x = torch.zeros((), dtype=torch.int32)
@@ -626,7 +635,8 @@ def main(argv=None) -> int:
         headline_rng = "fast"  # the in-kernel draw needs the kernels
     row = _solve_row(env, args, args.controller, args.engine, rng_mode=headline_rng,
                      hessian_mode=args.hessian_mode,
-                     sigma_mode="eigh" if headline_rng == sampling.PARITY else "ns")
+                     sigma_mode="eigh" if headline_rng == sampling.PARITY else "ns",
+                     settle=True)
     rate = 1.0 / row["per_solve"]
     mode = args.engine
     if headline_rng == "kernel":

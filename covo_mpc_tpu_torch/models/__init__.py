@@ -1,7 +1,9 @@
-"""Physics core: structs, rotation math, dynamics, trajectories, rewards, env."""
+"""Physics core: structs, rotation math, dynamics, trajectories, rewards, env,
+the episode-log wrapper and the reference's small utilities."""
 
-from covo_mpc_tpu_torch.models import dynamics, rewards, rotation, trajectory
+from covo_mpc_tpu_torch.models import dynamics, misc, rewards, rotation, trajectory
 from covo_mpc_tpu_torch.models.quad_env import EnvConfig, QuadEnv
+from covo_mpc_tpu_torch.models.wrappers import LogEnvState, LogWrapper
 from covo_mpc_tpu_torch.models.structs import (
     PACKED_STATE_DIM,
     EnvParams3D,
@@ -16,9 +18,12 @@ __all__ = [
     "EnvConfig",
     "EnvParams3D",
     "EnvState3D",
+    "LogEnvState",
+    "LogWrapper",
     "PACKED_STATE_DIM",
     "QuadEnv",
     "dynamics",
+    "misc",
     "pack_state",
     "params_from_numpy",
     "rewards",

@@ -15,12 +15,15 @@ episode's trajectory does not depend on the other episodes of its batch.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
 
 import torch
 
 from covo_mpc_tpu_torch.models.quad_env import QuadEnv, ResetDraws, StepDraws
 from covo_mpc_tpu_torch.models.structs import EnvParams3D, stack, tree_select, vmap_trees
+from covo_mpc_tpu_torch.utils import prng
+
+Source = Union[Sequence[torch.Generator], torch.Tensor]
 
 
 class BatchedEnv:
@@ -33,12 +36,16 @@ class BatchedEnv:
     def _params(self, params: Optional[EnvParams3D]) -> EnvParams3D:
         return self.env.default_params if params is None else params
 
-    # -- draws: one per episode, from the episode's own generator --------------
-    def draw_reset(self, gens: Sequence[torch.Generator]) -> ResetDraws:
-        return stack([self.env.draw_reset(g) for g in gens])
+    # -- draws: one per episode, from the episode's own generator or key -------
+    def draw_reset(self, src: Source) -> ResetDraws:
+        if prng.is_key(src):
+            return vmap_trees(self.env.draw_reset, (src,))
+        return stack([self.env.draw_reset(g) for g in src])
 
-    def draw_step(self, gens: Sequence[torch.Generator]) -> StepDraws:
-        return stack([self.env.draw_step(g) for g in gens])
+    def draw_step(self, src: Source) -> StepDraws:
+        if prng.is_key(src):
+            return vmap_trees(self.env.draw_step, (src,))
+        return stack([self.env.draw_step(g) for g in src])
 
     # -- pure: given draws --------------------------------------------------------
     def reset_from_draws(self, draws: ResetDraws, params: Optional[EnvParams3D] = None):
@@ -62,15 +69,20 @@ class BatchedEnv:
         return vmap_trees(one, (step_draws, reset_draws, state, action),
                           (self._params(params),))
 
-    # -- from generators -------------------------------------------------------------
-    def reset(self, gens: Sequence[torch.Generator], params: Optional[EnvParams3D] = None):
-        """Each episode's reset from its generator: (obs, info, state)."""
-        return self.reset_from_draws(self.draw_reset(gens), params)
+    # -- from generators or keys ------------------------------------------------------
+    def reset(self, src: Source, params: Optional[EnvParams3D] = None):
+        """Each episode's reset from its generator or key: (obs, info, state)."""
+        return self.reset_from_draws(self.draw_reset(src), params)
 
-    def step(self, gens: Sequence[torch.Generator], state, action: torch.Tensor,
+    def step(self, src: Source, state, action: torch.Tensor,
              params: Optional[EnvParams3D] = None):
         """Each episode's auto-resetting step: its step draws, then its reset
-        draws, from its generator (the order of :meth:`QuadEnv.step`)."""
-        draws = [(self.env.draw_step(g), self.env.draw_reset(g)) for g in gens]
+        draws, from its generator (the order of :meth:`QuadEnv.step`), or
+        from its key split as JAX's step splits it (``key, key_reset``)."""
+        if prng.is_key(src):
+            step_keys, reset_keys = prng.split(src).unbind(-2)
+            return self.step_from_draws(self.draw_step(step_keys),
+                                        self.draw_reset(reset_keys), state, action, params)
+        draws = [(self.env.draw_step(g), self.env.draw_reset(g)) for g in src]
         return self.step_from_draws(stack([d[0] for d in draws]),
                                     stack([d[1] for d in draws]), state, action, params)

@@ -99,8 +99,6 @@ class QuadEnv:
         self.disturb_fn = dynamics.get_disturb_fn(config.disturb_type)
         if config.lower_controller != "base":
             raise NotImplementedError("only the 'base' lower controller is supported")
-        if config.substeps != 1:
-            raise NotImplementedError("only substeps=1 is ported")
         obs = {
             "quad": (self.get_obs_quadonly, 19 + self._traj_obs_len * 6),
             "quad_params": (self.get_obs_quad_params,
@@ -314,6 +312,15 @@ class QuadEnv:
             action_hist=torch.cat([state.action_hist[1:], normed_action[None]]),
         )
 
+    def model_step(self, state: EnvState3D, action: torch.Tensor, params: EnvParams3D,
+                   disturb_draw: Optional[torch.Tensor]) -> EnvState3D:
+        """``config.substeps`` calls of :meth:`raw_step` on one action under one
+        disturbance draw (JAX scans the lower controller, "base": the
+        identity, and ``raw_step`` under one key; quad_env.py:272-280)."""
+        for _ in range(self.config.substeps):
+            state = self.raw_step(state, action, params, disturb_draw)
+        return state
+
     def step_from_draws(self, draws: StepDraws, state: EnvState3D,
                         action: torch.Tensor, params: EnvParams3D,
                         deterministic: bool = False):
@@ -322,7 +329,7 @@ class QuadEnv:
         action = torch.clamp(action, -1.0, 1.0)
         if deterministic:
             params = params.replace(dyn_noise_scale=params.dyn_noise_scale * 0.0)
-        next_state = self.raw_step(state, action, params, draws.disturb)
+        next_state = self.model_step(state, action, params, draws.disturb)
         reward = self.reward_fn(state, params)
         done = self.is_terminal(state, params)
         info = self.get_info(state, next_state, params, draws.obs_noise)

@@ -188,6 +188,13 @@ def stack_params(params: Sequence[EnvParams3D]) -> EnvParams3D:
     })
 
 
+def expand_params(params: EnvParams3D, B: int) -> EnvParams3D:
+    """One params for B scenarios, as the batched solves take them: each
+    tensor leaf expanded to a leading B axis (a view, no copy)."""
+    return params.replace(**{k: v.expand(B, *v.shape)
+                             for k, v in float_leaves(params).items()})
+
+
 def index_params(params_b: EnvParams3D, b: int) -> EnvParams3D:
     """Scenario ``b`` of parameters batched by :func:`stack_params`."""
     return params_b.replace(**{k: v[b] for k, v in float_leaves(params_b).items()})

@@ -37,8 +37,6 @@ INVARIANT = "invariant"
 KERNEL = "kernel"
 # the modes that draw from a JAX key, as JAX does (the others from generators)
 KEY_MODES = (PARITY, INVARIANT)
-# where the key schedule's forms outside runtime.eval.evaluate are queued
-KEY_ITEM = 'ROADMAP.md queue 1, "key-drawing controllers in render, the supervisors and the batched protocol"'
 
 _MASK64 = (1 << 64) - 1
 

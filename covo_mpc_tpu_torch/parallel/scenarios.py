@@ -1,4 +1,5 @@
-"""Scenario-batched CoVO-online and MPPI solves on one device.
+"""Scenario-batched CoVO and MPPI solves on one device, and each controller's
+batched twin.
 
 Counterpart of :func:`covo_mpc_tpu.parallel.scenarios.make_batched_covo_solve`
 and :func:`~covo_mpc_tpu.parallel.scenarios.make_batched_mppi_solve`: one
@@ -9,11 +10,15 @@ scenario. Every op is batched over the leading scenario axis; nothing loops
 over B in Python:
 
 - the Hessian is the plain primal and chain under ``torch.func.vmap``
-  (``ops/hessian.make_hessian_batched``; JAX vmaps its scan primal);
-- the Newton–Schulz designer runs on the (B, D, D) stack;
-- the rollout is K6 (``engine="cuda"``, given actions) or K7 (``rng=
-  "kernel"``: per-step draw for MPPI, joint draw for CoVO, one launch over
-  a (lane-tiles, B) grid), or the plain batched rollout (``engine="torch"``);
+  (``ops/hessian.make_hessian_batched``; JAX vmaps its scan primal), or a
+  reference estimator (``fwd_fwd``, ``fwd_rev``, ``sensitivity``) under
+  vmap (``ops/hessian.vmap_hessian``), as JAX vmaps them;
+- the Newton–Schulz designer, or ``eigh``, runs on the (B, D, D) stack;
+- the rollout is K6 (``engine="cuda"``, given actions: the fast and the
+  key-drawn samples, laid out ``nhd`` under parity as the single solver
+  lays them out) or K7 (``rng="kernel"``: per-step draw for MPPI, joint
+  draw for CoVO, one launch over a (lane-tiles, B) grid), or the plain
+  batched rollout (``engine="torch"``);
 - the weights and the updates reduce over each scenario's samples.
 
 K7's per-solve Philox key is a device word of the solve's seed stream
@@ -22,18 +27,32 @@ device each solve), and the fast sampler's normals and the per-scenario
 disturbance draws (MPPI's stochastic ones; under "periodic" / "mixed"
 CoVO's rollout and Hessian uniforms too) come from the solve's device
 generator, unless the caller hands them in (``z``, ``draws``,
-``hess_draws``). So a solve reads no value on the host and can be captured
-as a CUDA graph (``runtime/graphs.capture_solver``), as JAX jits it; its
-``random_streams()`` are registered with the graph. ``offset`` (an int or a
-0-d int32 device word) shifts K7's scenario slots: scenario b then draws as
-episode ``offset + b`` of the batched protocol. ``collect_metrics`` appends
-each scenario's solve metrics (and, for CoVO, its Sigma's;
-``runtime/metrics.py``) to the outputs, as JAX does.
+``hess_draws``). Under ``rng="parity"`` / ``"invariant"`` each scenario
+draws from its own JAX key (``key`` (B, 2), JAX's ``rng_act``) what the
+single solver draws from its key: the Hessian's draws from the key, the
+samples from ``split(key)[1]``, the rollout's draw from the chain after it
+(``utils/prng.py`` maps over the leading axis). So a solve reads no value
+on the host and can be captured as a CUDA graph
+(``runtime/graphs.capture_solver``), as JAX jits it; its
+``random_streams()`` are registered with the graph. The exception is
+``sigma_mode="eigh"``, which reads its status on the host: such a solve is
+not ``capturable`` and runs eagerly, its batched Hessian one replayed
+graph per B (``runtime/graphs.Graphed``), as the single eigh solve runs
+(a failed capture of eigh leaves cuSOLVER unusable, PERF.md §6); a
+reference estimator's batched Hessian is such a graph in every solve, as
+the single solver's.
+``offset`` (an int or a 0-d int32 device word) shifts K7's scenario slots:
+scenario b then draws as episode ``offset + b`` of the batched protocol.
+``collect_metrics`` appends each scenario's solve metrics (and, for CoVO,
+its Sigma's; ``runtime/metrics.py``) to the outputs, as JAX does.
 
 :func:`batched_controller` maps a controller to its batched twin, the form
 ``runtime/eval.evaluate_batched`` steps B episodes with (JAX vmaps the
-controller itself). The multichip steps (``make_multichip_control_step``,
-``make_multichip_covo_step``) are not ported.
+controller itself): CoVO online, speculative (``act`` then ``prepare``
+over B) and offline (the B episodes' Sigma schedules at reset), MPPI, PID
+and Random, in every rng mode. The multichip steps
+(``make_multichip_control_step``, ``make_multichip_covo_step``) are not
+ported.
 """
 
 from __future__ import annotations
@@ -43,27 +62,43 @@ from typing import Optional
 import torch
 
 from covo_mpc_tpu_torch.models.structs import (
-    EnvParams3D,
-    float_leaves,
+    expand_params,
     pack_state,
     stack,
+    tree_flatten,
+    tree_unflatten,
     vmap_trees,
 )
 from covo_mpc_tpu_torch.ops import covariance, reductions, sampling
-from covo_mpc_tpu_torch.ops.hessian import make_hessian_batched
-from covo_mpc_tpu_torch.ops.rollout import make_rollout_batched
+from covo_mpc_tpu_torch.ops.hessian import (
+    make_hessian_batched,
+    make_hessian_sensitivity,
+    vmap_hessian,
+)
+from covo_mpc_tpu_torch.ops.rollout import (
+    hessian_draws_from_key,
+    make_hessian_cost,
+    make_rollout_batched,
+)
 from covo_mpc_tpu_torch.ops.rollout_cuda import (
     Offset,
     make_rollout_batched_costs,
     make_rollout_batched_sampling,
 )
-from covo_mpc_tpu_torch.runtime import metrics
+from covo_mpc_tpu_torch.runtime import graphs, metrics
 from covo_mpc_tpu_torch.solvers.base import RandomSolver, resolve_engine
-from covo_mpc_tpu_torch.solvers.covo import CoVOSolver
+from covo_mpc_tpu_torch.solvers.covo import SPECULATIVE_FOLD, CoVOSolver
 from covo_mpc_tpu_torch.solvers.mppi import MPPISolver
 from covo_mpc_tpu_torch.solvers.pid import PIDSolver
+from covo_mpc_tpu_torch.utils import prng
 
-_RNGS = (sampling.FAST, sampling.KERNEL)
+_RNGS = (sampling.FAST, sampling.KERNEL, sampling.PARITY, sampling.INVARIANT)
+# the offline twin designs its B episodes' schedules (B x max_steps states)
+# in slices of this many states, which bounds the Hessians' intermediates
+# (a reference estimator holds (states, D, D, 16) tangents)
+OFFLINE_SLICE = 1200
+NS_PALLAS_ITEM = ("a batched K8 (one cluster a scenario) is ROADMAP.md queue 2 part B, "
+                  "taken only with a measured case")
 
 
 def _shift(x: torch.Tensor) -> torch.Tensor:
@@ -74,16 +109,24 @@ def _shift(x: torch.Tensor) -> torch.Tensor:
 
 def _check(rng: str, engine: str) -> None:
     if rng not in _RNGS:
-        raise ValueError(f"batched solve supports rng='fast'/'kernel', got {rng!r}")
+        raise ValueError(f"batched solve supports rng in {_RNGS}, got {rng!r}")
     if engine not in ("torch", "cuda"):
         raise ValueError(f"unknown engine {engine!r}")
     if engine == "torch" and rng == sampling.KERNEL:
         raise ValueError("rng='kernel' requires engine='cuda'")
 
 
+def _act_keys(key: torch.Tensor):
+    """JAX's chain from each scenario's ``rng_act`` (B, 2): ``key, act_key =
+    split(key)``, ``key, step_key = split(key)``; returns (act_key,
+    step_key)."""
+    rest, act_key = prng.split(key).unbind(-2)
+    return act_key, prng.split(rest)[..., 1, :]
+
+
 class _BatchedSolve:
-    """What both batched solves share: the rollout of given actions and the
-    generators."""
+    """What both batched solves share: the rollout of given actions, the
+    generators and the key check."""
 
     def __init__(self, env, N: int, H: int, lam: float, rng: str, engine: str,
                  seed: int, collect_metrics: bool = False):
@@ -92,6 +135,7 @@ class _BatchedSolve:
         self.N, self.H, self.lam = N, H, lam
         self.dA = env.action_dim
         self.rng, self.engine = rng, engine
+        self.draws_from_keys = rng in sampling.KEY_MODES
         self._rollout = (make_rollout_batched_costs(env) if engine == "cuda"
                          else make_rollout_batched(env))
         # K7's Philox keys, device words; the device generator for the fast
@@ -112,98 +156,178 @@ class _BatchedSolve:
         return self.env.draw_disturb(self.device_generator, *batch,
                                      deterministic=deterministic)
 
+    def _keys(self, key):
+        if key is None:
+            raise ValueError(f"batched solve: rng={self.rng!r} draws from JAX keys; "
+                             "pass key= (B, 2), each scenario's rng_act")
+        return key
+
 
 class BatchedCoVOSolve(_BatchedSolve):
     """``solve(x0s (B, 16), t0s (B,), pos_trajs (B, T, 3), vel_trajs,
     a_means (B, H, dA), params_b, gamma_mean=1.0, discount=1.0, z=None,
-    draws=None, hess_draws=None) -> (a_means_new (B, H, dA), min_costs
-    (B,)[, metrics])``: per scenario, the mean shift, the Hessian, the NS designer, the
-    joint sample + deterministic rollout, the weights and the γ-blended mean
-    update (CoVO re-designs Σ every solve, so no covariance is carried).
-    ``z`` (B, N, D) feeds given standard normals (tests hand in JAX's); K7
-    then runs its input-z mode. ``draws`` (B, 3) and ``hess_draws`` (B, H,
-    3) are the rollouts' and the Hessians' disturbance uniforms ("periodic"
-    / "mixed"; drawn here when not given). ``offset`` is K7's episode
-    offset (the module docstring). Under ``collect_metrics`` a
-    third output holds (B,) each of the cost min / mean / max, the ESS and
+    draws=None, hess_draws=None, offset=None, key=None) -> (a_means_new (B,
+    H, dA), min_costs (B,)[, metrics])``: per scenario, the mean shift, then
+    :meth:`design` (the Hessian, the designer) and :meth:`sample_update`
+    (the joint sample + deterministic rollout, the weights and the
+    γ-blended mean update). CoVO re-designs Sigma every solve, so no
+    covariance is carried. The speculative and offline twins call the two
+    halves apart. ``z`` (B, N, D) feeds given standard normals (tests hand
+    in JAX's; K7 then runs its input-z mode). ``draws`` (B, 3) and
+    ``hess_draws`` (B, H, 3) are the rollouts' and the Hessians' disturbance
+    uniforms ("periodic" / "mixed"; drawn here when not given). ``offset``
+    is K7's episode offset, ``key`` the scenarios' JAX keys under parity /
+    invariant (the module docstring). Under ``collect_metrics`` a third
+    output holds (B,) each of the cost min / mean / max, the ESS and
     Sigma's conditioning and log-determinant (from the factors, as JAX).
     """
 
     def __init__(self, env, N: int, H: int, lam: float, sample_sigma: float,
                  rng: str, hessian_mode: str, engine: str, seed: int,
-                 collect_metrics: bool = False):
-        if hessian_mode not in ("adjoint", "gn"):
-            raise ValueError(f"batched covo supports 'adjoint'/'gn', got "
-                             f"{hessian_mode!r}")
+                 collect_metrics: bool = False, sigma_mode: str = "ns"):
         # TF32 would truncate the designer's fp32 matmuls (see solvers/covo.py)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         super().__init__(env, N, H, lam, rng, engine, seed, collect_metrics)
         self.sample_sigma = sample_sigma
         self.D = H * self.dA
-        self._hessian = make_hessian_batched(
-            env, H, second_order=hessian_mode == "adjoint")
+        self.hessian_mode, self.sigma_mode = hessian_mode, sigma_mode
+        if sigma_mode == "ns":
+            self._optimize_sigma = covariance.optimize_sigma_ns
+        elif sigma_mode == "eigh":
+            self._optimize_sigma = covariance.optimize_sigma
+        elif sigma_mode == "ns_pallas":
+            raise NotImplementedError(
+                "no batched sigma_mode='ns_pallas': JAX cannot vmap K8's pallas_call on "
+                f"hardware either (covo_mpc_tpu/solvers/covo.py:83-90); {NS_PALLAS_ITEM}")
+        else:
+            raise ValueError(f"unknown sigma_mode {sigma_mode!r}")
+        # eigh reads its status on the host: the solve runs eagerly, its
+        # Hessian (a pure function of its inputs) one graph per B on the card;
+        # so do the reference estimators always, as the single solver's
+        # (torch.func's transforms cost the host seconds a call eagerly)
+        self.capturable = sigma_mode != "eigh"
+        hessian = _batched_hessian(env, H, hessian_mode)
+        self._hessian = (hessian if self.capturable and hessian_mode in ("gn", "adjoint")
+                         else graphs.Graphed(hessian))
         self._sampler = (make_rollout_batched_sampling(env, joint=True)
                          if rng == sampling.KERNEL else None)
+
+    def design(self, x0s, t0s, pos_trajs, vel_trajs, nominals, params_b,
+               hess_draws: Optional[torch.Tensor] = None, key=None):
+        """(a_covs, factors) (B, D, D) each around the nominals (B, H, dA) at
+        the states: the batched Hessian, then the designer on the stack.
+        Under parity / invariant the Hessian's draws come from ``key`` (B,
+        2), as the single solver's from its key."""
+        B = nominals.shape[0]
+        if hess_draws is None:
+            hess_draws = (hessian_draws_from_key(self.env, self._keys(key), self.H)
+                          if self.draws_from_keys
+                          else self._draw(B, self.H, deterministic=True))
+        R = self._hessian(nominals.reshape(B, self.D), x0s, t0s, pos_trajs, vel_trajs,
+                          params_b, hess_draws)
+        return self._optimize_sigma(R, self.sample_sigma, self.D)
+
+    def sample_update(self, x0s, t0s, pos_trajs, vel_trajs, a_means, a_covs, factors,
+                      params_b, gamma_mean=1.0, discount=1.0,
+                      z: Optional[torch.Tensor] = None,
+                      draws: Optional[torch.Tensor] = None, key=None,
+                      offset: Offset = None):
+        """The joint sample around the (shifted) means with each scenario's
+        factor, the deterministic rollout, the weights and the mean update:
+        returns (a_means_new (B, H, dA), costs (B, N), weights (B, N)).
+        Parity samples through ``cholesky(a_covs)`` sample-first, as the
+        single parity solver; the other modes through ``factors``."""
+        B, N, D, H, dA = a_means.shape[0], self.N, self.D, self.H, self.dA
+        kw = dict(deterministic=True, discount=discount)
+        act_key = None
+        if self.draws_from_keys:
+            act_key, step_key = _act_keys(self._keys(key))
+            if draws is None:
+                draws = self.env.disturb_from_key(step_key, deterministic=True,
+                                                  fast=self.rng != sampling.PARITY)
+        elif draws is None:
+            draws = self._draw(B, deterministic=True)
+        if self.rng == sampling.PARITY:
+            chol = torch.linalg.cholesky_ex(a_covs).L
+            if z is None:
+                z = prng.normal(prng.split(act_key, N), (D,))
+            a = torch.clamp(a_means.reshape(B, 1, D) + z @ chol.mT, -1.0, 1.0)
+            a = a.reshape(B, N, H, dA)
+            costs = self._rollout(x0s, t0s, pos_trajs, vel_trajs, a, params_b, draws,
+                                  layout="nhd", **kw)
+            a_t = a.permute(0, 2, 3, 1)
+        elif self._sampler is not None:
+            costs, a_t = self._sampler(
+                x0s, t0s, pos_trajs, vel_trajs, a_means, factors, params_b,
+                self.seeds.next()[0], N, draws=draws,
+                z=None if z is None else z.transpose(1, 2).contiguous(),
+                offset=offset, **kw)
+        else:
+            if z is None and act_key is not None:
+                z = sampling.std_normal_invariant(act_key, N, (D,))
+            a_t = torch.clamp(
+                sampling.sample_joint_t(self.device_generator, a_means.reshape(B, D),
+                                        factors, N, z=z),
+                -1.0, 1.0,
+            )
+            costs = self._rollout(x0s, t0s, pos_trajs, vel_trajs, a_t, params_b, draws,
+                                  layout="hdn", **kw)
+        weights = reductions.mppi_weights(costs, self.lam)
+        a_means_new = reductions.mean_update_t(
+            weights, a_t.reshape(B, H, dA, N), a_means, gamma_mean)
+        return a_means_new, costs, weights
 
     def __call__(self, x0s, t0s, pos_trajs, vel_trajs, a_means, params_b,
                  gamma_mean=1.0, discount=1.0,
                  z: Optional[torch.Tensor] = None,
                  draws: Optional[torch.Tensor] = None,
                  hess_draws: Optional[torch.Tensor] = None,
-                 offset: Offset = None):
-        B, N, D = a_means.shape[0], self.N, self.D
+                 offset: Offset = None, key=None):
         a_means = _shift(a_means)
-        if hess_draws is None:
-            hess_draws = self._draw(B, self.H, deterministic=True)
-        if draws is None:
-            draws = self._draw(B, deterministic=True)
-        R = self._hessian(a_means.reshape(B, D), x0s, t0s, pos_trajs,
-                          vel_trajs, params_b, hess_draws)
-        _, factors = covariance.optimize_sigma_ns(R, self.sample_sigma, D)
-        if self._sampler is not None:
-            costs, a_t = self._sampler(
-                x0s, t0s, pos_trajs, vel_trajs, a_means, factors, params_b,
-                self.seeds.next()[0], N, deterministic=True, discount=discount,
-                draws=draws,
-                z=None if z is None else z.transpose(1, 2).contiguous(),
-                offset=offset,
-            )
-        else:
-            a_t = torch.clamp(
-                sampling.sample_joint_t(self.device_generator,
-                                        a_means.reshape(B, D), factors, N, z=z),
-                -1.0, 1.0,
-            )
-            costs = self._rollout(x0s, t0s, pos_trajs, vel_trajs, a_t, params_b,
-                                  draws, deterministic=True, discount=discount,
-                                  layout="hdn")
-        weights = reductions.mppi_weights(costs, self.lam)
-        a_means_new = reductions.mean_update_t(
-            weights, a_t.reshape(B, self.H, self.dA, N), a_means, gamma_mean)
+        a_covs, factors = self.design(x0s, t0s, pos_trajs, vel_trajs, a_means, params_b,
+                                      hess_draws, key)
+        a_means_new, costs, weights = self.sample_update(
+            x0s, t0s, pos_trajs, vel_trajs, a_means, a_covs, factors, params_b,
+            gamma_mean, discount, z, draws, key, offset)
         if self.collect_metrics:
             return a_means_new, torch.amin(costs, dim=-1), {
-                **metrics.solve_metrics_sharded(costs, weights, None, N),
+                **metrics.solve_metrics_sharded(costs, weights, None, self.N),
                 **metrics.sigma_metrics(factors @ factors.transpose(-1, -2)),
             }
         return a_means_new, torch.amin(costs, dim=-1)
 
 
+def _batched_hessian(env, H: int, hessian_mode: str):
+    """The Hessian at B points at once by the named estimator: the plain
+    adjoint / Gauss–Newton chassis (:func:`make_hessian_batched`), or a
+    reference estimator under vmap."""
+    if hessian_mode in ("adjoint", "gn"):
+        return make_hessian_batched(env, H, second_order=hessian_mode == "adjoint")
+    if hessian_mode == "sensitivity":
+        return vmap_hessian(make_hessian_sensitivity(env, H))
+    if hessian_mode in (covariance.FWD_FWD, covariance.FWD_REV):
+        return vmap_hessian(covariance.make_hessian(make_hessian_cost(env, H),
+                                                    hessian_mode))
+    raise ValueError(f"unknown hessian_mode {hessian_mode!r}")
+
+
 class BatchedMPPISolve(_BatchedSolve):
     """``solve(x0s, t0s, pos_trajs, vel_trajs, a_means (B, H, dA), a_covs
     (B, H, dA, dA), params_b, gamma_mean=1.0, gamma_sigma=0.0, discount=1.0,
-    z=None, draws=None) -> (a_means_new, a_covs_new, min_costs (B,)[,
-    metrics])``: per
-    scenario, the shift of mean AND covariance, the per-step sample (factors
-    by ``cholesky_ex`` of the shifted covariances, as JAX factors them every
-    solve) + stochastic rollout under one shared disturbance draw, the
-    weights, and the γ-blended mean and covariance updates (the covariance
-    untouched at γ_σ = 0). ``z`` (B, N, H, dA) and ``draws`` (B, 3) feed
-    given standard normals to the sampler and to each scenario's shared
-    disturbance; by default they come from the solve's generators.
-    ``offset`` is K7's episode offset (the module docstring). Under
-    ``collect_metrics`` a fourth output holds (B,) each of the cost min /
-    mean / max and the ESS.
+    z=None, draws=None, offset=None, key=None) -> (a_means_new, a_covs_new,
+    min_costs (B,)[, metrics])``: per scenario, the shift of mean AND
+    covariance, the per-step sample (factors by ``cholesky_ex`` of the
+    shifted covariances, as JAX factors them every solve) + stochastic
+    rollout under one shared disturbance draw, the weights, and the
+    γ-blended mean and covariance updates (the covariance untouched at γ_σ
+    = 0). ``z`` (B, N, H, dA) and ``draws`` (B, 3) feed given standard
+    normals to the sampler and to each scenario's shared disturbance; by
+    default they come from the solve's generators, or from ``key`` (B, 2)
+    under parity (a key a sample and a step, sample-first) and invariant (a
+    ``fold_in`` a sample). ``offset`` is K7's episode offset (the module
+    docstring). Under ``collect_metrics`` a fourth output holds (B,) each of
+    the cost min / mean / max and the ESS.
     """
 
     def __init__(self, env, N: int, H: int, lam: float, rng: str,
@@ -216,30 +340,45 @@ class BatchedMPPISolve(_BatchedSolve):
                  params_b, gamma_mean=1.0, gamma_sigma=0.0, discount=1.0,
                  z: Optional[torch.Tensor] = None,
                  draws: Optional[torch.Tensor] = None,
-                 offset: Offset = None):
+                 offset: Offset = None, key=None):
         B, N, H, dA = a_means.shape[0], self.N, self.H, self.dA
         a_means, a_covs = _shift(a_means), _shift(a_covs)
         chols = torch.linalg.cholesky_ex(a_covs).L.contiguous()
-        if draws is None:
+        kw = dict(deterministic=False, discount=discount)
+        act_key = None
+        if self.draws_from_keys:
+            act_key, step_key = _act_keys(self._keys(key))
+            if draws is None:
+                draws = self.env.disturb_from_key(step_key,
+                                                  fast=self.rng != sampling.PARITY)
+        elif draws is None:
             draws = self._draw(B, deterministic=False)
-        if self._sampler is not None:
+        if self.rng == sampling.PARITY:
+            if z is None:
+                # per sample a key, per step a key under it (reference mppi.py:53-65)
+                z = prng.normal(prng.split(prng.split(act_key, N), H), (dA,))
+            a = torch.clamp(a_means[:, None] + torch.einsum("bhij,bnhj->bnhi", chols, z),
+                            -1.0, 1.0)
+            costs = self._rollout(x0s, t0s, pos_trajs, vel_trajs, a, params_b, draws,
+                                  layout="nhd", **kw)
+            a_t = a.permute(0, 2, 3, 1)
+        elif self._sampler is not None:
             costs, a_flat = self._sampler(
                 x0s, t0s, pos_trajs, vel_trajs, a_means, chols, params_b,
-                self.seeds.next()[0], N, deterministic=False, discount=discount,
-                draws=draws,
+                self.seeds.next()[0], N, draws=draws,
                 z=None if z is None else z.permute(0, 2, 3, 1).contiguous(),
-                offset=offset,
-            )
+                offset=offset, **kw)
             a_t = a_flat.reshape(B, H, dA, N)
         else:
+            if z is None and act_key is not None:
+                z = sampling.std_normal_invariant(act_key, N, (H, dA))
             a_t = torch.clamp(
                 sampling.sample_per_step_t(self.device_generator, a_means, chols,
                                            N, z=z),
                 -1.0, 1.0,
             )
-            costs = self._rollout(x0s, t0s, pos_trajs, vel_trajs, a_t, params_b,
-                                  draws, deterministic=False, discount=discount,
-                                  layout="hdn")
+            costs = self._rollout(x0s, t0s, pos_trajs, vel_trajs, a_t, params_b, draws,
+                                  layout="hdn", **kw)
         weights = reductions.mppi_weights(costs, self.lam)
         a_means_new = reductions.mean_update_t(weights, a_t, a_means, gamma_mean)
         a_covs_new = reductions.cov_update_t(weights, a_t, a_means_new, a_covs,
@@ -255,17 +394,20 @@ def make_batched_covo_solve(env, N: int, H: int, lam: float,
                             collect_metrics: bool = False,
                             hessian_mode: str = "adjoint",
                             engine: str = "auto",
-                            seed: int = 0) -> BatchedCoVOSolve:
+                            seed: int = 0, sigma_mode: str = "ns") -> BatchedCoVOSolve:
     """Scenario-batched CoVO-online solve on one device (JAX:
     make_batched_covo_solve; ``interpret`` has no counterpart, ``engine``
     picks the CUDA kernels or the plain path, "auto" by the env's device).
     ``rng="kernel"`` runs K7 (joint), ``"fast"`` draws with torch and runs
     K6 (``engine="cuda"``) or the plain rollout (``engine="torch"``, which
-    takes ``rng="fast"`` only)."""
+    takes every rng but ``"kernel"``); ``"parity"`` / ``"invariant"`` draw
+    from each scenario's key. ``hessian_mode`` is any of the single
+    solver's estimators, ``sigma_mode`` "ns" or "eigh" (``"ns_pallas"``
+    raises: no batched K8)."""
     engine = resolve_engine(env, engine)
     _check(rng, engine)
     return BatchedCoVOSolve(env, N, H, lam, sample_sigma, rng, hessian_mode,
-                            engine, seed, collect_metrics)
+                            engine, seed, collect_metrics, sigma_mode)
 
 
 def make_batched_mppi_solve(env, N: int, H: int, lam: float,
@@ -274,7 +416,8 @@ def make_batched_mppi_solve(env, N: int, H: int, lam: float,
                             seed: int = 0) -> BatchedMPPISolve:
     """Scenario-batched MPPI solve on one device (JAX:
     make_batched_mppi_solve). ``rng="kernel"`` runs K7 (per-step), ``"fast"``
-    draws with torch and runs K6 or the plain rollout, as for CoVO."""
+    draws with torch and runs K6 or the plain rollout, as for CoVO;
+    ``"parity"`` / ``"invariant"`` draw from each scenario's key."""
     engine = resolve_engine(env, engine)
     _check(rng, engine)
     return BatchedMPPISolve(env, N, H, lam, rng, engine, seed, collect_metrics)
@@ -290,36 +433,44 @@ def _per_episode(gens, draw) -> Optional[torch.Tensor]:
     return None if out[0] is None else torch.stack(out)
 
 
-def _solve_inputs(state, info):
-    """(x0s, t0s, pos_trajs, vel_trajs) of the batched states the sampling
-    solvers act on: ``info["noisy_state"]`` where the env generates one."""
-    if info is not None and info.get("noisy_state") is not None:
-        state = info["noisy_state"]
+def _inputs(state) -> tuple:
+    """(x0s, t0s, pos_trajs, vel_trajs) of batched states."""
     return pack_state(state), state.time, state.pos_traj, state.vel_traj
 
 
-def _expand_params(params: EnvParams3D, B: int) -> EnvParams3D:
-    """One ``env_params`` for B episodes, as the batched solves take them:
-    each tensor leaf expanded (a view, no copy) to a leading B axis."""
-    return params.replace(**{k: v.expand(B, *v.shape)
-                             for k, v in float_leaves(params).items()})
+def _solve_inputs(state, info):
+    """:func:`_inputs` of the states the sampling solvers act on:
+    ``info["noisy_state"]`` where the env generates one."""
+    if info is not None and info.get("noisy_state") is not None:
+        state = info["noisy_state"]
+    return _inputs(state)
 
 
 class BatchedTwin:
-    """A controller's batched form (:func:`batched_controller`): ``reset(B)``
-    gives the carry of B fresh episodes, and ``twin(state, info, env_params,
-    carry, gens, offset) -> (actions (B, dA), carry)`` acts on B batched
-    states (``models/batched.py``) under one shared ``env_params``. ``gens``
-    are the episodes' own generators, one each, for the draws a solve takes
-    per episode (the fast sampler's normals, the disturbance draws), so an
-    episode's draws do not depend on its batch; ``offset`` is the first
-    episode's index, K7's episode offset. ``seed`` and ``random_streams``
-    are the solve's (a capture registers them)."""
+    """A controller's batched form (:func:`batched_controller`):
+    ``reset(B, state, env_params, src)`` gives the carry of B fresh episodes
+    at their reset states (None: the cold start), and ``twin(state, info,
+    env_params, carry, src, offset) -> (actions (B, dA), carry)`` acts on B
+    batched states (``models/batched.py``) under one shared ``env_params``.
+
+    ``src`` is what each episode draws from: for a controller that draws
+    from JAX keys (``draws_from_keys``), the episodes' keys (B, 2), JAX's
+    ``rng_control`` at reset and ``rng_act`` at a step, each drawn from as
+    the single controller draws from its key; otherwise the episodes' own
+    generators, one each, for the draws a solve takes per episode (the fast
+    sampler's normals, the disturbance draws), so an episode's draws do not
+    depend on its batch. ``offset`` is the first episode's index, K7's
+    episode offset. ``seed`` and ``random_streams`` are the solve's (a
+    capture registers them); a twin that is not ``capturable`` (the eigh
+    designer) runs eagerly on the card too."""
+
+    capturable = True
 
     def __init__(self, controller):
         self.controller = controller
         self.env = controller.env
         self.params = controller.init_control_params
+        self.draws_from_keys = getattr(controller, "draws_from_keys", False)
 
     def seed(self, seed: int) -> None:
         """Seed the solve's own streams (none here)."""
@@ -327,11 +478,15 @@ class BatchedTwin:
     def random_streams(self) -> list:
         return []
 
+    def _means(self, B: int) -> torch.Tensor:
+        return self.params.a_mean.expand(B, *self.params.a_mean.shape).clone()
+
 
 class _SolveTwin(BatchedTwin):
     def __init__(self, controller, solve):
         super().__init__(controller)
         self.solve = solve
+        self.capturable = getattr(solve, "capturable", True)
 
     def seed(self, seed: int) -> None:
         self.solve.seed(seed)
@@ -340,49 +495,214 @@ class _SolveTwin(BatchedTwin):
         return self.solve.random_streams()
 
 
-class BatchedCoVOTwin(_SolveTwin):
+class _CoVOTwin(_SolveTwin):
+    """What the CoVO twins share: each episode's draws for a solve's halves
+    (from its key, or its generator)."""
+
+    def _act_draws(self, src) -> dict:
+        """The inputs of one :meth:`BatchedCoVOSolve.sample_update`: the
+        keys, or per episode the fast sampler's normals (N, D) and, under
+        "periodic" / "mixed", the rollout's draw."""
+        if self.draws_from_keys:
+            return {"key": src}
+        env, solve, dev = self.env, self.solve, self.env.device
+        return {
+            "z": (_per_episode(src, lambda g: torch.randn(solve.N, solve.D, generator=g,
+                                                          device=dev))
+                  if solve.rng == sampling.FAST else None),
+            "draws": _per_episode(src, lambda g: env.draw_disturb(g, deterministic=True)),
+        }
+
+    def _design_draws(self, src) -> dict:
+        """The inputs of one :meth:`BatchedCoVOSolve.design`: the keys, or
+        per episode the Hessian's uniforms (H, 3) ("periodic" / "mixed")."""
+        if self.draws_from_keys:
+            return {"key": src}
+        H = self.solve.H
+        return {"hess_draws": _per_episode(
+            src, lambda g: self.env.draw_disturb(g, H, deterministic=True))}
+
+
+class BatchedCoVOTwin(_CoVOTwin):
     """CoVO online: :class:`BatchedCoVOSolve`; the carry is the means (B, H,
     dA). Per episode, its generator draws the fast sampler's normals (N, D)
-    and, under "periodic" / "mixed", the rollout's draw and the Hessian's."""
+    and, under "periodic" / "mixed", the rollout's draw and the Hessian's;
+    or its key, what the single solve draws from it."""
 
-    def reset(self, B: int):
-        return self.params.a_mean.expand(B, *self.params.a_mean.shape).clone()
+    def reset(self, B: int, state=None, env_params=None, src=None):
+        return self._means(B)
 
-    def __call__(self, state, info, env_params, a_means, gens, offset=None):
-        env, solve, dev = self.env, self.solve, self.env.device
-        z = (_per_episode(gens, lambda g: torch.randn(solve.N, solve.D, generator=g,
-                                                      device=dev))
-             if solve.rng == sampling.FAST else None)
-        draws = _per_episode(gens, lambda g: env.draw_disturb(g, deterministic=True))
-        hess_draws = _per_episode(
-            gens, lambda g: env.draw_disturb(g, solve.H, deterministic=True))
-        a_means, _ = solve(*_solve_inputs(state, info), a_means,
-                           _expand_params(env_params, len(gens)),
-                           self.params.gamma_mean, self.params.discount, z=z,
-                           draws=draws, hess_draws=hess_draws, offset=offset)
+    def __call__(self, state, info, env_params, a_means, src, offset=None):
+        B = a_means.shape[0]
+        a_means, _ = self.solve(*_solve_inputs(state, info), a_means,
+                                expand_params(env_params, B), self.params.gamma_mean,
+                                self.params.discount, offset=offset,
+                                **{**self._act_draws(src), **self._design_draws(src)})
         return a_means[:, 0], a_means
+
+
+class BatchedSpeculativeTwin(_CoVOTwin):
+    """CoVO speculative (JAX: ``act`` then ``prepare`` on the folded key,
+    vmapped; solvers/covo.py:222-277, 378-422): the carry is (means (B, H,
+    dA), a_covs, factors (B, D, D)), the Sigma designed last step for this
+    one. A step runs ``act`` over B (:meth:`BatchedCoVOSolve.sample_update`
+    with the carried factors: K7 joint under kernel rng, the sampler and K6
+    under fast), then ``prepare`` over B: one deterministic model step of
+    every episode with its action about to be applied (the env's
+    ``model_step`` under vmap), the batched Hessian there around the shifted
+    new means, and the designer on the stack. Under parity / invariant
+    ``prepare`` draws from ``fold_in(rng_act, 7919)``: ``key, k_step =
+    split(key)``, the model step's draw from ``k_step``, the Hessian's from
+    ``key``. ``reset`` designs step 0's Sigma of every episode at its reset
+    state around the shifted initial nominal."""
+
+    def reset(self, B: int, state=None, env_params=None, src=None):
+        means = self._means(B)
+        if state is None:  # the isotropic cold start
+            p = self.params
+            return (means, p.a_cov.expand(B, *p.a_cov.shape).clone(),
+                    p.a_factor.expand(B, *p.a_factor.shape).clone())
+        a_covs, factors = self.solve.design(*_inputs(state), _shift(means),
+                                            expand_params(env_params, B),
+                                            **self._design_draws(src))
+        return means, a_covs, factors
+
+    def __call__(self, state, info, env_params, carry, src, offset=None):
+        means, a_covs, factors = carry
+        B, env, p = means.shape[0], self.env, self.params
+        params_b = expand_params(env_params, B)
+        new, _, _ = self.solve.sample_update(
+            *_solve_inputs(state, info), _shift(means), a_covs, factors, params_b,
+            p.gamma_mean, p.discount, offset=offset, **self._act_draws(src))
+        if self.draws_from_keys:
+            key, k_step = prng.split(prng.fold_in(src, SPECULATIVE_FOLD)).unbind(-2)
+            draw = env.disturb_from_key(k_step, deterministic=True)
+            design_src = key
+        else:
+            draw = _per_episode(src, lambda g: env.draw_disturb(g, deterministic=True))
+            design_src = src
+        if draw is None:  # the deterministic gaussian step's zero draw
+            draw = new.new_zeros(B, 3)
+        observed = info["noisy_state"] if info.get("noisy_state") is not None else state
+        x_next = vmap_trees(lambda s, a, d, prm: env.model_step(s, a, prm, d),
+                            (observed, new[:, 0], draw), (env_params,))
+        a_covs, factors = self.solve.design(*_inputs(x_next), _shift(new), params_b,
+                                            **self._design_draws(design_src))
+        return new[:, 0], (new, a_covs, factors)
+
+
+class BatchedOfflineTwin(_CoVOTwin):
+    """CoVO offline (JAX: solvers/covo.py:280-374, vmapped): the carry is
+    (means (B, H, dA), a_cov_offline, a_factor_offline (B, max_steps, D,
+    D)). ``reset`` builds every episode's Sigma schedule: the PID expansion
+    episodes of the B reset states, one loop over time with the B episodes
+    stepped at once, then :meth:`CoVOSolver.offline_sigma_at` on the stack
+    of their B x max_steps states (nominal PID rollouts, the Hessians, the
+    controller's designer), in slices of :data:`OFFLINE_SLICE` states.
+    Under parity / invariant each episode's chain comes from its reset key
+    (``CoVOSolver.offline_schedule_keys`` over the leading axis); otherwise
+    its generator draws the expansion steps' disturbances (and, under
+    "periodic" / "mixed", the nominal rollouts' and Hessians' uniforms). A
+    step gathers each episode's ``a_cov_offline[time]`` and factor and
+    samples: K7 joint under kernel rng, the sampler and K6 under fast,
+    ``cholesky(a_cov)`` under parity. Its steps read the host nowhere, so
+    it is captured whatever the designer (eigh runs at reset only)."""
+
+    def __init__(self, controller, solve):
+        super().__init__(controller, solve)
+        self.capturable = True
+
+    def reset(self, B: int, state=None, env_params=None, src=None):
+        if state is None:
+            raise ValueError("the offline twin's reset builds each episode's Sigma "
+                             "schedule from its reset state: pass the B states")
+        solver, env, p = self.controller, self.env, self.params
+        T = env.default_params.max_steps_in_episode
+        if env_params is None:
+            env_params = env.default_params
+        keys = step_draws = hess_draws = None
+        if self.draws_from_keys:
+            keys, disturb = solver.offline_schedule_keys(src)  # (T, B, 2), (T, B, 3)
+        else:
+            disturb = _per_episode(src, lambda g: env.draw_disturb(g, T))
+            disturb = None if disturb is None else disturb.transpose(0, 1)
+        st, states = state, []
+        for t in range(T):
+            states.append(st)
+            action, _, _ = solver.expansion(None, st, env_params, solver.expansion_params)
+            st = vmap_trees(lambda s, a, d, prm: env.model_step(s, a, prm, d),
+                            (st, action, None if disturb is None else disturb[t]),
+                            (env_params,))
+        # (T, B, ...) -> the B episodes' schedules, episode-major (B T, ...)
+        leaves, spec = tree_flatten(stack(states))
+        flat = tree_unflatten(spec, [x.transpose(0, 1).reshape(B * T, *x.shape[2:])
+                                     for x in leaves])
+        if keys is not None:
+            keys = keys.transpose(0, 1).reshape(B * T, 2)
+        else:
+            H = solver.H
+            step_draws = _per_episode(src, lambda g: env.draw_disturb(
+                g, H, T, deterministic=True))
+            if step_draws is not None:  # (B, H, T, 3) -> (H, B T, 3)
+                step_draws = step_draws.transpose(0, 1).reshape(H, B * T, 3)
+                hess_draws = torch.stack([env.draw_disturb(g, T, H, deterministic=True)
+                                          for g in src]).reshape(B * T, H, 3)
+        covs, facs = [], []
+        for lo in range(0, B * T, OFFLINE_SLICE):
+            sl = slice(lo, lo + OFFLINE_SLICE)
+            c, f = solver.offline_sigma_at(
+                _slice_tree(flat, sl), env_params, p.sample_sigma,
+                None if keys is None else keys[sl],
+                None if step_draws is None else step_draws[:, sl],
+                None if hess_draws is None else hess_draws[sl])
+            covs.append(c)
+            facs.append(f)
+        D = solver.D
+        return (self._means(B), torch.cat(covs).reshape(B, T, D, D),
+                torch.cat(facs).reshape(B, T, D, D))
+
+    def __call__(self, state, info, env_params, carry, src, offset=None):
+        means, covs, facs = carry
+        B, p = means.shape[0], self.params
+        x0s, t0s, pos_trajs, vel_trajs = _solve_inputs(state, info)
+        idx = torch.clamp(t0s, 0, covs.shape[1] - 1).long()
+        b = torch.arange(B, device=idx.device)
+        new, _, _ = self.solve.sample_update(
+            x0s, t0s, pos_trajs, vel_trajs, _shift(means), covs[b, idx], facs[b, idx],
+            expand_params(env_params, B), p.gamma_mean, p.discount, offset=offset,
+            **self._act_draws(src))
+        return new[:, 0], (new, covs, facs)
+
+
+def _slice_tree(tree, sl: slice):
+    leaves, spec = tree_flatten(tree)
+    return tree_unflatten(spec, [x[sl] for x in leaves])
 
 
 class BatchedMPPITwin(_SolveTwin):
     """MPPI: :class:`BatchedMPPISolve`; the carry is (means (B, H, dA),
     covariances (B, H, dA, dA)). Per episode, its generator draws the fast
-    sampler's normals (N, H, dA) and the rollout's shared disturbance."""
+    sampler's normals (N, H, dA) and the rollout's shared disturbance; or
+    its key, what the single solve draws from it."""
 
-    def reset(self, B: int):
-        return (self.params.a_mean.expand(B, *self.params.a_mean.shape).clone(),
+    def reset(self, B: int, state=None, env_params=None, src=None):
+        return (self._means(B),
                 self.params.a_cov.expand(B, *self.params.a_cov.shape).clone())
 
-    def __call__(self, state, info, env_params, carry, gens, offset=None):
+    def __call__(self, state, info, env_params, carry, src, offset=None):
         env, solve, dev = self.env, self.solve, self.env.device
-        z = (_per_episode(gens, lambda g: torch.randn(solve.N, solve.H, solve.dA,
-                                                      generator=g, device=dev))
-             if solve.rng == sampling.FAST else None)
-        draws = _per_episode(gens, env.draw_disturb)
+        B = carry[0].shape[0]
+        if self.draws_from_keys:
+            kw = {"key": src}
+        else:
+            kw = {"z": (_per_episode(src, lambda g: torch.randn(
+                solve.N, solve.H, solve.dA, generator=g, device=dev))
+                if solve.rng == sampling.FAST else None),
+                "draws": _per_episode(src, env.draw_disturb)}
         p = self.params
         a_means, a_covs, _ = solve(*_solve_inputs(state, info), *carry,
-                                   _expand_params(env_params, len(gens)),
-                                   p.gamma_mean, p.gamma_sigma, p.discount, z=z,
-                                   draws=draws, offset=offset)
+                                   expand_params(env_params, B), p.gamma_mean,
+                                   p.gamma_sigma, p.discount, offset=offset, **kw)
         return a_means[:, 0], (a_means, a_covs)
 
 
@@ -390,10 +710,10 @@ class BatchedPIDTwin(BatchedTwin):
     """PID: its solve under ``torch.func.vmap`` over the episodes (no
     kernel, as in JAX); the carry is the stacked :class:`PIDParams`."""
 
-    def reset(self, B: int):
+    def reset(self, B: int, state=None, env_params=None, src=None):
         return stack([self.params] * B)
 
-    def __call__(self, state, info, env_params, carry, gens, offset=None):
+    def __call__(self, state, info, env_params, carry, src, offset=None):
         pid = self.controller
         action, carry, _ = vmap_trees(lambda s, c, p: pid(None, s, p, c),
                                       (state, carry), (env_params,))
@@ -401,45 +721,48 @@ class BatchedPIDTwin(BatchedTwin):
 
 
 class BatchedRandomTwin(BatchedTwin):
-    """Random: N(0, 0.3^2) actions, each episode's from its generator."""
+    """Random: N(0, 0.3^2) actions, each episode's from its generator, or
+    from its key (``normal(key, (4,)) * 0.3``, as JAX draws them)."""
 
-    def reset(self, B: int):
+    def reset(self, B: int, state=None, env_params=None, src=None):
         return None
 
-    def __call__(self, state, info, env_params, carry, gens, offset=None):
+    def __call__(self, state, info, env_params, carry, src, offset=None):
         dA, dev = self.env.action_dim, self.env.device
-        return _per_episode(gens, lambda g: torch.randn(dA, generator=g, device=dev)
+        if self.draws_from_keys:
+            return prng.normal(src, (dA,)) * 0.3, carry
+        return _per_episode(src, lambda g: torch.randn(dA, generator=g, device=dev)
                             * 0.3), carry
 
 
 def batched_controller(controller) -> BatchedTwin:
     """The batched twin of ``controller`` (JAX vmaps the controller; the
-    port maps each of its controllers to a batched form): CoVO online ->
-    :class:`BatchedCoVOSolve` (its N, H, λ, σ, rng mode, Hessian mode and
-    engine), MPPI -> :class:`BatchedMPPISolve`, PID -> a vmap of its solve,
-    Random -> per-episode draws. Anything else raises: CoVO speculative and
-    offline (their K2 / K3 / K8 have no batched kernel) and the
-    ``ns_pallas`` / ``eigh`` designers wait for a later slice (ROADMAP.md
-    queue 1); nothing falls back to a loop over episodes."""
+    port maps each of its controllers to a batched form): CoVO online,
+    speculative and offline -> :class:`BatchedCoVOSolve` (its N, H, λ, σ,
+    rng mode, Hessian estimator, designer and engine) in
+    :class:`BatchedCoVOTwin`, :class:`BatchedSpeculativeTwin`,
+    :class:`BatchedOfflineTwin`; MPPI -> :class:`BatchedMPPISolve`; PID ->
+    a vmap of its solve; Random -> per-episode draws. Every rng mode runs.
+    Online and speculative CoVO with ``sigma_mode="ns_pallas"`` raise (K8
+    does not batch; offline designs with the plain designer, as the single
+    offline solver); nothing falls back to a loop over episodes."""
     env = controller.env
-    if getattr(controller, "draws_from_keys", False):
-        raise NotImplementedError(
-            f"no batched twin of a controller that draws from JAX keys (rng_mode "
-            f"{controller.rng_mode!r}): {sampling.KEY_ITEM}")
     if isinstance(controller, CoVOSolver):
-        if controller.mode != "online":
-            raise NotImplementedError(
-                f"no batched CoVO {controller.mode} solve yet: its K2 / K3 / K8 have "
-                "no batched kernel (a later slice, ROADMAP.md queue 1)")
-        if controller.sigma_mode != "ns":
-            raise NotImplementedError(
-                f"the batched CoVO solve runs sigma_mode='ns', not "
-                f"{controller.sigma_mode!r} (a later slice, ROADMAP.md queue 1)")
+        twin = {"online": BatchedCoVOTwin, "speculative": BatchedSpeculativeTwin,
+                "offline": BatchedOfflineTwin}[controller.mode]
+        sigma_mode = controller.sigma_mode
+        if sigma_mode == "ns_pallas":
+            if controller.mode != "offline":
+                raise NotImplementedError(
+                    f"no batched CoVO {controller.mode} solve with sigma_mode="
+                    "'ns_pallas': JAX cannot vmap K8's pallas_call on hardware either "
+                    f"(covo_mpc_tpu/solvers/covo.py:83-90); {NS_PALLAS_ITEM}")
+            sigma_mode = "ns"  # offline's schedule runs the plain designer
         p = controller.init_control_params
-        return BatchedCoVOTwin(controller, make_batched_covo_solve(
+        return twin(controller, make_batched_covo_solve(
             env, controller.N, controller.H, controller.lam, p.sample_sigma,
             rng=controller.rng_mode, hessian_mode=controller.hessian_mode,
-            engine=controller.engine))
+            engine=controller.engine, sigma_mode=sigma_mode))
     if isinstance(controller, MPPISolver):
         return BatchedMPPITwin(controller, make_batched_mppi_solve(
             env, controller.N, controller.H, controller.lam,

@@ -31,10 +31,12 @@ The batched protocol's runner (:class:`BatchedEpisodes`, JAX: the
 ``jax.vmap`` of ``run_one_ep`` in ``evaluate_batched``) steps a chunk of B
 episodes at once: the controller's batched twin
 (``parallel.batched_controller``) and the env's vmapped auto-resetting
-step (``models/batched.py``), each episode drawing from its own reset,
-step and solve generators, seeded from the protocol's seed and the
-episode's index alone (:func:`episode_seeds`). On the card the batched
-control step is one CUDA graph per B, replayed T times.
+step (``models/batched.py``). A key-drawing controller runs on JAX's
+per-episode keys and chain (:func:`batched_keys`); any other draws from
+each episode's own reset, step and solve generators, seeded from the
+protocol's seed and the episode's index alone (:func:`episode_seeds`). On
+the card the batched control step is one CUDA graph per B, replayed T
+times.
 
 A solver built with ``collect_metrics`` reports each solve's health
 (``runtime/metrics.py``); the runner returns them as (T,) tensors, one per
@@ -254,24 +256,48 @@ def episode_seeds(seed: int, episode: int) -> tuple:
                  np.random.SeedSequence([seed, episode]).generate_state(3, np.uint64))
 
 
+def batched_keys(seed: int, lo: int, hi: int, device) -> tuple:
+    """Episodes [lo, hi)'s reset and run keys (B, 2) of JAX's batched
+    protocol from ``seed`` (runtime/eval.py:128-129): ``reset_keys =
+    split(fold_in(PRNGKey(seed), 0), num_eps)``, ``run_keys =
+    split(fold_in(PRNGKey(seed), 1), num_eps)``, taken at [lo, hi) (a
+    split's key i does not depend on the count, so a chunk's keys are the
+    whole run's)."""
+    base = prng.PRNGKey(seed, device)
+    return tuple(prng.split(prng.fold_in(base, i), hi)[lo:hi] for i in (0, 1))
+
+
 class BatchedEpisodes:
     """``run(seed, lo, hi, env_params=None) -> (err_pos (B, T), dones (B,
     T))``: episodes [lo, hi) of the batched protocol from ``seed``, B = hi
-    - lo at once. Each chunk restarts the twin's streams from ``seed``
-    (nothing random is carried between chunks, as in JAX) and seeds every
-    episode's generators from its index (:func:`episode_seeds`); K7 reads
-    ``lo`` as its episode offset. On the card one batched control step (the
-    twin's solve, the vmapped env step with its auto-reset select, the
-    write-back of the carry and of ``err_pos[:, t]``, ``done[:, t]``) is
-    captured once per B, with every generator and seed stream it draws from
-    registered, and replayed T times; the reset runs eagerly. On the CPU,
-    and inside ``debug_mode()``, the eager loop (each solve checked finite
-    there)."""
+    - lo at once. Nothing random is carried between chunks, as in JAX.
+
+    A controller that draws from JAX keys (``draws_from_keys``) runs on
+    JAX's keys (:func:`batched_keys`) and each episode follows JAX's
+    per-episode chain (``make_episode_runner``, over the leading axis of
+    the (B, 2) key stack): the env's reset from its reset key, ``rng_control,
+    rng = split(run_key)`` for the twin's reset, then each step ``rng,
+    rng_act, rng_step, _ = split(rng, 4)`` and ``rng = split(rng)[0]``. Any
+    other controller keeps the port's generators: each chunk restarts the
+    twin's streams from ``seed`` and seeds every episode's reset, step and
+    solve generators from its index (:func:`episode_seeds`); K7 reads
+    ``lo`` as its episode offset. Either way an episode draws the same in
+    any chunk.
+
+    On the card one batched control step (the twin's solve, the vmapped env
+    step with its auto-reset select, the write-back of the carry and of
+    ``err_pos[:, t]``, ``done[:, t]``) is captured once per B, with every
+    generator and seed stream it draws from registered (the keys are part
+    of the carry), and replayed T times; the reset (and the twin's: the
+    speculative step-0 design, the offline schedules) runs eagerly. On the
+    CPU, inside ``debug_mode()`` (each solve checked finite there) and for
+    a twin that is not ``capturable`` (eigh), the eager loop."""
 
     def __init__(self, env, controller, steps: int):
         self.env, self.steps = env, steps
         self.twin = scenarios.batched_controller(controller)
         self.benv = BatchedEnv(env)
+        self.keyed = getattr(controller, "draws_from_keys", False)
         self._gens: dict = {}  # B -> one list of B generators a stream
         self.captured: dict = {}  # B -> the captured control step (CapturedCall)
 
@@ -286,15 +312,21 @@ class BatchedEpisodes:
                 stream[b].manual_seed(s)
         return gens
 
-    def _control_step(self, carry, env_params, offset, step_gens, solve_gens):
+    def _control_step(self, carry, env_params, offset, step_src, solve_src):
         """One step of every episode: (the new carry, err_pos (B,) of the
-        pre-step states, done (B,))."""
-        obs, state, tcarry, info = carry
-        action, tcarry = self.twin(state, info, env_params, tcarry, solve_gens, offset)
+        pre-step states, done (B,)). A carry of five holds the episodes'
+        keys, which give the step's sources in place of the generators."""
+        obs, state, tcarry, info = carry[:4]
+        if self.keyed:
+            rng, solve_src, step_src, _ = prng.split(carry[4], 4).unbind(-2)
+        action, tcarry = self.twin(state, info, env_params, tcarry, solve_src, offset)
         if debug.nans_checked():
             debug.check_finite(action, None, "batched solve")
-        obs, state, _, done, info = self.benv.step(step_gens, state, action, env_params)
-        return (obs, state, tcarry, info), info["err_pos"], done
+        obs, state, _, done, info = self.benv.step(step_src, state, action, env_params)
+        new = (obs, state, tcarry, info)
+        if self.keyed:
+            new += (prng.split(rng)[..., 0, :],)
+        return new, info["err_pos"], done
 
     def _capture(self, B, carry, env_params, step_gens, solve_gens):
         T, dev = self.steps, self.env.device
@@ -308,21 +340,36 @@ class BatchedEpisodes:
             t.add_(1)
             graphs.copy_into(carry, new)
 
+        gens = [] if self.keyed else [*step_gens, *solve_gens]
         self.captured[B] = graphs.capture(
             step, carry, env_params, torch.zeros((), dtype=torch.int32, device=dev),
             torch.zeros(1, dtype=torch.int64, device=dev), torch.zeros(B, T, device=dev),
             torch.zeros(B, T, dtype=torch.bool, device=dev),
-            streams=[*self.twin.random_streams(), *step_gens, *solve_gens])
+            streams=[*self.twin.random_streams(), *gens])
+
+    def _first_carry(self, seed: int, lo: int, hi: int, env_params):
+        """The chunk's first carry and its step and solve sources (None
+        under the key schedule, whose keys the carry holds)."""
+        B = hi - lo
+        self.twin.seed(seed)
+        if self.keyed:
+            reset_keys, run_keys = batched_keys(seed, lo, hi, self.env.device)
+            obs, info, state = self.benv.reset(reset_keys, env_params)
+            rng_control, rng = prng.split(run_keys).unbind(-2)
+            tcarry = self.twin.reset(B, state, env_params, rng_control)
+            return (obs, state, tcarry, info, rng), None, None
+        reset_gens, step_gens, solve_gens = self._generators(seed, lo, hi)
+        obs, info, state = self.benv.reset(reset_gens, env_params)
+        tcarry = self.twin.reset(B, state, env_params, solve_gens)
+        return (obs, state, tcarry, info), step_gens, solve_gens
 
     def __call__(self, seed: int, lo: int, hi: int, env_params=None):
         if env_params is None:
             env_params = self.env.default_params
         B = hi - lo
-        reset_gens, step_gens, solve_gens = self._generators(seed, lo, hi)
-        self.twin.seed(seed)
-        obs, info, state = self.benv.reset(reset_gens, env_params)
-        carry = (obs, state, self.twin.reset(B), info)
-        if torch.device(self.env.device).type != "cuda" or debug.jit_disabled():
+        carry, step_gens, solve_gens = self._first_carry(seed, lo, hi, env_params)
+        if (torch.device(self.env.device).type != "cuda" or debug.jit_disabled()
+                or not self.twin.capturable):
             errs, dones = [], []
             for _ in range(self.steps):
                 carry, err, done = self._control_step(carry, env_params, lo, step_gens,

@@ -8,7 +8,7 @@ key ``rng_act`` passed in as traced data. PyTorch runs eagerly, one launch a
 device op; :func:`capture` records a callable's launches into one
 ``torch.cuda.CUDAGraph`` over static input buffers and replays it:
 
-- the callable runs twice on a side stream first (cuBLAS / cuSOLVER
+- the callable runs twice on the caller's stream first (cuBLAS / cuSOLVER
   handles, the kernel library, workspaces), then once under capture; the
   random streams it draws from (:meth:`BaseSolver.random_streams`, the
   env's step generator) are left as they were found, so the first replay
@@ -39,6 +39,7 @@ whole).
 
 from __future__ import annotations
 
+import time
 import weakref
 from typing import Callable, Sequence
 
@@ -49,7 +50,21 @@ from covo_mpc_tpu_torch.models.structs import tree_unflatten as unflatten
 from covo_mpc_tpu_torch.ops import kernels
 from covo_mpc_tpu_torch.runtime import debug
 
-WARMUP = 2  # eager calls on a side stream before the capture
+WARMUP = 2  # eager calls on the caller's stream before the capture
+# After a capture the H100 ran every graph replay ~11% slower (~43 ns an
+# op) for 1.4-27.9 s; the clocks did not move (tools/clock_probe.py).
+# Timing that must read the settled speed starts SETTLE_S after it.
+SETTLE_S = 30.0
+_last_capture = [float("-inf")]  # time.monotonic() at the end of the last one
+
+
+def settle(seconds: float = SETTLE_S) -> float:
+    """Sleep until ``seconds`` have passed since this process's last
+    capture (the slow spell above); returns the seconds slept."""
+    wait = _last_capture[0] + seconds - time.monotonic()
+    if wait > 0:
+        time.sleep(wait)
+    return max(wait, 0.0)
 
 
 def copy_into(dst, src) -> None:
@@ -110,13 +125,10 @@ class CapturedCall:
             raise ValueError("runtime.graphs: a generator that is not on the card")
         saved = [s.get_state() for s in streams]
         versions = [t._version for t in self._leaves]
-        current = torch.cuda.current_stream(device)
-        side = torch.cuda.Stream(device)
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            for _ in range(WARMUP):
-                fn(*self.args)
-        current.wait_stream(side)
+        # the warm-up runs on the caller's stream: on a second stream its
+        # eager work started the slow spell (SETTLE_S) at every capture
+        for _ in range(WARMUP):
+            fn(*self.args)
         for s, state in zip(streams, saved):
             s.set_state(state)
         for g in generators:
@@ -132,6 +144,7 @@ class CapturedCall:
         # buffers fn writes into: a caller's unchanged tensor is copied
         # into them again at every call
         self._written = [t._version != v for t, v in zip(self._leaves, versions)]
+        _last_capture[0] = time.monotonic()
 
     def replay(self) -> None:
         """Replay the graph on the static buffers as they stand."""

@@ -7,7 +7,9 @@ chunks (runs of episodes) and adds around each chunk:
 
 1. **Checkpoint/resume.** After every chunk, ``checkpoint_dir`` receives
    the protocol's random state (the step generator's ``get_state()`` and
-   each of the solver's streams, ``random_streams()``), the partial
+   each of the solver's streams, ``random_streams()``; for a solver that
+   draws from JAX keys, the key that runs through the episodes, as JAX's
+   chunk carries it), the partial
    per-episode errors, the ``failed`` mask and a manifest carrying the
    caller's fingerprint. A re-invocation with the same protocol resumes at
    the first incomplete chunk, and its result equals an uninterrupted
@@ -50,13 +52,11 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from covo_mpc_tpu_torch.ops import sampling
-
 from covo_mpc_tpu_torch.runtime.episode import (
     make_batched_episode_runner,
     make_episode_runner,
 )
-from covo_mpc_tpu_torch.runtime.eval import EvalResult, protocol, run_episode
+from covo_mpc_tpu_torch.runtime.eval import EvalResult, key_protocol, protocol, run_episode
 
 _MANIFEST = "manifest.json"
 _STATE = "state.npz"
@@ -178,24 +178,35 @@ def run_supervised(
         inside the chunk's try-block, so a raise exercises the
         backend-failure path.
     """
-    if getattr(controller, "draws_from_keys", False):
-        raise NotImplementedError(
-            "run_supervised: a controller that draws from JAX keys (rng_mode "
-            f"{controller.rng_mode!r}) has no chunked key schedule yet "
-            f"({sampling.KEY_ITEM})")
-    num_eps, reps, reset_seeds, step_seed = protocol(env, total_steps, num_trajs, seed)
     run_one_ep = make_episode_runner(env, controller)
-    gen = torch.Generator(device=env.device).manual_seed(step_seed)
     controller.seed(seed)
-    streams = [gen, *controller.random_streams()]
+    if getattr(controller, "draws_from_keys", False):
+        # JAX's schedule (runtime/supervisor.py:163-235): evaluate's keys,
+        # the chunk's carry the key that runs through every episode
+        num_eps, reps, reset_keys, rng = key_protocol(env, total_steps, num_trajs, seed)
 
-    def run_chunk(carry, lo, hi):
-        for s, state in zip(streams, carry):
-            _set_stream_state(s, state)
-        errs = [run_episode(env, run_one_ep, reset_seeds[i // reps], gen)[0]
-                for i in range(lo, hi)]
-        errs = torch.stack(errs).cpu()
-        return tuple(_stream_state(s) for s in streams), errs
+        def run_chunk(carry, lo, hi):
+            key = torch.from_numpy(np.array(carry[0])).to(env.device)
+            errs = [run_one_ep(reset_keys[i // reps], key)[0].mean()
+                    for i in range(lo, hi)]
+            return (key.cpu().numpy(),), torch.stack(errs).cpu()
+
+        carry = (rng.cpu().numpy(),)
+    else:
+        num_eps, reps, reset_seeds, step_seed = protocol(env, total_steps, num_trajs,
+                                                         seed)
+        gen = torch.Generator(device=env.device).manual_seed(step_seed)
+        streams = [gen, *controller.random_streams()]
+
+        def run_chunk(carry, lo, hi):
+            for s, state in zip(streams, carry):
+                _set_stream_state(s, state)
+            errs = [run_episode(env, run_one_ep, reset_seeds[i // reps], gen)[0]
+                    for i in range(lo, hi)]
+            errs = torch.stack(errs).cpu()
+            return tuple(_stream_state(s) for s in streams), errs
+
+        carry = tuple(_stream_state(s) for s in streams)
 
     manifest = {
         "seed": seed,
@@ -204,7 +215,6 @@ def run_supervised(
         "chunk_episodes": chunk_episodes,
         "fingerprint": fingerprint,
     }
-    carry = tuple(_stream_state(s) for s in streams)
     return _run_chunked(
         run_chunk, carry, num_eps, chunk_episodes, manifest, checkpoint_dir,
         max_retries, backoff_s, probe, _fault_hook,

@@ -19,9 +19,9 @@ place of ``pallas``; PID runs on the env's device, whatever the engine) and ``--
 cpu`` (the card by default, raising without one). Each cell's fingerprint
 is the JAX script's with the device appended, and its value also keeps the
 count of failed episodes. Every Hessian estimator runs. ``--rng
-invariant`` draws from JAX's keys, which the supervised cells' chunked
-schedule does not carry yet: it raises ``NotImplementedError`` there, and
-runs with ``--unsupervised`` (``evaluate``'s key schedule).
+invariant`` draws from JAX's keys: a supervised cell carries the key from
+chunk to chunk and checkpoints it, as JAX's does, and ``--unsupervised``
+runs ``evaluate``'s key schedule.
 
 Usage: python -m covo_mpc_tpu_torch.scripts.paper_results [--n 8192] [--h 32] [--quick]
 """

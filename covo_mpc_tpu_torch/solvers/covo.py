@@ -80,8 +80,8 @@ from covo_mpc_tpu_torch.models.structs import (
     VEL,
     OMEGA,
     EnvState3D,
+    expand_params,
     pack_state,
-    stack_params,
 )
 from covo_mpc_tpu_torch.ops import covariance, covariance_cuda, reductions, sampling
 from covo_mpc_tpu_torch.ops.hessian import (
@@ -313,8 +313,8 @@ class CoVOSolver(BaseSolver):
             draw = self._draw()
         if draw is None:  # the deterministic gaussian step's zero draw
             draw = torch.zeros(3, device=env_state.pos.device)
-        x_next = self.env.raw_step(env_state, control_params.a_mean[0], env_params,
-                                   draw)
+        x_next = self.env.model_step(env_state, control_params.a_mean[0], env_params,
+                                     draw)
         a_cov, factor = self.design(x_next, env_params, _shift(control_params.a_mean),
                                     control_params.sample_sigma, hess_draws, key)
         return control_params.replace(a_cov=a_cov, a_factor=factor)
@@ -366,12 +366,13 @@ class CoVOSolver(BaseSolver):
         step t's (returned, (max_steps, 2)); the step then splits twice, the
         PID's key (unused) and the model step's, whose disturbance draws
         (max_steps, 3) are returned beside (None for a model that draws
-        nothing)."""
+        nothing). A stack of keys (B, 2) gives (max_steps, B, 2) and
+        (max_steps, B, 3), every episode's chain at once."""
         keys, steps = [], []
         for _ in range(self.env.default_params.max_steps_in_episode):
             keys.append(key)
-            key = prng.split(key)[1]
-            rng_step, key = prng.split(key)
+            key = prng.split(key)[..., 1, :]
+            rng_step, key = prng.split(key).unbind(-2)
             steps.append(rng_step)
         return (torch.stack(keys),
                 self.env.disturb_from_key(torch.stack(steps), deterministic=False))
@@ -393,8 +394,8 @@ class CoVOSolver(BaseSolver):
             states.append(state)
             action, _, _ = self.expansion(None, state, env_params,
                                           self.expansion_params)
-            state = self.env.raw_step(state, action, env_params,
-                                      None if disturb is None else disturb[t])
+            state = self.env.model_step(state, action, env_params,
+                                        None if disturb is None else disturb[t])
         return EnvState3D(**{
             f.name: (torch.stack([getattr(s, f.name) for s in states])
                      if f.name != "control_params" else env_state.control_params)
@@ -407,21 +408,23 @@ class CoVOSolver(BaseSolver):
         the model's from the pre-step state under ``draw`` (B, 3) (zero for
         gaussian: the deterministic step zeroes its scale)."""
         u, _ = dynamics.control_to_thrust_omega(action, params)
-        x = dynamics.bodyrate_step(pack_state(st), u, params, self.env._dt)
         det = params.replace(dyn_noise_scale=params.dyn_noise_scale * 0.0)
-        f = self.env.disturb_fn(det, torch.zeros_like(st.f_disturb) if draw is None
-                                else draw, st.time, st.vel, st.f_disturb)
-        time = st.time + 1
-        idx = torch.clamp(time, 0, st.pos_traj.shape[-2] - 1).long()
-        idx = idx[..., None, None].expand(*idx.shape, 1, 3)
+        for _ in range(self.env.config.substeps):  # as the env's model_step
+            x = dynamics.bodyrate_step(pack_state(st), u, params, self.env._dt)
+            f = self.env.disturb_fn(det, torch.zeros_like(st.f_disturb) if draw is None
+                                    else draw, st.time, st.vel, st.f_disturb)
+            time = st.time + 1
+            idx = torch.clamp(time, 0, st.pos_traj.shape[-2] - 1).long()
+            idx = idx[..., None, None].expand(*idx.shape, 1, 3)
 
-        def at_t(table):
-            return torch.gather(table, -2, idx)[..., 0, :]
+            def at_t(table):
+                return torch.gather(table, -2, idx)[..., 0, :]
 
-        return st.replace(pos=x[..., POS], quat=x[..., QUAT], vel=x[..., VEL],
-                          omega=x[..., OMEGA], f_disturb=f,
-                          time=time, pos_tar=at_t(st.pos_traj),
-                          vel_tar=at_t(st.vel_traj), acc_tar=at_t(st.acc_traj))
+            st = st.replace(pos=x[..., POS], quat=x[..., QUAT], vel=x[..., VEL],
+                            omega=x[..., OMEGA], f_disturb=f,
+                            time=time, pos_tar=at_t(st.pos_traj),
+                            vel_tar=at_t(st.vel_traj), acc_tar=at_t(st.acc_traj))
+        return st
 
     def _nominal_draws_from_keys(self, keys: torch.Tensor):
         """The per-step draws (H, B, 3) of the nominal PID rollouts from the
@@ -439,18 +442,23 @@ class CoVOSolver(BaseSolver):
         return self.env.disturb_from_key(torch.stack(steps), deterministic=True)
 
     def offline_sigma_at(self, states: EnvState3D, env_params, sample_sigma,
-                         keys: Optional[torch.Tensor] = None):
+                         keys: Optional[torch.Tensor] = None,
+                         step_draws: Optional[torch.Tensor] = None,
+                         hess_draws: Optional[torch.Tensor] = None):
         """The schedule's Sigma at B stacked states at once (no loop over
         them): from each, an H-step deterministic PID rollout gives the
         nominal, then the Hessian around it and the plain designer on the
         (B, D, D) stack. ``keys`` (B, 2): each state's schedule key, which a
         key-drawing solver draws the rollout's and the Hessian's draws from,
-        as JAX does. Returns (a_cov, factor), (B, D, D) each."""
+        as JAX does. Otherwise ``step_draws`` (H, B, 3) and ``hess_draws``
+        (B, H, 3), the nominal rollouts' and the Hessians' uniforms of
+        "periodic" / "mixed", come from the caller or from the device
+        generator. Returns (a_cov, factor), (B, D, D) each."""
         B = states.time.shape[0]
         if self.draws_from_keys:
             step_draws = self._nominal_draws_from_keys(keys)
             hess_draws = hessian_draws_from_key(self.env, keys, self.H)
-        else:
+        elif step_draws is None and hess_draws is None:
             step_draws, hess_draws = self._draw(self.H, B), self._draw(B, self.H)
         st, actions = states, []
         for h in range(self.H):
@@ -461,7 +469,7 @@ class CoVOSolver(BaseSolver):
         a_mean = torch.stack(actions, dim=1)  # (B, H, dA)
         R = self._hessian_b(a_mean.reshape(B, self.D), pack_state(states),
                             states.time, states.pos_traj, states.vel_traj,
-                            stack_params([env_params] * B), hess_draws)
+                            expand_params(env_params, B), hess_draws)
         return self._optimize_sigma(R, sample_sigma, self.D)
 
     # -- solve -------------------------------------------------------------------

@@ -121,9 +121,12 @@ def random_bits(key: torch.Tensor, shape: Shape) -> torch.Tensor:
 
 def _unit_floats(bits: torch.Tensor) -> torch.Tensor:
     """Floats in [0, 1) from 32 random bits: the top 23 as the mantissa of a
-    float in [1, 2), minus one."""
-    words = ((bits >> 9) | 0x3F800000).to(torch.int32)
-    return words.view(torch.float32) - 1.0
+    float in [1, 2), minus one (JAX's bit trick), which is exactly the
+    integer m of those 23 bits times 2^-23: computed so, because a view of
+    int words as floats has no batching rule under ``torch.func.vmap`` in
+    every torch (2.11 has none), and the batched protocol vmaps the env's
+    keyed draws."""
+    return (bits >> 9).to(torch.float32) * 2.0**-23
 
 
 def _as_f32(v, device) -> torch.Tensor:

@@ -295,11 +295,14 @@ def test_batched_refuses_a_mismatched_checkpoint(tmp_path):
 
 
 @pytest.mark.parametrize("name", ["covo_speculative", "covo_offline"])
-def test_evaluate_batched_raises_for_speculative_and_offline(name):
+def test_evaluate_batched_runs_speculative_and_offline(name):
+    """The speculative and offline twins (main path's settings, N=8, H=2)
+    run JAX's throughput protocol: two whole episodes, finite, one mean
+    each."""
     env = cpu_env()
-    solver, _ = get_solver(env, name, PSTR, **FAST_PATH)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        evaluate_batched(env, solver, num_eps=2)
+    solver, _ = get_solver(env, name, "N8_H2_lam0.01", **FAST_PATH)
+    res = evaluate_batched(env, solver, num_eps=2)
+    assert res.err_pos_ep.shape == (2,) and np.isfinite(res.err_pos_ep.numpy()).all()
 
 
 # --- the sampling twins: chunk independence, K7's offset -----------------------
@@ -340,7 +343,7 @@ def test_plain_k7_draws_follow_the_episode_offset(joint):
     gens = [torch.Generator().manual_seed(s) for s in range(4)]
     states = [env.reset(g)[1]["noisy_state"] for g in gens]
     from covo_mpc_tpu_torch.models import pack_state
-    from covo_mpc_tpu_torch.parallel.scenarios import _expand_params
+    from covo_mpc_tpu_torch.models.structs import expand_params
 
     Hs, n = 4, 256
     args = (torch.stack([pack_state(s) for s in states]), torch.stack([s.time for s in states]),
@@ -350,8 +353,8 @@ def test_plain_k7_draws_follow_the_episode_offset(joint):
     fac = (torch.randn(4, 4 * Hs, 4 * Hs, generator=g) * 0.1 if joint else
            (0.3 * torch.eye(4)).expand(4, Hs, 4, 4).contiguous())
     k7 = rollout_cuda.make_rollout_batched_sampling(env, joint=joint)
-    c4, a4 = k7(*args, means, fac, _expand_params(p, 4), 11, n, deterministic=True)
-    c2, a2 = k7(*(x[2:] for x in args), means[2:], fac[2:], _expand_params(p, 2), 11, n,
+    c4, a4 = k7(*args, means, fac, expand_params(p, 4), 11, n, deterministic=True)
+    c2, a2 = k7(*(x[2:] for x in args), means[2:], fac[2:], expand_params(p, 2), 11, n,
                 deterministic=True, offset=torch.tensor(2, dtype=torch.int32))
     assert torch.equal(a2, a4[2:])
     np.testing.assert_allclose(c2.numpy(), c4[2:].numpy(), atol=2e-4, rtol=1e-5)

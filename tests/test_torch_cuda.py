@@ -1270,3 +1270,89 @@ def test_k4_on_key_drawn_samples_matches_plain(dev, n, mode):
     assert rollout_cuda.ROLLOUT_KERNEL.launches == before + 1
     c_p = k4.plain(*args, discount=1.0, layout=layout)
     torch.testing.assert_close(c_k, c_p, atol=2e-4, rtol=1e-5)
+
+
+# --- the batched twins' kernel paths (K6 on key-drawn samples, K7 joint on the
+# offline schedule's gathered factors) and the statistical pin of K1 -------------
+
+
+@pytest.mark.parametrize("n", [16, 8192])
+@pytest.mark.parametrize("mode", ["parity", "invariant"])
+def test_k6_on_key_drawn_batched_samples_matches_plain(dev, n, mode):
+    """K6 fed the batched parity samples (B, N, H, 4) of each scenario's key
+    (layout nhd, as the parity twins lay them out) or the invariant ones (B,
+    4H, N) (hdn), each scenario's stochastic draw from its step key through
+    the reference's chain, against its plain version: B=4, H=32; one launch."""
+    from covo_mpc_tpu_torch.parallel.scenarios import _act_keys
+    from covo_mpc_tpu_torch.ops import sampling
+    from covo_mpc_tpu_torch.utils import prng
+
+    env, args, pb, g, a_means, _, factors, _ = _small_scenarios(dev, n)
+    Bs, D = a_means.shape[0], 4 * HS
+    act_key, step_key = _act_keys(prng.split(prng.PRNGKey(13, dev), Bs))
+    if mode == "parity":
+        z = prng.normal(prng.split(act_key, n), (D,))
+        acts = torch.clamp(a_means.reshape(Bs, 1, D) + z @ factors.mT, -1.0, 1.0)
+        acts, layout = acts.reshape(Bs, n, HS, 4), "nhd"
+    else:
+        z = sampling.std_normal_invariant(act_key, n, (D,))
+        acts = torch.clamp(sampling.sample_joint_t(None, a_means.reshape(Bs, D), factors,
+                                                   n, z=z), -1.0, 1.0)
+        layout = "hdn"
+    draws = env.disturb_from_key(step_key, fast=mode != "parity")
+    k6 = rollout_cuda.make_rollout_batched_costs(env)
+    before = rollout_cuda.ROLLOUT_BATCHED_KERNEL.launches
+    got = k6(*args, acts, pb, draws, discount=1.0, layout=layout)
+    assert rollout_cuda.ROLLOUT_BATCHED_KERNEL.launches == before + 1
+    assert got.shape == (Bs, n)
+    torch.testing.assert_close(got, k6.plain(*args, acts, pb, draws, discount=1.0,
+                                             layout=layout), atol=2e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("n", [100, 8192])
+def test_k7_joint_on_the_offline_gather_matches_plain(dev, n):
+    """K7 joint on the factors the offline twin gathers, each scenario's
+    ``a_factor_offline[time]`` from a (B, T, D, D) schedule at its own time,
+    with given normals against its plain version; with in-kernel draws its
+    launch equals one on the same factors copied out scenario by scenario,
+    bit for bit (the gather hands the kernel row-major factors)."""
+    env, args, pb, g, a_means, _, _, draws = _small_scenarios(dev, n)
+    Bs, D, T = a_means.shape[0], 4 * HS, 7
+    table = torch.randn(Bs, T, D, D, generator=g, device=dev) * 0.1
+    times = torch.tensor([0, 6, 3, 3], device=dev)[:Bs]
+    fac = table[torch.arange(Bs, device=dev), times]
+    k7 = rollout_cuda.make_rollout_batched_sampling(env, joint=True)
+    z = torch.randn(Bs, D, n, generator=g, device=dev)
+    for kw in (dict(deterministic=True), dict(draws=draws)):
+        got = k7(*args, a_means, fac, pb, 0, n, discount=1.0, z=z, **kw)
+        _costs_and_actions_close(got, k7.plain(*args, a_means, fac, pb, 0, n,
+                                               discount=1.0, z=z, **kw))
+    copied = torch.stack([table[b, int(times[b])].clone() for b in range(Bs)])
+    c1, a1 = k7(*args, a_means, fac, pb, 17, n, deterministic=True)
+    c2, a2 = k7(*args, a_means, copied, pb, 17, n, deterministic=True)
+    assert torch.equal(c1, c2) and torch.equal(a1, a2)
+
+
+def test_k1_solve_agrees_with_the_fast_sampler_statistically(dev):
+    """CoVO online with in-kernel draws (K1, Philox) cannot reproduce the
+    fast sampler's torch.randn stream, so its solve is pinned against the
+    fast one (K4) statistically (``utils/stats.py``, JAX's
+    tests/test_sharding.py:776-782): the mean of S=6 K1 solves' new means,
+    each from its own seed, within z=5 of their own spread of one fast
+    solve at the same state (N=8192, H=8, gn, ns)."""
+    from covo_mpc_tpu_torch.solvers import get_solver
+    from covo_mpc_tpu_torch.utils.stats import assert_sampled_mean_agreement
+
+    env, p, st = _env_state(dev)
+    kw = dict(hessian_mode="gn", sigma_mode="ns", engine="cuda", collect_debug=False)
+    fast, cp = get_solver(env, "covo_online", "N8192_H8_lam0.01", rng_mode="fast", seed=3,
+                          **kw)
+    ref = fast(None, st, p, cp, None)[1].a_mean
+    samples = []
+    for seed in range(6):
+        k1, cp = get_solver(env, "covo_online", "N8192_H8_lam0.01", rng_mode="kernel",
+                            seed=seed, **kw)
+        before = rollout_cuda.JOINT_KERNEL.launches
+        samples.append(k1(None, st, p, cp, None)[1].a_mean.cpu())
+        assert rollout_cuda.JOINT_KERNEL.launches == before + 1
+    assert_sampled_mean_agreement(samples, ref.cpu(), what="K1 against the fast sampler")

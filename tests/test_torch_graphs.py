@@ -284,6 +284,21 @@ def test_trace_is_a_no_op_without_a_directory(tmp_path):
     assert prof is not None and list(tmp_path.glob("trace_*.json"))
 
 
+def test_settle_waits_out_the_spell_after_the_last_capture(monkeypatch):
+    """graphs.settle sleeps until SETTLE_S (or the seconds given) have
+    passed since the last capture, and not at all once they have or when
+    nothing was captured."""
+    slept = []
+    monkeypatch.setattr(graphs.time, "sleep", slept.append)
+    monkeypatch.setattr(graphs.time, "monotonic", lambda: 100.0)
+    monkeypatch.setattr(graphs, "_last_capture", [95.0])
+    assert graphs.settle() == pytest.approx(graphs.SETTLE_S - 5.0)
+    assert slept == [pytest.approx(graphs.SETTLE_S - 5.0)]
+    assert graphs.settle(5.0) == 0.0 and len(slept) == 1
+    monkeypatch.setattr(graphs, "_last_capture", [float("-inf")])
+    assert graphs.settle() == 0.0 and len(slept) == 1
+
+
 def test_time_chained_needs_the_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: time_chained measures there")
@@ -621,11 +636,12 @@ def _batched_inputs(env, B=Bc):
     """B episodes' solve inputs from the batched env's reset (their noisy
     states), one shared env_params expanded as the batched solves take it."""
     from covo_mpc_tpu_torch.models.batched import BatchedEnv
-    from covo_mpc_tpu_torch.parallel.scenarios import _expand_params, _solve_inputs
+    from covo_mpc_tpu_torch.models.structs import expand_params
+    from covo_mpc_tpu_torch.parallel.scenarios import _solve_inputs
 
     gens = [torch.Generator(env.device).manual_seed(10 + b) for b in range(B)]
     _, info, state = BatchedEnv(env).reset(gens, env.default_params)
-    return _solve_inputs(state, info), _expand_params(env.default_params, B)
+    return _solve_inputs(state, info), expand_params(env.default_params, B)
 
 
 @pytest.mark.cuda

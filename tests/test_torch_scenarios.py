@@ -429,11 +429,16 @@ def test_batched_solves_draw_and_reject():
         assert bool(torch.isfinite(m).all()) and c.shape == (B, H, 4, 4)
         assert torch.equal(c, a_covs)  # γ_σ = 0: the shifted covariance, untouched
     with pytest.raises(ValueError):
-        make_batched_covo_solve(env, N, H, LAM, rng="invariant")
+        make_batched_covo_solve(env, N, H, LAM, rng="philox")
     with pytest.raises(ValueError):
         make_batched_mppi_solve(env, N, H, LAM, rng="kernel", engine="torch")
     with pytest.raises(ValueError):
-        make_batched_covo_solve(env, N, H, LAM, hessian_mode="sensitivity")
+        make_batched_covo_solve(env, N, H, LAM, hessian_mode="bfgs")
+    with pytest.raises(NotImplementedError, match="K8"):
+        make_batched_covo_solve(env, N, H, LAM, sigma_mode="ns_pallas")
+    with pytest.raises(ValueError, match="JAX keys"):  # a key-drawing solve needs keys
+        make_batched_mppi_solve(env, 128, H, LAM, rng="invariant", engine="torch")(
+            *_args(p), a_means, a_covs, p["params"])
     # collect_metrics appends each scenario's health metrics (ESS in [1, N])
     mppi = make_batched_mppi_solve(env, 128, H, LAM, engine="torch", collect_metrics=True)
     *_, mm = mppi(*_args(p), a_means, a_covs, p["params"])

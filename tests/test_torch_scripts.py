@@ -11,8 +11,8 @@ table lines (``scripts/paper_results.py:120-146``,
 spelled out here; mode_gates rewrites only its marked section, and appends
 it where the markers are absent; a second run over the same checkpoint
 root is all cached and writes the same bytes; ``--fresh`` recomputes the
-same numbers; the rng and Hessian modes the port lacks raise
-``NotImplementedError``; and without ``--device cpu`` a script raises where
+same numbers; a key-drawing sampler and the fwd_fwd offline schedule run
+in supervised cells; and without ``--device cpu`` a script raises where
 there is no card (there is no CPU fallback).
 """
 
@@ -257,19 +257,25 @@ def test_n_ablation_rerun_is_cached_and_writes_the_same_bytes(ablation):
 # --- refusals -----------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("flags", [["--rng", "invariant", "--controllers", "mppi"],
-                                   ["--hessian-mode", "fwd_fwd", "--rng", "invariant",
-                                    "--controllers", "covo_offline"]],
-                         ids=["invariant", "fwd_fwd"])
-def test_modes_the_port_lacks_raise(tmp_path, flags):
-    """A key-drawing sampler in a supervised cell: the chunked key schedule
-    is not ported. (Every Hessian estimator is: fwd_fwd alone no longer
-    raises, tests/test_torch_parity.py holds it against JAX.)"""
-    with pytest.raises(NotImplementedError):
-        paper_results.main([*SMALL, "--n", "16", "--engine", "torch", *flags,
-                            "--out", str(tmp_path / "R.md"),
-                            "--checkpoint-root", str(tmp_path / "ckpt")])
-    assert not (tmp_path / "R.md").exists()
+@pytest.mark.parametrize("flags, name, kw", [
+    (["--rng", "invariant", "--controllers", "mppi"], "mppi",
+     dict(rng_mode="invariant", hessian_mode="fwd_fwd", engine="torch")),
+    (["--hessian-mode", "fwd_fwd", "--controllers", "covo_offline"], "covo_offline",
+     dict(rng_mode="fast", hessian_mode="fwd_fwd", engine="torch", sigma_mode="ns")),
+], ids=["invariant", "fwd_fwd"])
+def test_modes_that_raised_run_supervised(tmp_path, flags, name, kw):
+    """A key-drawing sampler in a supervised cell (the chunk's carry is the
+    key, as JAX's) and CoVO offline's fwd_fwd schedule: each cell equals
+    evaluate() of the same solver bit for bit and its row is in the table."""
+    args = _paper_args(tmp_path, *flags)
+    (row,) = paper_results.run(args, STEPS)
+    env = make_env("tracking_zigzag", "gaussian", "cpu")
+    solver, _ = get_solver(env, name, PSTR, collect_debug=False, **kw)
+    res = evaluate(env, solver, total_steps=STEPS, seed=1)
+    assert (row["mean"], row["std"]) == (res.mean * 100, res.std * 100)
+    assert row["failed"] == 0
+    assert f"| {name} | {row['mean']:.2f} ± {row['std']:.2f} |" in (
+        tmp_path / "RESULTS_TORCH.md").read_text()
 
 
 @pytest.mark.parametrize("script", [paper_results, mode_gates, n_ablation],

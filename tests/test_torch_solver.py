@@ -165,7 +165,12 @@ def test_mppi_episode_runner_and_evaluate():
 def test_package_never_imports_jax():
     code = ("import sys, covo_mpc_tpu_torch, covo_mpc_tpu_torch.ops.hessian, "
             "covo_mpc_tpu_torch.solvers.mppi, covo_mpc_tpu_torch.cli, "
-            "covo_mpc_tpu_torch.utils.plotting; "
-            "assert 'jax' not in sys.modules, 'jax imported'")
+            "covo_mpc_tpu_torch.utils.plotting, covo_mpc_tpu_torch.models.misc, "
+            "covo_mpc_tpu_torch.models.wrappers, covo_mpc_tpu_torch.utils.stats, "
+            "covo_mpc_tpu_torch.viz.meshcat_vis, covo_mpc_tpu_torch.parallel.scenarios, "
+            "covo_mpc_tpu_torch.runtime.render, covo_mpc_tpu_torch.runtime.supervisor, "
+            "covo_mpc_tpu_torch.models.batched, covo_mpc_tpu_torch.tools.clock_probe; "
+            "assert 'jax' not in sys.modules, 'jax imported'; "
+            "assert 'covo_mpc_tpu' not in sys.modules, 'the JAX package imported'")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)
