@@ -15,7 +15,8 @@ source, at first use), then:
    (1b) times K2 and K3 alone (bare launches) beside their earlier
    designs (``covo_mpc_tpu_torch/tools/earlier``, built in the same run),
    holds their results against the earlier ones bit for bit (on one input
-   and through one episode of the main path's closed loop), and counts
+   and through the first :data:`LOOP_BITS_STEPS` steps of the main path's
+   closed loop), and counts
    each step loop's critical path from its SASS (``tools/sass_chain.py``:
    ``chain_ms``, the least time of the H dependent steps on one SM, with
    instruction latencies measured on the card by ``tools/latency_probe.cu``);
@@ -44,12 +45,13 @@ source, at first use), then:
    p50 must be under 20 ms, the 50 Hz budget;
 3. runs the closed loops, ``evaluate(env, solver, total_steps, seed=1)``,
    every one through the captured runner (one CUDA graph a control step):
-   CoVO with ``engine="cuda"``, ``rng_mode="kernel"`` at the 40-episode
-   protocol, 12000 steps (err_pos finite and below 5.0 cm); MPPI with
-   ``engine="cuda"``, ``rng_mode="kernel"`` at 12000 steps (finite, below
-   8.0 cm and above CoVO's on the same trajectories) and with
-   ``rng_mode="fast"`` at 1200 (finite, below 8.0 cm); and times the
-   eager solves of both engines;
+   CoVO with ``engine="cuda"``, ``rng_mode="kernel"`` (err_pos finite and
+   below 5.0 cm); MPPI with ``engine="cuda"``, ``rng_mode="kernel"``
+   (finite, below 8.0 cm and above CoVO's on the same trajectories) and
+   with ``rng_mode="fast"`` (finite, below 8.0 cm), each 1200 steps (four
+   episodes; the 40-episode protocol is the sweeps' and the batched
+   protocol's, phases 5e and 10b); and times the eager solves of both
+   engines;
 4. breaks one cuda-engine CoVO solve and one MPPI solve down by layer
    (CUDA events and torch.profiler device time) and reads the device's
    busy share;
@@ -65,8 +67,8 @@ source, at first use), then:
    batched MPPI solve per rng, ``engine="cuda"`` against
    ``engine="torch"`` on the same normals (2e-4, no host sync); (c) the
    hand-written batched closed loops on the main path's env, B=4
-   scenarios reset from seed 1, 150 steps (CoVO below 5.0 cm, MPPI below
-   8.0 cm and above CoVO's); (d) aggregate solves/s at B = 1, 16, 64 for
+   scenarios reset from seed 1, 150 steps, each solve captured (CoVO below
+   5.0 cm, MPPI below 8.0 cm and above CoVO's); (d) aggregate solves/s at B = 1, 16, 64 for
    both solvers and engines, eager, and beside them each cuda solve
    (kernel rng) captured as a CUDA graph: replays against eager solves bit
    for bit, p50 / p99 (``time_blocking``) and chained ms (``time_chained``)
@@ -90,8 +92,8 @@ source, at first use), then:
    against ``engine="torch"`` on the same normals (2e-4, no host sync); (c)
    the speculative ``act`` + ``prepare`` the same way, and ``act()`` and
    ``prepare()`` timed alone; (d) the closed loops of covo_speculative
-   (K8, kernel rng; the 40-episode protocol, 12000 steps) and covo_offline
-   (kernel rng; 1200 steps), below 5.0 cm, PID (below 40 cm and above both
+   (K8, kernel rng) and covo_offline (kernel rng), 1200 steps each, below
+   5.0 cm, PID (below 40 cm and above both
    CoVO modes') and one episode of random actions;
 7. the disturbance modes of the rollout kernels ("table" for sin and
    periodic, "drag", "mixed"): (a) K1, K4, K5 and, at B=16, K6 and K7
@@ -140,18 +142,19 @@ source, at first use), then:
    5.0, MPPI below 8.0, PID below 40.0 cm, CoVO online below MPPI; a second
    run on the same checkpoint root all cached, writing the same bytes),
    mode_gates (the 8 cells, its section appended to a file of one line,
-   CoVO below MPPI at each N) and n_ablation at N = 16 and 100 (CoVO
-   online below MPPI at each); every cell finite, no episode failed;
-11. the bench, ``python -m covo_mpc_tpu_torch.bench``, each run in a
-   process of its own after every earlier phase: ``--all --scenarios 16
-   --k 8``, then ``--scenarios 64 --no-latency``: each exits 0, its last line has
-   the root ``bench.py``'s record keys (``BENCH_r05.json``) plus ``device``
-   and ``method``, the latency keys with the device per-solve ones in the
-   first; every row of the JAX bench printed with its capture and method;
-   the main path's per-solve p50 within 10% of phase 2c's captured chained
-   ms; the per-solve marker is K1 (``joint_sample_rollout_kernel``); the
-   batched rows at B = 16 and 64 give the device ms of a batched solve from
-   a complete profiler session or say "not measured" with the counts;
+   CoVO below MPPI at each N) and n_ablation of MPPI and CoVO online at
+   N = 16 and 100 (CoVO online below MPPI at each); every cell finite, no
+   episode failed;
+11. the bench, ``python -m covo_mpc_tpu_torch.bench --all --scenarios 64
+   --k 8``, in a process of its own after every earlier phase, its rows
+   echoed as they come: it exits 0, its last line has the root
+   ``bench.py``'s record keys (``BENCH_r05.json``) plus ``device`` and
+   ``method``, the latency keys with the device per-solve ones; every row
+   of the JAX bench printed with its capture and method; the main path's
+   per-solve p50 within 10% of phase 2c's captured chained ms; the
+   per-solve marker is K1 (``joint_sample_rollout_kernel``); the batched
+   rows at B=64 give the device ms of a batched solve from a complete
+   profiler session or say "not measured" with the counts;
 12. JAX's key tree on the card (``utils/prng.py``): (a) keys, splits,
    fold_ins and uniforms on the card equal the CPU's bit for bit, normals
    within 2 ulp of max(|x|, 1), at the samplers' widths (8192 keys, 128
@@ -164,7 +167,8 @@ source, at first use), then:
    key as a graph input: replays equal eager solves bit for bit; (d)
    ``evaluate`` under JAX's key schedule: CoVO online parity for
    :data:`KEY_COVO_STEPS` steps (eager: eigh reads the host), below 5.0
-   cm, and MPPI parity captured for 1200 steps, below 8.0 cm; err_pos and
+   cm, and MPPI parity captured for :data:`KEY_MPPI_STEPS` steps, below
+   8.0 cm; err_pos and
    wall of each printed; K4's launches there go to its record's
    ``key_tree_launches``.
 13. every controller in the batched protocol, the supervisors and render:
@@ -183,17 +187,46 @@ source, at first use), then:
    (c) JAX's key schedule in the batched protocol: each episode's reset
    state on its reset key equal to the single keyed reset's bit for bit,
    ``evaluate_batched`` of MPPI parity (K6, ``nhd``) below 8.0 cm; the
-   fwd_fwd batched Hessian as one graph at B = 2 and 16 (capture s, nodes,
-   replay ms, peak memory); one full-width batched CoVO parity solve
+   fwd_fwd batched Hessian as one graph at B=2 (capture s, nodes, replay
+   ms, peak memory); one full-width batched CoVO parity solve
    (fwd_fwd, eigh) at B=2 within 2e-4 of the single parity solve of each
-   episode; (d) ``run_supervised`` of MPPI parity, 1200 steps in chunks
-   of 2 episodes, a fault injected at chunk 1 and retried, equal to phase
+   episode; (d) ``run_supervised`` of MPPI parity, :data:`KEY_MPPI_STEPS`
+   steps in chunks of 1 episode, a fault injected at chunk 1 and retried,
+   equal to phase
    12d's ``evaluate`` bit for bit; (e) ``render_episode`` of MPPI parity,
    300 steps captured, finite, its first :data:`RENDER_CHECK_STEPS` steps
    equal to the eager recorder's bit for bit. K4's, K6's and K7 joint's
    launches in these runs go to their records' ``batched_modes_launches``.
    ``--phase13`` builds the kernels and runs this phase alone (no kernels
-   record, no result line).
+   record, no result line);
+14. the parallel layer on ``torch.distributed`` at the main path's width:
+   K1 and K4-K7 at a rank's share of N over two ranks (4096 samples; B=16
+   for K6, K7) against their plain versions and their in-kernel draws
+   against the first 4096 of an N launch (``per_shard`` in each record);
+   (a) one rank under an initialized NCCL group (its collectives real
+   all-reduces): sharded MPPI (K5 under kernel rng, K4 under invariant)
+   and the distributed CoVO solve (gn: K2, K3 and K1 or K4) against the
+   single-device solvers on the same seed or key (2e-4 under kernel rng,
+   1e-5 under invariant), each captured and its replay equal to the eager
+   solve bit for bit; their captured ms against the single-device solves
+   captured the same way and the three all-reduces alone, timed in turns
+   after ``graphs.settle()`` (once 14c has run); (b) the multichip control and CoVO steps at
+   B=16 (phase 5's DR env) against the batched twins on the same keys
+   (2e-4), K6 and both K7 forms launched, the CoVO step captured equal to
+   eager; (c) two ranks sharing the card under gloo (two processes,
+   ``parallel.run_ranks``): the distributed CoVO solve on (samples=2,
+   scenarios=1) and the multichip CoVO step on (2, 1) and (1, 2) within
+   1e-5 of (a) / (b), the pipeline for 20 steps within 1e-5 of a
+   stage-sequential oracle built from the kernels' wrappers and the
+   reductions (not from the pipeline's code) on the same keys, the
+   distributed offline schedule within 1e-5 of the single-device reset,
+   and ``bench_mesh --distributed`` in that job, each run's launches
+   counted alone by rank, its lines one a mode at 2 ranks; their wall
+   times are plumbing; (d) ``pod_scale``'s per-rank block of config #5
+   (B=128, N=8192, H=32, kernel rng, K7 joint), captured: ms a step and
+   peak memory against ``hbm_arithmetic``; and ``bench_mesh`` in-process,
+   one line a mode at 1 rank (the pipeline takes 2).
+   ``--phase14`` builds the kernels and runs this phase alone.
 
 Each kernel's launch count in the JSON record is read from the closed loop
 that runs it (a replayed graph adds its kernels' launches at each replay):
@@ -202,7 +235,9 @@ loop, K7 joint, K7 per-step and K6 from phase 5e's ``evaluate_batched``
 runs of CoVO, MPPI kernel rng and MPPI fast rng, K8 from the speculative
 loop (counts set to 0 just before each run); the
 records of K1-K3, K5 and K8 also hold ``cli_launches``, their launches in
-the command line's run that drives them (phase 9); the records of K1-K5
+the command line's run that drives them (phase 9); ``parallel_launches``,
+their launches in each of phase 14's runs under test (counts set to 0
+just before each; the references' launches not counted); the records of K1-K5
 hold ``sweep_launches``, their launches in each script's run of phase
 10b (counts set to 0 just before each), K4's ``key_tree_launches``, its
 launches in each of phase 12's solves and loops, and those of K1, K4-K7
@@ -233,8 +268,8 @@ episode differ from them (phase 1b); K4's and K6's hold ``alone_ms``,
 so the script exits non-zero; without a CUDA device it exits at once. The
 line before the last is the kernels' JSON record, the last ``{"ok": true,
 "device": {...}}``.
-``--total-steps`` sets the loops that do not run the 40-episode protocol
-(1200 by default; 7c runs half of it).
+``--total-steps`` sets the single-scenario closed loops of phases 3, 6d, 7c
+and 8c (1200 by default; 7c runs half of it).
 """
 
 from __future__ import annotations
@@ -271,9 +306,6 @@ ENV_KW = dict(task="tracking_zigzag", enable_randomizer=False,
               disturb_type="gaussian", disable_rollover_terminate=True,
               generate_noisy_state=True)
 ERR_POS_LIMIT_CM = 5.0
-# the 40-episode protocol (RESULTS.md): CoVO online, MPPI kernel rng and
-# speculative run it; the other loops run --total-steps
-PROTOCOL_STEPS = 12000
 MPPI_ERR_POS_LIMIT_CM = 8.0
 SCEN_B = 16  # the checks' scenario count (RESULTS.md's "64 chips at B=16")
 SCEN_TIMING_B = (1, 16, 64)
@@ -284,11 +316,15 @@ PID_ERR_POS_LIMIT_CM = 40.0
 # the command line's eval runs (phase 9)
 CLI_STEPS = 1200
 # phase 12's closed loops under JAX's key schedule: CoVO online parity runs
-# eagerly (eigh reads the host) for one episode, MPPI parity captured
-KEY_COVO_STEPS, KEY_MPPI_STEPS = 300, 1200
+# eagerly (eigh reads the host) for one episode, MPPI parity captured for
+# two (13d's supervised run: a chunk each)
+KEY_COVO_STEPS, KEY_MPPI_STEPS = 300, 600
 # phase 13: the batched twins' and keyed harness's checks at B=TWIN_B, the
 # captured recorder against the eager one over its first RENDER_CHECK_STEPS
 TWIN_B, RENDER_CHECK_STEPS = 16, 20
+# phase 1b: the K2 / K3 inputs of the main path's closed loop held against the
+# earlier designs (an eager solve a step)
+LOOP_BITS_STEPS = 100
 T0 = time.perf_counter()
 
 
@@ -586,8 +622,9 @@ def phase_chain_kernels(dev, records, earlier, probe, clock_mhz):
     in this run, from the host (bare launches, as every kernel's "alone")
     and replayed in a CUDA graph (the host out of the way), with an empty
     kernel's times as the launch floor; the new results against the earlier
-    ones bit for bit, on one input and on every input of one episode of the
-    main path's closed loop; and each step loop's critical path from its SASS
+    ones bit for bit, on one input and on every input of the main path's
+    closed loop's first LOOP_BITS_STEPS steps; and each step loop's critical
+    path from its SASS
     (``chain_ms``: H steps at the SM clock ``clocks.max.sm``, with the
     latencies the probe measures on this card)."""
     from covo_mpc_tpu_torch.ops import hessian_cuda, kernels, rollout_cuda
@@ -648,11 +685,11 @@ def phase_chain_kernels(dev, records, earlier, probe, clock_mhz):
             f"{sass_chain.describe(loop)}")
         say(f"  {kernel.symbol} earlier design's chain {chain_old:.4f} ms: "
             f"{sass_chain.describe(loop_old)}")
-    # every K2 / K3 input of one episode of the main path's closed loop
-    for name, (n, bad, diff) in loop_bits(earlier, dev, 300).items():
+    # every K2 / K3 input of the main path's closed loop's first steps
+    for name, (n, bad, diff) in loop_bits(earlier, dev, LOOP_BITS_STEPS).items():
         records[name]["earlier_loop_launches_differing"] = f"{bad} of {n}"
-        say(f"  {name} in one 300-step episode of the main path's closed loop: {bad} of {n} "
-            f"launches differ from the earlier design, max |diff| {diff:.3e}")
+        say(f"  {name} in the main path's closed loop's first {LOOP_BITS_STEPS} steps: "
+            f"{bad} of {n} launches differ from the earlier design, max |diff| {diff:.3e}")
 
 
 def phase_rollout_kernels(dev, records, earlier, probe, clock_mhz):
@@ -1012,7 +1049,7 @@ def solve_times(env, dev, make=make_solver, reps=60, warmup=5):
         k: len(v) for k, v in times.items()}
 
 
-def device_profile(fn, reps: int = 1, sessions: int = 3, name: str = "") -> dict:
+def device_profile(fn, reps: int = 1, sessions: int = 2, name: str = "") -> dict:
     """``runtime.profiling.device_profile``, its check of the host's
     enqueued work printed."""
     from covo_mpc_tpu_torch.runtime import profiling
@@ -1157,14 +1194,13 @@ def closed_loop(env, solver, total_steps, kernel_list):
 
 def phase_closed_loops(env, dev, total_steps, covo_kernels, kernel_list):
     """Phase 3: the single-scenario closed loops (captured: each control
-    step one CUDA graph), CoVO online and MPPI kernel rng at the 40-episode
-    protocol (PROTOCOL_STEPS), MPPI fast rng at ``total_steps``, and the
-    eager solve times; returns each kernel's launch count from the loop that
-    runs it."""
-    phase(f"phase 3: closed loop, evaluate(total_steps={PROTOCOL_STEPS}, seed=1), "
+    step one CUDA graph), CoVO online, MPPI kernel rng and MPPI fast rng
+    at ``total_steps``, and the eager solve times; returns each kernel's
+    launch count from the loop that runs it."""
+    phase(f"phase 3: closed loop, evaluate(total_steps={total_steps}, seed=1), "
         "engine='cuda', rng_mode='kernel'")
     solver, _ = make_solver(env, "cuda")
-    result, launches = closed_loop(env, solver, PROTOCOL_STEPS, kernel_list)
+    result, launches = closed_loop(env, solver, total_steps, kernel_list)
     check(all(launches[k.symbol] > 0 for k in covo_kernels),
           "every kernel of the CoVO path launched by the main path")
     check(np.isfinite(result.mean) and result.mean * 100 < ERR_POS_LIMIT_CM,
@@ -1173,10 +1209,10 @@ def phase_closed_loops(env, dev, total_steps, covo_kernels, kernel_list):
     say(f"  median device ms per solve: cuda {med['cuda']:.4f} ({counts['cuda']} solves), "
         f"torch {med['torch']:.4f} ({counts['torch']} solves)")
 
-    phase(f"phase 3b: MPPI closed loop, evaluate(total_steps={PROTOCOL_STEPS}, "
+    phase(f"phase 3b: MPPI closed loop, evaluate(total_steps={total_steps}, "
         "seed=1), engine='cuda', rng_mode='kernel'")
     solver, _ = make_mppi(env, "cuda")
-    mppi, mppi_launches = closed_loop(env, solver, PROTOCOL_STEPS, kernel_list)
+    mppi, mppi_launches = closed_loop(env, solver, total_steps, kernel_list)
     launches["sample_rollout"] = mppi_launches["sample_rollout"]
     check(launches["sample_rollout"] > 0, "sample_rollout launched by the MPPI loop")
     check(np.isfinite(mppi.mean) and mppi.mean * 100 < MPPI_ERR_POS_LIMIT_CM,
@@ -1453,24 +1489,26 @@ def batched_closed_loop(env, solve, kind: str, kernel_list):
     """SCEN_LOOP_B scenarios of the main path's env (default params), reset
     from one generator seeded 1, SCEN_LOOP_STEPS steps: each step one
     batched solve on the noisy states, then each scenario's auto-resetting
-    env step. Launch counters at 0 just before; returns the mean err_pos
-    [m] and the counts just after."""
+    env step; the solve captured as one CUDA graph (its replays equal its
+    eager solves bit for bit, phase 5d). Launch counters at 0 just before;
+    returns the mean err_pos [m] and the counts just after."""
+    from covo_mpc_tpu_torch.runtime import graphs
+
     B = SCEN_LOOP_B
     _, pb, states, infos = scenario_batch(env, B, seed=1, randomize=False)
     p = env.default_params
     gen = torch.Generator(env.device).manual_seed(2)
-    solve.seed(1)
     a_means, a_covs = initial_means(env, B)
+    carry = (a_means,) if kind == "covo" else (a_means, a_covs)
+    cap = graphs.capture_solver(solve, solve, *solve_args(infos), *carry, pb)
+    solve.seed(1)
     for k in kernel_list:
         k.launches = 0
     t0 = time.perf_counter()
     errs = []
     for _ in range(SCEN_LOOP_STEPS):
-        args = solve_args(infos)
-        if kind == "covo":
-            a_means, _ = solve(*args, a_means, pb)
-        else:
-            a_means, a_covs, _ = solve(*args, a_means, a_covs, pb)
+        carry = cap(*solve_args(infos), *carry, pb)[:len(carry)]
+        a_means = carry[0]
         row = []
         for b in range(B):
             _, states[b], _, _, infos[b] = env.step(gen, states[b], a_means[b, 0], p)
@@ -1692,7 +1730,9 @@ def profile_batched(env, dev):
     }
     for name, (fn, kernel) in layers.items():
         ev = time_ms(fn, 5, warmup=1)
-        prof = device_profile(fn, sessions=2, name=kernel)  # 3 through PR 5
+        # one session a layer: a session of an eager batched CoVO layer
+        # (~5,000 device ops) costs ~8 s on the H100 host
+        prof = device_profile(fn, sessions=1, name=kernel)
         line = (f"  {name:30s} events {ev:9.4f} ms, {prof['ops']:5d} device kernels and "
                 f"copies; device {fmt_ms(prof['ms'])}")
         if kernel:
@@ -1938,17 +1978,16 @@ def phase_sigma_solves(env, dev, kernel_list):
 
 
 def phase_mode_loops(env, total_steps, kernel_list, covo_kernels):
-    """6d: the closed loops (captured) of the speculative CoVO mode at the
-    40-episode protocol (PROTOCOL_STEPS), of the offline mode and PID at
-    ``total_steps``, and one episode of random actions; returns K8's launch
-    count from the speculative loop."""
+    """6d: the closed loops (captured) of the speculative CoVO mode, the
+    offline mode and PID at ``total_steps``, and one episode of random
+    actions; returns K8's launch count from the speculative loop."""
     from covo_mpc_tpu_torch.ops import covariance_cuda
     from covo_mpc_tpu_torch.solvers import get_solver
 
-    phase(f"phase 6d: closed loops, evaluate(total_steps={PROTOCOL_STEPS}, seed=1): "
+    phase(f"phase 6d: closed loops, evaluate(total_steps={total_steps}, seed=1): "
           "covo_speculative (ns_pallas, kernel rng)")
     solver, _ = make_solver(env, "cuda", name="covo_speculative", sigma_mode="ns_pallas")
-    spec, launches = closed_loop(env, solver, PROTOCOL_STEPS, kernel_list)
+    spec, launches = closed_loop(env, solver, total_steps, kernel_list)
     k8 = launches[covariance_cuda.SIGMA_KERNEL.symbol]
     check(k8 > 0 and all(launches[k.symbol] > 0 for k in covo_kernels),
           "sigma_ns and every kernel of the CoVO path launched by the speculative loop")
@@ -2807,8 +2846,8 @@ def phase_sweeps(kernel_list, records):
     online and offline at N=8192; PERF.md's limits, CoVO online below MPPI;
     a second run all cached, writing the same bytes), mode_gates (the 8
     cells; its section appended to a file of one line; CoVO below MPPI at
-    each N) and n_ablation at N = 16 and 100 (CoVO online below MPPI at
-    each). Each of K1-K5 launched; their launches kept in each record's
+    each N) and n_ablation of MPPI and CoVO online at N = 16 and 100 (CoVO
+    online below MPPI at each). Each of K1-K5 launched; their launches kept in each record's
     ``sweep_launches`` by script."""
     import shutil
     import tempfile
@@ -2868,9 +2907,11 @@ def phase_sweeps(kernel_list, records):
         for line in doc.splitlines():
             say(f"  | {line}")
 
-        phase(f"phase 10b: n_ablation --quick --ns {' '.join(map(str, SMALL_NS))}")
+        phase(f"phase 10b: n_ablation --quick --ns {' '.join(map(str, SMALL_NS))} "
+              "--controllers mppi covo_online")
         cells, launches["n_ablation"] = sweep_run(
-            n_ablation, ["--quick", "--ns", *map(str, SMALL_NS), "--out",
+            n_ablation, ["--quick", "--ns", *map(str, SMALL_NS), "--controllers", "mppi",
+                         "covo_online", "--out",
                          f"{d}/RESULTS_N_TORCH.md", "--checkpoint-root", f"{d}/ckpt_n"],
             kernel_list)
         check_cells("n_ablation", cells.values())
@@ -2892,15 +2933,11 @@ def phase_sweeps(kernel_list, records):
 
 # --- phase 11: the bench (python -m covo_mpc_tpu_torch.bench) ------------------
 
-# --k 8: the rows' chains of 64 solves (256 by default) keep the phase near
-# three minutes; the latency pass keeps its chains of 256
-BENCH_RUNS = (["--all", "--scenarios", "16", "--k", "8"],
-              ["--scenarios", "64", "--no-latency"])
-# the keys the root bench.py's latency pass adds to its record (bench.py:693-719)
-LATENCY_KEYS = {"per_solve_p99_ms", "per_solve_p50_ms", "chain_mean_p99_ms",
-                "chain_mean_p50_ms", "act_per_solve_p99_ms", "act_per_solve_p50_ms",
-                "act_chain_mean_p99_ms", "act_chain_mean_p50_ms", "act_solves_per_s",
-                "host_dispatch_p99_ms", "rtt_p50_ms"}
+# one process: every row, the batched rows at B=64 and the latency pass;
+# --k 8 gives the rows' and the latency pass's chains of 64 solves (256 by
+# default)
+BENCH_ARGV = ["--all", "--scenarios", "64", "--k", "8"]
+BENCH_TIMEOUT_S = 900.0
 # the rows --all prints (the JAX bench's, with the port's engines), by text
 ALL_ROWS = ("mppi         engine=torch ", "mppi         engine=cuda ",
             "covo_online  engine=torch ", "covo_online  engine=cuda ",
@@ -2912,18 +2949,37 @@ ALL_ROWS = ("mppi         engine=torch ", "mppi         engine=cuda ",
 
 
 def bench_run(argv):
-    """``python -m covo_mpc_tpu_torch.bench argv`` in a process of its own:
-    (its JSON record, its row lines, wall s). A nonzero exit raises."""
+    """``python -m covo_mpc_tpu_torch.bench argv`` in a process of its own,
+    its rows echoed as they come: (its JSON record, its row lines, wall s).
+    A nonzero exit, or no end within BENCH_TIMEOUT_S, raises."""
+    import collections
+    import tempfile
+    import threading
+
     root = os.path.dirname(os.path.abspath(__file__))
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "covo_mpc_tpu_torch.bench", *argv],
-                          capture_output=True, text=True, cwd=root, timeout=900)
+    rows, tail = [], collections.deque(maxlen=60)
+    with tempfile.TemporaryFile("w+") as out:
+        proc = subprocess.Popen([sys.executable, "-m", "covo_mpc_tpu_torch.bench", *argv],
+                                stdout=out, stderr=subprocess.PIPE, text=True, cwd=root)
+        timer = threading.Timer(BENCH_TIMEOUT_S, proc.kill)
+        timer.start()
+        try:
+            for line in proc.stderr:
+                line = line.rstrip("\n")
+                tail.append(line)
+                if line.startswith("[bench]"):
+                    rows.append(line)
+                    say("  " + line)
+            rc = proc.wait()
+        finally:
+            timer.cancel()
+        out.seek(0)
+        stdout = out.read()
     wall = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise AssertionError(f"bench {argv} exited {proc.returncode}:\n"
-                             f"{proc.stderr[-4000:]}")
-    rows = [line for line in proc.stderr.splitlines() if line.startswith("[bench]")]
-    return json.loads(proc.stdout.strip().splitlines()[-1]), rows, wall
+    if rc != 0:
+        raise AssertionError(f"bench {argv} exited {rc}:\n" + "\n".join(tail))
+    return json.loads(stdout.strip().splitlines()[-1]), rows, wall
 
 
 def check_batched_rows(rows, B: int) -> None:
@@ -2939,48 +2995,39 @@ def check_batched_rows(rows, B: int) -> None:
 
 
 def phase_bench(main_path):
-    """Phase 11: the bench in processes of their own (:data:`BENCH_RUNS`),
+    """Phase 11: the bench in a process of its own (:data:`BENCH_ARGV`),
     checked as the module docstring says; ``main_path`` is phase 2c's row of
     the captured main-path solve."""
     from covo_mpc_tpu_torch.ops import kernels
 
-    t_phase = time.perf_counter()
+    argv = BENCH_ARGV
+    phase(f"phase 11: python -m covo_mpc_tpu_torch.bench {' '.join(argv)} (a process "
+          "of its own)")
+    record, rows, wall = bench_run(argv)
+    say("  " + json.dumps(record))
+    say(f"  phase 11 wall {wall:.1f} s")
     jax_keys = set(json.loads(
         (Path(__file__).resolve().parent / "BENCH_r05.json").read_text())["parsed"])
-    for argv in BENCH_RUNS:
-        phase(f"phase 11: python -m covo_mpc_tpu_torch.bench {' '.join(argv)} (a process "
-              "of its own)")
-        record, rows, wall = bench_run(argv)
-        for line in rows:
-            say("  " + line)
-        say("  " + json.dumps(record))
-        say(f"  bench {' '.join(argv)}: wall {wall:.1f} s")
-        latency = "--no-latency" not in argv
-        keys = (jax_keys if latency else jax_keys - LATENCY_KEYS) | {"device", "method"}
-        check(set(record) == keys, "bench: the record has bench.py's keys"
-              + (" (the device per-solve ones too)" if latency else " less the latency "
-                 "pass's") + ", device and method")
-        solve_rows = [r for r in rows if "solves/s" in r or "obs->action" in r]
-        check(all("method=" in r for r in solve_rows),
-              f"bench: each of {len(solve_rows)} rows prints its method")
-        check(record["method"] in ("trace", "events"), f"bench: value measured by "
-              f"{record['method']}")
-        if "--all" in argv:
-            missing = [r for r in ALL_ROWS if not any(r in line for line in rows)]
-            check(not missing, f"bench --all: every row of the JAX bench printed "
-                  f"(missing: {missing})")
-        if latency:
-            ref = main_path["captured_chained_ms"]
-            got = record["per_solve_p50_ms"]
-            check(abs(got - ref) <= 0.1 * ref, f"bench: the main path's per-solve p50 "
-                  f"{got:.4f} ms within 10% of phase 2c's captured chained {ref:.4f} ms")
-            line = next(r for r in rows if r.startswith("[bench] latency covo_online ")
-                        and "marker " in r)
-            marker = line.split("marker ", 1)[1].rsplit(", ", 1)[0]
-            check(kernels.device_kernel(marker) == "joint_sample_rollout_kernel",
-                  f"bench: the per-solve marker is K1 ({marker[:60]})")
-        check_batched_rows(rows, int(argv[argv.index("--scenarios") + 1]))
-    say(f"  phase 11 wall {time.perf_counter() - t_phase:.1f} s")
+    check(set(record) == jax_keys | {"device", "method"},
+          "bench: the record has bench.py's keys (the device per-solve ones too), device "
+          "and method")
+    solve_rows = [r for r in rows if "solves/s" in r or "obs->action" in r]
+    check(all("method=" in r for r in solve_rows),
+          f"bench: each of {len(solve_rows)} rows prints its method")
+    check(record["method"] in ("trace", "events"), f"bench: value measured by "
+          f"{record['method']}")
+    missing = [r for r in ALL_ROWS if not any(r in line for line in rows)]
+    check(not missing, f"bench --all: every row of the JAX bench printed (missing: {missing})")
+    ref = main_path["captured_chained_ms"]
+    got = record["per_solve_p50_ms"]
+    check(abs(got - ref) <= 0.1 * ref, f"bench: the main path's per-solve p50 "
+          f"{got:.4f} ms within 10% of phase 2c's captured chained {ref:.4f} ms")
+    line = next(r for r in rows if r.startswith("[bench] latency covo_online ")
+                and "marker " in r)
+    marker = line.split("marker ", 1)[1].rsplit(", ", 1)[0]
+    check(kernels.device_kernel(marker) == "joint_sample_rollout_kernel",
+          f"bench: the per-solve marker is K1 ({marker[:60]})")
+    check_batched_rows(rows, int(argv[argv.index("--scenarios") + 1]))
 
 
 # --- phase 12: JAX's key tree on the card -------------------------------------
@@ -3285,21 +3332,18 @@ def designer_step(env, dev, state, info, sigma_mode: str) -> None:
         check(same, "eigh twin: the graphed batched Hessian equals the eager one bit for bit")
 
 
-def hessian_graph_row(env, dev, B: int) -> None:
-    """The fwd_fwd batched Hessian as one graph at B: capture s, replay ms,
-    graph nodes, peak memory (the B=2 parity solve of 13c runs it)."""
-    from covo_mpc_tpu_torch.models.batched import BatchedEnv
+def hessian_graph_row(env, solve, info, means, keys) -> None:
+    """The fwd_fwd batched Hessian of ``solve`` (parity, eigh) as one graph
+    on the inputs of the solve that follows it (B scenarios of ``info``, the
+    nominals of ``means``, the draws of ``keys``): capture s, replay ms,
+    graph nodes, peak memory; that solve then replays the graph."""
     from covo_mpc_tpu_torch.models.structs import expand_params
-    from covo_mpc_tpu_torch.parallel.scenarios import _inputs, _shift
-    from covo_mpc_tpu_torch.parallel import make_batched_covo_solve
+    from covo_mpc_tpu_torch.ops.rollout import hessian_draws_from_key
+    from covo_mpc_tpu_torch.parallel.scenarios import _shift, _solve_inputs
 
-    p = env.default_params
-    _, info, _ = BatchedEnv(env).reset(episode_gens(dev, 7, B), p)
-    solve = make_batched_covo_solve(env, N, H, 0.01, rng="parity", hessian_mode="fwd_fwd",
-                                    engine="cuda", sigma_mode="eigh")
-    means = make_solver(env, "torch")[1].a_mean.expand(B, H, 4)
-    args = (_shift(means).reshape(B, D), *_inputs(info["noisy_state"]),
-            expand_params(p, B), None)
+    B = keys.shape[0]
+    args = (_shift(means).reshape(B, D), *_solve_inputs(None, info),
+            expand_params(env.default_params, B), hessian_draws_from_key(env, keys, H))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3376,18 +3420,17 @@ def phase_batched_modes(env, dev, kernel_list, refs: dict) -> dict:
     res, counts = batched_run(env, "MPPI parity", mppi_parity, [k6], kernel_list,
                               MPPI_ERR_POS_LIMIT_CM)
     launches[k6.symbol]["13c MPPI parity"] = counts[k6.symbol]
-    for B in (2, TWIN_B):
-        hessian_graph_row(env, dev, B)
-    say("  one full-width batched CoVO parity solve (fwd_fwd, eigh), B=2, against the "
-        "single parity solve of each episode")
     solve = make_batched_covo_solve(env, N, H, 0.01, rng="parity", hessian_mode="fwd_fwd",
                                     engine="cuda", sigma_mode="eigh")
     single, cp = get_solver(env, "covo_online", pstr, rng_mode="parity", engine="cuda",
                             collect_debug=False)
     keys = first_rng_act(run_keys[:2])
     info2 = {"noisy_state": index(info_b["noisy_state"], slice(0, 2))}
-    means, _ = solve(*_solve_inputs(None, info2), cp.a_mean.expand(2, H, 4).contiguous(),
-                     expand_params(p, 2), key=keys)
+    a_means = cp.a_mean.expand(2, H, 4).contiguous()
+    hessian_graph_row(env, solve, info2, a_means, keys)
+    say("  one full-width batched CoVO parity solve (fwd_fwd, eigh), B=2, against the "
+        "single parity solve of each episode")
+    means, _ = solve(*_solve_inputs(None, info2), a_means, expand_params(p, 2), key=keys)
     errs = []
     for b in range(2):
         one = index(info2, b)
@@ -3397,7 +3440,7 @@ def phase_batched_modes(env, dev, kernel_list, refs: dict) -> dict:
     check(max(errs) <= 2e-4, "batched CoVO parity solve within 2e-4 of the single solves")
 
     phase(f"phase 13d: run_supervised(MPPI parity, total_steps={KEY_MPPI_STEPS}, "
-          "chunk_episodes=2) with a fault injected at chunk 1")
+          "chunk_episodes=1) with a fault injected at chunk 1")
     if "12d mppi parity" not in refs:
         refs["12d mppi parity"] = closed_loop(env, mppi_parity, KEY_MPPI_STEPS,
                                               kernel_list)[0]
@@ -3414,7 +3457,7 @@ def phase_batched_modes(env, dev, kernel_list, refs: dict) -> dict:
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as ckpt:
         sup = run_supervised(env, mppi_parity, total_steps=KEY_MPPI_STEPS, seed=1,
-                             checkpoint_dir=ckpt, chunk_episodes=2, max_retries=1,
+                             checkpoint_dir=ckpt, chunk_episodes=1, max_retries=1,
                              _fault_hook=fault)
     launches[k4.symbol]["13d supervised MPPI parity"] = k4.launches
     say(f"  {sup.summary()} in {time.perf_counter() - t0:.1f} s; phase 12d's evaluate "
@@ -3444,6 +3487,577 @@ def phase_batched_modes(env, dev, kernel_list, refs: dict) -> dict:
     return launches
 
 
+# --- phase 14: the parallel layer on torch.distributed ---------------------------
+# 14b's scenario count (phase 5's B), 14c's pipeline steps and its sample
+# count, a rank's share of N in the per-shard kernel checks (two ranks)
+MESH_B, PIPE_STEPS, TWO_RANK_N, SHARD_N = 16, 20, N, N // 2
+MESH_AXES = ["offline_schedule", "pipe", "samples", "scenarios"]  # bench_mesh's lines
+
+
+def count_launches(kernel_list, label: str, launches: dict) -> None:
+    """Add every kernel's count since the last reset to ``launches[symbol]
+    [label]``, then set the counts to 0."""
+    for k in kernel_list:
+        launches.setdefault(k.symbol, {})[label] = (
+            launches.get(k.symbol, {}).get(label, 0) + k.launches)
+        k.launches = 0
+
+
+def reset_counts(kernel_list) -> None:
+    for k in kernel_list:
+        k.launches = 0
+
+
+def mesh_inputs(env, dev):
+    """The single-scenario inputs of 14a and 14c: the reset state of key 0,
+    the default params, the hover mean, MPPI's σ² I and its factor, JAX's
+    key 21 and its solve chain's (act_key, step_key)."""
+    from covo_mpc_tpu_torch.models import pack_state
+    from covo_mpc_tpu_torch.parallel.sharded import act_step_keys
+    from covo_mpc_tpu_torch.solvers.factory import DEFAULT_SIGMA, hover_sequence
+    from covo_mpc_tpu_torch.utils import prng
+
+    _, _, st = env.reset(prng.PRNGKey(0, device=dev))
+    key = prng.PRNGKey(21, device=dev)
+    cov = (DEFAULT_SIGMA ** 2 * torch.eye(4, device=dev)).expand(H, 4, 4).contiguous()
+    return types.SimpleNamespace(
+        st=st, x=(pack_state(st), st.time, st.pos_traj, st.vel_traj),
+        p=env.default_params, hover=hover_sequence(env, H), cov=cov, key=key,
+        keys=act_step_keys(key))
+
+
+def scenario_inputs(dev):
+    """14b's and 14c's B=MESH_B randomized scenarios (phase 5's DR env),
+    each params and reset from its own JAX key, and the step's keys."""
+    from covo_mpc_tpu_torch.models import EnvConfig, QuadEnv
+    from covo_mpc_tpu_torch.scripts.bench_mesh import scenario_batch
+    from covo_mpc_tpu_torch.utils import prng
+
+    env_dr = QuadEnv(EnvConfig(**{**ENV_KW, "enable_randomizer": True}), device=dev)
+    states, params_b, _ = scenario_batch(env_dr, MESH_B, key=1)
+    a_means, a_covs = initial_means(env_dr, MESH_B)
+    return env_dr, states, params_b, a_means, a_covs, prng.split(
+        prng.PRNGKey(31, device=dev), MESH_B)
+
+
+def phase_shard_kernels(env, dev, records) -> None:
+    """14 (kernels): what a rank of a two-rank sharded solve launches, at its
+    share n = SHARD_N of the main path's N: K1, K4 and K5, and K6 and both
+    K7 forms at B=MESH_B, against their plain versions on given normals
+    (:func:`check_rollout_kernels`), and their in-kernel draws at n (the
+    first n samples of an N launch: :func:`check_small_draws`). Kept in
+    each record's ``per_shard`` (None: not kept)."""
+    from covo_mpc_tpu_torch.models import EnvConfig, QuadEnv
+
+    phase(f"phase 14 (kernels): K1, K4-K7 at a rank's share n={SHARD_N} of N={N} (two "
+          f"ranks), H={H}, B={MESH_B}, against their plain versions")
+    env_b = QuadEnv(EnvConfig(**{**ENV_KW, "enable_randomizer": True}))
+    inp = mode_kernel_inputs(dev, 140, n=SHARD_N, B=MESH_B)
+    case = mode_case(env, env_b, dev, 141, B=MESH_B)
+    errs = check_rollout_kernels(f"n={SHARD_N}", inp, case)
+    check_small_draws(inp, case)
+    say(f"  n={SHARD_N} max abs errors: " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    if records is not None:
+        for name, err in errs.items():
+            records[name]["per_shard"] = {"n": SHARD_N, "max_abs_err": err}
+
+
+def phase_mesh_solves(env, dev, kernel_list, launches):
+    """14a: one rank under an initialized NCCL group: sharded MPPI (K5 under
+    kernel rng, K4 under invariant) and the distributed CoVO solve (gn: K2,
+    K3 and K1 under kernel, K4 under invariant) against the single-device
+    solvers, eager and captured. Returns the captured calls and their
+    references to time later (:func:`capture_references`) and the
+    distributed solves' means (14c's references)."""
+    from covo_mpc_tpu_torch.parallel import (
+        make_distributed_covo_solve,
+        make_mesh,
+        make_sharded_mppi_solve,
+    )
+    from covo_mpc_tpu_torch.parallel.sharded import act_step_keys
+    from covo_mpc_tpu_torch.runtime import graphs
+
+    phase("phase 14a: one rank under an NCCL group: the sharded MPPI and distributed CoVO "
+          "solves against the single-device solvers, eager and captured")
+    mesh = make_mesh(1, device=dev)
+    check(mesh.backend == "nccl" and mesh.axis("samples").group is not None,
+          f"a one-rank mesh under NCCL runs real collectives ({mesh})")
+    m = mesh_inputs(env, dev)
+    act_key, step_key = m.keys
+    draw = env.disturb_from_key(step_key, fast=True)
+    out, caps, t_a = {}, {}, time.perf_counter()
+    for rng in ("kernel", "invariant"):
+        mppi, cp = make_mppi(env, "cuda", seed=5, rng_mode=rng)
+        kw = dict(draw=draw) if rng == "kernel" else dict(key=m.key)
+        ref = mppi(None, m.st, m.p, cp, None, **kw)[1].a_mean
+        make = lambda capture: make_sharded_mppi_solve(  # noqa: E731
+            env, mesh, N, H, 0.01, rng=rng, engine="cuda", seed=5, capture=capture)
+        args = (*m.x, cp.a_mean, cp.a_cov, cp.gamma_mean, cp.gamma_sigma, cp.discount,
+                m.p, act_key, step_key)
+        reset_counts(kernel_list)
+        got = make(False)(*args)
+        count_launches(kernel_list, f"14a sharded MPPI {rng}", launches)
+        cap = make(True)
+        again = cap(*args)
+        err = max_err(got[0], ref)
+        tol = 2e-4 if rng == "kernel" else 1e-5
+        say(f"  sharded MPPI, {rng} rng: max |sharded - single| of the new mean {err:.3e}; "
+            f"captured: {graph_nodes(cap.graph)} graph nodes")
+        check(err <= tol, f"sharded MPPI {rng}: within {tol:g} of the single MPPI solve")
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"sharded MPPI {rng}: the captured replay equals the eager solve bit for bit")
+        timed = cap.graph
+        if rng == "invariant":
+            # the single solve splits its key inside its graph; so does the
+            # sharded one that is timed beside it
+            timed = graphs.capture(lambda k, s=cap: s.solve(*args[:-2], *act_step_keys(k)),
+                                   m.key, streams=cap.random_streams())
+        caps[f"mppi {rng}"] = (timed, mppi, cp, kw)
+
+        covo, ccp = make_solver(env, "cuda", seed=5, rng_mode=rng)
+        ccp = ccp.replace(a_mean=m.hover)
+        ckw = dict(key=m.key) if rng == "invariant" else {}
+        ref = covo(None, m.st, m.p, ccp, None, **ckw)[1].a_mean
+        make = lambda capture: make_distributed_covo_solve(  # noqa: E731
+            env, mesh, N, H, 0.01, sample_sigma=ccp.sample_sigma, rng=rng,
+            hessian_mode="gn", engine="cuda", seed=5, capture=capture)
+        args = (*m.x, m.hover, m.p, m.key, ccp.gamma_mean, ccp.discount)
+        reset_counts(kernel_list)
+        got = make(False)(*args)
+        count_launches(kernel_list, f"14a distributed CoVO {rng}", launches)
+        cap = make(True)
+        again = cap(*args)
+        err = max_err(got[0], ref)
+        say(f"  distributed CoVO (gn), {rng} rng: max |distributed - single| of the new "
+            f"mean {err:.3e}; captured: {graph_nodes(cap.graph)} graph nodes")
+        check(err <= tol, f"distributed CoVO {rng}: within {tol:g} of the single CoVO solve")
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"distributed CoVO {rng}: the captured replay equals the eager solve bit "
+              "for bit")
+        caps[f"covo {rng}"] = (cap.graph, covo, ccp, ckw)
+        out[f"covo {rng}"] = got[0]
+    refs = capture_references(env, dev, mesh, caps)
+    say(f"  14a checks {time.perf_counter() - t_a:.1f} s")
+    return caps, refs, out
+
+
+def capture_references(env, dev, mesh, caps: dict):
+    """14a's references for the timing: each single-device solve captured
+    on the same inputs (the MPPI draw from the step key inside its graph,
+    as the sharded solve draws it) and a graph of the three all-reduces
+    alone at the solve's shapes (a MIN and a SUM of a scalar, a SUM of (H,
+    4))."""
+    from covo_mpc_tpu_torch.runtime import graphs
+
+    m = mesh_inputs(env, dev)
+
+    def single(solver, kw):
+        def call(st, p, cp):
+            if "draw" in kw:
+                return solver(None, st, p, cp, None,
+                              draw=env.disturb_from_key(m.keys[1], fast=True))
+            return solver(None, st, p, cp, None, **kw)
+        return call
+
+    refs = {name: graphs.capture(single(solver, kw), m.st, m.p, cp,
+                                 streams=solver.random_streams())
+            for name, (_, solver, cp, kw) in caps.items()}
+    ax = mesh.axis("samples")
+    refs["collectives"] = graphs.capture(
+        lambda a, b, c: (ax.pmin(a), ax.psum(b), ax.psum(c)),
+        torch.zeros((), device=dev), torch.ones((), device=dev),
+        torch.ones(H, 4, device=dev))
+    return refs
+
+
+def time_mesh_solves(caps, refs) -> None:
+    """14a's timing, after graphs.settle(): ms a captured solve replayed
+    back to back, sharded at one rank and the single-device solve in turns
+    (sharded, single, single, sharded), each pair doing the same work (the
+    sharded MPPI invariant solve's graph splits its key, as the single
+    solve's does), and the three all-reduces alone."""
+    from covo_mpc_tpu_torch.runtime import graphs
+
+    phase("phase 14a (timing): captured solves, one rank under NCCL against the "
+          "single device")
+    slept = graphs.settle()
+    for name, (timed, _, _, _) in caps.items():
+        times = {"sharded": [], "single": []}
+        for which in ("sharded", "single", "single", "sharded"):
+            graph = timed if which == "sharded" else refs[name]
+            times[which].append(time_ms(graph.replay, 200, warmup=10))
+        sharded, alone = (sum(times[k]) / 2 for k in ("sharded", "single"))
+        say(f"  {name}: {sharded:.4f} ms a captured sharded solve (one rank, NCCL; "
+            f"{graph_nodes(timed)} nodes), {alone:.4f} ms the single-device solve "
+            f"({graph_nodes(refs[name])} nodes); difference {sharded - alone:+.4f} ms "
+            f"(turns {[round(t, 4) for k in times for t in times[k]]})")
+    coll = time_ms(refs["collectives"].replay, 500, warmup=20)
+    say(f"  the three all-reduces alone, captured ({graph_nodes(refs['collectives'])} "
+        f"nodes): {coll:.4f} ms (settled {slept:.1f} s)")
+
+
+def phase_multichip(env, dev, kernel_list, launches) -> dict:
+    """14b: the multichip control and CoVO steps at B=MESH_B on one rank
+    (NCCL) against the batched twin of the same solver on the same keys;
+    K6 (invariant) and K7 (kernel) launched; the kernel-rng CoVO step
+    captured equal to its eager step bit for bit."""
+    from covo_mpc_tpu_torch.ops import sampling
+    from covo_mpc_tpu_torch.ops.rollout import hessian_draws_from_key
+    from covo_mpc_tpu_torch.parallel import (
+        make_batched_covo_solve,
+        make_batched_mppi_solve,
+        make_mesh,
+        make_multichip_control_step,
+        make_multichip_covo_step,
+    )
+    from covo_mpc_tpu_torch.parallel.scenarios import _inputs, _shift
+    from covo_mpc_tpu_torch.utils import prng
+
+    phase(f"phase 14b: the multichip control and CoVO steps at B={MESH_B}, one rank "
+          "under NCCL, against the batched twins on the same keys")
+    mesh = make_mesh(1, 1, device=dev)
+    env_dr, states, pb, a_means, a_covs, keys = scenario_inputs(dev)
+    x = _inputs(states)
+    out = {}
+    for rng in ("kernel", "invariant"):
+        twin_rng = "kernel" if rng == "kernel" else "fast"
+        split = prng.split(keys, 4)
+        act_keys, step_keys = split[:, 1], split[:, 2]
+        draws = env_dr.disturb_from_key(step_keys, fast=True)
+        z = (None if rng == "kernel" else
+             sampling.std_normal_invariant(act_keys, N, (H, 4)))
+        twin = make_batched_mppi_solve(env_dr, N, H, 0.01, rng=twin_rng, engine="cuda",
+                                       seed=9)
+        ref, _, _ = twin(*x, a_means, a_covs, pb, 1.0, 0.0, 1.0, z=z, draws=draws,
+                         offset=0 if rng == "kernel" else None)
+        step = make_multichip_control_step(env_dr, mesh, N, H, 0.01, rng=rng, engine="cuda",
+                                           seed=9)
+        reset_counts(kernel_list)
+        got = step(states, pb, a_means, a_covs, keys)
+        count_launches(kernel_list, f"14b multichip MPPI {rng}", launches)
+        err = max_err(got[1], ref)
+        say(f"  multichip MPPI step, {rng} rng: max |multichip - batched twin| {err:.3e}; "
+            f"time {int(got[0].time.min())}..{int(got[0].time.max())}")
+        check(err <= 2e-4 and bool(torch.isfinite(got[3]).all()),
+              f"multichip MPPI {rng}: within 2e-4 of the batched MPPI solve, finite rewards")
+
+        split = prng.split(keys, 5)
+        hess_keys, act_keys, step_keys = split[:, 1], split[:, 2], split[:, 3]
+        twin = make_batched_covo_solve(env_dr, N, H, 0.01, rng=twin_rng, hessian_mode="gn",
+                                       engine="cuda", seed=9)
+        means = _shift(a_means)
+        covs, facs = twin.design(*x, means, pb,
+                                 hess_draws=hessian_draws_from_key(env_dr, hess_keys, H))
+        z = (None if rng == "kernel" else
+             sampling.std_normal_invariant(act_keys, N, (4 * H,)))
+        ref, _, _ = twin.sample_update(
+            *x, means, covs, facs, pb, z=z,
+            draws=env_dr.disturb_from_key(step_keys, deterministic=True, fast=True),
+            offset=0 if rng == "kernel" else None)
+        make = lambda capture: make_multichip_covo_step(  # noqa: E731
+            env_dr, mesh, N, H, 0.01, rng=rng, hessian_mode="gn", engine="cuda", seed=9,
+            capture=capture)
+        reset_counts(kernel_list)
+        got = make(False)(states, pb, a_means, keys)
+        count_launches(kernel_list, f"14b multichip CoVO {rng}", launches)
+        err = max_err(got[1], ref)
+        say(f"  multichip CoVO step (gn), {rng} rng: max |multichip - batched twin| "
+            f"{err:.3e}")
+        check(err <= 2e-4 and bool(torch.isfinite(got[2]).all()),
+              f"multichip CoVO {rng}: within 2e-4 of the batched CoVO solve's design + "
+              "sample_update, finite rewards")
+        out[rng] = got[1]
+        if rng == "kernel":
+            cap = make(True)
+            again = cap(states, pb, a_means, keys)
+            same = all(torch.equal(a, b) for a, b in zip(flat(got), flat(again)))
+            ms = time_ms(cap.graph.replay, 20, warmup=3)
+            say(f"  captured multichip CoVO step: {graph_nodes(cap.graph)} graph "
+                f"nodes, replay {ms:.3f} ms ({MESH_B / ms * 1e3:.0f} solves/s)")
+            check(same, "the captured multichip CoVO step equals the eager step bit for bit")
+    for sym, what in (("rollout_costs_batched", "invariant"),
+                      ("sample_rollout_batched", "kernel"),
+                      ("joint_sample_rollout_batched", "kernel")):
+        n = sum(v for k, v in launches[sym].items() if k.startswith("14b") and what in k)
+        check(n >= 1, f"{sym} launched in 14b's {what} steps ({n})")
+    return out
+
+
+def flat(tree) -> list:
+    from covo_mpc_tpu_torch.models.structs import tree_flatten
+
+    return tree_flatten(tree)[0]
+
+
+def pipeline_oracle(env, m, n: int, seed: int):
+    """The pipeline step's semantics with its stages one after the other,
+    from the building blocks and independent of ``parallel/pipeline.py``'s
+    step and act core: act with LAST step's factor (K1's wrapper on a seed
+    stream seeded as the pipeline's, its one word a step; the weights and
+    mean update of ``ops/reductions.py``), then design at the state one
+    deterministic model step along the PRE-update shifted mean (K2 + K3
+    under the Gauss–Newton Hessian, the Newton–Schulz designer). Returns
+    ``step(a_mean, factor, key) -> (a_mean_new, factor_next, min_cost)``."""
+    from covo_mpc_tpu_torch.ops import covariance, reductions, sampling
+    from covo_mpc_tpu_torch.ops.hessian import make_hessian_adjoint
+    from covo_mpc_tpu_torch.ops.rollout import hessian_draws_from_key
+    from covo_mpc_tpu_torch.ops.rollout_cuda import make_rollout_joint_sampling
+    from covo_mpc_tpu_torch.parallel.pipeline import predict_next_state
+    from covo_mpc_tpu_torch.utils import prng
+
+    k1 = make_rollout_joint_sampling(env)
+    hess = make_hessian_adjoint(env, H, primal="cuda", tail="cuda", second_order=False)
+    seeds = sampling.SeedStream(m.x[0].device, seed)
+    x0, t0, pos_traj, vel_traj = m.x
+
+    def step(a_mean, factor, key):
+        mean = torch.cat([a_mean[1:], a_mean[-1:]])
+        k_act, k_step, k_prep = prng.split(key, 3).unbind(-2)
+        draw = env.disturb_from_key(k_step, deterministic=True, fast=True)
+        costs, a_t = k1(*m.x, mean, factor, m.p, seeds.next()[0], n, draw=draw,
+                        deterministic=True)
+        a_new = reductions.mean_update_t(reductions.mppi_weights(costs, 0.01),
+                                         a_t.reshape(H, 4, n), mean, 1.0)
+        x1 = predict_next_state(env, x0, t0, mean, m.p, k_prep)
+        R = hess(torch.cat([mean[1:], mean[-1:]]).reshape(-1), x1, t0 + 1, pos_traj,
+                 vel_traj, m.p, hessian_draws_from_key(env, k_prep, H))
+        return a_new, covariance.optimize_sigma_ns(R, 0.5, D)[1], torch.amin(costs)
+
+    return step
+
+
+def two_rank_checks(rank: int, n: int, expect: dict) -> dict:
+    """14c, on each of two ranks sharing the card (gloo): the distributed
+    CoVO solve on (samples=2, scenarios=1) and the multichip CoVO step on
+    (2, 1) and (1, 2) (invariant rng, gn) against ``expect`` (14a / 14b's
+    one-rank results), the pipeline for PIPE_STEPS steps (kernel rng: K1
+    acts, K2 + K3 design) against :func:`pipeline_oracle` on the same keys,
+    the distributed offline schedule against the single-device reset, and
+    ``bench_mesh --distributed`` joining the job. Every run under test has
+    the counts set to 0 just before it and read just after, under its own
+    label; the references' launches are not counted. Returns the errors,
+    wall times, launches by label and bench_mesh's rows."""
+    from covo_mpc_tpu_torch.models import EnvConfig, QuadEnv
+    from covo_mpc_tpu_torch.ops import kernels as _kernels  # noqa: F401
+    from covo_mpc_tpu_torch.ops import hessian_cuda, rollout_cuda
+    import contextlib
+    import io
+
+    from covo_mpc_tpu_torch.parallel import (
+        SCENARIO_AXIS,
+        device_topology,
+        make_distributed_covo_solve,
+        make_distributed_offline_schedule,
+        make_init_factor,
+        make_mesh,
+        make_multichip_covo_step,
+        make_pipeline_mesh,
+        make_pipeline_step,
+    )
+    from covo_mpc_tpu_torch.scripts import bench_mesh
+    from covo_mpc_tpu_torch.solvers import get_solver
+    from covo_mpc_tpu_torch.utils import prng
+
+    dev = torch.device("cuda", 0)  # the card both ranks share
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernel_list = [rollout_cuda.JOINT_KERNEL, rollout_cuda.PRIMAL_KERNEL,
+                   hessian_cuda.CHAIN_KERNEL, rollout_cuda.ROLLOUT_KERNEL,
+                   rollout_cuda.SAMPLE_KERNEL, rollout_cuda.ROLLOUT_BATCHED_KERNEL,
+                   rollout_cuda.SAMPLE_BATCHED_KERNEL, rollout_cuda.JOINT_BATCHED_KERNEL]
+    env = QuadEnv(EnvConfig(**ENV_KW), device=dev)
+    m = mesh_inputs(env, dev)
+    out, walls, launches = {}, {}, {}
+
+    def run(label, fn):
+        """``fn()`` with every count at 0 just before it, read just after
+        into ``launches`` under ``label`` (added up over repeated runs)."""
+        reset_counts(kernel_list)
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        walls[label] = walls.get(label, 0.0) + time.perf_counter() - t0
+        count_launches(kernel_list, label, launches)
+        return result
+
+    mesh = make_mesh(samples=2, device=dev)
+    solve = make_distributed_covo_solve(env, mesh, n, H, 0.01, rng="invariant",
+                                        hessian_mode="gn", engine="cuda")
+    got = run("distributed CoVO (2, 1)", lambda: solve(*m.x, m.hover, m.p, m.key)[0])
+    out["distributed CoVO (2, 1)"] = max_err(got.cpu(), expect["covo"])
+
+    env_dr, states, pb, a_means, _, keys = scenario_inputs(dev)
+    for samples, scenarios in ((2, 1), (1, 2)):
+        mesh = make_mesh(samples, scenarios, device=dev)
+        step = make_multichip_covo_step(env_dr, mesh, n, H, 0.01, rng="invariant",
+                                        hessian_mode="gn", engine="cuda")
+        shard = lambda x: mesh.shard(x, SCENARIO_AXIS)  # noqa: E731
+        label = f"multichip CoVO ({samples}, {scenarios})"
+        got = run(label, lambda: step(shard(states), shard(pb), shard(a_means),
+                                      shard(keys))[1])
+        out[label] = max_err(mesh.gather(got, SCENARIO_AXIS).cpu(), expect["multichip"])
+
+    mesh = make_pipeline_mesh(device=dev)
+    pipe = make_pipeline_step(env, mesh, n, H, 0.01, rng="kernel", hessian_mode="gn",
+                              engine="cuda", seed=3)
+    oracle = pipeline_oracle(env, m, n, seed=3)
+    f0 = make_init_factor(env, H, hessian_primal="cuda", hessian_mode="gn")(
+        *m.x, m.hover, m.p, prng.PRNGKey(4, device=dev))
+    a, f, a_o, f_o, errs = m.hover, f0, m.hover, f0, []
+    for t in range(PIPE_STEPS):
+        key = prng.fold_in(prng.PRNGKey(5, device=dev), t)
+        a, f, mc = run("pipeline", lambda: pipe(*m.x, a, f, m.p, key))  # noqa: B023
+        a_o, f_o, mc_o = oracle(a_o, f_o, key)
+        errs.append(max(max_err(a, a_o), max_err(f, f_o), abs(float(mc - mc_o))))
+    out["pipeline vs stage-sequential oracle"] = max(errs)
+
+    mesh = make_mesh(samples=2, device=dev)
+    solver, cp0 = get_solver(env, "covo_offline", f"N{n}_H{H}_lam0.01",
+                             rng_mode="invariant", hessian_mode="gn", sigma_mode="ns",
+                             engine="cuda", collect_debug=False)
+    okey = prng.PRNGKey(7, device=dev)
+    schedule = make_distributed_offline_schedule(solver, mesh)
+    got = run("offline schedule", lambda: schedule(m.st, m.p, cp0, okey))
+    ref = solver.reset(m.st, m.p, cp0, key=okey)
+    out["offline schedule vs single reset"] = max(
+        max_err(got.a_cov_offline, ref.a_cov_offline),
+        max_err(got.a_factor_offline, ref.a_factor_offline))
+
+    # bench_mesh joins this job through the launcher contract (--distributed)
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        run("bench_mesh --distributed", lambda: bench_mesh.main(
+            ["--distributed", "--backend", "gloo", "--k", "1", "--hessian", "gn",
+             "--rng", "kernel", "--scenarios", "2", "--b", str(MESH_B), "--offline",
+             "--pipeline", "--device", dev.type]))
+    rows = [json.loads(line) for line in text.getvalue().splitlines()
+            if line.startswith("{")]
+    return dict(errors=out, walls=walls, launches=launches,
+                topology=device_topology(dev), bench_rows=rows)
+
+
+def phase_two_ranks(kernel_list, launches, expect: dict) -> None:
+    """14c: two ranks on the one card (two processes, gloo), the results
+    equal to 14a / 14b's one-rank results and to the stage-sequential and
+    single-device runs within 1e-5; each rank's launches kept by run and
+    rank; wall times printed as plumbing."""
+    from covo_mpc_tpu_torch.parallel import run_ranks
+
+    phase(f"phase 14c: two ranks on the one card (gloo), N={TWO_RANK_N}: the distributed "
+          "CoVO solve, the multichip CoVO step, the pipeline, the offline schedule and "
+          "bench_mesh --distributed")
+    t0 = time.perf_counter()
+    outs = run_ranks(two_rank_checks, 2, TWO_RANK_N,
+                     {k: v.cpu() for k, v in expect.items()}, backend="gloo",
+                     timeout_s=300)
+    wall = time.perf_counter() - t0
+    for rank, o in enumerate(outs):
+        say(f"  rank {rank} {o['topology']}: max errors {o['errors']}")
+        say(f"  rank {rank} wall s (plumbing: two ranks share one card under gloo, "
+            f"their collectives staged through the host): "
+            + ", ".join(f"{k} {v:.2f}" for k, v in o["walls"].items()))
+        for sym, by in o["launches"].items():
+            for label, n in by.items():
+                launches.setdefault(sym, {})[f"14c {label}, rank {rank}"] = n
+        for name, err in o["errors"].items():
+            check(err <= 1e-5, f"rank {rank}: {name} within 1e-5")
+    for sym, want in (("joint_sample_rollout", "pipeline, rank 0"),
+                      ("primal", "pipeline, rank 1"), ("sens_chain", "pipeline, rank 1"),
+                      ("rollout_costs", "distributed CoVO (2, 1), rank 0"),
+                      ("rollout_costs_batched", "multichip CoVO (2, 1), rank 0")):
+        n = launches.get(sym, {}).get(f"14c {want}", 0)
+        check(n >= 1, f"{sym} launched in 14c's {want} ({n})")
+    rows = outs[0]["bench_rows"]
+    for r in rows:
+        say(f"  bench_mesh --distributed (2 processes): {json.dumps(r)}")
+    check(not outs[1]["bench_rows"] and sorted(r["axis"] for r in rows) == MESH_AXES
+          and all(r.get("shards", r.get("chips")) == 2 and r["plumbing"]
+                  and r["device"]["power_limit"] for r in rows),
+          f"bench_mesh --distributed in the two-rank job: rank 0 prints a line for each of "
+          f"{MESH_AXES} (2 ranks, plumbing, the card's power limit)")
+    say(f"  14c wall {wall:.1f} s (the ranks' start, CUDA contexts and kernel loads "
+        "included; plumbing)")
+
+
+def phase_pod_block(kernel_list, launches) -> None:
+    """14d: pod_scale's per-rank block of config #5 (1024 scenarios over 8
+    ranks: B=128, N, H, kernel rng, K7 joint), captured, against
+    hbm_arithmetic; then bench_mesh in this process, one line a mode at one
+    rank (its two-rank lines come from 14c's job), its launches counted."""
+    import contextlib
+    import io
+    import tempfile
+
+    from covo_mpc_tpu_torch.scripts import bench_mesh, pod_scale
+
+    phase(f"phase 14d: the pod block (config #5 at one rank: B="
+          f"{pod_scale.POD_SCENARIOS // pod_scale.POD_RANKS}, N={N}, H={H}, kernel rng) "
+          "and bench_mesh")
+    args = pod_scale.build_parser().parse_args(["--block", "--k", "2"])
+    reset_counts(kernel_list)
+    rec = pod_scale.block(args)["block"]
+    count_launches(kernel_list, "14d pod block", launches)
+    say(f"  {json.dumps(rec)}")
+    check(rec["ms_per_step"] > 0 and rec["peak_gib"] < rec["card_gib"],
+          f"pod block: {rec['ms_per_step']:.2f} ms a step, peak {rec['peak_gib']:.2f} GiB "
+          f"(estimate {rec['estimate_gib']:.2f} GiB)")
+    check(launches["joint_sample_rollout_batched"]["14d pod block"] >= 1,
+          "K7 joint launched in the pod block")
+    with tempfile.TemporaryDirectory() as d:
+        argv = ["--k", "1", "--hessian", "gn", "--rng", "kernel", "--samples", "1",
+                "--scenarios", "1", "--b", str(MESH_B), "--offline",
+                "--metrics", f"{d}/mesh_metrics.jsonl", "--metrics-steps", "4"]
+        text = io.StringIO()
+        t0 = time.perf_counter()
+        reset_counts(kernel_list)
+        with contextlib.redirect_stdout(text):
+            bench_mesh.main(argv)
+        count_launches(kernel_list, "14d bench_mesh", launches)
+        rows = [json.loads(line) for line in text.getvalue().splitlines()
+                if line.startswith("{")]
+        for r in rows:
+            say(f"  bench_mesh: {json.dumps(r)}")
+        say(f"  bench_mesh {' '.join(argv)}: {len(rows)} lines in "
+            f"{time.perf_counter() - t0:.1f} s (its two-rank lines came from 14c's job)")
+        want = [a for a in MESH_AXES if a != "pipe"]  # the pipeline takes two ranks
+        check(sorted(r["axis"] for r in rows) == want
+              and all(r.get("shards", r.get("chips")) == 1 and r["device"]["power_limit"]
+                      for r in rows),
+              f"bench_mesh: a line for each of {want} at 1 rank, each with the card's "
+              "power limit")
+        check(sum(1 for _ in open(f"{d}/mesh_metrics.jsonl")) == 4,
+              "bench_mesh --metrics: 4 JSONL records")
+
+
+def phase_parallel(env, dev, kernel_list, records=None) -> dict:
+    """Phase 14 (the per-shard kernels, 14a-14d); returns each kernel's
+    launches by run under test."""
+    import torch.distributed as dist
+
+    from covo_mpc_tpu_torch.parallel.distributed import free_port
+
+    t_phase = time.perf_counter()
+    launches: dict = {}
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        phase_shard_kernels(env, dev, records)
+        caps, refs, single = phase_mesh_solves(env, dev, kernel_list, launches)
+        multi = phase_multichip(env, dev, kernel_list, launches)
+        phase_two_ranks(kernel_list, launches, {"covo": single["covo invariant"],
+                                                "multichip": multi["invariant"]})
+        # 14a's timing after 14c, whose ranks run in processes of their own:
+        # the capture's slow spell has passed by then (14d captures again)
+        time_mesh_solves(caps, refs)
+        phase_pod_block(kernel_list, launches)
+    finally:
+        dist.destroy_process_group()
+    say("  launches in phase 14: " + json.dumps(
+        {sym: {k: v for k, v in by.items() if v} for sym, by in launches.items()}))
+    say(f"  phase 14 wall {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def first_rng_act(keys):
     """Each episode's ``rng_act`` of the first step of JAX's episode chain
     from its run key: ``rng_control, rng = split(key)``, then ``rng,
@@ -3458,13 +4072,16 @@ def first_rng_act(keys):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--total-steps", type=int, default=1200,
-                    help="length of the closed loops that do not run the "
-                         "40-episode protocol (CoVO online, MPPI kernel rng and "
-                         "speculative run PROTOCOL_STEPS)")
+                    help="length of the single-scenario closed loops (phases 3, "
+                         "6d, 7c at half, 8c)")
     ap.add_argument("--phase13", action="store_true",
                     help="build the kernels and run phase 13 alone (a quick check of "
                          "the batched modes, the supervisors and render; no kernels "
                          "record, no result line)")
+    ap.add_argument("--phase14", action="store_true",
+                    help="build the kernels and run phase 14 alone (the parallel layer: "
+                         "one rank under NCCL, two ranks on the card, the pod block, "
+                         "bench_mesh; no kernels record, no result line)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -3523,6 +4140,9 @@ def main(argv=None) -> int:
     if args.phase13:
         phase_batched_modes(env, dev, kernel_list, refs)
         return 0
+    if args.phase14:
+        phase_parallel(env, dev, kernel_list)
+        return 0
     phase_kernels(env, dev, records)
     phase_chain_kernels(dev, records, earlier, probe, clock_mhz)
     phase_rollout_kernels(dev, records, earlier_rollout, probe, clock_mhz)
@@ -3557,6 +4177,10 @@ def main(argv=None) -> int:
         env, dev, kernel_list, refs)
     for symbol, counts in phase_batched_modes(env, dev, kernel_list, refs).items():
         records[symbol]["batched_modes_launches"] = counts
+    parallel = phase_parallel(env, dev, kernel_list, records)
+    for k in kernel_list:
+        records[k.symbol]["parallel_launches"] = {
+            label: n for label, n in parallel.get(k.symbol, {}).items() if n}
     phase("done")
 
     say(json.dumps({"kernels": [

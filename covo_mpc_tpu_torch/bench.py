@@ -36,9 +36,11 @@ so. Each row, on the card:
   the H100 a profiler session slows each replay of a captured graph (the
   host's graph launch is instrumented node by node), so the traced wall,
   printed beside, times a slower run than the one a user gets. The
-  headline row and the latency pass time ``graphs.SETTLE_S`` after their
-  last capture: for up to ~28 s after one the H100 ran every replay ~11%
-  slower; the other rows may read that spell.
+  headline row and the latency pass (its chains 8k too) time
+  ``graphs.SETTLE_S`` after the last capture, one wait for both (the
+  latency pass captures and profiles its solves before the headline row):
+  for up to ~28 s after one the H100 ran every replay ~11% slower; the
+  other rows may read that spell.
 
 On the CPU the rate is ``time_slope``'s (method ``host_slope``). Rows go to
 stderr; the last stdout line is one JSON object with ``bench.py``'s record
@@ -82,7 +84,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=8192)
     ap.add_argument("--h", type=int, default=32)
-    ap.add_argument("--k", type=int, default=32, help="solves per chain / 8")
+    ap.add_argument("--k", type=int, default=32,
+                    help="solves per chain / 8 (the rows' and the latency pass's)")
     ap.add_argument("--controller", default="covo_online")
     ap.add_argument("--engine", default="cuda", choices=["cuda", "torch", *ENGINES])
     ap.add_argument("--all", action="store_true", help="also bench mppi/torch")
@@ -505,7 +508,45 @@ def traced_marker(step, carry0, nodes: int, tag: str):
     return None, f"2 chains of {chain}: not measured ({lost})"
 
 
-def bench_latency(env, args, iters: int = 60, chain: int = 256) -> dict:
+def latency_cases(env, args) -> dict:
+    """The latency pass's solves (covo_online and covo_speculative
+    ``act()``), captured on the card, each with its profiler session
+    (:func:`traced_marker`), and the empty graph of the round trip: what
+    :func:`bench_latency` times. ``main`` runs it before the headline row,
+    so that one ``graphs.settle()`` serves both."""
+    from covo_mpc_tpu_torch.solvers import get_solver
+
+    card = _card(env)
+    obs, info, state = reset(env)
+    p = env.default_params
+    pstr = f"N{args.n}_H{args.h}_lam0.01"
+    rng_mode = "kernel" if args.engine == "cuda" else "fast"
+    call, carry_of = _solve_call(obs, state, p, info)
+    solver, cp = get_solver(env, "covo_online", pstr, rng_mode=rng_mode,
+                            hessian_mode=args.hessian_mode, engine=args.engine,
+                            sigma_mode="ns", collect_debug=False)
+    spec, cps = get_solver(env, "covo_speculative", pstr, rng_mode=rng_mode,
+                           hessian_mode=args.hessian_mode, engine=args.engine,
+                           sigma_mode="ns", collect_debug=False)
+    cps = spec.reset(state, p, cps)
+    cases = {"covo_online": (solver, solver, cp), "covo_speculative_act": (spec.act, spec, cps)}
+    fns, traced = {}, {}
+    for name, (fn, owner, cp0) in cases.items():
+        if card:
+            fn = call(lambda *a, fn=fn, owner=owner: graphs.capture_solver(fn, owner, *a),
+                      cp0)
+        fns[name] = fn
+        step = (lambda c, fn=fn: carry_of(call(fn, c)))
+        if card:
+            traced[name] = traced_marker(step, cp0, profiling.graph_nodes(fn), name)
+    x = torch.zeros((), dtype=torch.int32, device=env.device)
+    empty = graphs.capture(lambda v: v + 1, x) if card else (lambda v: v + 1)
+    return dict(card=card, call=call, carry_of=carry_of, cases=cases, fns=fns,
+                traced=traced, empty=empty, x=x)
+
+
+def bench_latency(env, args, iters: int = 60, chain: int = 256,
+                  prepared: Optional[dict] = None) -> dict:
     """Latency distributions of the covo_online headline mode and the
     covo_speculative ``act()`` path (JAX's ``bench_latency``), four ways:
 
@@ -524,46 +565,21 @@ def bench_latency(env, args, iters: int = 60, chain: int = 256) -> dict:
     - the round trip, reported apart: an empty captured replay plus a
       one-element copy to the host (on the CPU an empty op).
 
-    The profiler sessions run before the timing loops, which start after
-    ``graphs.settle()`` on the card. Returns
+    The captures and profiler sessions (:func:`latency_cases`, or
+    ``prepared`` when they ran earlier) come before the timing loops, which
+    start after ``graphs.settle()`` on the card. Returns
     ``{"covo_online": ..., "covo_speculative_act": ...}``, each with
     ``per_solve`` (None on the CPU), ``chain_mean``, ``host_dispatch`` and
     ``rtt``."""
-    from covo_mpc_tpu_torch.solvers import get_solver
-
-    card = _card(env)
-    obs, info, state = reset(env)
-    p = env.default_params
-    pstr = f"N{args.n}_H{args.h}_lam0.01"
-    rng_mode = "kernel" if args.engine == "cuda" else "fast"
-    call, carry_of = _solve_call(obs, state, p, info)
-    solver, cp = get_solver(env, "covo_online", pstr, rng_mode=rng_mode,
-                            hessian_mode=args.hessian_mode, engine=args.engine,
-                            sigma_mode="ns", collect_debug=False)
-    spec, cps = get_solver(env, "covo_speculative", pstr, rng_mode=rng_mode,
-                           hessian_mode=args.hessian_mode, engine=args.engine,
-                           sigma_mode="ns", collect_debug=False)
-    cps = spec.reset(state, p, cps)
-    cases = {"covo_online": (solver, solver, cp), "covo_speculative_act": (spec.act, spec, cps)}
-    out, fns, traced = {}, {}, {}
-    for name, (fn, owner, cp0) in cases.items():
-        if card:
-            fn = call(lambda *a, fn=fn, owner=owner: graphs.capture_solver(fn, owner, *a),
-                      cp0)
-        fns[name] = fn
-        step = (lambda c, fn=fn: carry_of(call(fn, c)))
-        if card:
-            traced[name] = traced_marker(step, cp0, profiling.graph_nodes(fn), name)
-        out[name] = {"per_solve": None}
+    prep = prepared or latency_cases(env, args)
+    card, call, carry_of = prep["card"], prep["call"], prep["carry_of"]
+    cases, fns, traced = prep["cases"], prep["fns"], prep["traced"]
+    empty, x = prep["empty"], prep["x"]
+    out = {name: {"per_solve": None} for name in cases}
     # the timing loops, after every profiler session and the slow spell
     if card:
-        x = torch.zeros((), dtype=torch.int32, device=env.device)
-        empty = graphs.capture(lambda v: v + 1, x)
         graphs.settle()
-        rtt = profiling.time_blocking(lambda: empty(x), iters, 3)
-    else:
-        x = torch.zeros((), dtype=torch.int32)
-        rtt = profiling.time_blocking(lambda: x + 1, iters, 3)
+    rtt = profiling.time_blocking(lambda: empty(x), iters, 3)
     for name, (_, _, cp0) in cases.items():
         fn = fns[name]
         step = (lambda c, fn=fn: carry_of(call(fn, c)))  # noqa: E731
@@ -630,6 +646,9 @@ def main(argv=None) -> int:
     if args.scenarios:
         bench_scenarios(env, args, k=args.k)
 
+    # the latency pass's captures and profiler sessions before the headline
+    # row's: its graphs.settle() then serves both timings
+    prepared = None if args.no_latency else latency_cases(env, args)
     headline_rng = args.rng
     if args.engine != "cuda" and headline_rng == "kernel":
         headline_rng = "fast"  # the in-kernel draw needs the kernels
@@ -653,7 +672,7 @@ def main(argv=None) -> int:
         "mode": mode,
     }
     if not args.no_latency:
-        lat = bench_latency(env, args)
+        lat = bench_latency(env, args, chain=8 * args.k, prepared=prepared)
         for tag, r in (("", lat["covo_online"]), ("act_", lat["covo_speculative_act"])):
             ps, cm = r["per_solve"], r["chain_mean"]
             if ps is not None:

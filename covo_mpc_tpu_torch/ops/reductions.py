@@ -7,6 +7,11 @@ axis (costs (B, N), a_t (B, H, dA, N), ...) gives each scenario its own
 update, as JAX's vmap over scenarios does.
 ``gamma_sigma`` is a Python float, so the ``gamma_sigma == 0`` branch that
 JAX takes with ``lax.cond`` is a Python ``if`` here: no device read.
+
+``axis`` (a bound mesh axis, ``parallel/mesh.py``) holds the samples split
+over ranks: each rank passes its own, and the minimum, the normalizer and
+the weighted sums are all-reduced over the axis (JAX's ``lax.pmin`` /
+``lax.psum`` inside ``shard_map``). None: every sample is here.
 """
 
 from __future__ import annotations
@@ -14,33 +19,40 @@ from __future__ import annotations
 import torch
 
 
-def mppi_weights(costs: torch.Tensor, lam: float) -> torch.Tensor:
+def _psum(x: torch.Tensor, axis) -> torch.Tensor:
+    return x if axis is None else axis.psum(x)
+
+
+def mppi_weights(costs: torch.Tensor, lam: float, axis=None) -> torch.Tensor:
     """Softmax weights ``exp(-(c - min c)/lambda) / sum`` over the samples
-    (the last axis)."""
-    shifted = torch.exp(-(costs - torch.amin(costs, dim=-1, keepdim=True)) / lam)
-    return shifted / torch.sum(shifted, dim=-1, keepdim=True)
+    (the last axis; and over ``axis``)."""
+    min_cost = torch.amin(costs, dim=-1, keepdim=True)
+    if axis is not None:
+        min_cost = axis.pmin(min_cost)
+    shifted = torch.exp(-(costs - min_cost) / lam)
+    return shifted / _psum(torch.sum(shifted, dim=-1, keepdim=True), axis)
 
 
-def mean_update_t(weight, a_t, a_mean, gamma_mean):
+def mean_update_t(weight, a_t, a_mean, gamma_mean, axis=None):
     """Weighted-mean blend on (H, dA, N) samples (sample-last layout)."""
-    weighted = torch.einsum("...n,...hdn->...hd", weight, a_t)
+    weighted = _psum(torch.einsum("...n,...hdn->...hd", weight, a_t), axis)
     return weighted * gamma_mean + a_mean * (1.0 - gamma_mean)
 
 
-def _blend_cov(weight, a_t, a_mean_new, a_cov, gamma_sigma):
+def _blend_cov(weight, a_t, a_mean_new, a_cov, gamma_sigma, axis=None):
     """Weighted per-step covariance around the UPDATED mean (the
     reference's quirk), blended with the carried one."""
     dev = a_t - a_mean_new[..., None]
-    weighted = torch.einsum("...n,...hin,...hjn->...hij", weight, dev, dev)
+    weighted = _psum(torch.einsum("...n,...hin,...hjn->...hij", weight, dev, dev), axis)
     return weighted * gamma_sigma + a_cov * (1.0 - gamma_sigma)
 
 
-def cov_update_t(weight, a_t, a_mean_new, a_cov, gamma_sigma: float):
+def cov_update_t(weight, a_t, a_mean_new, a_cov, gamma_sigma: float, axis=None):
     """Per-step covariance update on (H, dA, N) samples; ``a_cov``
     untouched when ``gamma_sigma == 0``."""
     if gamma_sigma == 0.0:
         return a_cov
-    return _blend_cov(weight, a_t, a_mean_new, a_cov, gamma_sigma)
+    return _blend_cov(weight, a_t, a_mean_new, a_cov, gamma_sigma, axis)
 
 
 def cov_factor_update_t(weight, a_t, a_mean_new, a_cov, a_chol,

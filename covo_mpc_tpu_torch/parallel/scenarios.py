@@ -31,7 +31,8 @@ generator, unless the caller hands them in (``z``, ``draws``,
 draws from its own JAX key (``key`` (B, 2), JAX's ``rng_act``) what the
 single solver draws from its key: the Hessian's draws from the key, the
 samples from ``split(key)[1]``, the rollout's draw from the chain after it
-(``utils/prng.py`` maps over the leading axis). So a solve reads no value
+(``utils/prng.py`` maps over the leading axis). Under fast / kernel rng a
+``key`` given keys the disturbance draws alone. So a solve reads no value
 on the host and can be captured as a CUDA graph
 (``runtime/graphs.capture_solver``), as JAX jits it; its
 ``random_streams()`` are registered with the graph. The exception is
@@ -45,14 +46,29 @@ the single solver's.
 scenario b then draws as episode ``offset + b`` of the batched protocol.
 ``collect_metrics`` appends each scenario's solve metrics (and, for CoVO,
 its Sigma's; ``runtime/metrics.py``) to the outputs, as JAX does.
+``axis`` (a bound mesh axis; None by default) splits each scenario's N
+samples over the axis's ranks: each rank draws ``n = N / k`` of them (the
+invariant sampler at their global ids, K7 on word s of the solve's k
+seed-stream words at rank s) and the weights and updates are all-reduced
+over the axis (``ops/reductions.py``), as ``parallel/sharded.py`` splits a
+single solve's. None is the identity: every sample on this device.
 
 :func:`batched_controller` maps a controller to its batched twin, the form
 ``runtime/eval.evaluate_batched`` steps B episodes with (JAX vmaps the
 controller itself): CoVO online, speculative (``act`` then ``prepare``
 over B) and offline (the B episodes' Sigma schedules at reset), MPPI, PID
-and Random, in every rng mode. The multichip steps
-(``make_multichip_control_step``, ``make_multichip_covo_step``) are not
-ported.
+and Random, in every rng mode.
+
+The multichip steps (:func:`make_multichip_control_step`,
+:func:`make_multichip_covo_step`, JAX's config #5) run one full control
+step of B scenarios over a (scenarios, samples) rank mesh
+(``parallel/mesh.py``): the scenario axis is data parallel, each rank
+stepping its block of B with no per-solve communication, and each
+scenario's samples are sharded over the sample axis by the batched solve
+with that ``axis`` (three collectives a step, each of B values). A step
+is JAX's key split (4 a scenario for MPPI, 5 for CoVO), the batched solve
+on the split keys' draws (the plain Hessian under vmap, JAX's scan
+primal; the plain Newton–Schulz designer), then the env step.
 """
 
 from __future__ import annotations
@@ -61,11 +77,13 @@ from typing import Optional
 
 import torch
 
+from covo_mpc_tpu_torch.models.batched import BatchedEnv
 from covo_mpc_tpu_torch.models.structs import (
     expand_params,
     pack_state,
     stack,
     tree_flatten,
+    tree_select,
     tree_unflatten,
     vmap_trees,
 )
@@ -84,6 +102,15 @@ from covo_mpc_tpu_torch.ops.rollout_cuda import (
     Offset,
     make_rollout_batched_costs,
     make_rollout_batched_sampling,
+)
+from covo_mpc_tpu_torch.parallel.mesh import SAMPLE_AXIS, SCENARIO_AXIS
+from covo_mpc_tpu_torch.parallel.sharded import (
+    MeshSolve,
+    act_step_keys as _act_keys,
+    check_divisible,
+    check_engine,
+    check_rng,
+    local_ids,
 )
 from covo_mpc_tpu_torch.runtime import graphs, metrics
 from covo_mpc_tpu_torch.solvers.base import RandomSolver, resolve_engine
@@ -116,23 +143,18 @@ def _check(rng: str, engine: str) -> None:
         raise ValueError("rng='kernel' requires engine='cuda'")
 
 
-def _act_keys(key: torch.Tensor):
-    """JAX's chain from each scenario's ``rng_act`` (B, 2): ``key, act_key =
-    split(key)``, ``key, step_key = split(key)``; returns (act_key,
-    step_key)."""
-    rest, act_key = prng.split(key).unbind(-2)
-    return act_key, prng.split(rest)[..., 1, :]
-
-
 class _BatchedSolve:
     """What both batched solves share: the rollout of given actions, the
-    generators and the key check."""
+    generators, the key check and the sample axis."""
 
     def __init__(self, env, N: int, H: int, lam: float, rng: str, engine: str,
-                 seed: int, collect_metrics: bool = False):
+                 seed: int, collect_metrics: bool = False, axis=None):
         self.env = env
         self.collect_metrics = collect_metrics
         self.N, self.H, self.lam = N, H, lam
+        self.axis = axis
+        # this rank's samples of each scenario
+        self.n = N if axis is None else check_divisible(N, axis.size)
         self.dA = env.action_dim
         self.rng, self.engine = rng, engine
         self.draws_from_keys = rng in sampling.KEY_MODES
@@ -162,6 +184,31 @@ class _BatchedSolve:
                              "pass key= (B, 2), each scenario's rng_act")
         return key
 
+    def _keyed(self, key) -> bool:
+        """Whether a solve's draws come from ``key``: always under parity /
+        invariant (a key required); under fast / kernel rng when one is
+        given (its disturbance draws only)."""
+        return self.draws_from_keys or key is not None
+
+    def _act_keys(self, key):
+        """(act_key, step_key) (B, 2) each: JAX's solve chain from ``key``,
+        or the pair as given (the multichip steps split their own keys)."""
+        key = self._keys(key)
+        return key if isinstance(key, tuple) else _act_keys(key)
+
+    def _word(self) -> torch.Tensor:
+        """K7's Philox key: word s of the solve's k seed-stream words at
+        rank s of the sample axis (one word without an axis)."""
+        if self.axis is None:
+            return self.seeds.next()[0]
+        return self.seeds.next(self.axis.size)[self.axis.index]
+
+    def _normals(self, act_key, shape: tuple) -> torch.Tensor:
+        """This rank's invariant normals: its samples' global ids."""
+        ids = (None if self.axis is None
+               else local_ids(self.axis, self.n, act_key.device))
+        return sampling.std_normal_invariant(act_key, self.n, shape, ids)
+
 
 class BatchedCoVOSolve(_BatchedSolve):
     """``solve(x0s (B, 16), t0s (B,), pos_trajs (B, T, 3), vel_trajs,
@@ -177,18 +224,19 @@ class BatchedCoVOSolve(_BatchedSolve):
     ``hess_draws`` (B, H, 3) are the rollouts' and the Hessians' disturbance
     uniforms ("periodic" / "mixed"; drawn here when not given). ``offset``
     is K7's episode offset, ``key`` the scenarios' JAX keys under parity /
-    invariant (the module docstring). Under ``collect_metrics`` a third
+    invariant (the module docstring; ``sample_update`` also takes the
+    (act_key, step_key) pair already split). Under ``collect_metrics`` a third
     output holds (B,) each of the cost min / mean / max, the ESS and
     Sigma's conditioning and log-determinant (from the factors, as JAX).
     """
 
     def __init__(self, env, N: int, H: int, lam: float, sample_sigma: float,
                  rng: str, hessian_mode: str, engine: str, seed: int,
-                 collect_metrics: bool = False, sigma_mode: str = "ns"):
+                 collect_metrics: bool = False, sigma_mode: str = "ns", axis=None):
         # TF32 would truncate the designer's fp32 matmuls (see solvers/covo.py)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        super().__init__(env, N, H, lam, rng, engine, seed, collect_metrics)
+        super().__init__(env, N, H, lam, rng, engine, seed, collect_metrics, axis)
         self.sample_sigma = sample_sigma
         self.D = H * self.dA
         self.hessian_mode, self.sigma_mode = hessian_mode, sigma_mode
@@ -222,8 +270,7 @@ class BatchedCoVOSolve(_BatchedSolve):
         B = nominals.shape[0]
         if hess_draws is None:
             hess_draws = (hessian_draws_from_key(self.env, self._keys(key), self.H)
-                          if self.draws_from_keys
-                          else self._draw(B, self.H, deterministic=True))
+                          if self._keyed(key) else self._draw(B, self.H, deterministic=True))
         R = self._hessian(nominals.reshape(B, self.D), x0s, t0s, pos_trajs, vel_trajs,
                           params_b, hess_draws)
         return self._optimize_sigma(R, self.sample_sigma, self.D)
@@ -238,11 +285,11 @@ class BatchedCoVOSolve(_BatchedSolve):
         returns (a_means_new (B, H, dA), costs (B, N), weights (B, N)).
         Parity samples through ``cholesky(a_covs)`` sample-first, as the
         single parity solver; the other modes through ``factors``."""
-        B, N, D, H, dA = a_means.shape[0], self.N, self.D, self.H, self.dA
+        B, N, D, H, dA = a_means.shape[0], self.n, self.D, self.H, self.dA
         kw = dict(deterministic=True, discount=discount)
         act_key = None
-        if self.draws_from_keys:
-            act_key, step_key = _act_keys(self._keys(key))
+        if self._keyed(key):
+            act_key, step_key = self._act_keys(key)
             if draws is None:
                 draws = self.env.disturb_from_key(step_key, deterministic=True,
                                                   fast=self.rng != sampling.PARITY)
@@ -260,12 +307,12 @@ class BatchedCoVOSolve(_BatchedSolve):
         elif self._sampler is not None:
             costs, a_t = self._sampler(
                 x0s, t0s, pos_trajs, vel_trajs, a_means, factors, params_b,
-                self.seeds.next()[0], N, draws=draws,
+                self._word(), N, draws=draws,
                 z=None if z is None else z.transpose(1, 2).contiguous(),
                 offset=offset, **kw)
         else:
-            if z is None and act_key is not None:
-                z = sampling.std_normal_invariant(act_key, N, (D,))
+            if z is None and self.rng == sampling.INVARIANT:
+                z = self._normals(act_key, (D,))
             a_t = torch.clamp(
                 sampling.sample_joint_t(self.device_generator, a_means.reshape(B, D),
                                         factors, N, z=z),
@@ -273,9 +320,9 @@ class BatchedCoVOSolve(_BatchedSolve):
             )
             costs = self._rollout(x0s, t0s, pos_trajs, vel_trajs, a_t, params_b, draws,
                                   layout="hdn", **kw)
-        weights = reductions.mppi_weights(costs, self.lam)
+        weights = reductions.mppi_weights(costs, self.lam, self.axis)
         a_means_new = reductions.mean_update_t(
-            weights, a_t.reshape(B, H, dA, N), a_means, gamma_mean)
+            weights, a_t.reshape(B, H, dA, N), a_means, gamma_mean, self.axis)
         return a_means_new, costs, weights
 
     def __call__(self, x0s, t0s, pos_trajs, vel_trajs, a_means, params_b,
@@ -292,7 +339,7 @@ class BatchedCoVOSolve(_BatchedSolve):
             gamma_mean, discount, z, draws, key, offset)
         if self.collect_metrics:
             return a_means_new, torch.amin(costs, dim=-1), {
-                **metrics.solve_metrics_sharded(costs, weights, None, self.N),
+                **metrics.solve_metrics_sharded(costs, weights, self.axis, self.N),
                 **metrics.sigma_metrics(factors @ factors.transpose(-1, -2)),
             }
         return a_means_new, torch.amin(costs, dim=-1)
@@ -326,13 +373,14 @@ class BatchedMPPISolve(_BatchedSolve):
     default they come from the solve's generators, or from ``key`` (B, 2)
     under parity (a key a sample and a step, sample-first) and invariant (a
     ``fold_in`` a sample). ``offset`` is K7's episode offset (the module
-    docstring). Under ``collect_metrics`` a fourth output holds (B,) each of
-    the cost min / mean / max and the ESS.
+    docstring; ``key`` may be the (act_key, step_key) pair already split).
+    Under ``collect_metrics`` a fourth output holds (B,) each of the cost
+    min / mean / max and the ESS.
     """
 
     def __init__(self, env, N: int, H: int, lam: float, rng: str,
-                 engine: str, seed: int, collect_metrics: bool = False):
-        super().__init__(env, N, H, lam, rng, engine, seed, collect_metrics)
+                 engine: str, seed: int, collect_metrics: bool = False, axis=None):
+        super().__init__(env, N, H, lam, rng, engine, seed, collect_metrics, axis)
         self._sampler = (make_rollout_batched_sampling(env, joint=False)
                          if rng == sampling.KERNEL else None)
 
@@ -341,13 +389,13 @@ class BatchedMPPISolve(_BatchedSolve):
                  z: Optional[torch.Tensor] = None,
                  draws: Optional[torch.Tensor] = None,
                  offset: Offset = None, key=None):
-        B, N, H, dA = a_means.shape[0], self.N, self.H, self.dA
+        B, N, H, dA = a_means.shape[0], self.n, self.H, self.dA
         a_means, a_covs = _shift(a_means), _shift(a_covs)
         chols = torch.linalg.cholesky_ex(a_covs).L.contiguous()
         kw = dict(deterministic=False, discount=discount)
         act_key = None
-        if self.draws_from_keys:
-            act_key, step_key = _act_keys(self._keys(key))
+        if self._keyed(key):
+            act_key, step_key = self._act_keys(key)
             if draws is None:
                 draws = self.env.disturb_from_key(step_key,
                                                   fast=self.rng != sampling.PARITY)
@@ -365,13 +413,13 @@ class BatchedMPPISolve(_BatchedSolve):
         elif self._sampler is not None:
             costs, a_flat = self._sampler(
                 x0s, t0s, pos_trajs, vel_trajs, a_means, chols, params_b,
-                self.seeds.next()[0], N, draws=draws,
+                self._word(), N, draws=draws,
                 z=None if z is None else z.permute(0, 2, 3, 1).contiguous(),
                 offset=offset, **kw)
             a_t = a_flat.reshape(B, H, dA, N)
         else:
-            if z is None and act_key is not None:
-                z = sampling.std_normal_invariant(act_key, N, (H, dA))
+            if z is None and self.rng == sampling.INVARIANT:
+                z = self._normals(act_key, (H, dA))
             a_t = torch.clamp(
                 sampling.sample_per_step_t(self.device_generator, a_means, chols,
                                            N, z=z),
@@ -379,13 +427,13 @@ class BatchedMPPISolve(_BatchedSolve):
             )
             costs = self._rollout(x0s, t0s, pos_trajs, vel_trajs, a_t, params_b, draws,
                                   layout="hdn", **kw)
-        weights = reductions.mppi_weights(costs, self.lam)
-        a_means_new = reductions.mean_update_t(weights, a_t, a_means, gamma_mean)
+        weights = reductions.mppi_weights(costs, self.lam, self.axis)
+        a_means_new = reductions.mean_update_t(weights, a_t, a_means, gamma_mean, self.axis)
         a_covs_new = reductions.cov_update_t(weights, a_t, a_means_new, a_covs,
-                                             gamma_sigma)
+                                             gamma_sigma, self.axis)
         if self.collect_metrics:
             return (a_means_new, a_covs_new, torch.amin(costs, dim=-1),
-                    metrics.solve_metrics_sharded(costs, weights, None, N))
+                    metrics.solve_metrics_sharded(costs, weights, self.axis, self.N))
         return a_means_new, a_covs_new, torch.amin(costs, dim=-1)
 
 
@@ -772,3 +820,129 @@ def batched_controller(controller) -> BatchedTwin:
     if isinstance(controller, RandomSolver):
         return BatchedRandomTwin(controller)
     raise NotImplementedError(f"no batched form of {type(controller).__name__}")
+
+
+# --- the multichip steps: scenarios data parallel, samples sharded ------------
+
+
+def _env_step_b(env, keys: torch.Tensor, states, actions: torch.Tensor, params_b):
+    """Each scenario's auto-resetting env step on its key under its own
+    parameters (JAX: ``jax.vmap(env.step)(keys, states, actions,
+    params_b)``): the key split as :meth:`QuadEnv.step` splits it, the
+    draws made as :class:`~covo_mpc_tpu_torch.models.batched.BatchedEnv`
+    makes them, then step, reset and select under ``torch.func.vmap``.
+    Returns (states', rewards, dones)."""
+    step_keys, reset_keys = prng.split(keys).unbind(-2)
+    batched = BatchedEnv(env)
+    step_draws, reset_draws = batched.draw_step(step_keys), batched.draw_reset(reset_keys)
+
+    def one(sd, rd, st, a, p):
+        _, st_st, reward, done, _ = env.step_from_draws(sd, st, a, p)
+        _, _, st_re = env.reset_from_draws(rd, p)
+        return tree_select(done, st_re, st_st), reward, done
+
+    return vmap_trees(one, (step_draws, reset_draws, states, actions, params_b))
+
+
+class _MultichipStep(MeshSolve):
+    """What both multichip steps share: the batched solve over the mesh's
+    sample axis, whose seed stream the step's capture registers, and K7's
+    slot offset (see :func:`make_multichip_control_step`)."""
+
+    def __init__(self, env, mesh, engine, rng, seed, capture, make_solve):
+        super().__init__(env, mesh, seed, capture)
+        engine = check_engine(env, engine)
+        check_rng(rng, engine)
+        self.batched = make_solve(engine, mesh.axis(SAMPLE_AXIS))
+        self.seeds = self.batched.seeds
+        self.scenario = mesh.index(SCENARIO_AXIS)
+
+    def _offset(self, B: int) -> int:
+        """This rank's first global scenario, K7's first slot."""
+        return self.scenario * B
+
+
+class MultichipControlStep(_MultichipStep):
+    """``step(states, params_b, a_means (B, H, dA), a_covs (B, H, dA, dA),
+    keys (B, 2), gamma_mean=1.0, gamma_sigma=0.0, discount=1.0) ->
+    (states', a_means', a_covs', rewards (B,), dones (B,))`` on this rank's
+    B scenarios (its block of the global batch: ``mesh.shard``; outputs
+    assemble with ``mesh.gather``): JAX's key split (4 a scenario: act,
+    step, env keys at 1, 2, 3), the batched MPPI solve over the sample axis
+    on the act keys and the step keys' draw (:class:`BatchedMPPISolve`:
+    the shift, the per-step sample, the stochastic rollout, the reduced
+    updates; the covariance a fourth collective at γ_σ > 0, ``gamma_sigma``
+    a Python float), and the auto-resetting env step with the new mean's
+    first action."""
+
+    def __init__(self, env, mesh, N, H, lam, engine, rng, seed, capture):
+        super().__init__(env, mesh, engine, rng, seed, capture, lambda engine, axis:
+                         BatchedMPPISolve(env, N, H, lam, rng, engine, seed, axis=axis))
+
+    def solve(self, states, params_b, a_means, a_covs, keys, gamma_mean=1.0,
+              gamma_sigma=0.0, discount=1.0):
+        _, act_keys, step_keys, env_keys = prng.split(keys, 4).unbind(-2)
+        a_means, a_covs, _ = self.batched(
+            *_inputs(states), a_means, a_covs, params_b, gamma_mean, gamma_sigma, discount,
+            offset=self._offset(a_means.shape[0]), key=(act_keys, step_keys))
+        states_new, rewards, dones = _env_step_b(self.env, env_keys, states,
+                                                 a_means[:, 0], params_b)
+        return states_new, a_means, a_covs, rewards, dones
+
+
+def make_multichip_control_step(env, mesh, N: int, H: int, lam: float,
+                                engine: str = "auto", rng: str = "invariant",
+                                seed: int = 0, capture: bool = False) -> MultichipControlStep:
+    """The distributed MPPI control step over a (scenarios, samples) mesh
+    (:class:`MultichipControlStep`; JAX: make_multichip_control_step, whose
+    ``interpret`` has no counterpart). ``rng="kernel"`` runs K7 per-step
+    (``engine="cuda"``), ``"invariant"`` K6 or the plain rollout on the
+    keys' draws; kernel streams and capture as in ``parallel/sharded.py``:
+    rank s of the sample axis takes word s of the step's words, and K7's
+    slot of scenario b is this rank's first global scenario index plus b,
+    so no two ranks, scenarios or sample blocks share a stream."""
+    return MultichipControlStep(env, mesh, N, H, lam, engine, rng, seed, capture)
+
+
+class MultichipCoVOStep(_MultichipStep):
+    """``step(states, params_b, a_means (B, H, dA), keys (B, 2),
+    gamma_mean=1.0, discount=1.0) -> (states', a_means', rewards, dones)``
+    on this rank's B scenarios (see :class:`MultichipControlStep`): the
+    shift of the mean, JAX's key split (5 a scenario: Hessian, act, step,
+    env keys at 1-4), :meth:`BatchedCoVOSolve.design` with the Hessian's
+    draws from the Hessian keys (replicated over the sample axis),
+    :meth:`BatchedCoVOSolve.sample_update` over the sample axis on the act
+    keys and the step keys' draw, and the env step."""
+
+    def __init__(self, env, mesh, N, H, lam, sample_sigma, engine, rng, hessian_mode,
+                 seed, capture):
+        if hessian_mode not in ("adjoint", "gn"):
+            raise ValueError(f"multichip covo supports 'adjoint'/'gn', got {hessian_mode!r}")
+        super().__init__(env, mesh, engine, rng, seed, capture, lambda engine, axis:
+                         BatchedCoVOSolve(env, N, H, lam, sample_sigma, rng, hessian_mode,
+                                          engine, seed, axis=axis))
+
+    def solve(self, states, params_b, a_means, keys, gamma_mean=1.0, discount=1.0):
+        _, hess_keys, act_keys, step_keys, env_keys = prng.split(keys, 5).unbind(-2)
+        x, solve = _inputs(states), self.batched
+        a_means = _shift(a_means)
+        a_covs, factors = solve.design(*x, a_means, params_b, key=hess_keys)
+        a_means, _, _ = solve.sample_update(
+            *x, a_means, a_covs, factors, params_b, gamma_mean, discount,
+            key=(act_keys, step_keys), offset=self._offset(a_means.shape[0]))
+        states_new, rewards, dones = _env_step_b(self.env, env_keys, states,
+                                                 a_means[:, 0], params_b)
+        return states_new, a_means, rewards, dones
+
+
+def make_multichip_covo_step(env, mesh, N: int, H: int, lam: float,
+                             sample_sigma: float = 0.5, engine: str = "auto",
+                             rng: str = "invariant", hessian_mode: str = "adjoint",
+                             seed: int = 0, capture: bool = False) -> MultichipCoVOStep:
+    """The distributed CoVO-online control step (:class:`MultichipCoVOStep`;
+    JAX: make_multichip_covo_step): scenarios data parallel, samples
+    sharded. ``rng="kernel"`` runs K7 joint (``engine="cuda"``),
+    ``"invariant"`` K6 or the plain rollout on the keys' draws (streams and
+    capture as :func:`make_multichip_control_step`)."""
+    return MultichipCoVOStep(env, mesh, N, H, lam, sample_sigma, engine, rng,
+                             hessian_mode, seed, capture)

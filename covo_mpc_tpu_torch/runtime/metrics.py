@@ -4,7 +4,9 @@ Counterpart of :mod:`covo_mpc_tpu.runtime.metrics`: per solve, the cost
 statistics, the effective sample size of the importance weights and the
 conditioning of CoVO's Sigma, the quantities that say whether a
 sampling-based MPC is healthy. Every statistic reduces over the last axis
-(the samples), so a leading scenario or step axis gives one value each.
+(the samples), so a leading scenario or step axis gives one value each;
+:func:`solve_metrics_sharded` also reduces over a mesh axis, from the
+shards' partials.
 
 :func:`sigma_metrics` takes Sigma's eigenvalues. ``torch.linalg.eigvalsh``
 checks its result on the host, so it cannot run inside a CUDA graph: under
@@ -54,17 +56,30 @@ def solve_metrics(costs: torch.Tensor, weights: torch.Tensor) -> dict:
 
 
 def solve_metrics_sharded(costs, weights, axis, n_total) -> dict:
-    """:func:`solve_metrics` as the batched solves report it: min, mean and
-    max of the costs and the ESS (``axis=None``, each scenario's samples on
-    one device). The collective form (``axis`` a mesh axis) waits for the
-    port's parallel layer."""
-    if axis is not None:
-        raise NotImplementedError("solve_metrics_sharded over a mesh axis is not ported yet")
+    """:func:`solve_metrics` as the batched and sharded solves report it:
+    min, mean and max of the costs and the ESS. ``axis=None``: each
+    scenario's samples lie on this device. ``axis`` a bound mesh axis
+    (``parallel.mesh.Mesh.axis``): each rank holds its slice of the
+    samples, and the statistics come from all-reduced shard partials
+    (min, sum, max of the costs, the sum of the squared weights) over
+    ``n_total`` samples; ``weights`` must already be normalized over all
+    of them. The exact p90 would need a global sort: cost_max takes its
+    place, as in JAX."""
+    if axis is None:
+        return {
+            "cost_min": torch.amin(costs, dim=-1),
+            "cost_mean": torch.mean(costs, dim=-1),
+            "cost_max": torch.amax(costs, dim=-1),
+            "ess": 1.0 / torch.sum(weights**2, dim=-1),
+        }
+    if isinstance(axis, str):
+        raise TypeError(f"solve_metrics_sharded: axis {axis!r} is a name; pass the bound "
+                        "axis, mesh.axis(name) (parallel/mesh.py)")
     return {
-        "cost_min": torch.amin(costs, dim=-1),
-        "cost_mean": torch.mean(costs, dim=-1),
-        "cost_max": torch.amax(costs, dim=-1),
-        "ess": 1.0 / torch.sum(weights**2, dim=-1),
+        "cost_min": axis.pmin(torch.amin(costs, dim=-1)),
+        "cost_mean": axis.psum(torch.sum(costs, dim=-1)) / n_total,
+        "cost_max": axis.pmax(torch.amax(costs, dim=-1)),
+        "ess": 1.0 / axis.psum(torch.sum(weights**2, dim=-1)),
     }
 
 

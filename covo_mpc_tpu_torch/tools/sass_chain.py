@@ -39,6 +39,7 @@ copies, so it is a floor: a step can take longer, never shorter.
 from __future__ import annotations
 
 import ctypes
+import functools
 import re
 import subprocess
 from dataclasses import dataclass, field
@@ -349,11 +350,18 @@ def cuobjdump() -> str:
     return str(Path(kernels._nvcc()).with_name("cuobjdump"))
 
 
+@functools.lru_cache(maxsize=None)
+def _sass_listing(lib: str) -> str:
+    """``cuobjdump -sass`` of a built library (a process builds each library
+    once, so one listing serves every function asked of it)."""
+    return subprocess.run([cuobjdump(), "-sass", lib], capture_output=True, text=True,
+                          check=True).stdout
+
+
 def function_sass(lib: Path, name: str) -> str:
     """The SASS of the one function in ``lib`` whose mangled name holds
     ``name`` (e.g. "sens_chain_kernelILi13E", "primal_kernel")."""
-    out = subprocess.run([cuobjdump(), "-sass", str(lib)], capture_output=True, text=True,
-                         check=True).stdout
+    out = _sass_listing(str(lib))
     parts = re.split(r"\n\s*Function : (\S+)\n", out)
     found = [(fn, body) for fn, body in zip(parts[1::2], parts[2::2]) if name in fn]
     if len(found) != 1:

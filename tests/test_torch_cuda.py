@@ -1356,3 +1356,111 @@ def test_k1_solve_agrees_with_the_fast_sampler_statistically(dev):
         samples.append(k1(None, st, p, cp, None)[1].a_mean.cpu())
         assert rollout_cuda.JOINT_KERNEL.launches == before + 1
     assert_sampled_mean_agreement(samples, ref.cpu(), what="K1 against the fast sampler")
+
+
+# --- the parallel layer: the kernels at one rank's share of N, one NCCL rank ----
+
+SHARD_NS = [8192 // 2, 8192 // 4]  # n_local of the main path's N over 2 and 4 ranks
+
+
+@pytest.mark.parametrize("n", SHARD_NS)
+def test_per_shard_kernels_match_plain(dev, n):
+    """What each rank of a sharded solve launches at its share of N=8192
+    (H=32): K1, K4 and K5 with given normals against their plain versions,
+    K6 and both K7 forms at B=4 the same way, deterministic and under the
+    shared draw; with in-kernel draws each at n_local equals the first
+    n_local samples of a launch at N (the sample index is in the Philox
+    counter)."""
+    env, p, st = _env_state(dev)
+    roll = (pack_state(st), st.time, st.pos_traj, st.vel_traj)
+    g, a_mean, factor, chol, draw = _small_inputs(dev, n)
+    k1, k4 = rollout_cuda.make_rollout_joint_sampling(env), rollout_cuda.make_rollout_costs(env)
+    k5 = rollout_cuda.make_rollout_sampling(env)
+    acts = torch.randn(HS, 4, n, generator=g, device=dev) * 0.5
+    for kw in (dict(deterministic=True), dict(draw=draw)):
+        z = torch.randn(4 * HS, n, generator=g, device=dev)
+        _costs_and_actions_close(k1(*roll, a_mean, factor, p, 0, n, z=z, **kw),
+                                 k1.plain(*roll, a_mean, factor, p, 0, n, z=z, **kw))
+        torch.testing.assert_close(k4(*roll, acts, p, layout="hdn", **kw),
+                                   k4.plain(*roll, acts, p, layout="hdn", **kw),
+                                   atol=2e-4, rtol=1e-5)
+        z = torch.randn(HS, 4, n, generator=g, device=dev)
+        _costs_and_actions_close(k5(*roll, a_mean, chol, p, 0, n, z=z, **kw),
+                                 k5.plain(*roll, a_mean, chol, p, 0, n, z=z, **kw))
+    for k, fac in ((k1, factor), (k5, chol)):
+        c_n, a_n = k(*roll, a_mean, fac, p, 77, n, draw=draw)
+        c_f, a_f = k(*roll, a_mean, fac, p, 77, 8192, draw=draw)
+        assert torch.equal(a_n, a_f[:, :n]) and torch.equal(c_n, c_f[:n])
+    env_b, args, pb, g, a_means, chols, factors, draws = _small_scenarios(dev, n)
+    Bs = a_means.shape[0]
+    k6 = rollout_cuda.make_rollout_batched_costs(env_b)
+    acts = torch.randn(Bs, HS, 4, n, generator=g, device=dev) * 0.5
+    torch.testing.assert_close(k6(*args, acts, pb, draws), k6.plain(*args, acts, pb, draws),
+                               atol=2e-4, rtol=1e-5)
+    for joint, fac, shape in ((False, chols, (Bs, HS, 4, n)), (True, factors, (Bs, 4 * HS, n))):
+        k7 = rollout_cuda.make_rollout_batched_sampling(env_b, joint=joint)
+        z = torch.randn(*shape, generator=g, device=dev)
+        kargs = (*args, a_means, fac, pb, 0, n)
+        _costs_and_actions_close(k7(*kargs, draws=draws, z=z),
+                                 k7.plain(*kargs, draws=draws, z=z))
+        c_n, a_n = k7(*args, a_means, fac, pb, 61, n, draws=draws, offset=2)
+        c_f, a_f = k7(*args, a_means, fac, pb, 61, 8192, draws=draws, offset=2)
+        assert torch.equal(a_n, a_f[..., :n]) and torch.equal(c_n, c_f[:, :n])
+
+
+@pytest.fixture
+def nccl_rank(dev):
+    """A process group of one rank under NCCL on the card (torn down after)."""
+    import torch.distributed as dist
+
+    from covo_mpc_tpu_torch.parallel.distributed import free_port
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    yield dev
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("rng", ["invariant", "kernel"])
+def test_one_rank_nccl_sharded_solves_match_single_eager_and_captured(nccl_rank, rng):
+    """On a one-rank NCCL mesh (its collectives real all-reduces) the
+    distributed CoVO solve (gn) and the sharded MPPI solve at N=8192, H=8
+    equal the single-device solvers on the same key or seed (1e-5 under
+    invariant rng, 2e-4 under kernel rng), and a captured replay equals
+    the eager solve bit for bit."""
+    from covo_mpc_tpu_torch.parallel import (
+        make_distributed_covo_solve,
+        make_mesh,
+        make_sharded_mppi_solve,
+    )
+    from covo_mpc_tpu_torch.parallel.sharded import act_step_keys
+    from covo_mpc_tpu_torch.solvers import get_solver
+    from covo_mpc_tpu_torch.utils import prng
+
+    dev = nccl_rank
+    env, p, st = _env_state(dev)
+    mesh = make_mesh(1, device=dev)
+    assert mesh.backend == "nccl"
+    x = (pack_state(st), st.time, st.pos_traj, st.vel_traj)
+    key = prng.PRNGKey(21, device=dev)
+    tol = 1e-5 if rng == "invariant" else 2e-4
+    kw = dict(hessian_mode="gn", sigma_mode="ns", engine="cuda", collect_debug=False)
+    covo, cp = get_solver(env, "covo_online", "N8192_H8_lam0.01", rng_mode=rng, seed=4, **kw)
+    ref = covo(None, st, p, cp, None, **({"key": key} if rng == "invariant" else {}))[1]
+    outs = [make_distributed_covo_solve(env, mesh, 8192, 8, 0.01, sample_sigma=cp.sample_sigma,
+                                        rng=rng, hessian_mode="gn", seed=4, capture=c)(
+        *x, cp.a_mean, p, key) for c in (False, True)]
+    torch.testing.assert_close(outs[0][0], ref.a_mean, atol=tol, rtol=0)
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+    mppi, mp = get_solver(env, "mppi", "N8192_H8_lam0.01", rng_mode=rng, seed=4,
+                          engine="cuda", collect_debug=False)
+    act_key, step_key = act_step_keys(key)
+    draw = env.disturb_from_key(step_key, fast=True)
+    ref = mppi(None, st, p, mp, None, **({"key": key} if rng == "invariant"
+                                          else {"draw": draw}))[1]
+    outs = [make_sharded_mppi_solve(env, mesh, 8192, 8, 0.01, rng=rng, seed=4, capture=c)(
+        *x, mp.a_mean, mp.a_cov, mp.gamma_mean, mp.gamma_sigma, mp.discount, p, act_key,
+        step_key) for c in (False, True)]
+    torch.testing.assert_close(outs[0][0], ref.a_mean, atol=tol, rtol=0)
+    assert all(torch.equal(a, b) for a, b in zip(*outs))

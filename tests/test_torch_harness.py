@@ -99,7 +99,15 @@ def test_solve_and_sigma_metrics_match_jax():
     ref_sh = jmetrics.solve_metrics_sharded(jnp.asarray(costs), jnp.asarray(w), None, 8192)
     assert set(sharded) == set(ref_sh)
     np.testing.assert_allclose(float(sharded["cost_max"]), float(ref_sh["cost_max"]))
-    with pytest.raises(NotImplementedError):
+    # over a mesh axis: a one-rank mesh's collectives are the identity, so
+    # the sharded form equals the local one; a bare axis name raises
+    from covo_mpc_tpu_torch.parallel import make_mesh
+
+    one = metrics.solve_metrics_sharded(torch.from_numpy(costs), torch.from_numpy(w),
+                                        make_mesh(1).axis("samples"), costs.shape[-1])
+    for k in sharded:
+        torch.testing.assert_close(one[k], sharded[k], rtol=1e-6, atol=0, msg=k)
+    with pytest.raises(TypeError, match="mesh.axis"):
         metrics.solve_metrics_sharded(torch.from_numpy(costs), torch.from_numpy(w), "x", 1)
     # deferred: Sigma handed back, resolved over the stack afterwards
     with metrics.deferred_sigma():

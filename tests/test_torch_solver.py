@@ -169,7 +169,11 @@ def test_package_never_imports_jax():
             "covo_mpc_tpu_torch.models.wrappers, covo_mpc_tpu_torch.utils.stats, "
             "covo_mpc_tpu_torch.viz.meshcat_vis, covo_mpc_tpu_torch.parallel.scenarios, "
             "covo_mpc_tpu_torch.runtime.render, covo_mpc_tpu_torch.runtime.supervisor, "
-            "covo_mpc_tpu_torch.models.batched, covo_mpc_tpu_torch.tools.clock_probe; "
+            "covo_mpc_tpu_torch.models.batched, covo_mpc_tpu_torch.tools.clock_probe, "
+            "covo_mpc_tpu_torch.parallel.mesh, covo_mpc_tpu_torch.parallel.distributed, "
+            "covo_mpc_tpu_torch.parallel.sharded, covo_mpc_tpu_torch.parallel.offline, "
+            "covo_mpc_tpu_torch.parallel.pipeline, covo_mpc_tpu_torch.scripts.bench_mesh, "
+            "covo_mpc_tpu_torch.scripts.pod_scale; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'covo_mpc_tpu' not in sys.modules, 'the JAX package imported'")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
