@@ -40,7 +40,9 @@ source, at first use), then:
    replays on the same inputs draw afresh and that the replays launch what
    the eager solves launch, prints p50 / p99 (``time_blocking``) and ms per
    solve of a chain (``time_chained``) eager and captured, timed
-   ``graphs.SETTLE_S`` after the last capture, and the device's busy share
+   ``graphs.SETTLE_S`` after the last capture and once the main path's
+   replay has sped up or kept one speed ``graphs.SETTLE_WATCH_S``
+   (``graphs.settle``'s watch), and the device's busy share
    inside the replays; the captured main-path solve's
    p50 must be under 20 ms, the 50 Hz budget;
 3. runs the closed loops, ``evaluate(env, solver, total_steps, seed=1)``,
@@ -226,7 +228,25 @@ source, at first use), then:
    (B=128, N=8192, H=32, kernel rng, K7 joint), captured: ms a step and
    peak memory against ``hbm_arithmetic``; and ``bench_mesh`` in-process,
    one line a mode at 1 rank (the pipeline takes 2).
-   ``--phase14`` builds the kernels and runs this phase alone.
+   ``--phase14`` builds the kernels and runs this phase alone;
+15. JAX's randomized-config net (``tests/test_random_configs.py``: its 20
+   seeded cases of task x obs x disturbance x domain randomization x
+   controller x N x H x rng x Hessian x designer, drawn by
+   :func:`random_config_cases`, a copy of its draw) on the card: each
+   case's env reset and stepped on the card within 1e-5 of the CPU's; its
+   solve on ``engine="cuda"`` after the solver's reset (offline: the whole
+   300-state schedule), on JAX's keys (parity, invariant) or given normals
+   and draws (fast), against ``engine="torch"`` on the same inputs (the
+   action, the mean and Σ within 2e-4, the costs at :func:`costs_close`;
+   an online eigh solve under fast or invariant rng samples the torch
+   solve in the cuda solve's eigenbasis), or, under kernel rng, two solves
+   from one seed equal bit for bit, every output finite and |a| <= 1, the
+   kernel's costs held against the plain rollout on its sampled actions;
+   each cuda solve's launches (counters at 0 just before it; host syncs
+   errors but for eigh's) exactly those its route takes (K4, or K5 / K1
+   under kernel rng; K3 and K2 for online CoVO under gn and adjoint, K2
+   not under drag and mixed), the torch solve's none.
+   ``--phase15`` builds the kernels and runs this phase alone.
 
 Each kernel's launch count in the JSON record is read from the closed loop
 that runs it (a replayed graph adds its kernels' launches at each replay):
@@ -237,7 +257,9 @@ loop (counts set to 0 just before each run); the
 records of K1-K3, K5 and K8 also hold ``cli_launches``, their launches in
 the command line's run that drives them (phase 9); ``parallel_launches``,
 their launches in each of phase 14's runs under test (counts set to 0
-just before each; the references' launches not counted); the records of K1-K5
+just before each; the references' launches not counted); those of K1-K5
+``random_configs_launches``, their launches in each case's cuda solve of
+phase 15 (counts set to 0 just before each); the records of K1-K5
 hold ``sweep_launches``, their launches in each script's run of phase
 10b (counts set to 0 just before each), K4's ``key_tree_launches``, its
 launches in each of phase 12's solves and loops, and those of K1, K4-K7
@@ -868,6 +890,7 @@ def phase_solve(env, dev, kernel_list):
 # --- phase 2c: the captured solves (CUDA graphs) ----------------------------
 
 CAPTURE_CHAIN = 20  # eager solves and replays held against each other
+MAIN_PATH = "covo_online (gn, ns, kernel rng: the main path)"  # 2c's case label
 SCHEDULE_FIELDS = ("a_cov_offline", "a_factor_offline")  # offline's, read only
 
 
@@ -896,7 +919,7 @@ def captured_cases(env):
     off, off_cp = make_solver(env, "cuda", name="covo_offline")
     off_cp = off.reset(state, p, off_cp)
     return [
-        ("covo_online (gn, ns, kernel rng: the main path)", *make_solver(env, "cuda"),
+        (MAIN_PATH, *make_solver(env, "cuda"),
          "call", True),
         ("covo_online (gn, ns_pallas, kernel rng)",
          *make_solver(env, "cuda", sigma_mode="ns_pallas"), "call", True),
@@ -932,7 +955,8 @@ def phase_captured(env, dev, kernel_list):
     counts equal to the eager ones, p50 / p99 by time_blocking and ms per
     solve by time_chained for both, and the device's busy share inside the
     replays (device ms a replay over the chained ms a replay), the timing
-    after ``graphs.settle()``. Returns a summary by case."""
+    after ``graphs.settle()`` watching the main path's replay. Returns a
+    summary by case."""
     from covo_mpc_tpu_torch.runtime import graphs, profiling
 
     p = env.default_params
@@ -951,9 +975,13 @@ def phase_captured(env, dev, kernel_list):
             f"device ops recorded: {seen})")
         cases.append((label, solver, cp0, method, draws, fn, call, carry, cap,
                       dict(capture_s=capture_s, graph_nodes=nodes, device_ms=dev_ms)))
-    slept = graphs.settle()
-    say(f"  timing starts {slept:.1f} s later, {graphs.SETTLE_S:.0f} s after the last "
-        "capture (the card's slow spell after one, PERF.md §6)")
+    main_cap = next(c[8] for c in cases if c[0] == MAIN_PATH)
+    slept = graphs.settle(probe=main_cap.replay)
+    ms = [r for _, r in graphs.last_readings]
+    say(f"  timing starts {slept:.1f} s later: {graphs.SETTLE_S:.0f} s after the last "
+        f"capture, then {len(ms)} readings of the main path's replay, first / median / "
+        f"last {ms[0]:.4f} / {sorted(ms)[len(ms) // 2]:.4f} / {ms[-1]:.4f} ms (the card's "
+        "slow spell after a capture, PERF.md §7)")
     summary = {}
     for label, solver, cp0, method, draws, fn, call, carry, cap, rec in cases:
         phase(f"phase 2c: captured solves, {label}")
@@ -1019,7 +1047,7 @@ def phase_captured(env, dev, kernel_list):
             **{f"{kind}_chained_ms": chained[kind]["p50"] * 1e3 for kind in chained}}
     del cases
     say("captured summary: " + json.dumps(summary))
-    main_path = summary["covo_online (gn, ns, kernel rng: the main path)"]
+    main_path = summary[MAIN_PATH]
     check(main_path["captured_p50_ms"] < 20.0,
           "the captured main-path solve's p50 (time_blocking) under 20 ms, the 50 Hz budget")
     return summary
@@ -4058,6 +4086,296 @@ def phase_parallel(env, dev, kernel_list, records=None) -> dict:
     return launches
 
 
+# --- phase 15: JAX's randomized-config net on the card --------------------------
+# JAX's net (tests/test_random_configs.py) draws its cases with this function,
+# these axes and this seed; the script imports nothing of JAX, so it keeps a
+# copy, which tests/test_torch_random_configs.py holds equal to JAX's cases
+# and ids
+RC_TASKS = ["tracking", "tracking_slow", "tracking_zigzag", "hovering"]
+RC_OBS_TYPES = ["quad", "quad_params", "params", "adapt_hist"]
+RC_DISTURBS = ["periodic", "sin", "drag", "mixed", "gaussian", "none"]
+RC_CONTROLLERS = ["mppi", "covo_online", "covo_offline"]
+RC_NS, RC_HS = [16, 64, 256], [8, 16]
+RC_RNGS = ["parity", "fast", "invariant"]
+RC_HESSIANS = ["fwd_fwd", "fwd_rev", "sensitivity", "adjoint", "gn"]
+RC_SIGMAS = ["eigh", "ns"]
+RC_RESET_KEY, RC_SOLVE_KEY, RC_SEED = 7, 3, 0  # JAX's net's keys; the solvers' seed
+
+
+def random_config_cases(n_cases: int = 20, seed: int = 20240820):
+    """JAX's net's cases and their ids, drawn as it draws them: the last 4
+    under the kernel rng."""
+    import random
+
+    rng = random.Random(seed)
+    cases, seen = [], set()
+    while len(cases) < n_cases:
+        kernel = len(cases) >= n_cases - 4
+        c = dict(
+            task=rng.choice(RC_TASKS),
+            obs_type=rng.choice(RC_OBS_TYPES),
+            disturb=rng.choice(RC_DISTURBS),
+            randomizer=rng.random() < 0.5,
+            controller=rng.choice(RC_CONTROLLERS),
+            n=rng.choice(RC_NS),
+            h=rng.choice(RC_HS),
+            rng_mode="kernel" if kernel else rng.choice(RC_RNGS),
+            hessian=rng.choice(RC_HESSIANS),
+            sigma=rng.choice(RC_SIGMAS),
+        )
+        key = tuple(sorted(c.items()))
+        if key not in seen:
+            seen.add(key)
+            cases.append(c)
+    ids = [f"{c['controller']}-{c['task']}-{c['disturb']}-{c['obs_type']}-"
+           f"N{c['n']}H{c['h']}-{c['rng_mode']}-{c['hessian']}-{c['sigma']}"
+           for c in cases]
+    return cases, ids
+
+
+def rc_env(c, device):
+    from covo_mpc_tpu_torch.models import EnvConfig, QuadEnv
+
+    return QuadEnv(EnvConfig(task=c["task"], obs_type=c["obs_type"],
+                             enable_randomizer=c["randomizer"], disturb_type=c["disturb"],
+                             disable_rollover_terminate=True, generate_noisy_state=True),
+                   device=device)
+
+
+def rc_solver(env, c, engine: str):
+    """The case's solver on ``engine`` (JAX's net's settings: the Hessian is
+    CoVO's only), seeded with :data:`RC_SEED`."""
+    from covo_mpc_tpu_torch.solvers import get_solver
+
+    return get_solver(env, c["controller"], f"N{c['n']}_H{c['h']}_lam0.01",
+                      rng_mode=c["rng_mode"], sigma_mode=c["sigma"], engine=engine,
+                      hessian_mode=c["hessian"] if "covo" in c["controller"] else "fwd_fwd",
+                      collect_debug=False, seed=RC_SEED)
+
+
+def rc_plain_costs(rec) -> torch.Tensor:
+    """The plain rollout's costs of the actions a recorded fused sample +
+    rollout call returned, on that call's state, params and draw."""
+    from covo_mpc_tpu_torch.ops.rollout_cuda import _kernel_draws
+
+    x0, t0, pos_traj, vel_traj, _, _, params = rec["args"][:7]
+    kw = rec["kw"]
+    if _kernel_draws(rec["inner"].env, kw.get("draw"), kw["deterministic"]):
+        raise AssertionError("the kernel drew the disturbance itself: no plain reference")
+    return rec["inner"]._rollout(x0, t0, pos_traj, vel_traj, rec["out"][1], params,
+                                 kw.get("draw"), kw["deterministic"], kw["discount"],
+                                 layout="hdn")
+
+
+def rc_expected(c) -> dict:
+    """The kernels one cuda solve of the case launches, once each: K5 (MPPI)
+    or K1 (CoVO) under kernel rng, else K4; K3, and K2 but under drag and
+    mixed (the plain 16-dim primal), for an online CoVO solve under gn or
+    adjoint (offline designs its schedule at reset, on the plain path)."""
+    from covo_mpc_tpu_torch.ops import hessian_cuda, rollout_cuda
+
+    if c["rng_mode"] == "kernel":
+        used = [rollout_cuda.SAMPLE_KERNEL if c["controller"] == "mppi"
+                else rollout_cuda.JOINT_KERNEL]
+    else:
+        used = [rollout_cuda.ROLLOUT_KERNEL]
+    if c["controller"] == "covo_online" and c["hessian"] in ("gn", "adjoint"):
+        used.append(hessian_cuda.CHAIN_KERNEL)
+        if c["disturb"] not in ("drag", "mixed"):
+            used.append(rollout_cuda.PRIMAL_KERNEL)
+    return {k.symbol: 1 for k in used}
+
+
+def rc_record(solver, attr: str) -> dict:
+    """Wrap ``solver.<attr>`` (its rollout, or its fused sample + rollout) to
+    keep its last call's arguments and result."""
+    rec, inner = {}, getattr(solver, attr)
+
+    def call(*args, **kw):
+        out = inner(*args, **kw)
+        rec.update(inner=inner, args=args, kw=kw, out=out)
+        return out
+
+    setattr(solver, attr, call)
+    return rec
+
+
+def rc_hooks(env, c, dev) -> dict:
+    """The solve's random inputs: JAX's key (parity, invariant); under fast
+    rng normals from a numpy seed, the rollout's disturbance draw by the
+    fast chain from the key and (CoVO online) the Hessian's draws from it;
+    none under kernel rng (the solver's seed stream)."""
+    from covo_mpc_tpu_torch.ops.rollout import hessian_draws_from_key
+    from covo_mpc_tpu_torch.utils import prng
+
+    key = prng.PRNGKey(RC_SOLVE_KEY, dev)
+    if c["rng_mode"] in ("parity", "invariant"):
+        return dict(key=key)
+    if c["rng_mode"] == "kernel":
+        return {}
+    N, H = c["n"], c["h"]
+    rng = np.random.default_rng(RC_SOLVE_KEY)
+    step_key = prng.split(prng.split(key)[0])[1]
+    if c["controller"] == "mppi":
+        return dict(z=to_dev(rng.standard_normal((N, H, 4)), dev),
+                    draw=env.disturb_from_key(step_key, fast=True))
+    hooks = dict(z=to_dev(rng.standard_normal((N, 4 * H)), dev),
+                 draw=env.disturb_from_key(step_key, deterministic=True, fast=True))
+    if c["controller"] == "covo_online":
+        hooks["hess_draws"] = hessian_draws_from_key(env, key, H)
+    return hooks
+
+
+def rc_env_half(c, dev) -> tuple:
+    """The env on the card against the env on the CPU: reset from key 0,
+    one step under the action 0.1 from key 1; obs, reward and every state
+    leaf finite and within 1e-5. Returns the card's env and its reset."""
+    from covo_mpc_tpu_torch.models.structs import tree_flatten
+    from covo_mpc_tpu_torch.utils import prng
+
+    outs = []
+    for device in (dev, torch.device("cpu")):
+        env = rc_env(c, device)
+        p = env.default_params
+        obs, info, state = env.reset(prng.PRNGKey(0, device), p)
+        step = env.step(prng.PRNGKey(1, device), state,
+                        torch.full((env.action_dim,), 0.1, device=device), p)
+        outs.append((env, (obs, info, state), step))
+    leaves = [tree_flatten(out[1:])[0] for out in outs]
+    ok = len(leaves[0]) == len(leaves[1]) and all(
+        a.shape == b.shape and bool(torch.isfinite(a).all())
+        and (not a.is_floating_point() or max_err(a.cpu(), b) <= 1e-5)
+        and (a.is_floating_point() or torch.equal(a.cpu(), b))
+        for a, b in zip(*leaves))
+    check(ok, f"env: reset and one step on the card within 1e-5 of the CPU's, finite "
+          f"({len(leaves[0])} leaves)")
+    return outs[0][0], outs[0][1]
+
+
+def rc_eigh_basis(solver, basis: dict) -> None:
+    """An online solve that samples with the eigh factor (the eigen square
+    root U diag(s), whose columns' signs are the eigensolver's choice):
+    have ``solver``'s designer keep its factor in ``basis["factor"]`` if
+    that is empty, else hand its factor in that one's basis, ``F Qᵀ`` with
+    ``F = basis Q``, after checking that Q is orthogonal (1e-3), so that two
+    engines' solves draw the same actions from the same normals."""
+    design = solver._optimize_sigma
+
+    def designer(R, sample_sigma, D):
+        a_cov, F = design(R, sample_sigma, D)
+        if "factor" not in basis:
+            basis["factor"] = F
+            return a_cov, F
+        Q = torch.linalg.solve(basis["factor"].double(), F.double())
+        eye = torch.eye(Q.shape[0], dtype=Q.dtype, device=Q.device)
+        basis.update(flips=int((torch.diagonal(Q) < 0).sum()),
+                     orth=float((Q.T @ Q - eye).abs().max()))
+        if basis["orth"] > 1e-3:
+            raise AssertionError(f"the two eigh factors span no one basis "
+                                 f"(|QᵀQ - I| {basis['orth']:.2e})")
+        return a_cov, (F.double() @ Q.T).float().contiguous()
+
+    solver._optimize_sigma = designer
+
+
+def rc_solve(env, c, engine, reset, hooks, kernel_list, basis=None):
+    """The case's solver on ``engine``, reset, then one solve from the
+    solver's seed three times: ``first``, a warm-up and the counted run
+    ``out`` (launch counters at 0 just before it; host syncs errors but for
+    eigh's, which reads the host). Returns them, the counted run's
+    launches, its recorded rollout and the seconds, reset included."""
+    from covo_mpc_tpu_torch.utils import prng
+
+    t0 = time.perf_counter()
+    obs, info, state = reset
+    solver, cp = rc_solver(env, c, engine)
+    p = env.default_params
+    cp = solver.reset(state, p, cp, key=prng.PRNGKey(RC_RESET_KEY, state.pos.device))
+    rec = rc_record(solver, "rollout_sampling" if c["rng_mode"] == "kernel" else "rollout")
+    if basis is not None:
+        rc_eigh_basis(solver, basis)
+
+    def fn():
+        solver.seed(RC_SEED)
+        return solver(obs, state, p, cp, info, **hooks)
+
+    first = fn()
+    if solver.capturable:
+        out, counts = run_once(fn, kernel_list)
+    else:
+        fn()
+        torch.cuda.synchronize()
+        reset_counts(kernel_list)
+        out = fn()
+        torch.cuda.synchronize()
+        counts = {k.symbol: k.launches for k in kernel_list}
+    return types.SimpleNamespace(first=first, out=out, rec=rec,
+                                 counts={k: v for k, v in counts.items() if v},
+                                 secs=time.perf_counter() - t0)
+
+
+def rc_outputs(c, out) -> dict:
+    names = ["a_mean"] + (["a_cov"] if "covo" in c["controller"] else [])
+    return {"action": out[0], **{k: getattr(out[1], k) for k in names}}
+
+
+def phase_random_configs(dev, kernel_list) -> dict:
+    """Phase 15 (the module docstring); returns each kernel's launches by
+    case."""
+    t_phase = time.perf_counter()
+    cases, ids = random_config_cases()
+    launches: dict = {}
+    for i, (c, label) in enumerate(zip(cases, ids)):
+        phase(f"phase 15 case {i}: {label}{' DR' if c['randomizer'] else ''}")
+        t_case = time.perf_counter()
+        env, reset = rc_env_half(c, dev)
+        hooks = rc_hooks(env, c, dev)
+        expected = rc_expected(c)
+        # an online eigh solve under fast or invariant rng samples with the
+        # eigen square root: the torch solve takes the cuda solve's basis
+        basis = ({} if c["controller"] == "covo_online" and c["sigma"] == "eigh"
+                 and c["rng_mode"] != "parity" else None)
+        run = rc_solve(env, c, "cuda", reset, hooks, kernel_list, basis)
+        say(f"  cuda solve: launches {run.counts} ({run.secs:.1f} s with its reset)")
+        for sym, n in run.counts.items():
+            launches.setdefault(sym, {})[label] = n
+        check(run.counts == expected, f"the cuda solve launched {expected} and nothing else")
+        got = rc_outputs(c, run.out)
+        check(all(bool(torch.isfinite(x).all()) for x in got.values())
+              and float(got["action"].abs().max()) <= 1.0 + 1e-6,
+              "outputs finite, |action| <= 1")
+        if c["rng_mode"] == "kernel":
+            again = rc_outputs(c, run.first)
+            check(all(torch.equal(got[k], again[k]) for k in got),
+                  "two solves from the same seed equal bit for bit")
+            costs, a_t = run.rec["out"]
+            ref = rc_plain_costs(run.rec)
+            say(f"  kernel costs against the plain rollout on its actions: max abs err "
+                f"{max_err(costs, ref):.2e}; actions in [{float(a_t.min()):.3f}, "
+                f"{float(a_t.max()):.3f}]")
+            check(costs_close(costs, ref) and float(a_t.abs().max()) <= 1.0 + 1e-6,
+                  "the kernel's costs within atol 2e-4, rtol 1e-5 of the plain rollout on "
+                  "its sampled actions, |a| <= 1")
+        else:
+            plain = rc_solve(env, c, "torch", reset, hooks, kernel_list, basis)
+            check(not plain.counts, f"the torch solve launched no kernel ({plain.secs:.1f} s)")
+            if basis is not None:
+                say(f"  eigh factors: the torch solve's in the cuda solve's basis, "
+                    f"{basis['flips']} columns' signs flipped, |QᵀQ - I| {basis['orth']:.1e}")
+            ref = rc_outputs(c, plain.out)
+            errs = {k: max_err(got[k], ref[k]) for k in got}
+            say(f"  max |cuda - torch|: {errs}; costs "
+                f"{max_err(run.rec['out'], plain.rec['out']):.2e}")
+            check(all(v <= 2e-4 for v in errs.values()),
+                  f"action, {', '.join(list(got)[1:])} within 2e-4 of the torch solve")
+            check(costs_close(run.rec["out"], plain.rec["out"]),
+                  "costs within atol 2e-4, rtol 1e-5 of the torch solve's")
+        say(f"  case {i}: {time.perf_counter() - t_case:.1f} s")
+    say("  launches in phase 15: " + json.dumps(launches))
+    say(f"  phase 15 wall {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def first_rng_act(keys):
     """Each episode's ``rng_act`` of the first step of JAX's episode chain
     from its run key: ``rng_control, rng = split(key)``, then ``rng,
@@ -4082,6 +4400,10 @@ def main(argv=None) -> int:
                     help="build the kernels and run phase 14 alone (the parallel layer: "
                          "one rank under NCCL, two ranks on the card, the pod block, "
                          "bench_mesh; no kernels record, no result line)")
+    ap.add_argument("--phase15", action="store_true",
+                    help="build the kernels and run phase 15 alone (JAX's "
+                         "randomized-config net, cuda against torch; no kernels record, "
+                         "no result line)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -4143,6 +4465,9 @@ def main(argv=None) -> int:
     if args.phase14:
         phase_parallel(env, dev, kernel_list)
         return 0
+    if args.phase15:
+        phase_random_configs(dev, kernel_list)
+        return 0
     phase_kernels(env, dev, records)
     phase_chain_kernels(dev, records, earlier, probe, clock_mhz)
     phase_rollout_kernels(dev, records, earlier_rollout, probe, clock_mhz)
@@ -4172,7 +4497,7 @@ def main(argv=None) -> int:
     phase_cli(kernel_list, records)
     phase_small_n(dev, records)
     phase_sweeps(kernel_list, records)
-    phase_bench(captured["covo_online (gn, ns, kernel rng: the main path)"])
+    phase_bench(captured[MAIN_PATH])
     records[rollout_cuda.ROLLOUT_KERNEL.symbol]["key_tree_launches"] = phase_key_tree(
         env, dev, kernel_list, refs)
     for symbol, counts in phase_batched_modes(env, dev, kernel_list, refs).items():
@@ -4181,6 +4506,8 @@ def main(argv=None) -> int:
     for k in kernel_list:
         records[k.symbol]["parallel_launches"] = {
             label: n for label, n in parallel.get(k.symbol, {}).items() if n}
+    for symbol, counts in phase_random_configs(dev, kernel_list).items():
+        records[symbol]["random_configs_launches"] = counts
     phase("done")
 
     say(json.dumps({"kernels": [

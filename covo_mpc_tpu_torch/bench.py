@@ -36,10 +36,12 @@ so. Each row, on the card:
   the H100 a profiler session slows each replay of a captured graph (the
   host's graph launch is instrumented node by node), so the traced wall,
   printed beside, times a slower run than the one a user gets. The
-  headline row and the latency pass (its chains 8k too) time
-  ``graphs.SETTLE_S`` after the last capture, one wait for both (the
-  latency pass captures and profiles its solves before the headline row):
-  for up to ~28 s after one the H100 ran every replay ~11% slower; the
+  headline row and the latency pass (its chains 8k too) time after
+  ``graphs.settle()``, one wait for both (the latency pass captures and
+  profiles its solves before the headline row): ``graphs.SETTLE_S`` after
+  the last capture, then the main path's replay watched until it speeds
+  up or has run at one speed for :data:`WATCH_S` (for up to ~28 s after a
+  capture, twice over 30 s, the H100 ran every replay ~11% slower); the
   other rows may read that spell.
 
 On the CPU the rate is ``time_slope``'s (method ``host_slope``). Rows go to
@@ -68,6 +70,11 @@ from covo_mpc_tpu_torch.utils import prng
 
 BASELINE_SOLVES_PER_S = 500.0  # BASELINE.json's north star (bench.py's vs_baseline)
 BUDGET_S = 0.020  # the 50 Hz control budget
+# the headline's and the latency pass's watch for the slow spell's end
+# after graphs.settle's wait (an H100 ran a spell past 30 + 3.6 s after the
+# bench's last capture, PERF.md §7)
+WATCH_S = 60.0
+SLOPE_RETRIES = 3  # CPU: time_slope again, with twice the reps, while its slope is <= 0
 # device ops a row's profiler session records at most: on the H100 larger
 # sessions lose events, and a session that overflowed leaves every later
 # one in the process short (PERF.md §7)
@@ -126,6 +133,16 @@ def check_args(args) -> None:
 
 def say(*parts) -> None:
     print(*parts, file=sys.stderr, flush=True)
+
+
+def say_settled(seconds: float) -> None:
+    """One line on the wait before a timing: its seconds and the watched
+    replay's first, median and last ms (``graphs.last_readings``)."""
+    ms = [r for _, r in graphs.last_readings]
+    watched = (f"; {len(ms)} readings of the main path's replay, first / median / last "
+               f"{ms[0]:.4f} / {sorted(ms)[len(ms) // 2]:.4f} / {ms[-1]:.4f} ms"
+               if ms else "")
+    say(f"[bench] settled {seconds:.1f} s{watched}")
 
 
 def make_env(disturb_type: str, device):
@@ -206,12 +223,18 @@ def measure_solve_rate(fn, owner, call, carry_of, carry0, card: bool, k: int = 3
 
     if not card:
         per, overhead = profiling.time_slope(chain_runner(step, carry0), k=k, reps=reps)
+        for _ in range(SLOPE_RETRIES):  # a busy host's noise can flatten the slope
+            if per > 0:
+                break
+            reps *= 2
+            per, overhead = profiling.time_slope(chain_runner(step, carry0), k=k, reps=reps)
         return {**row, "per_solve": per, "overhead": overhead, "method": "host_slope"}
     row.update(traced_chain(step, carry0, row["nodes"], launch_counts))
     if row["nodes"] is None:  # eager: keep a chain to about TRACE_OPS device ops
         row["chain"] = min(8 * k, max(2, TRACE_OPS // row["ops"]))
     if settle:
-        graphs.settle()
+        probe = f.replay if isinstance(f, graphs.CapturedCall) else None
+        say_settled(graphs.settle(probe=probe, watch_s=WATCH_S))
     per = profiling.time_chained(step, carry0, iters=4, k=row["chain"])["p50"]
     return {**row, "per_solve": per, "method": "events"}
 
@@ -578,7 +601,7 @@ def bench_latency(env, args, iters: int = 60, chain: int = 256,
     out = {name: {"per_solve": None} for name in cases}
     # the timing loops, after every profiler session and the slow spell
     if card:
-        graphs.settle()
+        say_settled(graphs.settle(probe=fns["covo_online"].replay, watch_s=WATCH_S))
     rtt = profiling.time_blocking(lambda: empty(x), iters, 3)
     for name, (_, _, cp0) in cases.items():
         fn = fns[name]
@@ -656,7 +679,7 @@ def main(argv=None) -> int:
                      hessian_mode=args.hessian_mode,
                      sigma_mode="eigh" if headline_rng == sampling.PARITY else "ns",
                      settle=True)
-    rate = 1.0 / row["per_solve"]
+    rate = round(1.0 / row["per_solve"], 2)
     mode = args.engine
     if headline_rng == "kernel":
         mode += "+krng"
@@ -666,9 +689,9 @@ def main(argv=None) -> int:
         mode += f"+{args.hessian_mode}"
     record = {
         "metric": f"{args.controller}_solves_per_s_chip_N{args.n}_H{args.h}",
-        "value": round(rate, 2),
+        "value": rate,
         "unit": "solves/s",
-        "vs_baseline": round(rate / BASELINE_SOLVES_PER_S, 3),
+        "vs_baseline": round(rate / BASELINE_SOLVES_PER_S, 3),  # JAX's value / 500
         "mode": mode,
     }
     if not args.no_latency:

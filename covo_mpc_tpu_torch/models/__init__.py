@@ -6,8 +6,10 @@ from covo_mpc_tpu_torch.models.quad_env import EnvConfig, QuadEnv
 from covo_mpc_tpu_torch.models.wrappers import LogEnvState, LogWrapper
 from covo_mpc_tpu_torch.models.structs import (
     PACKED_STATE_DIM,
+    Action3D,
     EnvParams3D,
     EnvState3D,
+    default_array,
     pack_state,
     params_from_numpy,
     state_from_numpy,
@@ -15,6 +17,7 @@ from covo_mpc_tpu_torch.models.structs import (
 )
 
 __all__ = [
+    "Action3D",
     "EnvConfig",
     "EnvParams3D",
     "EnvState3D",
@@ -22,6 +25,7 @@ __all__ = [
     "LogWrapper",
     "PACKED_STATE_DIM",
     "QuadEnv",
+    "default_array",
     "dynamics",
     "misc",
     "pack_state",

@@ -29,9 +29,29 @@ def quat_mul(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
     return torch.cat([x, y, z, w], dim=-1)
 
 
+def quat_conj(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion conjugate: (-x, -y, -z, w)."""
+    return torch.cat([-q[..., 0:3], q[..., 3:4]], dim=-1)
+
+
 def quat_normalize(q: torch.Tensor) -> torch.Tensor:
     """Normalize to a unit quaternion."""
     return q / torch.linalg.norm(q, dim=-1, keepdim=True)
+
+
+def quat_integrate(q: torch.Tensor, omega: torch.Tensor, dt) -> torch.Tensor:
+    """One Euler step of quaternion kinematics, renormalized:
+    ``normalize(q + dt * 0.5 * q x (omega, 0))``; ``omega`` (..., 3) is the
+    body angular velocity."""
+    omega_quat = torch.cat([omega, torch.zeros_like(omega[..., :1])], dim=-1)
+    return quat_normalize(q + dt * (0.5 * quat_mul(q, omega_quat)))
+
+
+def rotate_vec(v: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Rotate vector(s) ``v`` (..., 3) by quaternion(s) ``q``: the vector
+    part of q x (v, 0) x q*."""
+    vq = torch.cat([v, torch.zeros_like(v[..., :1])], dim=-1)
+    return quat_mul(quat_mul(q, vq), quat_conj(q))[..., 0:3]
 
 
 def body_z_world(q: torch.Tensor) -> torch.Tensor:

@@ -17,6 +17,15 @@ from typing import Any, Callable, Mapping, Sequence
 import numpy as np
 import torch
 
+
+def default_array(values):
+    """A dataclass field whose default is a float32 tensor of ``values``,
+    made anew for each instance (JAX: a flax struct field with a jnp-array
+    default)."""
+    return dataclasses.field(
+        default_factory=lambda: torch.tensor(values, dtype=torch.float32))
+
+
 # Packed-state layout used by the rollout engines: x = (N, 16) float32 with
 #   x[..., 0:3]   position (world)
 #   x[..., 3:7]   quaternion (x, y, z, w)
@@ -58,6 +67,15 @@ class EnvState3D:
 
     def replace(self, **changes) -> "EnvState3D":
         return dataclasses.replace(self, **changes)
+
+
+@dataclasses.dataclass
+class Action3D:
+    """Physical action (JAX: structs.Action3D): the collective thrust and the
+    body torque (3,)."""
+
+    thrust: float
+    torque: torch.Tensor
 
 
 # EnvParams3D fields that are integers (kept as Python ints)

@@ -7,7 +7,8 @@ numbers come from its draw function, from a ``torch.Generator`` or from a
 JAX key (``utils/prng.py``: then the very numbers JAX's generator draws
 from that key, in its order); its pure function turns them into the
 ``(pos_traj, vel_traj, acc_traj)`` tables, so tests can hand it the numbers
-JAX drew.
+JAX drew. ``generate_*`` take the draw from a key and return the tables
+at once, under the JAX generators' names and signatures.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Union
+from typing import Tuple, Union
 
 import torch
 
@@ -155,6 +156,32 @@ def zigzag_from_draws(max_steps: int, dt: float, draws: ZigzagDraws):
     pos = pos - pos[0]
     vel = torch.cat(vel_segs)
     return pos, vel, torch.zeros_like(pos)
+
+
+Traj = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def generate_fixed_traj(max_steps: int, dt: float, key) -> Traj:
+    """The all-zeros hover target on ``key``'s device (``key`` draws nothing)."""
+    return fixed_from_draws(max_steps, dt, draw_fixed(key, max_steps, key.device))
+
+
+def generate_lissa_traj(max_steps: int, dt: float, key) -> Traj:
+    """The Lissajous tables (0.2 Hz + 0.4 Hz) drawn from ``key`` (a key of
+    ``utils/prng.py``: JAX's draws; or a generator)."""
+    return lissajous_from_draws(max_steps, dt, draw_lissajous(key, max_steps, key.device),
+                                0.2, 0.4)
+
+
+def generate_lissa_traj_slow(max_steps: int, dt: float, key) -> Traj:
+    """The slow Lissajous tables (0.1 Hz + 0.1 Hz) drawn from ``key``."""
+    return lissajous_from_draws(max_steps, dt, draw_lissajous(key, max_steps, key.device),
+                                0.1, 0.1)
+
+
+def generate_zigzag_traj(max_steps: int, dt: float, key) -> Traj:
+    """The zigzag tables drawn from ``key``."""
+    return zigzag_from_draws(max_steps, dt, draw_zigzag(key, max_steps, key.device))
 
 
 _GENERATORS = {

@@ -1,10 +1,12 @@
 """Cross-sample reductions: exponential weighting, the mean update and
 MPPI's covariance update.
 
-Counterpart of :mod:`covo_mpc_tpu.ops.reductions` (the sample-last forms).
-Every function reduces over the sample axis only, so a leading scenario
-axis (costs (B, N), a_t (B, H, dA, N), ...) gives each scenario its own
-update, as JAX's vmap over scenarios does.
+Counterpart of :mod:`covo_mpc_tpu.ops.reductions`: the sample-last forms
+(``*_t``, on (H, dA, N) samples, which the solvers use) and the
+sample-first ones on (N, H, dA) samples. Every function reduces over the
+sample axis only, so a leading scenario axis (costs (B, N), a_t (B, H, dA,
+N), ...) gives each scenario its own update, as JAX's vmap over scenarios
+does.
 ``gamma_sigma`` is a Python float, so the ``gamma_sigma == 0`` branch that
 JAX takes with ``lax.cond`` is a Python ``if`` here: no device read.
 
@@ -23,14 +25,23 @@ def _psum(x: torch.Tensor, axis) -> torch.Tensor:
     return x if axis is None else axis.psum(x)
 
 
+def weights_from_stats(costs: torch.Tensor, min_cost, lam: float):
+    """:func:`mppi_weights` split for samples held in parts: given the
+    minimum cost over all of them, the unnormalized weights
+    ``exp(-(c - min_cost)/lambda)`` of these samples and their local
+    normalizer (their sum over the last axis)."""
+    unnorm = torch.exp(-(costs - min_cost) / lam)
+    return unnorm, torch.sum(unnorm, dim=-1)
+
+
 def mppi_weights(costs: torch.Tensor, lam: float, axis=None) -> torch.Tensor:
     """Softmax weights ``exp(-(c - min c)/lambda) / sum`` over the samples
     (the last axis; and over ``axis``)."""
     min_cost = torch.amin(costs, dim=-1, keepdim=True)
     if axis is not None:
         min_cost = axis.pmin(min_cost)
-    shifted = torch.exp(-(costs - min_cost) / lam)
-    return shifted / _psum(torch.sum(shifted, dim=-1, keepdim=True), axis)
+    unnorm, total = weights_from_stats(costs, min_cost, lam)
+    return unnorm / _psum(total[..., None], axis)
 
 
 def mean_update_t(weight, a_t, a_mean, gamma_mean, axis=None):
@@ -65,3 +76,24 @@ def cov_factor_update_t(weight, a_t, a_mean_new, a_cov, a_chol,
         return a_cov, a_chol
     new_cov = _blend_cov(weight, a_t, a_mean_new, a_cov, gamma_sigma)
     return new_cov, torch.linalg.cholesky_ex(new_cov).L.contiguous()
+
+
+# --- the sample-first forms, on (N, H, dA) samples: the sample-last ones on
+# --- the samples' view with the sample axis moved last ----------------------
+
+
+def mean_update(weight, a_sampled, a_mean, gamma_mean):
+    """:func:`mean_update_t` on (N, H, dA) samples."""
+    return mean_update_t(weight, a_sampled.movedim(-3, -1), a_mean, gamma_mean)
+
+
+def cov_update(weight, a_sampled, a_mean_new, a_cov, gamma_sigma: float):
+    """:func:`cov_update_t` on (N, H, dA) samples."""
+    return cov_update_t(weight, a_sampled.movedim(-3, -1), a_mean_new, a_cov, gamma_sigma)
+
+
+def cov_factor_update(weight, a_sampled, a_mean_new, a_cov, a_chol,
+                      gamma_sigma: float):
+    """:func:`cov_factor_update_t` on (N, H, dA) samples."""
+    return cov_factor_update_t(weight, a_sampled.movedim(-3, -1), a_mean_new, a_cov,
+                               a_chol, gamma_sigma)

@@ -52,19 +52,59 @@ from covo_mpc_tpu_torch.runtime import debug
 
 WARMUP = 2  # eager calls on the caller's stream before the capture
 # After a capture the H100 ran every graph replay ~11% slower (~43 ns an
-# op) for 1.4-27.9 s; the clocks did not move (tools/clock_probe.py).
-# Timing that must read the settled speed starts SETTLE_S after it.
+# op) for 1.4-27.9 s in tools/clock_probe.py's runs; the clocks did not move.
+# Timing that must read the settled speed starts SETTLE_S after it; where
+# the caller gives a probe, settle() then watches it for the spell's end
+# (a spell once outlasted SETTLE_S in a chip_smoke.py run).
 SETTLE_S = 30.0
+SETTLE_WATCH_S = 30.0  # how long settle() watches a probe that does not speed up
+SETTLE_DROP = 1.05  # the spell ended: readings this much below the median before
+PROBE_CHAIN = 16  # probe calls a reading (CUDA events around the chain)
+PROBE_GAP_S = 0.25  # idle seconds between two readings
 _last_capture = [float("-inf")]  # time.monotonic() at the end of the last one
+_last_watch = [float("-inf")]  # time.monotonic() at the end of the last watch
+last_readings: list = []  # the last watch's (seconds into it, ms a probe call)
 
 
-def settle(seconds: float = SETTLE_S) -> float:
+def _probe_ms(probe: Callable) -> float:
+    """Device ms a call of ``probe`` over a chain of PROBE_CHAIN calls."""
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(PROBE_CHAIN):
+        probe()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / PROBE_CHAIN
+
+
+def settle(seconds: float = SETTLE_S, probe: Callable = None,
+           watch_s: float = SETTLE_WATCH_S) -> float:
     """Sleep until ``seconds`` have passed since this process's last
-    capture (the slow spell above); returns the seconds slept."""
+    capture (the slow spell above). Then, given ``probe`` (a call that
+    enqueues the work to be timed, such as a replay) and a capture since
+    the last watch, read its device ms every PROBE_GAP_S until three
+    readings in a row lie SETTLE_DROP below the median of the five or more
+    before them (the spell ended), or for ``watch_s`` (no reading fell: one speed
+    throughout); the readings are kept in :data:`last_readings` (empty
+    when nothing was watched). Returns the seconds slept and watched."""
+    last_readings.clear()
     wait = _last_capture[0] + seconds - time.monotonic()
     if wait > 0:
         time.sleep(wait)
-    return max(wait, 0.0)
+    if probe is None or _last_watch[0] >= _last_capture[0]:
+        return max(wait, 0.0)
+    t0 = time.monotonic()
+    while True:
+        last_readings.append((time.monotonic() - t0, _probe_ms(probe)))
+        ms = [r for _, r in last_readings]
+        before = sorted(ms[:-3])  # its lower median: a spike up does not move it
+        if (len(before) >= 5 and all(r * SETTLE_DROP < before[(len(before) - 1) // 2]
+                                     for r in ms[-3:])
+                or time.monotonic() - t0 >= watch_s):
+            break
+        time.sleep(PROBE_GAP_S)
+    _last_watch[0] = time.monotonic()
+    return max(wait, 0.0) + _last_watch[0] - t0
 
 
 def copy_into(dst, src) -> None:

@@ -299,6 +299,33 @@ def test_settle_waits_out_the_spell_after_the_last_capture(monkeypatch):
     assert graphs.settle() == 0.0 and len(slept) == 1
 
 
+def test_settle_watches_a_probe_until_the_spell_ends(monkeypatch):
+    """Given a probe, graphs.settle reads it after the wait until three
+    readings in a row lie SETTLE_DROP below the median of those before
+    (the spell's end), or for watch_s when none falls; a spike or a dip
+    short of SETTLE_DROP does not end the watch, and a call with no
+    capture since the last watch reads nothing."""
+    clock = [100.0]
+    monkeypatch.setattr(graphs.time, "monotonic", lambda: clock[0])
+    monkeypatch.setattr(graphs.time, "sleep", lambda s: clock.__setitem__(0, clock[0] + s))
+    monkeypatch.setattr(graphs, "_last_watch", [float("-inf")])
+    monkeypatch.setattr(graphs, "_last_capture", [70.0])
+    spell = iter([2.06, 2.52, 2.05, 2.00, 2.06, 2.07, 1.86, 1.85, 1.86, 1.85])
+    monkeypatch.setattr(graphs, "_probe_ms", lambda probe: next(spell))
+    seconds = graphs.settle(probe=object())
+    assert [r for _, r in graphs.last_readings] == [2.06, 2.52, 2.05, 2.00, 2.06,
+                                                    2.07, 1.86, 1.85, 1.86]
+    assert seconds == pytest.approx(8 * graphs.PROBE_GAP_S)
+    assert graphs.settle(probe=object()) == 0.0 and graphs.last_readings == []
+
+    clock[0] += 1.0  # a capture after that watch
+    graphs._last_capture[0] = clock[0]
+    monkeypatch.setattr(graphs, "_probe_ms", lambda probe: 1.86)
+    seconds = graphs.settle(probe=object(), watch_s=1.0)
+    assert seconds == pytest.approx(graphs.SETTLE_S + 1.0)
+    assert [t for t, _ in graphs.last_readings] == pytest.approx([0.0, 0.25, 0.5, 0.75, 1.0])
+
+
 def test_time_chained_needs_the_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: time_chained measures there")
